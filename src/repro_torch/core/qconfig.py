@@ -1,0 +1,138 @@
+"""Quantization policy (port of ``repro.core.qconfig``): which tensors get
+NVFP4, which stay BF16.
+
+``QuantConfig`` is the reference's frozen dataclass with the same fields.
+``q_act`` fake-quantizes a GEMM input through ``kernels.ops.nvfp4_qdq``:
+the CUDA kernel for a tensor on the card, the plain version on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from . import nvfp4
+
+Kind = Literal["mlp", "attn", "recurrent", "router", "embed", "lm_head"]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Static quantization policy for a model (fields as in the reference)."""
+
+    enabled: bool = True
+    quantize_weights: bool = True
+    quantize_activations: bool = True
+
+    # --- selective quantization (paper §3.4) ---
+    skip_attention: bool = False
+    skip_recurrent: bool = False
+    skip_first_layers: int = 0
+    skip_last_layers: int = 0
+    quantize_lm_head: bool = False
+
+    # --- KV cache ---
+    kv_cache_dtype: Literal["bf16", "fp8"] = "bf16"
+
+    # --- serving weight representation: "qdq" (BF16 storage of quantized
+    #     values) or "packed" (true 4-bit storage) ---
+    weight_format: Literal["qdq", "packed"] = "qdq"
+
+    # --- packed-GEMM backend: "auto" runs the nvfp4_matmul kernel on 2-D
+    #     packed weights; "dequant" dequantizes and multiplies; "grouped"
+    #     (MoE) behaves as "auto" here ---
+    packed_backend: Literal["auto", "grouped", "dequant"] = "auto"
+
+    act_scale_mode: Literal["dynamic", "calibrated"] = "dynamic"
+
+    # --- activation tensor-scale scope: "tensor" (one amax), "row" (one per
+    #     leading-axis element), "token" (one per last-dim vector) ---
+    act_scope: Literal["tensor", "row", "token"] = "tensor"
+
+    # numerics probes come with the observability slice
+    numerics: bool = False
+
+    def quantizes(self, kind: Kind) -> bool:
+        """Does this policy quantize GEMMs of the given kind?"""
+        if not self.enabled or not kind:
+            return False
+        if kind in ("router", "embed"):
+            return False
+        if kind == "lm_head":
+            return self.quantize_lm_head
+        if kind == "attn" and self.skip_attention:
+            return False
+        if kind == "recurrent" and self.skip_recurrent:
+            return False
+        return True
+
+    def _no_numerics(self) -> None:
+        if self.numerics:
+            raise NotImplementedError("numerics probes are part of the "
+                                      "observability slice of the port")
+
+    def q_act(self, x: torch.Tensor, kind: Kind) -> torch.Tensor:
+        """Fake-quantize an activation (blocked along its last dim)."""
+        if not (self.quantizes(kind) and self.quantize_activations):
+            return x
+        self._no_numerics()
+        amax = None
+        if self.act_scope == "row":
+            amax = torch.amax(torch.abs(x.to(torch.float32)),
+                              dim=tuple(range(1, x.ndim)), keepdim=True)
+        elif self.act_scope == "token":
+            amax = torch.amax(torch.abs(x.to(torch.float32)), dim=-1,
+                              keepdim=True)
+        return _fq_lastdim(x, amax)
+
+    def q_weight(self, w: torch.Tensor, kind: Kind,
+                 contract_axis: int = 0) -> torch.Tensor:
+        """Fake-quantize a DENSE weight, blocked along the contraction axis."""
+        if isinstance(w, nvfp4.PackedNVFP4):
+            raise TypeError("q_weight expects a dense tensor; packed weights "
+                            "go through resolve_weight / layers.qeinsum")
+        if not (self.quantizes(kind) and self.quantize_weights):
+            return w
+        self._no_numerics()
+        return _fq_axis(w, contract_axis)
+
+    def resolve_weight(self, w, kind: Kind, contract_axis: int = 0):
+        """GEMM-ready weight: packed leaves pass through, dense leaves get
+        the policy's fake-quant."""
+        if isinstance(w, nvfp4.PackedNVFP4):
+            return w
+        return self.q_weight(w, kind, contract_axis)
+
+
+BF16 = QuantConfig(enabled=False)
+NVFP4_ALL = QuantConfig()                       # AceReason / Llama Nemotron
+NVFP4_HYBRID = QuantConfig(                     # Nemotron Nano 9B V2
+    skip_attention=True, skip_first_layers=2, skip_last_layers=2)
+NVFP4_MOE_HYBRID = QuantConfig(                 # Nemotron 3 Nano
+    skip_attention=True, kv_cache_dtype="fp8")
+
+
+def _fq_lastdim(x: torch.Tensor,
+                tensor_amax: torch.Tensor | None = None) -> torch.Tensor:
+    """QDQ along the last dim through the ``nvfp4_qdq`` op, padding to the
+    block size if needed.  ``tensor_amax`` overrides the whole-tensor amax.
+
+    Serving needs no gradient; the kernel's straight-through backward comes
+    with the training slice (``nvfp4.fake_quant`` is the plain STE).
+    """
+    k = x.shape[-1]
+    pad = (-k) % nvfp4.BLOCK
+    if pad:
+        return ops.nvfp4_qdq(F.pad(x, (0, pad)), tensor_amax)[..., :k]
+    return ops.nvfp4_qdq(x, tensor_amax)
+
+
+def _fq_axis(w: torch.Tensor, axis: int) -> torch.Tensor:
+    """QDQ blocked along ``axis`` (moved last, QDQ'd, moved back)."""
+    axis = axis % w.ndim
+    if axis == w.ndim - 1:
+        return _fq_lastdim(w)
+    return torch.movedim(_fq_lastdim(torch.movedim(w, axis, -1)), -1, axis)

@@ -1,0 +1,3 @@
+from .registry import get_model
+
+__all__ = ["get_model"]

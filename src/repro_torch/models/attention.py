@@ -1,0 +1,141 @@
+"""Attention: GQA, blockwise softmax, dense KV cache (port of
+``repro.models.attention``, lines 27-219).
+
+The reference computes attention in plain jnp, outside any Pallas kernel,
+so the port computes it in plain torch: the same chunked online softmax for
+prompts, one query against the cache for decode.  Scores and the
+probability-value product take bf16 operands with f32 accumulation: the
+operands are cast to f32 (a bf16 x bf16 product is exact in f32).
+
+The cache is a dict of tensors ``{"k", "v"}`` [L, B, S_max, Hkv, hd] and
+is updated IN PLACE by ``cache_update_layer`` (the reference returns a new
+array).  FP8 caches are part of the MoE/FP8 slice of the port.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, head_dim)
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def _scale(hd: int) -> float:
+    """1 / sqrt(hd) computed in f32, as the reference does (a Python float
+    holding that f32 value: no host-to-device copy per call)."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
+                        kv_chunk: int = 1024) -> torch.Tensor:
+    """q: [B,Sq,H,hd], k/v: [B,Sk,Hkv,hd] -> [B,Sq,H,hd].
+
+    Online softmax over kv chunks, per q chunk; padded keys are masked.
+    (The reference's ``window``, ``q_offset`` and ``kv_valid`` serve the
+    engine and sliding-window slices of the port.)
+    """
+    b, sq0, h, hd = q.shape
+    sk0, hkv = k.shape[1], k.shape[2]
+    k, v = repeat_kv(k, h // hkv), repeat_kv(v, h // hkv)
+    q_chunk, kv_chunk = min(q_chunk, sq0), min(kv_chunk, sk0)
+    pq, pk = (-sq0) % q_chunk, (-sk0) % kv_chunk
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+    sq, sk = sq0 + pq, sk0 + pk
+    dev = q.device
+    scale = _scale(hd)
+
+    qh = q.transpose(1, 2)                       # [B,H,Sq,hd]
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    q_pos = torch.arange(sq, device=dev)
+    k_pos = torch.arange(sk, device=dev)
+    outs = []
+    for q0 in range(0, sq, q_chunk):
+        qi = qh[:, :, q0:q0 + q_chunk].to(torch.float32)
+        qpos = q_pos[q0:q0 + q_chunk]
+        m = torch.full((b, h, q_chunk), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, h, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, q_chunk, hd), dtype=torch.float32, device=dev)
+        for k0 in range(0, sk, kv_chunk):
+            ki = kh[:, :, k0:k0 + kv_chunk].to(torch.float32)
+            vi = vh[:, :, k0:k0 + kv_chunk].to(torch.float32)
+            kpos = k_pos[k0:k0 + kv_chunk]
+            s = (qi @ ki.transpose(-1, -2)) * scale
+            mask = (kpos[None, :] < sk0).expand(q_chunk, kv_chunk)
+            if causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            s = torch.where(mask, s, NEG_INF)
+            m2 = torch.maximum(m, torch.amax(s, -1))
+            p = torch.exp(s - m2[..., None])
+            corr = torch.exp(m - m2)
+            l = l * corr + torch.sum(p, -1)
+            pv = p.to(q.dtype).to(torch.float32) @ vi
+            acc = acc * corr[..., None] + pv
+            m = m2
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    out = torch.cat(outs, 2).transpose(1, 2)     # [B,Sq,H,hd]
+    return out[:, :sq0].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+def cache_update_layer(layer_cache: dict, k_new, v_new, pos: int) -> dict:
+    """Write new kv at positions [pos, pos + S) of one layer's cache slice
+    {k, v} [B, S_max, Hkv, hd], IN PLACE; returns the same dict."""
+    if layer_cache.get("k_scale") is not None:
+        raise NotImplementedError("FP8 KV caches are part of the MoE/FP8 "
+                                  "slice of the port")
+    s = k_new.shape[1]
+    layer_cache["k"][:, pos:pos + s] = k_new.to(layer_cache["k"].dtype)
+    layer_cache["v"][:, pos:pos + s] = v_new.to(layer_cache["v"].dtype)
+    return layer_cache
+
+
+def cache_read_layer(layer_cache: dict, dtype=torch.bfloat16):
+    if layer_cache.get("k_scale") is not None:
+        raise NotImplementedError("FP8 KV caches are part of the MoE/FP8 "
+                                  "slice of the port")
+    return layer_cache["k"].to(dtype), layer_cache["v"].to(dtype)
+
+
+def decode_attend(q, layer_cache: dict, pos) -> torch.Tensor:
+    """One-token decode: q [B,1,H,hd] against cache [B,S_max,Hkv,hd].
+
+    ``pos``: number of valid cache positions (the new token's kv already
+    written), an int for every row or a [B] tensor, one per row.  (The
+    reference's sliding-window ring comes with the slab-family slice.)
+    """
+    k, v = cache_read_layer(layer_cache, q.dtype)
+    b, s_max, hkv, hd = k.shape
+    h = q.shape[2]
+    k, v = repeat_kv(k, h // hkv), repeat_kv(v, h // hkv)
+    dev = q.device
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * _scale(hd)
+    slot = torch.arange(s_max, device=dev)[None, :]        # [1, S_max]
+    rpos = pos[:, None] if torch.is_tensor(pos) else pos    # [B, 1] or int
+    valid = slot < rpos
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, -1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.to(q.dtype)

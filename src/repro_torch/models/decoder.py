@@ -1,0 +1,244 @@
+"""Decoder-only LM, dense family (port of ``repro.models.decoder``).
+
+The same functional protocol and parameter tree as the reference:
+
+    param_specs(cfg)                          -> ParamSpec tree
+    init_params(cfg, gen, device)             -> params
+    apply(cfg, params, batch, qcfg)           -> [B, S, V] logits
+    init_cache(cfg, batch, s_max, device)     -> cache
+    prefill(cfg, params, batch, qcfg, s_max)  -> (last-token logits, cache)
+    decode_step(cfg, params, cache, batch, qcfg) -> (logits, cache)
+
+``decode_step`` and ``prefill`` write the KV cache IN PLACE; the cache's
+``pos`` is a Python int.  MoE (``n_experts``), M-RoPE, sliding windows and
+FP8 KV (the ``moe_hybrid`` recipe) raise ``NotImplementedError``: they come
+with later slices of the port.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.qconfig import QuantConfig
+from . import attention as attn
+from . import common, layers
+
+
+def _supported(cfg) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: MoE is part of the MoE "
+                                  "slice of the port")
+    if cfg.mrope_sections:
+        raise NotImplementedError(f"{cfg.name}: M-RoPE is part of the "
+                                  "slab-family slice of the port")
+    if cfg.window:
+        raise NotImplementedError(f"{cfg.name}: sliding-window caches are "
+                                  "part of the slab-family slice of the port")
+    if _kv_fp8(cfg):
+        raise NotImplementedError(f"{cfg.name}: FP8 KV is part of the "
+                                  "MoE/FP8 slice of the port")
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+
+def _norm_specs(cfg, d):
+    P = common.ParamSpec
+    if cfg.norm == "rmsnorm":
+        return {"w": P((d,), ("embed",), init="ones")}
+    if cfg.norm == "layernorm":
+        return {"w": P((d,), ("embed",), init="ones"),
+                "b": P((d,), ("embed",), init="zeros")}
+    return {}          # layernorm_np: non-parametric (OLMo)
+
+
+def run_norm(cfg, p, x):
+    return layers.apply_norm(cfg, x, p.get("w"), p.get("b"))
+
+
+def _layer_specs(cfg):
+    _supported(cfg)
+    P = common.ParamSpec
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    h = cfg.n_heads
+    spec = {
+        "ln1": _norm_specs(cfg, d),
+        "wqkv": P((d, cfg.qkv_dim), ("embed", "qkv"), kind="attn"),
+        "wo": P((h * hd, d), ("qkv", "embed"), kind="attn", scale=0.5),
+        "ln2": _norm_specs(cfg, d),
+    }
+    if cfg.qkv_bias:
+        spec["bqkv"] = P((cfg.qkv_dim,), ("qkv",), init="zeros")
+    if cfg.mlp == "swiglu":
+        spec["wg"] = P((d, ff), ("embed", "mlp"), kind="mlp")
+        spec["wu"] = P((d, ff), ("embed", "mlp"), kind="mlp")
+        spec["wd"] = P((ff, d), ("mlp", "embed"), kind="mlp", scale=0.5)
+    else:
+        spec["wi"] = P((d, ff), ("embed", "mlp"), kind="mlp")
+        spec["wd"] = P((ff, d), ("mlp", "embed"), kind="mlp", scale=0.5)
+    return spec
+
+
+def param_specs(cfg):
+    P = common.ParamSpec
+    d, v = cfg.d_model, cfg.vocab_size
+    specs = {
+        "embed": P((v, d), ("vocab", "embed"), init="embed", kind="embed"),
+        "layers": common.stack_specs(_layer_specs(cfg), cfg.n_layers),
+        "final_norm": _norm_specs(cfg, d),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P((d, v), ("embed", "vocab"), kind="lm_head",
+                             scale=1.0)
+    return specs
+
+
+def init_params(cfg, gen: torch.Generator, device="cuda"):
+    return common.init_params(param_specs(cfg), gen, device)
+
+
+def unembed(cfg, params):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# layer body
+# ---------------------------------------------------------------------------
+
+
+def _attention(qcfg, cfg, p, h, pos, mode, cache_sl, pos_idx):
+    b, s, _ = h.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    qkv = layers.qdense(qcfg, "attn", h, p["wqkv"], p.get("bqkv"),
+                        parallelism="column")
+    q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
+    q = layers.apply_rope(attn.split_heads(q, nh, hd), pos, cfg.rope_theta)
+    k = layers.apply_rope(attn.split_heads(k, nkv, hd), pos, cfg.rope_theta)
+    v = attn.split_heads(v, nkv, hd)
+
+    if mode == "decode":
+        attn.cache_update_layer(cache_sl, k, v, pos_idx)
+        out = attn.decode_attend(q, cache_sl, pos_idx + 1)
+    else:
+        out = attn.blockwise_attention(q, k, v, causal=True)
+        if mode == "prefill":
+            attn.cache_update_layer(cache_sl, k, v, 0)
+    return layers.qdense(qcfg, "attn", out.reshape(b, s, nh * hd), p["wo"],
+                         parallelism="row")
+
+
+def _ffn(qcfg, cfg, p, h):
+    if cfg.mlp == "swiglu":
+        return layers.swiglu_mlp(qcfg, h, p["wg"], p["wu"], p["wd"])
+    return layers.gelu_mlp(qcfg, h, p["wi"], p["wd"])
+
+
+def _block(qcfg, cfg, p, x, pos, mode, cache_sl, pos_idx):
+    h = run_norm(cfg, p["ln1"], x)
+    x = x + _attention(qcfg, cfg, p, h, pos, mode, cache_sl, pos_idx)
+    h = run_norm(cfg, p["ln2"], x)
+    return x + _ffn(qcfg, cfg, p, h)
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+
+def _positions(batch, s, offset=0):
+    tokens = batch["tokens"]
+    return (torch.arange(s, device=tokens.device) + offset).expand(
+        tokens.shape[0], s)
+
+
+def _lm_head(qcfg, cfg, params, x):
+    x = run_norm(cfg, params["final_norm"], x)
+    return layers.qdense(qcfg, "lm_head", x, unembed(cfg, params),
+                         parallelism="column")
+
+
+def apply(cfg, params, batch, qcfg: QuantConfig) -> torch.Tensor:
+    """Teacher-forcing forward: [B,S] tokens -> [B,S,V] logits."""
+    _supported(cfg)
+    x = params["embed"][batch["tokens"]]
+    pos = _positions(batch, x.shape[1])
+
+    def body(qc):
+        def fn(carry, inp):
+            p, _ = inp
+            return _block(qc, cfg, p, carry, pos, "train", None, None), None
+        return fn
+
+    x, _ = common.scan_layers(body, x, params["layers"], None, qcfg,
+                              qcfg.skip_first_layers, qcfg.skip_last_layers)
+    return _lm_head(qcfg, cfg, params, x)
+
+
+def cache_specs(cfg, batch_size, s_max):
+    _supported(cfg)
+    P = common.ParamSpec
+    shape = (cfg.n_layers, batch_size, s_max, cfg.n_kv_heads, cfg.head_dim)
+    axes = ("layers", "batch", "seq", "kv", "headdim")
+    return {"k": P(shape, axes, init="zeros"), "v": P(shape, axes, init="zeros")}
+
+
+def init_cache(cfg, batch_size, s_max, device="cuda") -> dict:
+    """Zero cache {"k", "v"} [L, B, s_max, Hkv, hd] bf16 and ``pos`` 0."""
+    cache = {name: torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+             for name, spec in cache_specs(cfg, batch_size, s_max).items()}
+    cache["pos"] = 0
+    return cache
+
+
+def _kv_fp8(cfg):
+    return cfg.quant_recipe == "moe_hybrid"
+
+
+def _cache_slices(cache):
+    return {"k": cache["k"], "v": cache["v"]}
+
+
+def decode_step(cfg, params, cache, batch, qcfg: QuantConfig):
+    """One-token decode: batch["tokens"] [B,1] against the cache, which is
+    updated in place and returned with ``pos`` advanced."""
+    x = params["embed"][batch["tokens"]]
+    pos_idx = cache["pos"]
+    pos = torch.full((x.shape[0], 1), pos_idx, dtype=torch.int64,
+                     device=x.device)
+
+    def body(qc):
+        def fn(carry, inp):
+            p, csl = inp
+            return _block(qc, cfg, p, carry, pos, "decode", csl, pos_idx), None
+        return fn
+
+    x, _ = common.scan_layers(body, x, params["layers"], _cache_slices(cache),
+                              qcfg, qcfg.skip_first_layers,
+                              qcfg.skip_last_layers)
+    logits = _lm_head(qcfg, cfg, params, x)
+    cache["pos"] = pos_idx + 1
+    return logits, cache
+
+
+def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
+    """Prompt pass: (last-token logits [B,1,V], cache holding the prompt's
+    kv in an allocation of ``s_max`` positions)."""
+    _supported(cfg)
+    x = params["embed"][batch["tokens"]]
+    b, s = batch["tokens"].shape
+    pos = _positions(batch, s)
+    cache = init_cache(cfg, b, max(s_max or s, s), device=x.device)
+
+    def body(qc):
+        def fn(carry, inp):
+            p, csl = inp
+            return _block(qc, cfg, p, carry, pos, "prefill", csl, None), None
+        return fn
+
+    x, _ = common.scan_layers(body, x, params["layers"], _cache_slices(cache),
+                              qcfg, qcfg.skip_first_layers,
+                              qcfg.skip_last_layers)
+    logits = _lm_head(qcfg, cfg, params, x[:, -1:])
+    cache["pos"] = s
+    return logits, cache

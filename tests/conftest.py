@@ -13,6 +13,9 @@ jax.config.update("jax_enable_x64", False)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute integration tests (subprocess meshes)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips without one")
 
 try:                                   # hypothesis isn't baked into the image;
     import hypothesis                  # fall back to the deterministic shim

@@ -1,0 +1,89 @@
+"""The PyTorch port stands alone: no JAX, no ``ml_dtypes``, nothing of the
+JAX package; its entry points default to the card and never fall back to
+the CPU; its kernel-launch counters count kernel launches only."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.kernels import _build, ops
+from repro_torch.launch import serve
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_no_jax():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 15
+    bad = {(str(f.relative_to(SRC)), root) for f in files
+           for root in _imported_roots(f) if root in FORBIDDEN}
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.launch.serve, repro_torch.bridge; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the default device is usable")
+    cfg = configs.get_smoke("acereason-7b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.load_quantized(cfg, 0, "packed")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "acereason-7b"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.resolve_device("cuda")
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The launch functions take CUDA tensors only; the ops choose the plain
+    version for CPU tensors, so the CPU path never reaches them."""
+    from repro_torch.kernels import nvfp4_matmul, nvfp4_qdq
+    x = torch.zeros(2, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        nvfp4_qdq.launch(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        nvfp4_matmul.launch(x, ops.pack_weight(torch.zeros(32, 16)))
+
+
+def test_launch_counters_count_kernel_launches_only():
+    ops.reset_launches()
+    x = torch.randn(4, 64).to(torch.bfloat16)
+    y = ops.nvfp4_qdq(x)
+    z = ops.nvfp4_matmul(y, ops.pack_weight(torch.randn(64, 48)))
+    assert z.shape == (4, 48) and z.dtype == torch.bfloat16
+    assert ops.launches == {"nvfp4_qdq": 0, "nvfp4_matmul": 0}
+
+
+def test_build_is_lazy_and_names_the_sources():
+    """Importing builds nothing; the library name hashes every source."""
+    assert _build.library.cache_info().currsize == 0
+    names = {p.name for p in _build._sources()}
+    assert {"nvfp4_qdq.cu", "nvfp4_matmul.cu"} <= names
+    assert len(_build._digest()) == 16
+    assert set(_build.SIGNATURES) == {"nvfp4_qdq", "nvfp4_matmul"}
