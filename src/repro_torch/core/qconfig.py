@@ -3,7 +3,11 @@ NVFP4, which stay BF16.
 
 ``QuantConfig`` is the reference's frozen dataclass with the same fields.
 ``q_act`` fake-quantizes a GEMM input through ``kernels.ops.nvfp4_qdq``:
-the CUDA kernel for a tensor on the card, the plain version on the CPU.
+the CUDA kernel for a tensor on the card, the plain version on the CPU,
+with a straight-through gradient.  Both compute the reference's jitted
+form of the QDQ (divisions by constants as reciprocal multiplications),
+for weights as for activations: the reference's training step quantizes
+both inside ``jax.jit``.
 """
 from __future__ import annotations
 
@@ -120,8 +124,8 @@ def _fq_lastdim(x: torch.Tensor,
     """QDQ along the last dim through the ``nvfp4_qdq`` op, padding to the
     block size if needed.  ``tensor_amax`` overrides the whole-tensor amax.
 
-    Serving needs no gradient; the kernel's straight-through backward comes
-    with the training slice (``nvfp4.fake_quant`` is the plain STE).
+    The op's backward is straight through (the reference's ``fake_quant``
+    and ``fake_quant_calibrated``); the amax gets no gradient.
     """
     k = x.shape[-1]
     pad = (-k) % nvfp4.BLOCK

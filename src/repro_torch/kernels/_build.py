@@ -8,7 +8,8 @@ compiled, so a build takes seconds.  Its file name carries a hash of the
 sources and flags, so an edited source is rebuilt.
 
 No ``--use_fast_math``: the qdq kernel must be bitwise equal to its plain
-version, which needs IEEE division and round-to-nearest-even.
+version, which needs IEEE division and round-to-nearest-even, and the KL
+kernels use the accurate ``expf`` and ``logf``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 Python wrapper calls ``check`` on it.  Nothing here runs at import time.
@@ -38,6 +39,10 @@ SIGNATURES = {
     # (x, x_is_f32, codes, scales, tensor_scale, out, out_is_f32,
     #  m, n, k_logical, k_stored, stream)
     "nvfp4_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (t, s, is_f32, kl, z_t, z_s, rows, v, stream)
+    "kl_fwd": [_P, _P, _I, _P, _P, _P, _I, _I, _P],
+    # (t, s, is_f32, z_t, z_s, g_tok, ds, rows, v, stream)
+    "kl_bwd": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
 }
 
 

@@ -5,18 +5,42 @@ CUDA kernel for a tensor on the card; on the card the kernel runs or
 raises, nothing falls back.  ``launches`` counts kernel launches only: the
 CPU path does not count, so a nonzero count proves that a run on the card
 went through the kernel.
+
+``nvfp4_qdq`` and ``kl_loss`` are differentiable.  The QDQ's backward is
+the straight-through estimator of the reference's ``nvfp4.fake_quant``
+(the identity; no kernel, and no gradient for the amax); ``kl_loss``'s
+backward is the K6 kernel.
 """
 from __future__ import annotations
+
+import collections
+from collections.abc import Mapping
 
 import torch
 
 from ..core.nvfp4 import PackedNVFP4, pack, unpack_layout
+from . import kl_loss as _kl
 from . import nvfp4_matmul as _matmul
 from . import nvfp4_qdq as _qdq
 from . import ref
 
+class _Counts(collections.Counter):
+    """Launch counts.  Compared with any mapping, as counts compare: a
+    name one side lacks counts 0."""
+
+    def __eq__(self, other):
+        if isinstance(other, Mapping):
+            return collections.Counter.__eq__(self, collections.Counter(other))
+        return NotImplemented
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return eq if eq is NotImplemented else not eq
+
+
 # kernel launches per op since the caller last reset them
-launches = {"nvfp4_qdq": 0, "nvfp4_matmul": 0}
+launches = _Counts({"nvfp4_qdq": 0, "nvfp4_matmul": 0, "kl_loss": 0,
+                    "kl_loss_bwd": 0})
 
 
 def reset_launches() -> None:
@@ -24,13 +48,64 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+class _QDQ(torch.autograd.Function):
+    """QDQ forward (kernel or plain); straight-through backward."""
+
+    @staticmethod
+    def forward(ctx, x, tensor_amax):
+        if x.device.type == "cpu":
+            return ref.nvfp4_qdq_ref(x, tensor_amax)
+        out = _qdq.launch(x, tensor_amax)
+        launches["nvfp4_qdq"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def nvfp4_qdq(x: torch.Tensor, tensor_amax: torch.Tensor | None = None) -> torch.Tensor:
-    """Fused NVFP4 fake-quant, blocked along the last dim."""
-    if x.device.type == "cpu":
-        return ref.nvfp4_qdq_ref(x, tensor_amax)
-    out = _qdq.launch(x, tensor_amax)
-    launches["nvfp4_qdq"] += 1
-    return out
+    """Fused NVFP4 fake-quant, blocked along the last dim.  Differentiable
+    in ``x`` (straight through); ``tensor_amax`` gets no gradient."""
+    if tensor_amax is not None:
+        tensor_amax = tensor_amax.detach()
+    return _QDQ.apply(x, tensor_amax)
+
+
+class _KLLoss(torch.autograd.Function):
+    """Masked-mean KL(p_t || p_s): K5 forward, K6 backward; the gradient
+    reaches the student logits only."""
+
+    @staticmethod
+    def forward(ctx, t, s, mask):
+        if s.device.type == "cpu":
+            kl, z_t, z_s = _kl.plain_fwd(t, s)
+        else:
+            kl, z_t, z_s = _kl.launch_fwd(t, s)
+            launches["kl_loss"] += 1
+        maskf = mask.to(torch.float32)
+        denom = torch.clamp_min(torch.sum(maskf), 1.0)
+        ctx.save_for_backward(t, s, maskf, z_t, z_s)
+        return torch.sum(kl * maskf) / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        t, s, maskf, z_t, z_s = ctx.saved_tensors
+        denom = torch.clamp_min(torch.sum(maskf), 1.0)
+        g_tok = (g * maskf / denom).to(torch.float32)
+        if s.device.type == "cpu":
+            ds = _kl.plain_bwd(t, s, z_t, z_s, g_tok)
+        else:
+            ds = _kl.launch_bwd(t, s, z_t, z_s, g_tok)
+            launches["kl_loss_bwd"] += 1
+        return None, ds, None
+
+
+def kl_loss(t_logits: torch.Tensor, s_logits: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """Masked-mean token KL(p_t || p_s) for [T, V] logits and a [T] mask
+    (flatten the batch first); differentiable in ``s_logits`` only."""
+    return _KLLoss.apply(t_logits.detach(), s_logits, mask.detach())
 
 
 def nvfp4_matmul(x: torch.Tensor, packed: PackedNVFP4,
@@ -54,5 +129,5 @@ def dequant_weight(packed: PackedNVFP4, contract_axis: int,
     return unpack_layout(packed, contract_axis, dtype)
 
 
-__all__ = ["nvfp4_qdq", "nvfp4_matmul", "pack_weight", "dequant_weight",
-           "launches", "reset_launches", "ref"]
+__all__ = ["nvfp4_qdq", "nvfp4_matmul", "kl_loss", "pack_weight",
+           "dequant_weight", "launches", "reset_launches", "ref"]

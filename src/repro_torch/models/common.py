@@ -32,11 +32,13 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a nested-dict tree."""
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to every leaf of a nested-dict tree, and to the
+    matching leaves of ``rest`` (trees of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -105,6 +107,23 @@ def layer_slice(stacked, i: int):
     return tree_map(lambda a: a[i], stacked)
 
 
+def unstack(stacked, n: int) -> list:
+    """All ``n`` layer slices of a stacked tree at once.
+
+    Dense leaves go through one ``torch.unbind`` each, whose backward is a
+    single ``stack``: under autograd, ``n`` separate ``a[i]`` would each
+    scatter a gradient of the whole stack's size.  The slices are views,
+    so in-place writes (the KV cache) reach the stack.
+    """
+    def one(a):
+        if isinstance(a, PackedNVFP4):
+            return [a[i] for i in range(n)]
+        return torch.unbind(a, 0)
+
+    split = tree_map(one, stacked)
+    return [layer_slice(split, i) for i in range(n)]
+
+
 def n_layers(stacked) -> int:
     leaf = tree_leaves(stacked)[0]
     return (leaf.codes if isinstance(leaf, PackedNVFP4) else leaf).shape[0]
@@ -122,7 +141,10 @@ def scan_layers(body_fn, carry, stacked_params, stacked_xs, qcfg,
     layers under ``BF16``, the middle under ``qcfg``.
 
     ``body_fn(qcfg)(carry, (layer_params, layer_xs)) -> (carry, y)``;
-    returns the final carry and the list of per-layer ``y``.
+    returns the final carry and the list of per-layer ``y``.  The layer
+    slices come from ``unstack``.  Rematerialization (``cfg.remat``)
+    changes memory, not values, and is not ported yet: every layer's
+    activations stay live for the backward.
     """
     from ..core.qconfig import BF16
 
@@ -134,11 +156,12 @@ def scan_layers(body_fn, carry, stacked_params, stacked_xs, qcfg,
     skip_last = min(skip_last, n - skip_first)
     bounds = [(0, skip_first, BF16), (skip_first, n - skip_last, qcfg),
               (n - skip_last, n, BF16)]
+    params = unstack(stacked_params, n)
+    xs = unstack(stacked_xs, n) if stacked_xs is not None else [None] * n
     ys = []
     for lo, hi, qc in bounds:
         fn = body_fn(qc)
         for i in range(lo, hi):
-            xs = layer_slice(stacked_xs, i) if stacked_xs is not None else None
-            carry, y = fn(carry, (layer_slice(stacked_params, i), xs))
+            carry, y = fn(carry, (params[i], xs[i]))
             ys.append(y)
     return carry, ys

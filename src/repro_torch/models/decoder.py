@@ -4,7 +4,7 @@ The same functional protocol and parameter tree as the reference:
 
     param_specs(cfg)                          -> ParamSpec tree
     init_params(cfg, gen, device)             -> params
-    apply(cfg, params, batch, qcfg)           -> [B, S, V] logits
+    apply(cfg, params, batch, qcfg, output)   -> [B, S, V] logits (or hidden)
     init_cache(cfg, batch, s_max, device)     -> cache
     prefill(cfg, params, batch, qcfg, s_max)  -> (last-token logits, cache)
     decode_step(cfg, params, cache, batch, qcfg) -> (logits, cache)
@@ -158,8 +158,11 @@ def _lm_head(qcfg, cfg, params, x):
                          parallelism="column")
 
 
-def apply(cfg, params, batch, qcfg: QuantConfig) -> torch.Tensor:
-    """Teacher-forcing forward: [B,S] tokens -> [B,S,V] logits."""
+def apply(cfg, params, batch, qcfg: QuantConfig,
+          output: str = "logits") -> torch.Tensor:
+    """Teacher-forcing forward: [B,S] tokens -> [B,S,V] logits, or with
+    ``output="hidden"`` the final-normed [B,S,d] hidden states (the
+    chunked loss applies the unembedding itself)."""
     _supported(cfg)
     x = params["embed"][batch["tokens"]]
     pos = _positions(batch, x.shape[1])
@@ -172,6 +175,8 @@ def apply(cfg, params, batch, qcfg: QuantConfig) -> torch.Tensor:
 
     x, _ = common.scan_layers(body, x, params["layers"], None, qcfg,
                               qcfg.skip_first_layers, qcfg.skip_last_layers)
+    if output == "hidden":
+        return run_norm(cfg, params["final_norm"], x)
     return _lm_head(qcfg, cfg, params, x)
 
 

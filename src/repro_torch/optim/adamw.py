@@ -1,0 +1,97 @@
+"""AdamW (port of ``repro.optim.adamw``).
+
+The interface mirrors the reference's: ``opt.init(params) -> state``;
+``opt.update(grads, state, params, step) -> (updates, state)``, where the
+updates are added to the parameters by the caller.  Trees are nested dicts
+of tensors.  Gradients are clipped by their global norm, the moments are
+bias-corrected, and the moments are kept in ``state_dtype`` (f32 or bf16);
+the step count, the schedule and the bias corrections are f32 tensors, as
+in the reference.  The update is functional: new tensors, old ones left as
+they are.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from ..models.common import tree_leaves, tree_map
+
+_F32 = torch.float32
+_STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class AdamWState(NamedTuple):
+    m: Any
+    v: Any
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt(sum of squares) over every leaf, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(_F32)))
+                          for x in tree_leaves(tree)))
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: Callable | float = 1e-6        # paper: 1e-6 .. 1e-5 (Table 6)
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    clip_norm: float = 1.0
+    state_dtype: str = "float32"       # float32 | bfloat16
+
+    def init(self, params) -> AdamWState:
+        dt = _STATE_DTYPES[self.state_dtype]
+        z = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+        return AdamWState(m=tree_map(z, params), v=tree_map(z, params))
+
+    def update(self, grads, state: AdamWState, params, step: torch.Tensor):
+        """(updates in f32, new state) for gradients at int32 ``step``."""
+        dev = tree_leaves(grads)[0].device
+        scale = None
+        if self.clip_norm:
+            gn = global_norm(grads)
+            scale = torch.clamp(self.clip_norm / torch.clamp_min(gn, 1e-12),
+                                max=1.0)
+        b1, b2 = self.b1, self.b2
+        t = (step + 1).to(device=dev, dtype=_F32)
+        bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=_F32, device=dev), t)
+        bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=_F32, device=dev), t)
+        lr = self.lr(step.to(dev)) if callable(self.lr) else self.lr
+
+        def upd(g, m, v, p):
+            g = g.to(_F32)
+            if scale is not None:
+                g = g * scale
+            m32 = b1 * m.to(_F32) + (1 - b1) * g
+            v32 = b2 * v.to(_F32) + (1 - b2) * g * g
+            u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
+            if self.weight_decay:
+                u = u + self.weight_decay * p.to(_F32)
+            return -lr * u, m32.to(m.dtype), v32.to(v.dtype)
+
+        out = tree_map(upd, grads, state.m, state.v, params)
+        pick = lambda i: tree_map(lambda o: o[i], out)
+        return pick(0), AdamWState(m=pick(1), v=pick(2))
+
+
+def warmup_cosine(peak_lr: float, warmup: int, total: int,
+                  floor: float = 0.1) -> Callable:
+    """Linear warmup to ``peak_lr``, then cosine decay to ``floor * peak``;
+    f32 arithmetic on the step tensor."""
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        s = step.to(_F32)
+        warm = peak_lr * torch.clamp(s / max(warmup, 1), max=1.0)
+        prog = torch.clamp((s - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return torch.where(s < warmup, warm, peak_lr * cos)
+    return lr
+
+
+def constant(lr_value: float) -> Callable:
+    return lambda step: torch.full((), lr_value, dtype=_F32,
+                                   device=step.device)

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.kernels import _build, ops
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -38,7 +38,8 @@ def test_port_sources_import_no_jax():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.bridge; "
+    code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.bridge; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -58,17 +59,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         serve.main(["--arch", "acereason-7b"])
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train("olmo-1b", steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "olmo-1b", "--steps", "1"])
+    assert train.build_parser().parse_args([]).device == "cuda"
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The launch functions take CUDA tensors only; the ops choose the plain
     version for CPU tensors, so the CPU path never reaches them."""
-    from repro_torch.kernels import nvfp4_matmul, nvfp4_qdq
+    from repro_torch.kernels import kl_loss, nvfp4_matmul, nvfp4_qdq
     x = torch.zeros(2, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         nvfp4_qdq.launch(x)
     with pytest.raises(ValueError, match="CUDA"):
         nvfp4_matmul.launch(x, ops.pack_weight(torch.zeros(32, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        kl_loss.launch_fwd(x, x)
+    z = torch.zeros(2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kl_loss.launch_bwd(x, x, z, z, z)
 
 
 def test_launch_counters_count_kernel_launches_only():
@@ -77,13 +88,18 @@ def test_launch_counters_count_kernel_launches_only():
     y = ops.nvfp4_qdq(x)
     z = ops.nvfp4_matmul(y, ops.pack_weight(torch.randn(64, 48)))
     assert z.shape == (4, 48) and z.dtype == torch.bfloat16
-    assert ops.launches == {"nvfp4_qdq": 0, "nvfp4_matmul": 0}
+    s = torch.randn(4, 64, requires_grad=True)
+    ops.kl_loss(x, s, torch.ones(4)).backward()
+    assert s.grad.shape == (4, 64)
+    assert ops.launches == {"nvfp4_qdq": 0, "nvfp4_matmul": 0, "kl_loss": 0,
+                            "kl_loss_bwd": 0}
 
 
 def test_build_is_lazy_and_names_the_sources():
     """Importing builds nothing; the library name hashes every source."""
     assert _build.library.cache_info().currsize == 0
     names = {p.name for p in _build._sources()}
-    assert {"nvfp4_qdq.cu", "nvfp4_matmul.cu"} <= names
+    assert {"nvfp4_qdq.cu", "nvfp4_matmul.cu", "kl_loss.cu"} <= names
     assert len(_build._digest()) == 16
-    assert set(_build.SIGNATURES) == {"nvfp4_qdq", "nvfp4_matmul"}
+    assert set(_build.SIGNATURES) == {"nvfp4_qdq", "nvfp4_matmul", "kl_fwd",
+                                      "kl_bwd"}

@@ -9,7 +9,13 @@ runs it as it is (that machine has no JAX):
 Tolerances: ``nvfp4_qdq`` bitwise (the same f32 operations in the same
 order); ``nvfp4_matmul`` within one bf16 ulp of the plain version's f32
 product plus 2^-20 * (|x| @ |W|^T), a bound on summing the same exact
-products in another f32 order.
+products in another f32 order.  The KL forward (K5): per-token KL within
+rtol 1e-4 plus 16 f32 ulps of |z_t| + |z_s| (KL is a small difference of
+two terms of about log V, and the two versions sum e^x in other orders),
+each logsumexp within 8 ulps; KL exactly 0 for identical logits.  The KL
+backward (K6), given the same logsumexps: within one ulp of its output
+dtype of the plain version's f32 value, plus 4 f32 ulps of
+(p_s + p_t) |g| for the two ``expf``.
 """
 import dataclasses
 import math
@@ -18,6 +24,7 @@ import pytest
 import torch
 
 from repro_torch.core import nvfp4
+from repro_torch.kernels import kl_loss as kkl
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -83,10 +90,89 @@ def test_matmul_kernel_padded_k(gen, x_dtype, out_dtype):
     assert _matmul_ok(x, p, out_dtype)
 
 
+def _ulp(x, mant_bits):
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+                      - mant_bits)
+
+
+def kl_fwd_ok(t, s):
+    """K5 against its plain version on the same logits (tolerance above)."""
+    kl, zt, zs = kkl.launch_fwd(t, s)
+    pk, pzt, pzs = kkl.plain_fwd(t, s)
+    tol_kl = 1e-4 * pk.abs() + 16 * _ulp(pzt.abs() + pzs.abs(), 23)
+    return bool(((kl - pk).abs() <= tol_kl).all()
+                and ((zt - pzt).abs() <= 8 * _ulp(pzt, 23)).all()
+                and ((zs - pzs).abs() <= 8 * _ulp(pzs, 23)).all())
+
+
+def kl_bwd_ok(t, s, zt, zs, g):
+    """K6 against its plain version's f32 value, given the same z."""
+    ds = kkl.launch_bwd(t, s, zt, zs, g).float()
+    p_s = torch.exp(s.float() - zs[:, None])
+    p_t = torch.exp(t.float() - zt[:, None])
+    want = (p_s - p_t) * g[:, None]
+    mant = 7 if s.dtype == torch.bfloat16 else 23
+    tol = _ulp(want, mant) + 4 * 2.0 ** -23 * (p_s + p_t) * g.abs()[:, None]
+    return bool(((ds - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("t,v", [(64, 50304), (8, 152064), (33, 257),
+                                 (5, 7), (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kl_kernels_against_plain(gen, t, v, dtype):
+    """Ragged V (no multiple of the 16-byte vector) and tiny rows included;
+    a masked-out row (g = 0) gives zeros."""
+    tl = (torch.randn((t, v), generator=gen, device="cuda") * 2).to(dtype)
+    sl = (tl.float() + 0.3 * torch.randn((t, v), generator=gen, device="cuda")
+          ).to(dtype)
+    assert kl_fwd_ok(tl, sl)
+    _, zt, zs = kkl.launch_fwd(tl, sl)
+    g = torch.rand(t, generator=gen, device="cuda") / t
+    g[0] = 0.0
+    assert kl_bwd_ok(tl, sl, zt, zs, g)
+    assert not kkl.launch_bwd(tl, sl, zt, zs, g)[0].any()
+
+
+def test_kl_kernels_misaligned_rows(gen):
+    """A view that starts off a 16-byte boundary is copied to an aligned
+    buffer; rows of odd V start at every offset."""
+    base = torch.randn((9, 1001), generator=gen, device="cuda").to(torch.bfloat16)
+    tl, sl = base[1:, :1000], base[:-1, 1:]
+    assert kl_fwd_ok(tl, sl)
+
+
+def test_kl_identical_logits_give_zero(gen):
+    tl = torch.randn((16, 50304), generator=gen, device="cuda").to(torch.bfloat16)
+    kl, zt, zs = kkl.launch_fwd(tl, tl)
+    assert not kl.any() and torch.equal(zt, zs)
+
+
+def test_kl_op_on_card_matches_cpu(gen):
+    """``ops.kl_loss`` forward and gradient on the card against the same
+    op on the CPU (plain versions)."""
+    tl = (torch.randn((40, 3001), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    sl = (tl.float() + 0.2 * torch.randn((40, 3001), generator=gen,
+                                         device="cuda")).to(torch.bfloat16)
+    mask = (torch.rand(40, generator=gen, device="cuda") > 0.3).float()
+    s_gpu = sl.clone().requires_grad_()
+    s_cpu = sl.cpu().requires_grad_()
+    loss_gpu = ops.kl_loss(tl, s_gpu, mask)
+    loss_cpu = ops.kl_loss(tl.cpu(), s_cpu, mask.cpu())
+    loss_gpu.backward()
+    loss_cpu.backward()
+    assert abs(float(loss_gpu) - float(loss_cpu)) <= 1e-4 * abs(float(loss_cpu)) + 1e-6
+    assert torch.allclose(s_gpu.grad.float().cpu(), s_cpu.grad.float(),
+                          rtol=1e-2, atol=1e-6)
+
+
 def test_launch_counters_count_card_launches(gen):
     ops.reset_launches()
     x = torch.randn((4, 64), generator=gen, device="cuda").to(torch.bfloat16)
     ops.nvfp4_matmul(ops.nvfp4_qdq(x), ops.pack_weight(
         torch.randn((64, 32), generator=gen, device="cuda")))
+    s = torch.randn((4, 64), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    ops.kl_loss(x, s, torch.ones(4, device="cuda")).backward()
     torch.cuda.synchronize()
-    assert ops.launches == {"nvfp4_qdq": 1, "nvfp4_matmul": 1}
+    assert ops.launches == {"nvfp4_qdq": 1, "nvfp4_matmul": 1, "kl_loss": 1,
+                            "kl_loss_bwd": 1}
