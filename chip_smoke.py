@@ -14,15 +14,29 @@ Phases (every failure exits nonzero):
      prefill); the KL forward and backward (tolerances below) at the
      olmo-1b training shape (T = 8 * 512, V = 50304) and at a full
      acereason-7b vocabulary (T = 1024, V = 152064), with a ragged V, a
-     masked-out row and identical logits;
+     masked-out row and identical logits; ``paged_attention`` (tolerance
+     below) at the engine's acereason-7b shapes (decode: 8 slots against
+     pages [272, 16, 4, 128] through tables [8, 34], pos 1..544; a paged
+     prefill chunk of 16 queries), with a dead table tail, a window and
+     FP8 pages;
   4. smoke-size models on the card against the same weights on the CPU:
      serving prefill and greedy tokens, and one QAD training step;
-  5. the serving path: ``acereason-7b`` at full width and depth, packed
-     NVFP4 weights from a seed, ``serve_batch`` with batch 4, prompt 64,
-     gen 16, with the launch counters read around it; a traced decode
+  5. the static serving path: ``acereason-7b`` at full width and 14 of its
+     28 layers, packed NVFP4 weights from a seed, ``serve_batch`` with
+     batch 4, prompt 64, gen 16, with the launch counters read around it; a traced decode
      step; then the QDQ-format replay from the same seed, whose first-step
      logits must agree with the packed path's (see the tolerances below);
-  6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
+  5b. the engine (``repro_torch.serve.Engine``) over packed weights of
+     ``acereason-7b`` at full width and depth.  Run A: 16 requests of prompt lengths 64..512, 32 greedy
+     tokens each, 8 submitted at the start and one after each step, 8
+     slots over a pool of 272 blocks of 16, exact prefill, worst-case
+     reservation; every request finishes, the pool drains, K7 launches 28
+     times per decode step, first tokens equal single-request
+     ``serve_batch``'s, and the first decode step's logits agree with the
+     same engine with ``fused_kernels="off"``; a traced decode step.  Run
+     B: 16 requests sharing a 256-token prefix with suffixes of 16..128
+     tokens, paged prefill, on-demand paging and the prefix cache; tokens
+     bitwise equal to the same workload with the cache off;: ``launch.train.train`` on ``olmo-1b`` at full size
      (16 layers, d_model 2048, vocab 50304), 4 QAD steps of batch 8 x 512
      tokens with an eval after each, the launch counters read around it;
      a traced step;
@@ -57,10 +71,11 @@ L2_FLUSH_BYTES = 128 << 20     # larger than the 50 MB L2
 #    1e-2 with BF16 activations; 0.15 with NVFP4 activations, where the
 #    layer's four activation quantizers carry a one-ulp difference across
 #    E2M1 rounding ties (0.081 measured on an H100).
-#  * First-step logits of the whole 28-layer stack: the random-weight stack
+#  * First-step logits of the whole stack: the random-weight stack
 #    compounds those differences (0.018 with BF16 activations and 0.33 with
-#    NVFP4 activations measured on an H100; these tolerances were set after
-#    that measurement).  Logits with nothing in common differ by about 1.4,
+#    NVFP4 activations measured on an H100 over all 28 layers; these
+#    tolerances were set after that measurement, and the phase now runs
+#    SERVE_DEPTH of them).  Logits with nothing in common differ by about 1.4,
 #    so 0.5 still catches a wrong kernel.
 LAYER_TOL = {"bf16_act": 1e-2, "nvfp4": 0.15}
 LOGIT_TOL = {"bf16_act": 5e-2, "nvfp4": 0.5}
@@ -73,6 +88,28 @@ LOGIT_TOL = {"bf16_act": 5e-2, "nvfp4": 0.5}
 #    output dtype of the plain version's f32 value, plus 4 f32 ulps of
 #    (p_s + p_t) |g| for the two expf.
 KL_SHAPES = {"train": (8 * 512, 50304), "acereason_row": (1024, 152064)}
+# paged attention (K7) against its plain version: within one bf16 ulp of
+# the larger of the two values plus this absolute term.  The two sum the
+# dot products, the exps and p V in other f32 orders, which moves a rare
+# probability by one bf16 ulp, about 1e-4 of the output at these shapes.
+K7_ATOL = 1e-3
+# the engine runs (acereason-7b): pool geometry, run A's and run B's traffic
+ENGINE = dict(n_slots=8, block_size=16, max_blocks_per_slot=34, n_blocks=272)
+RUN_A = dict(requests=16, min_prompt=64, max_prompt=512, gen=32)
+RUN_B = dict(requests=16, prefix=256, min_suffix=16, max_suffix=128, gen=8)
+# fused (K7) against unfused (gather + attend) decode: the first decode
+# step's logits per request, relative L2.  The attention outputs differ by
+# f32 summation order only, which moves a rare bf16 output by one ulp; the
+# first decode step came out bitwise equal for all 16 requests on an H100,
+# the NVFP4 quantizer of each layer's attention output absorbing the
+# flips.  One flip that crosses an E2M1 boundary in any of the 28
+# random-weight layers moves the logits as far as the packed-vs-QDQ GEMM
+# differences do (0.33 measured on an H100, LOGIT_TOL below), so the gate
+# sits at that level.  Logits with nothing in common differ by about 1.4.
+FUSED_TOL = 0.5
+# the static serving path runs at this depth (full width): the engine's
+# runs below take the full 28 layers
+SERVE_DEPTH = 14
 # the training path
 TRAIN = dict(arch="olmo-1b", steps=4, lr=1e-5, batch=8, seq=512)
 # one smoke QAD step on the card against the CPU, same weights and batch:
@@ -102,6 +139,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device: nothing to measure", file=sys.stderr)
         return 2
+    import numpy as np
     from repro_torch import configs
     from repro_torch.core import nvfp4
     from repro_torch.core import qad
@@ -337,6 +375,81 @@ def main() -> int:
           f"row; KL 0 for identical logits (max |dkl| {err['kl_loss']:.3g}, "
           f"max |dds| {err['kl_loss_bwd']:.3g})", flush=True)
 
+    # K7 against its plain version at the engine's shapes -----------------
+    from repro_torch.kernels import paged_attention as kpa
+    rows["paged_attention"] = []
+    err["paged_attention"] = 0.0
+    n_heads, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_blk, blk, mbs = (ENGINE["n_blocks"], ENGINE["block_size"],
+                       ENGINE["max_blocks_per_slot"])
+
+    def k7_case(b, s_q, pos, fp8=False):
+        """Random pages (bf16, or e4m3 with one f32 scale per row), tables
+        of distinct blocks, queries."""
+        k = torch.randn((n_blk, blk, n_kv, hd), generator=gen, device=dev)
+        v = torch.randn((n_blk, blk, n_kv, hd), generator=gen, device=dev)
+        if fp8:
+            def quant(x):
+                sc = x.abs().amax(-1).clamp_min(1e-30) / 448.0
+                return (x / sc[..., None]).to(torch.float8_e4m3fn), sc
+            (k, ks), (v, vs) = quant(k), quant(v)
+            pool = {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
+        else:
+            pool = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+        bt = torch.randperm(n_blk, generator=gen, device=dev)[: b * mbs]
+        q = torch.randn((b, s_q, n_heads, hd), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        return (q, pool, bt.reshape(b, mbs).to(torch.int32),
+                torch.as_tensor(pos, dtype=torch.int32, device=dev))
+
+    def check_k7(what, q, pool, bt, pos, window=0):
+        got = ops.paged_attention(q, pool, bt, pos, window=window).float()
+        want = ref.paged_attention_ref(q, pool, bt, pos, window=window).float()
+        d = (got - want).abs()
+        if not bool((d <= ulp(torch.maximum(got.abs(), want.abs()), 7)
+                     + K7_ATOL).all()):
+            fail(f"paged_attention outside tolerance ({what}): max abs err "
+                 f"{float(d.max())}")
+        err["paged_attention"] = max(err["paged_attention"], float(d.max()))
+        return got
+
+    dec_pos = torch.linspace(1, mbs * blk, ENGINE["n_slots"]).round().int()
+    pre_pos = (256 + torch.arange(1, blk + 1)).reshape(1, blk)
+    for site, case in (("decode", k7_case(ENGINE["n_slots"], 1, dec_pos)),
+                       ("paged_prefill", k7_case(1, blk, pre_pos))):
+        check_k7(site, *case)
+        q, pool, bt, pos = case
+        kb = kpa.bytes_moved(q, pool["k"], bt, pos, fp8=False)
+        kf = kpa.flops(q, pool["k"], bt, pos)
+        rows["paged_attention"].append(dict(
+            site=site, shape=f"q {list(q.shape)} pages {list(pool['k'].shape)} "
+            f"tables {list(bt.shape)}", library_ms=None,
+            bound_ms=max(kb / HBM_BYTES_S, kf / BF16_FLOPS) * 1e3,
+            bound_by="bytes" if kb / HBM_BYTES_S >= kf / BF16_FLOPS else "operations",
+            fns=((lambda c=case: ops.paged_attention(*c)),
+                 (lambda c=case: ref.paged_attention_ref(*c)), None)))
+    # a dead table tail: pages past every pos are never read
+    q, pool, bt, pos = k7_case(ENGINE["n_slots"], 1, [3, 17, 40, 16, 33, 1, 64, 20])
+    got = check_k7("dead tail", q, pool, bt, pos)
+    dead = bt[:, 5:].reshape(-1).long()
+    for a in pool.values():
+        a[dead] = 1e4
+    bt[:, 5:] = 1 << 30
+    if not torch.equal(ops.paged_attention(q, pool, bt, pos).float(), got):
+        fail("paged_attention read a page past every query's pos")
+    check_k7("window 100", *k7_case(ENGINE["n_slots"], 1, dec_pos), window=100)
+    check_k7("window 40, 16 queries", *k7_case(1, blk, pre_pos), window=40)
+    check_k7("fp8 pages", *k7_case(ENGINE["n_slots"], 1, dec_pos, fp8=True))
+    check_k7("fp8 pages, 16 queries", *k7_case(1, blk, pre_pos, fp8=True))
+    qn, pool, bt, pos = k7_case(ENGINE["n_slots"], 1, dec_pos)
+    qn = qn.transpose(1, 2).contiguous().transpose(1, 2)
+    check_k7("non-contiguous q", qn, pool, bt, pos)
+    print(f"[kernel] paged_attention within one bf16 ulp + {K7_ATOL} of its "
+          f"plain version: decode, paged-prefill chunk, dead table tail, "
+          f"windows, FP8 pages, a strided q (max abs err "
+          f"{err['paged_attention']:.3g})", flush=True)
+    del q, qn, pool, bt, pos, got
+
     # ---- 4. smoke model: card vs CPU on the same weights ------------------
     scfg = configs.get_smoke("acereason-7b")
     sparams, _ = serve.load_quantized(scfg, SEED, "packed", "cpu")
@@ -401,26 +514,27 @@ def main() -> int:
         fail("smoke QAD step: updated parameters differ beyond 1 bf16 ulp + 2 lr")
     del st_gpu, new_gpu, st_cpu, new_cpu
 
-    # ---- 5. the serving path: full-size acereason-7b, packed --------------
+    # ---- 5. the static serving path: acereason-7b, full width, packed -----
+    scfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params, _ = serve.load_quantized(cfg, SEED, "packed", dev)
+    params, pqcfg = serve.load_quantized(scfg, SEED, "packed", dev)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
     wr = serve.weight_report(params)
-    print(f"[serve] {cfg.name} full width, depth {cfg.n_layers}: weights "
+    print(f"[serve] {scfg.name} full width, depth {scfg.n_layers}: weights "
           f"total={wr['total_bytes']/1e9:.3f}GB quantized-gemm="
           f"{wr['q_bytes']/1e9:.3f}GB over {wr['q_params']/1e9:.3f}B params "
           f"({wr['q_bytes_per_param']:.4f} B/param) load+pack={t_load:.1f}s",
           flush=True)
     if abs(wr["q_bytes_per_param"] - nvfp4.BYTES_PER_ELEM) > 0.01:
         fail(f"packed weights cost {wr['q_bytes_per_param']} B/param")
-    prompts = torch.randint(4, cfg.vocab_size, (BATCH, PROMPT), device=dev,
+    prompts = torch.randint(4, scfg.vocab_size, (BATCH, PROMPT), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(SEED + 1))
     ops.reset_launches()
-    toks, stats = serve.serve_batch(cfg, params, prompts, GEN)
+    toks, stats = serve.serve_batch(scfg, params, prompts, GEN)
     launches = dict(ops.launches)
-    per_forward = 5 * cfg.n_layers
+    per_forward = 5 * scfg.n_layers
     print(f"[serve] batch={BATCH} prompt={PROMPT} gen={GEN} "
           f"prefill_ms={stats['prefill_s']*1e3:.2f} "
           f"decode_ms_per_step={stats['decode_s']*1e3/stats['decode_steps']:.3f} "
@@ -435,24 +549,24 @@ def main() -> int:
         if launches[k] != GEN * per_forward:
             fail(f"{k} launched {launches[k]} times, expected {GEN * per_forward}")
     if tuple(toks.shape) != (BATCH, GEN) or int(toks.min()) < 0 \
-            or int(toks.max()) >= cfg.vocab_size:
+            or int(toks.max()) >= scfg.vocab_size:
         fail(f"bad tokens {tuple(toks.shape)}")
     print(f"[serve] sample tokens: {toks[0].tolist()}", flush=True)
 
-    model = get_model(cfg)
-    sq = specs.serve_qconfig(cfg)
+    model = get_model(scfg)
+    sq = specs.serve_qconfig(scfg)
     with torch.inference_mode():
-        lp, cache = model.prefill(cfg, params, {"tokens": prompts}, sq,
+        lp, cache = model.prefill(scfg, params, {"tokens": prompts}, sq,
                                   s_max=PROMPT + 4)
         # where a decode step's time goes: device busy vs wall, by kernel
         nxt = lp[:, -1:].argmax(-1)
-        model.decode_step(cfg, params, cache, {"tokens": nxt}, sq)
+        model.decode_step(scfg, params, cache, {"tokens": nxt}, sq)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(2):
-                model.decode_step(cfg, params, cache, {"tokens": nxt}, sq)
+                model.decode_step(scfg, params, cache, {"tokens": nxt}, sq)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / 2
     by_kernel = {}
@@ -467,15 +581,15 @@ def main() -> int:
     for kname, ms in top:
         print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
     lp = lp.float()
-    if not bool(torch.isfinite(lp).all()) or lp.shape != (BATCH, 1, cfg.vocab_size):
+    if not bool(torch.isfinite(lp).all()) or lp.shape != (BATCH, 1, scfg.vocab_size):
         fail(f"packed prefill logits not finite or shape {tuple(lp.shape)}")
     del cache
-    qparams, _ = serve.load_quantized(cfg, SEED, "qdq", dev)
+    qparams, _ = serve.load_quantized(scfg, SEED, "qdq", dev)
     sq_w = dataclasses.replace(sq, quantize_activations=False)
     with torch.inference_mode():
-        lq, _ = model.prefill(cfg, qparams, {"tokens": prompts}, sq)
-        lpw, _ = model.prefill(cfg, params, {"tokens": prompts}, sq_w)
-        lqw, _ = model.prefill(cfg, qparams, {"tokens": prompts}, sq_w)
+        lq, _ = model.prefill(scfg, qparams, {"tokens": prompts}, sq)
+        lpw, _ = model.prefill(scfg, params, {"tokens": prompts}, sq_w)
+        lqw, _ = model.prefill(scfg, qparams, {"tokens": prompts}, sq_w)
         # layer by layer on the QDQ path's hidden states: each packed layer
         # against its QDQ twin on the same input (no compounding), and the
         # packed stack run on its own (compounding)
@@ -486,15 +600,15 @@ def main() -> int:
         for mode, qc in (("bf16_act", sq_w), ("nvfp4", sq)):
             x = qparams["embed"][prompts]
             hp = x
-            for li in range(cfg.n_layers):
+            for li in range(scfg.n_layers):
                 pl = common.layer_slice(params["layers"], li)
                 ql = common.layer_slice(qparams["layers"], li)
-                yq = decoder._block(qc, cfg, ql, x, pos, "train", None, None).float()
-                yp = decoder._block(qc, cfg, pl, x, pos, "train", None, None).float()
+                yq = decoder._block(qc, scfg, ql, x, pos, "train", None, None).float()
+                yp = decoder._block(qc, scfg, pl, x, pos, "train", None, None).float()
                 layer_err[mode].append(
                     float((yp - yq).norm() / (yq - x.float()).norm()))
                 if mode == "nvfp4":
-                    hp = decoder._block(qc, cfg, pl, hp, pos, "train", None, None)
+                    hp = decoder._block(qc, scfg, pl, hp, pos, "train", None, None)
                     free_err.append(float((hp.float() - yq).norm() / yq.norm()))
                 x = yq.to(torch.bfloat16)
     for mode, errs in layer_err.items():
@@ -517,11 +631,11 @@ def main() -> int:
           f"rel_l2={rel['nvfp4']:.4g} max_abs={float((lp - lq.float()).abs().max()):.4g} "
           f"max_logit={float(lq.float().abs().max()):.4g} top1_agree={top1:.2f} "
           f"(tolerance {LOGIT_TOL['nvfp4']})", flush=True)
-    qtoks, _ = serve.serve_batch(cfg, qparams, prompts, GEN)
+    qtoks, _ = serve.serve_batch(scfg, qparams, prompts, GEN)
     agree = bool(torch.equal(toks, qtoks))
     print(f"[serve] packed-vs-qdq greedy tokens {'AGREE' if agree else 'DISAGREE'} "
           f"({float((toks == qtoks).float().mean()):.3f} of positions)", flush=True)
-    del qparams, params
+    del qparams, ql, pl, params
     for mode in LOGIT_TOL:
         if max(layer_err[mode]) > LAYER_TOL[mode]:
             fail(f"a packed layer differs from its QDQ twin ({mode}): "
@@ -529,6 +643,173 @@ def main() -> int:
         if rel[mode] > LOGIT_TOL[mode]:
             fail(f"packed and QDQ first-step logits differ ({mode}): {rel[mode]}")
     serve_launches = launches
+    torch.cuda.empty_cache()
+
+    # ---- 5b. the engine: full-size acereason-7b, packed --------------------
+    from repro_torch.serve import Engine
+
+    params, pqcfg = serve.load_quantized(cfg, SEED, "packed", dev)
+
+    def first_decode_logits(eng):
+        """Record each request's logits at its first decode step."""
+        got, inner = {}, eng.state.decode
+
+        def decode(reqs, toks, lens, active):
+            logits = inner(reqs, toks, lens, active)
+            for r in reqs:
+                if len(r.output) == 1:
+                    got[r.rid] = logits[r.slot, 0].clone()
+            return logits
+        eng.state.decode = decode
+        return got
+
+    def drained(eng, what):
+        if eng.state.leaked() or eng.pool.used_blocks != eng.pool.cached_blocks:
+            fail(f"engine {what}: the pool did not drain "
+                 f"({eng.pool.active_blocks} blocks still referenced)")
+
+    a_prompts = serve.mixed_prompts(RUN_A["requests"], RUN_A["min_prompt"],
+                                    RUN_A["max_prompt"], cfg.vocab_size, SEED + 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, pqcfg, device=dev, **ENGINE)
+    a_first = first_decode_logits(eng)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    a_rids, a_out = serve.run_workload(eng, a_prompts, RUN_A["gen"])
+    torch.cuda.synchronize()
+    a_wall = time.perf_counter() - t0
+    a_launches = dict(ops.launches)
+    a_peak = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats()
+    print(f"[engine A] {cfg.name} full size, packed: {RUN_A['requests']} requests, "
+          f"prompts {RUN_A['min_prompt']}..{RUN_A['max_prompt']}, gen {RUN_A['gen']}, "
+          f"{ENGINE['n_slots']} slots, pool {ENGINE['n_blocks']}x{ENGINE['block_size']}, "
+          f"exact prefill, reserve: wall {a_wall:.2f}s, steps {st['steps']}, "
+          f"decode steps {st['decode_steps']}", flush=True)
+    print(f"[engine A] ttft_p50_ms={st['ttft_p50_s']*1e3:.1f} "
+          f"ttft_p95_ms={st['ttft_p95_s']*1e3:.1f} "
+          f"decode_step_p50_ms={st['decode_step_p50_s']*1e3:.2f} "
+          f"decode_step_p95_ms={st['decode_step_p95_s']*1e3:.2f} "
+          f"decode_tok_s={st['decode_tok_s']:.1f} e2e_tok_s={st['e2e_tok_s']:.1f} "
+          f"prefill_s={st['prefill_s']:.2f} decode_s={st['decode_s']:.2f} "
+          f"peak_pool_util={st['peak_utilization']:.2f} peak_mem_gb={a_peak:.2f}",
+          flush=True)
+    print(f"[engine A] launches {a_launches}", flush=True)
+    if len(a_out) != RUN_A["requests"] or any(
+            len(a_out[r]) != RUN_A["gen"] for r in a_rids):
+        fail(f"engine A: {len(a_out)} of {RUN_A['requests']} requests finished")
+    drained(eng, "A")
+    if a_launches["paged_attention"] != cfg.n_layers * st["decode_steps"]:
+        fail(f"engine A launched paged_attention {a_launches['paged_attention']} "
+             f"times, expected {cfg.n_layers} x {st['decode_steps']} decode steps")
+    for k in ("nvfp4_qdq", "nvfp4_matmul"):
+        if a_launches[k] == 0:
+            fail(f"engine A never launched {k}")
+    first_ok = 0
+    for rid, p in zip(a_rids, a_prompts):
+        ref_tok, _ = serve.serve_batch(cfg, params, torch.from_numpy(
+            p[None].astype("int64")).to(dev), 1)
+        first_ok += int(ref_tok[0, 0]) == int(a_out[rid][0])
+    print(f"[engine A] first tokens equal to single-request serve_batch: "
+          f"{first_ok}/{len(a_rids)}", flush=True)
+    if first_ok != len(a_rids):
+        fail("engine A: a first token differs from single-request serve_batch")
+
+    # one traced decode step: 8 running requests, nothing left to prefill
+    for p in a_prompts[:ENGINE["n_slots"]]:
+        eng.submit(p, 8)
+    while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.drain()
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_kernel.values())
+    print(f"[trace] engine decode step, 8 slots (traced): wall_ms={wall_ms:.3f} "
+          f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.3f}",
+          flush=True)
+    for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
+
+    # the same traffic with the two-step attention
+    eng_off = Engine(cfg, params, pqcfg, device=dev, fused_kernels="off", **ENGINE)
+    off_first = first_decode_logits(eng_off)
+    off_rids, off_out = serve.run_workload(eng_off, a_prompts, RUN_A["gen"])
+    drained(eng_off, "A, unfused")
+    fused_rel = [float((a_first[a].float() - off_first[b].float()).norm()
+                       / off_first[b].float().norm())
+                 for a, b in zip(a_rids, off_rids)]
+    agree = sum(np.array_equal(a_out[a], off_out[b]) for a, b in zip(a_rids, off_rids))
+    pos_agree = float(np.mean([np.mean(a_out[a] == off_out[b])
+                               for a, b in zip(a_rids, off_rids)]))
+    print(f"[engine A] fused vs unfused first-decode logits rel_l2: max "
+          f"{max(fused_rel):.4g} median {float(np.median(fused_rel)):.4g} "
+          f"(tolerance {FUSED_TOL}); greedy streams equal {agree}/{len(a_rids)}, "
+          f"{pos_agree:.3f} of positions (printed, not gated)", flush=True)
+    if max(fused_rel) > FUSED_TOL:
+        fail(f"engine A: fused and unfused first-decode logits differ by "
+             f"{max(fused_rel)}")
+    engine_a = dict(st=st, wall=a_wall, peak=a_peak)
+    del eng, eng_off, a_first, off_first
+
+    # run B: shared 256-token prefix, paged prefill, prefix cache
+    bgen = torch.Generator().manual_seed(SEED + 3)
+    head = torch.randint(4, cfg.vocab_size, (RUN_B["prefix"],), generator=bgen)
+    b_prompts = [torch.cat([head, torch.randint(4, cfg.vocab_size, (int(n),),
+                                                generator=bgen)]).numpy().astype("int32")
+                 for n in np.linspace(RUN_B["min_suffix"], RUN_B["max_suffix"],
+                                      RUN_B["requests"]).round()]
+
+    def run_b(prefix_cache):
+        e = Engine(cfg, params, pqcfg, device=dev, prefill_mode="paged",
+                   kv_alloc="ondemand", prefix_cache=prefix_cache, **ENGINE)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rids, out = serve.run_workload(e, b_prompts, RUN_B["gen"])
+        torch.cuda.synchronize()
+        return e, rids, out, time.perf_counter() - t0, dict(ops.launches)
+
+    eng_b, b_rids, b_out, b_wall, b_launches = run_b(True)
+    stb = eng_b.stats()
+    cst = stb["prefix_cache"]
+    chunks = sum(-(-(r.prompt_len - r.n_cache_hit) // ENGINE["block_size"])
+                 for r in eng_b.sched.finished.values())
+    print(f"[engine B] shared {RUN_B['prefix']}-token prefix, suffixes "
+          f"{RUN_B['min_suffix']}..{RUN_B['max_suffix']}, gen {RUN_B['gen']}, paged "
+          f"prefill, on-demand, prefix cache: wall {b_wall:.2f}s, "
+          f"ttft_p50_ms={stb['ttft_p50_s']*1e3:.1f} ttft_p95_ms={stb['ttft_p95_s']*1e3:.1f} "
+          f"decode_step_p50_ms={stb['decode_step_p50_s']*1e3:.2f} "
+          f"decode_tok_s={stb['decode_tok_s']:.1f} e2e_tok_s={stb['e2e_tok_s']:.1f} "
+          f"hits={cst['hits']} misses={cst['misses']} evictions={cst['evictions']} "
+          f"preempts={stb['preempts']} prefill chunks={chunks} "
+          f"decode steps={stb['decode_steps']}", flush=True)
+    print(f"[engine B] launches {b_launches}", flush=True)
+    drained(eng_b, "B")
+    if b_launches["paged_attention"] != cfg.n_layers * (chunks + stb["decode_steps"]):
+        fail(f"engine B launched paged_attention {b_launches['paged_attention']} "
+             f"times, expected {cfg.n_layers} x ({chunks} chunks + "
+             f"{stb['decode_steps']} decode steps)")
+    eng_c, c_rids, c_out, c_wall, _ = run_b(False)
+    drained(eng_c, "B, cache off")
+    same = all(np.array_equal(b_out[a], c_out[b]) for a, b in zip(b_rids, c_rids))
+    print(f"[engine B] cache on vs off (wall {c_wall:.2f}s): greedy tokens "
+          f"{'bitwise EQUAL' if same else 'DIFFER'}; preempts "
+          f"{stb['preempts']} / {eng_c.preempts}", flush=True)
+    if not same:
+        fail("engine B: tokens with the prefix cache differ from without it")
+    if cst["hits"] == 0 or stb["preempts"] or eng_c.preempts:
+        fail("engine B: no cache hit, or a preemption the sizing rules out")
+    engine_b = dict(st=stb, wall=b_wall)
+    del eng_b, eng_c, params
     torch.cuda.empty_cache()
 
     # ---- 6. the training path: full-size olmo-1b QAD ----------------------
@@ -630,7 +911,9 @@ def main() -> int:
             r["ms"] = timed(kern, 20)
             r["plain_ms"] = timed(plain, 5)
             r["library_ms"] = timed(lib, 20) if lib is not None else None
-            if kname.startswith("kl"):
+            if "shape" in r:
+                shape = r["shape"]
+            elif kname.startswith("kl"):
                 shape = f"T={r['m']:4d} V={r['k']:6d}"
             else:
                 shape = (f"M={r['m']:4d} K={r['k']:5d}"
@@ -647,7 +930,8 @@ def main() -> int:
         by = ("bytes" if name == "nvfp4_qdq"
               else ("bytes" if all(r["bound_by"] == "bytes" for r in dec)
                     else "operations"))
-        by_path = {"serve": serve_launches[name], "train": train_launches[name]}
+        by_path = {"serve": serve_launches[name], "train": train_launches[name],
+                   "engine_a": a_launches[name], "engine_b": b_launches[name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "max_abs_err": err[name],
@@ -674,6 +958,23 @@ def main() -> int:
                                   ("m", "k", "ms", "plain_ms", "bound_ms")},
                 "launches_by_path": {"serve": 0, "train": train_launches[name]}}
 
+    def k7_entry():
+        at = {r["site"]: r for r in rows["paged_attention"]}
+        dec = at["decode"]
+        by_path = {"engine_a": a_launches["paged_attention"],
+                   "engine_b": b_launches["paged_attention"]}
+        return {"name": "paged_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+                "replaces": "src/repro/kernels/paged_attention.py:93",
+                "launches": sum(by_path.values()),
+                "max_abs_err": err["paged_attention"], "ms": dec["ms"],
+                "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+                "bound_by": dec["bound_by"], "library_ms": None,
+                "per": f"one decode launch: {dec['shape']}",
+                "paged_prefill": {k: at["paged_prefill"][k] for k in
+                                  ("shape", "ms", "plain_ms", "bound_ms")},
+                "launches_by_path": by_path}
+
     kernels = [serve_entry("nvfp4_qdq", "src/repro_torch/kernels/csrc/nvfp4_qdq.cu",
                            "src/repro/kernels/nvfp4_qdq.py:44"),
                serve_entry("nvfp4_matmul",
@@ -682,7 +983,8 @@ def main() -> int:
                kl_entry("kl_loss", "src/repro_torch/kernels/csrc/kl_loss.cu",
                         "src/repro/kernels/kl_loss.py:87"),
                kl_entry("kl_loss_bwd", "src/repro_torch/kernels/csrc/kl_loss.cu",
-                        "src/repro/kernels/kl_loss.py:123")]
+                        "src/repro/kernels/kl_loss.py:123"),
+               k7_entry()]
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

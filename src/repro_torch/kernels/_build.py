@@ -9,7 +9,7 @@ sources and flags, so an edited source is rebuilt.
 
 No ``--use_fast_math``: the qdq kernel must be bitwise equal to its plain
 version, which needs IEEE division and round-to-nearest-even, and the KL
-kernels use the accurate ``expf`` and ``logf``.
+and paged-attention kernels use the accurate ``expf`` and ``logf``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 Python wrapper calls ``check`` on it.  Nothing here runs at import time.
@@ -32,6 +32,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: every pointer and the stream are void*, sizes are int
 SIGNATURES = {
     # (x, x_is_f32, amax, amax_stride, out, rows, k, stream)
@@ -43,6 +44,10 @@ SIGNATURES = {
     "kl_fwd": [_P, _P, _I, _P, _P, _P, _I, _I, _P],
     # (t, s, is_f32, z_t, z_s, g_tok, ds, rows, v, stream)
     "kl_bwd": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
+    # (q, k, v, k_scale, v_scale, fp8, block_tables, pos, out,
+    #  b, s, h, hkv, hd, bs, mb, window, scale, stream)
+    "paged_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 

@@ -22,6 +22,7 @@ from ..core.nvfp4 import PackedNVFP4, pack, unpack_layout
 from . import kl_loss as _kl
 from . import nvfp4_matmul as _matmul
 from . import nvfp4_qdq as _qdq
+from . import paged_attention as _paged
 from . import ref
 
 class _Counts(collections.Counter):
@@ -40,7 +41,7 @@ class _Counts(collections.Counter):
 
 # kernel launches per op since the caller last reset them
 launches = _Counts({"nvfp4_qdq": 0, "nvfp4_matmul": 0, "kl_loss": 0,
-                    "kl_loss_bwd": 0})
+                    "kl_loss_bwd": 0, "paged_attention": 0})
 
 
 def reset_launches() -> None:
@@ -118,6 +119,22 @@ def nvfp4_matmul(x: torch.Tensor, packed: PackedNVFP4,
     return out
 
 
+def paged_attention(q: torch.Tensor, pool_sl: dict, block_tables: torch.Tensor,
+                    pos: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """Page-table gather + FP8-KV dequant + attend over one pool layer:
+    q [B, S, H, hd] against ``pool_sl`` {"k", "v", optional "k_scale",
+    "v_scale"} through block_tables [B, MB], pos [B] or [B, S] valid-key
+    counts.  The ``models.attention.paged_attend`` two-step is its oracle."""
+    if q.device.type == "cpu":
+        return ref.paged_attention_ref(q, pool_sl, block_tables, pos,
+                                       window=window)
+    out = _paged.launch(q, pool_sl["k"], pool_sl["v"], block_tables, pos,
+                        pool_sl.get("k_scale"), pool_sl.get("v_scale"),
+                        window=window)
+    launches["paged_attention"] += 1
+    return out
+
+
 def pack_weight(w: torch.Tensor) -> PackedNVFP4:
     """Pack a [K, N] weight into the kernel's W^T [N, K] NVFP4 layout."""
     return pack(w.T)
@@ -129,5 +146,6 @@ def dequant_weight(packed: PackedNVFP4, contract_axis: int,
     return unpack_layout(packed, contract_axis, dtype)
 
 
-__all__ = ["nvfp4_qdq", "nvfp4_matmul", "kl_loss", "pack_weight",
+__all__ = ["nvfp4_qdq", "nvfp4_matmul", "kl_loss", "paged_attention",
+           "pack_weight",
            "dequant_weight", "launches", "reset_launches", "ref"]

@@ -1,0 +1,192 @@
+"""Paged attention for the serving engine: CUDA kernel for Hopper and its
+plain version.
+
+Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py::
+paged_attention`` (body ``_attend_kernel``): page-table gather, FP8-KV
+dequantization and grouped-query attention for one-token decode
+(q_len 1) and multi-query verify / paged-prefill chunks (q_len k + 1), in
+one launch, without a dense [B, MB * bs, Hkv, hd] copy of the pages.
+
+The kernel (``csrc/paged_attention.cu``) gives one thread block to each
+(request, KV head, up to 16 query rows) and walks the valid keys twice: a
+first pass for each query row's max and sum of exp, a second for
+``p = bf16(exp(s - m) / l)`` and ``p V``.  It keeps every rounding point of the plain version and
+differs from it only in the order of f32 sums, so it is held to a
+tolerance, not bitwise.  It reads only the pages that hold valid keys.
+
+Bound on the H100: bytes, the valid K and V pages (2 KB per token and
+layer for acereason-7b).  At decode only B * Hkv blocks run (no split over
+the keys yet).
+
+The plain version is the reference's gather-then-attend arithmetic: every
+one of the MB pages is gathered, FP8 pages are dequantized as
+``bf16(f32(e4m3) * scale)``, and the softmax is max, exp, sum and division
+in f32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+
+
+def _scale(hd: int) -> float:
+    """1 / sqrt(hd) in f32, as the reference computes it."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def _pos2(pos: torch.Tensor, b: int, s: int) -> torch.Tensor:
+    """Per-query valid-key counts [B, S] from [B] or [B, S]."""
+    pos = pos.to(torch.int32)
+    return torch.broadcast_to(pos[:, None] if pos.ndim == 1 else pos, (b, s))
+
+
+def dequant(vals: torch.Tensor, scale: torch.Tensor | None,
+            dtype=torch.bfloat16) -> torch.Tensor:
+    """Pool pages in ``dtype``: bf16 pages as they are, e4m3 pages as
+    ``(f32(e4m3) * scale).to(dtype)`` with one f32 scale per row."""
+    if scale is None:
+        return vals.to(dtype)
+    return (vals.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def gather(pool_sl: dict, block_tables: torch.Tensor, dtype=torch.bfloat16):
+    """Dense per-request views (k, v) [B, MB * bs, Hkv, hd] of the pages
+    the tables name, dequantized to ``dtype``."""
+    b, mb = block_tables.shape
+    idx = block_tables.long()
+
+    def dense(name):
+        a = pool_sl[name]
+        if a.dtype == torch.float8_e4m3fn:         # gather the bytes
+            g = a.view(torch.uint8)[idx].view(a.dtype)
+        else:
+            g = a[idx]                              # [B, MB, bs, ...]
+        return g.reshape(b, mb * g.shape[2], *g.shape[3:])
+
+    fp8 = pool_sl.get("k_scale") is not None
+    return (dequant(dense("k"), dense("k_scale") if fp8 else None, dtype),
+            dequant(dense("v"), dense("v_scale") if fp8 else None, dtype))
+
+
+def plain(q: torch.Tensor, pool_sl: dict, block_tables: torch.Tensor,
+          pos: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """The plain PyTorch version: gather all MB pages, then attend.
+
+    q [B, S, H, hd]; pool_sl {"k", "v" [n_blocks, bs, Hkv, hd], optional
+    "k_scale", "v_scale" [n_blocks, bs, Hkv]}; block_tables [B, MB];
+    pos [B] or [B, S] valid-key counts.  Returns [B, S, H, hd] in q's dtype.
+    """
+    k, v = gather(pool_sl, block_tables, q.dtype)
+    b, s, h, hd = q.shape
+    n, hkv = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    qg = q.reshape(b, s, hkv, h // hkv, hd).to(f32)  # head = kvh * n_rep + rep
+    sc = torch.einsum("bsgrd,bngd->bgrsn", qg, k.to(f32)) * _scale(hd)
+    key = torch.arange(n, device=q.device)
+    qpos = _pos2(pos, b, s)[:, None, None, :, None]  # [B, 1, 1, S, 1]
+    valid = key < qpos
+    if window:
+        valid = valid & (key >= qpos - window)
+    sc = torch.where(valid, sc, NEG_INF)
+    m = torch.amax(sc, -1, keepdim=True)
+    e = torch.exp(sc - m)
+    p = e / torch.sum(e, -1, keepdim=True)
+    out = torch.einsum("bgrsn,bngd->bsgrd", p.to(q.dtype).to(f32), v.to(f32))
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _check(q, k, v, k_scale, v_scale, block_tables):
+    if not all(t.is_cuda for t in (q, k, v, block_tables)):
+        raise ValueError(f"paged_attention kernel needs CUDA tensors, got q "
+                         f"on {q.device}, pages on {k.device}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"paged_attention takes bf16 queries, got {q.dtype}")
+    fp8 = k_scale is not None
+    page_dtype = torch.float8_e4m3fn if fp8 else torch.bfloat16
+    if k.dtype != page_dtype or v.dtype != page_dtype:
+        raise TypeError(f"paged_attention takes {page_dtype} pages "
+                        f"{'with' if fp8 else 'without'} scales, got "
+                        f"{k.dtype} and {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"q [B,S,H,hd] and pages [n,bs,Hkv,hd], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, h, hd = q.shape
+    if k.shape[3] != hd or h % k.shape[2] or hd % 8:
+        raise ValueError(f"head dims: q {tuple(q.shape)} against pages "
+                         f"{tuple(k.shape)} (hd % 8 == 0, H % Hkv == 0)")
+    if block_tables.ndim != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} for B={b}")
+    for t in (k, v):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("pool pages must be contiguous and 16-byte aligned")
+    if fp8 and (v_scale is None or k_scale.shape != k.shape[:3]
+                or v_scale.shape != k.shape[:3]):
+        raise ValueError("FP8 pages take k_scale and v_scale [n, bs, Hkv]")
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           block_tables: torch.Tensor, pos: torch.Tensor,
+           k_scale: torch.Tensor | None = None,
+           v_scale: torch.Tensor | None = None, *,
+           window: int = 0) -> torch.Tensor:
+    """Run the CUDA kernel: [B, S, H, hd] bf16 out.
+
+    Every table entry that addresses a valid key (key < max pos) must be a
+    block id of the pool; the kernel reads no other entry.
+    """
+    _check(q, k, v, k_scale, v_scale, block_tables)
+    b, s, h, hd = q.shape
+    bs, hkv = k.shape[1], k.shape[2]
+    q = q.contiguous()
+    bt = block_tables.to(torch.int32).contiguous()
+    pos2 = _pos2(pos, b, s).contiguous()
+    fp8 = k_scale is not None
+    if fp8:
+        k_scale = k_scale.to(torch.float32).contiguous()
+        v_scale = v_scale.to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _build.library().paged_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if fp8 else None,
+            v_scale.data_ptr() if fp8 else None, int(fp8), bt.data_ptr(),
+            pos2.data_ptr(), out.data_ptr(), b, s, h, hkv, hd, bs,
+            bt.shape[1], int(window), _scale(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "paged_attention")
+    return out
+
+
+def key_range(pos: torch.Tensor, s: int, mb: int, bs: int,
+              window: int = 0) -> torch.Tensor:
+    """Keys each request's block reads: from the window's start to its
+    largest pos, capped at the table (the kernel's loop bounds), [B]."""
+    pos2 = _pos2(pos, pos.shape[0], s).to(torch.int64)
+    hi = torch.clamp(pos2.amax(1), max=mb * bs)
+    lo = torch.clamp(pos2.amin(1) - window, min=0) if window else torch.zeros_like(hi)
+    return torch.clamp(hi - lo, min=0)
+
+
+def bytes_moved(q: torch.Tensor, k: torch.Tensor, block_tables: torch.Tensor,
+                pos: torch.Tensor, fp8: bool, window: int = 0) -> int:
+    """Bytes the function must move on these inputs: q read and out
+    written once, and the K and V rows (with their scales for FP8) of the
+    keys the queries can see, once per KV head."""
+    b, s, h, hd = q.shape
+    bs, hkv = k.shape[1], k.shape[2]
+    keys = int(key_range(pos, s, block_tables.shape[1], bs, window).sum())
+    per_key = 2 * hkv * (hd * k.element_size() + (4 if fp8 else 0))
+    return 2 * q.numel() * q.element_size() + keys * per_key
+
+
+def flops(q: torch.Tensor, k: torch.Tensor, block_tables: torch.Tensor,
+          pos: torch.Tensor, window: int = 0) -> int:
+    """Multiply-adds of q K^T and p V over the keys the queries can see,
+    two operations each."""
+    b, s, h, hd = q.shape
+    keys = int(key_range(pos, s, block_tables.shape[1], k.shape[1], window).sum())
+    return 4 * keys * (h // k.shape[2]) * s * k.shape[2] * hd

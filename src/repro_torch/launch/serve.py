@@ -13,19 +13,41 @@ In packed mode the CLI also replays the batch over the QDQ weights made
 from the same seed and reports whether the greedy tokens agree
 (``--no-parity`` skips it).  ``--device cpu`` runs the plain versions of
 the kernels, at smoke size.
+
+``--engine`` serves through the continuous-batching engine
+(``repro_torch.serve``) instead of the static [B, P] batch: requests of
+mixed prompt lengths (``--min-prompt``..``--max-prompt``) arrive
+staggered, half up front and one after each engine step, and are
+scheduled into ``--slots`` decode slots over a paged KV pool
+(``--block-size``, ``--n-blocks``).  Each request's greedy output is
+checked against a single-request ``serve_batch`` (exact prefill): token for
+token on the CPU, the first token on the card (see ``run_engine``).  With
+``--prefix-cache on`` the whole workload again with the cache off must give
+the same tokens bitwise.  The pool must drain with
+nothing leaked.  The CLI exits 1 if any check fails:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch qwen1.5-0.5b --weight-format packed --engine --requests 8 --gen 6
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
 
+import numpy as np
 import torch
 
 from .. import configs
 from ..core import ptq
 from ..models import common, get_model
 from . import specs
+
+
+def params_device(params) -> torch.device:
+    """The device a parameter tree lives on (its embedding's)."""
+    return params["embed"].device
 
 
 def resolve_device(device) -> torch.device:
@@ -101,6 +123,157 @@ def weight_report(params) -> dict:
     return st
 
 
+def mixed_prompts(n: int, min_len: int, max_len: int, vocab: int,
+                  seed: int = 1) -> list[np.ndarray]:
+    """``n`` prompts with lengths spread evenly over min_len..max_len,
+    tokens drawn from ``seed`` (int32 numpy, host side)."""
+    gen = torch.Generator().manual_seed(seed)
+    lens = np.linspace(min_len, max_len, n).round().astype(int)
+    return [torch.randint(4, vocab, (int(l),), generator=gen).numpy()
+            .astype(np.int32) for l in lens]
+
+
+def build_engine(cfg, params, qcfg, args):
+    """(Engine, n_blocks) from CLI-style ``args``: the pool holds
+    ``--n-blocks`` blocks, or ``--slots`` worst-case requests."""
+    from ..serve import Engine
+
+    bs = args.block_size
+    mb = max(1, math.ceil((args.max_prompt + args.gen - 1) / bs))
+    n_blocks = args.n_blocks or args.slots * mb
+    prefix_cache = args.prefix_cache == "on"
+    kv_alloc = args.kv_alloc or ("ondemand" if prefix_cache else "reserve")
+    if (prefix_cache or kv_alloc == "ondemand") and args.prefill_mode != "paged":
+        # sharing and preempt-resume are bitwise only under block-granular
+        # paged prefill; promote, and record the effective mode
+        args.prefill_mode = "paged"
+    args.kv_alloc = kv_alloc
+    eng = Engine(cfg, params, qcfg, n_slots=args.slots, block_size=bs,
+                 n_blocks=n_blocks, max_blocks_per_slot=mb,
+                 prefill_mode=args.prefill_mode,
+                 fused_kernels=args.fused_kernels, prefix_cache=prefix_cache,
+                 kv_alloc=kv_alloc, headroom=args.headroom,
+                 device=params_device(params))
+    return eng, n_blocks
+
+
+def run_workload(eng, prompts, gen: int):
+    """Submit the staggered workload and drain it: half the requests up
+    front, the rest one engine step apart (deterministic, so two engines
+    fed the same prompts see the same arrivals).  Returns (rids, outputs)."""
+    half = len(prompts) // 2
+    rids = [eng.submit(p, gen) for p in prompts[:half]]
+    for p in prompts[half:]:
+        eng.step()
+        rids.append(eng.submit(p, gen))
+    return rids, eng.drain(max_steps=10_000)
+
+
+def _ms(v) -> str:
+    """Seconds as ms; percentiles are None (= "n/a") with no data."""
+    return f"{v * 1e3:.1f}ms" if v is not None else "n/a"
+
+
+def run_engine(cfg, params, qcfg, args) -> dict:
+    """Serve the mixed staggered workload through the engine and check it:
+    every request finishes, the pool drains with nothing leaked, each
+    request's greedy tokens equal a single-request ``serve_batch`` (exact
+    prefill, unless ``--no-parity``), and with the prefix cache on the
+    same workload with the cache off gives bitwise the same tokens."""
+    eng, n_blocks = build_engine(cfg, params, qcfg, args)
+    prompts = mixed_prompts(args.requests, args.min_prompt, args.max_prompt,
+                            cfg.vocab_size, args.seed + 1)
+    rids, outputs = run_workload(eng, prompts, args.gen)
+    st = eng.stats()
+
+    ok = len(outputs) == args.requests
+    if not ok:
+        print(f"[engine] FAIL: {len(outputs)}/{args.requests} completed")
+    leaked = eng.state.leaked()
+    if leaked:
+        ok = False
+        print(f"[engine] FAIL: {eng.pool.active_blocks} pool blocks leaked")
+
+    # On the CPU the engine's paged attention and serve_batch's dense cache
+    # attention are bitwise equal, so every token must agree.  On the card
+    # the paged_attention kernel sums in another order than the dense path
+    # (a stated tolerance), and NVFP4 activation rounding amplifies that
+    # over a random-weight stack: the first token (the same prefill) must
+    # agree, the rest is reported.
+    check = (args.parity if args.parity is not None
+             else args.prefill_mode == "exact")
+    parity = None
+    if check:
+        dev = params_device(params)
+        strict = dev.type == "cpu"
+        agree = []
+        for rid, prompt in zip(rids, prompts):
+            ref, _ = serve_batch(cfg, params, torch.from_numpy(
+                prompt[None].astype(np.int64)).to(dev), args.gen, qcfg=qcfg)
+            ref = ref[0].cpu().numpy()
+            agree.append(float(np.mean(ref == outputs[rid])))
+            if ref[0] != outputs[rid][0] or (strict and agree[-1] < 1.0):
+                print(f"[engine] FAIL: request {rid} diverges from "
+                      f"serve_batch: {outputs[rid][:8].tolist()} vs "
+                      f"{ref[:8].tolist()}")
+                parity = False
+        parity = parity is None
+        print(f"[engine] tokens equal to single-request serve_batch: "
+              f"{float(np.mean(agree)):.3f} of positions "
+              f"({'all tokens' if strict else 'first tokens'} gated)")
+        ok = ok and parity
+
+    cache_parity = None
+    if args.prefix_cache == "on" and args.parity is not False:
+        base_args = argparse.Namespace(**vars(args))
+        base_args.prefix_cache = "off"
+        base_eng, _ = build_engine(cfg, params, qcfg, base_args)
+        base_rids, base_out = run_workload(base_eng, prompts, args.gen)
+        cache_parity = len(base_out) == len(outputs)
+        empty = np.empty(0, np.int32)
+        for rid, brid in zip(rids, base_rids):
+            if not np.array_equal(outputs.get(rid, empty),
+                                  base_out.get(brid, empty)):
+                cache_parity = False
+                print(f"[engine] FAIL: request {rid} cache-on diverges from "
+                      f"cache-off: {outputs.get(rid, empty)[:8].tolist()} vs "
+                      f"{base_out.get(brid, empty)[:8].tolist()}")
+        if base_eng.state.leaked():
+            cache_parity = False
+            print("[engine] FAIL: cache-off baseline leaked pool blocks")
+        ok = ok and cache_parity
+
+    print(f"[engine] arch={cfg.name} device={eng.device} "
+          f"requests={args.requests} "
+          f"prompts={args.min_prompt}..{args.max_prompt} gen={args.gen} "
+          f"slots={args.slots} pool={n_blocks}x{args.block_size} "
+          f"prefill={args.prefill_mode} kv-alloc={args.kv_alloc} "
+          f"fused-kernels={'on' if st['fused_kernels'] else 'off'}")
+    print(f"[engine] decode={st['decode_tok_s']:.1f} tok/s "
+          f"e2e={st['e2e_tok_s']:.1f} tok/s "
+          f"peak-pool-util={st['peak_utilization']:.2f} "
+          f"steps={st['steps']} decode-steps={st['decode_steps']} "
+          f"ttft_p50={_ms(st['ttft_p50_s'])} "
+          f"ttft_p95={_ms(st['ttft_p95_s'])} "
+          f"tok_lat_p50={_ms(st['decode_lat_p50_s'])} "
+          f"tok_lat_p95={_ms(st['decode_lat_p95_s'])} "
+          f"parity={'AGREE' if parity else ('skipped' if parity is None else 'DISAGREE')} "
+          f"pool-drained={not leaked}")
+    cache_st = None
+    if args.prefix_cache == "on":
+        cache_st = st.get("prefix_cache") or {}
+        cp = ("AGREE" if cache_parity
+              else ("skipped" if cache_parity is None else "DISAGREE"))
+        print(f"[engine] prefix-cache: hits={cache_st.get('hits', 0)} "
+              f"misses={cache_st.get('misses', 0)} "
+              f"evictions={cache_st.get('evictions', 0)} "
+              f"preempts={st['preempts']} cache-off-parity={cp}")
+    return {"ok": ok, "outputs": outputs, "rids": rids, "prompts": prompts,
+            "stats": st, "tokens_match_serve_batch": parity,
+            "tokens_match_cache_off": cache_parity, "n_blocks": n_blocks,
+            "pool_drained": not leaked, "prefix_cache": cache_st}
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b", choices=configs.ALL_ARCHS)
@@ -117,14 +290,53 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
     ap.add_argument("--device", default="cuda")
+    # --- continuous-batching engine ---
+    ap.add_argument("--engine", action="store_true",
+                    help="serve a mixed-length staggered workload through "
+                    "the continuous-batching engine")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--min-prompt", type=int, default=4)
+    ap.add_argument("--max-prompt", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--n-blocks", type=int, default=0,
+                    help="pool blocks (0 = slots * blocks-per-request)")
+    ap.add_argument("--prefill-mode", choices=("exact", "paged"),
+                    default="exact",
+                    help="exact = whole-prompt prefill (token parity with "
+                    "serve_batch); paged = block-granular prefill through "
+                    "the pool, whose blocks depend only on their token "
+                    "prefix (what prefix caching and preemption need)")
+    ap.add_argument("--prefix-cache", choices=("on", "off"), default="off",
+                    help="content-hashed prefix cache over the pool; forces "
+                    "--prefill-mode paged and (unless --kv-alloc says "
+                    "otherwise) on-demand allocation, and checks the "
+                    "tokens against a cache-off run")
+    ap.add_argument("--kv-alloc", choices=("reserve", "ondemand"),
+                    default=None,
+                    help="'reserve' books the worst-case blocks at "
+                    "admission; 'ondemand' books the prompt's and grows, "
+                    "evicting cache entries and then preempting the "
+                    "lowest-progress request (default: ondemand with the "
+                    "prefix cache, else reserve)")
+    ap.add_argument("--headroom", type=int, default=2,
+                    help="on-demand admission watermark in blocks")
+    ap.add_argument("--fused-kernels", choices=("on", "off", "auto"),
+                    default="auto",
+                    help="paged attention through the paged_attention "
+                    "kernel (on, or auto) or the gather-then-attend "
+                    "two-step (off)")
     return ap
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    if (args.prefix_cache == "on" or args.kv_alloc) and not args.engine:
+        raise SystemExit("--prefix-cache/--kv-alloc require --engine (they "
+                         "configure the paged serving pool)")
     device = resolve_device(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
-    params, _ = load_quantized(cfg, args.seed, args.weight_format, device)
+    params, qcfg = load_quantized(cfg, args.seed, args.weight_format, device)
     wr = weight_report(params)
     if wr["q_params"]:
         print(f"[serve] weights: total={wr['total_bytes']/2**20:.2f}MiB  "
@@ -134,6 +346,13 @@ def main(argv=None) -> dict:
     else:
         print(f"[serve] weights: total={wr['total_bytes']/2**20:.2f}MiB, "
               f"all dense (qdq stores quantized values as BF16, 2 B/param)")
+
+    if args.engine:
+        res = run_engine(cfg, params, qcfg, args)
+        res["weights"] = wr
+        if not res["ok"]:
+            raise SystemExit(1)
+        return res
 
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     prompts = torch.randint(4, cfg.vocab_size, (args.batch, args.prompt_len),

@@ -1,5 +1,5 @@
-"""Attention: GQA, blockwise softmax, dense KV cache (port of
-``repro.models.attention``, lines 27-219).
+"""Attention: GQA, blockwise softmax, dense KV cache and the paged KV pool
+(port of ``repro.models.attention``, lines 27-219 and 266-380).
 
 The reference computes attention in plain jnp, outside any Pallas kernel,
 so the port computes it in plain torch: the same chunked online softmax for
@@ -9,13 +9,18 @@ operands are cast to f32 (a bf16 x bf16 product is exact in f32).
 
 The cache is a dict of tensors ``{"k", "v"}`` [L, B, S_max, Hkv, hd] and
 is updated IN PLACE by ``cache_update_layer`` (the reference returns a new
-array).  FP8 caches are part of the MoE/FP8 slice of the port.
+array).  FP8 caches are part of the MoE/FP8 slice of the port.  The paged
+pool is updated in place too; its FP8 pages can be read (the K7 kernel and
+its plain version dequantize them) but not yet written.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..kernels import ops
+from ..kernels import paged_attention as kpa
 
 NEG_INF = -1e30
 
@@ -139,3 +144,105 @@ def decode_attend(q, layer_cache: dict, pos) -> torch.Tensor:
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).to(torch.float32),
                        v.to(torch.float32))
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pool (continuous-batching engine; reference lines 266-380)
+#
+# One layer of the pool is {"k", "v": [n_blocks, bs, Hkv, hd]} (+ f32
+# "k_scale"/"v_scale" [n_blocks, bs, Hkv] for FP8 pages).  A request's block
+# table maps position p to (table[p // bs], p % bs); the slot of the
+# gathered view IS the absolute position, so masking is position
+# arithmetic.
+# ---------------------------------------------------------------------------
+
+
+def paged_write_plan(block_tables, positions, active, bs: int):
+    """Where the active entries of a [B] or [B, S] write land: (src, dst),
+    ``src`` indexing the flattened [B * S] new rows and ``dst`` the
+    flattened [n_blocks * bs] pool slots.  Inactive entries are dropped,
+    as the reference's out-of-bounds scatter drops them.  Computed once
+    per forward and shared by every layer (one host sync)."""
+    if positions.ndim == 1:
+        positions = positions[:, None]
+    active = torch.broadcast_to(active[:, None] if active.ndim == 1 else active,
+                                positions.shape)
+    mb = block_tables.shape[1]
+    page = torch.clamp(positions // bs, 0, mb - 1).long()
+    blk = torch.gather(block_tables.long(), 1, page)
+    src = torch.nonzero(active.reshape(-1)).reshape(-1)
+    dst = (blk * bs + positions % bs).reshape(-1)[src]
+    return src, dst
+
+
+def paged_scatter(pool_sl: dict, k_new, v_new, plan) -> dict:
+    """Write k_new/v_new [B, S, Hkv, hd] into a pool layer IN PLACE along a
+    ``paged_write_plan``; returns the same dict."""
+    if pool_sl.get("k_scale") is not None:
+        raise NotImplementedError("FP8 pool writes (_quant_kv) are part of "
+                                  "the MoE/FP8 slice of the port")
+    src, dst = plan
+    for name, new in (("k", k_new), ("v", v_new)):
+        page = pool_sl[name]
+        flat = page.view(-1, *page.shape[2:])          # [n_blocks * bs, Hkv, hd]
+        rows = new.reshape(-1, *new.shape[2:])[src]
+        flat.index_copy_(0, dst, rows.to(page.dtype))
+    return pool_sl
+
+
+def paged_update_layer(pool_sl: dict, k_new, v_new, block_tables, positions,
+                       active) -> dict:
+    """Scatter new KV for S >= 1 positions per batch row into a pool layer,
+    IN PLACE (the reference returns a new pool).
+
+    k_new/v_new [B, S, Hkv, hd]; positions [B] (S == 1) or [B, S] absolute
+    write positions; active [B] or [B, S]: inactive entries are dropped,
+    never touching live blocks.  FP8 pools raise (MoE/FP8 slice).
+    """
+    plan = paged_write_plan(block_tables, positions, active,
+                            pool_sl["k"].shape[1])
+    return paged_scatter(pool_sl, k_new, v_new, plan)
+
+
+def paged_gather_layer(pool_sl: dict, block_tables, dtype=torch.bfloat16):
+    """Dense per-request views [B, MB * bs, Hkv, hd] of the pool pages,
+    FP8 pages dequantized to ``dtype``.  Table entries of unallocated
+    logical blocks may be any in-range id: callers mask by position."""
+    return kpa.gather(pool_sl, block_tables, dtype)
+
+
+def paged_attend(q, pool_sl: dict, block_tables, pos, *, window: int = 0):
+    """Decode/verify attention against the paged pool, the gather-then-
+    attend two-step: q [B, S, H, hd].
+
+    ``pos``: per-query valid-key counts, [B] for every query of a row (the
+    one-token decode step) or [B, S] (verify and paged prefill pass
+    lens + i + 1 for query i: the causal mask within the chunk).  Masked
+    keys reach the softmax as exp(-1e30 - max) = 0, so a query's output
+    does not depend on how many blocks its table addresses.  ``window``
+    masks by absolute position.  The arithmetic is ``decode_attend``'s,
+    with a per-(row, query) mask.
+    """
+    k, v = paged_gather_layer(pool_sl, block_tables, q.dtype)
+    b, s_alloc, hkv, hd = k.shape
+    h = q.shape[2]
+    k, v = repeat_kv(k, h // hkv), repeat_kv(v, h // hkv)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * _scale(hd)
+    slot = torch.arange(s_alloc, device=q.device)
+    qpos = pos[:, None] if pos.ndim == 1 else pos      # [B, 1] or [B, S]
+    valid = slot[None, None, :] < qpos[:, :, None]      # [B, S|1, S_alloc]
+    if window:
+        valid = valid & (slot[None, None, :] >= qpos[:, :, None] - window)
+    s = torch.where(valid[:, None, :, :], s, NEG_INF)
+    p = torch.softmax(s, -1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def paged_attend_fused(q, pool_sl: dict, block_tables, pos, *, window: int = 0):
+    """``paged_attend`` through the ``paged_attention`` kernel (K7): gather,
+    FP8 dequant and attend in one launch, no dense copy of the pages.  On
+    CPU tensors it runs the kernel's plain version."""
+    return ops.paged_attention(q, pool_sl, block_tables, pos, window=window)

@@ -8,9 +8,11 @@ The same functional protocol and parameter tree as the reference:
     init_cache(cfg, batch, s_max, device)     -> cache
     prefill(cfg, params, batch, qcfg, s_max)  -> (last-token logits, cache)
     decode_step(cfg, params, cache, batch, qcfg) -> (logits, cache)
+    decode_step_paged / verify_step_paged  -> (logits, pool)
 
 ``decode_step`` and ``prefill`` write the KV cache IN PLACE; the cache's
-``pos`` is a Python int.  MoE (``n_experts``), M-RoPE, sliding windows and
+``pos`` is a Python int.  The paged forwards of the engine write the pool
+in place too.  MoE (``n_experts``), M-RoPE, sliding windows and
 FP8 KV (the ``moe_hybrid`` recipe) raise ``NotImplementedError``: they come
 with later slices of the port.
 """
@@ -247,3 +249,143 @@ def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
     logits = _lm_head(qcfg, cfg, params, x[:, -1:])
     cache["pos"] = s
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# paged-pool forwards (continuous-batching engine, ``repro_torch.serve``;
+# reference lines 338-533)
+# ---------------------------------------------------------------------------
+
+
+def paged_pool_specs(cfg, n_blocks: int, block_size: int):
+    """Specs of the block-granular KV pool shared by all requests:
+    [L, n_blocks, block_size, Hkv, hd] per K and V, plus f32 scales beside
+    FP8 pages (the ``moe_hybrid`` recipe, whose writes come with the
+    MoE/FP8 slice)."""
+    P = common.ParamSpec
+    fp8 = _kv_fp8(cfg)
+    kdt = torch.float8_e4m3fn if fp8 else torch.bfloat16
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    axes = ("layers", "blocks", "blockslot", "kv", "headdim")
+    c = {"k": P(shape, axes, dtype=kdt, init="zeros"),
+         "v": P(shape, axes, dtype=kdt, init="zeros")}
+    if fp8:
+        c["k_scale"] = P(shape[:-1], axes[:-1], dtype=torch.float32,
+                         init="zeros")
+        c["v_scale"] = P(shape[:-1], axes[:-1], dtype=torch.float32,
+                         init="zeros")
+    return c
+
+
+def init_paged_pool(cfg, n_blocks: int, block_size: int, device="cuda") -> dict:
+    """A zero pool on ``device``."""
+    return {name: torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+            for name, spec in paged_pool_specs(cfg, n_blocks, block_size).items()}
+
+
+def write_prompt_to_pool(pool: dict, cache: dict, block_ids) -> dict:
+    """Scatter a batch-1 ``prefill`` cache (logical length P) into pool
+    blocks ``block_ids`` [ceil(P / block_size)], IN PLACE; the tail of the
+    last block is zero-filled (masked by the request length at read)."""
+    bs = pool["k"].shape[2]
+    ids = torch.as_tensor(block_ids, dtype=torch.long,
+                          device=pool["k"].device)
+    for name in [k for k in pool if k in cache]:
+        c = cache[name]                                 # [L, 1, P, ...]
+        l, _, p_len = c.shape[:3]
+        pad = (-p_len) % bs
+        blocks = c[:, 0]
+        if pad:
+            blocks = torch.cat([blocks, blocks.new_zeros(
+                (l, pad, *blocks.shape[2:]))], 1)
+        blocks = blocks.reshape(l, (p_len + pad) // bs, bs, *c.shape[3:])
+        pool[name][:, ids] = blocks.to(pool[name].dtype)
+    return pool
+
+
+def _attention_paged(qcfg, cfg, p, h, pos, psl, block_tables, positions,
+                     plan, fused: bool = False):
+    """Paged attention for S >= 1 new positions per slot.
+
+    ``positions``: [B] (one-token decode) or [B, S] (multi-token verify)
+    absolute write positions, the same positions RoPE gets in ``pos``;
+    ``plan``: the ``attention.paged_write_plan`` of the active entries.
+    Query i attends positions < its own position + 1.  ``fused`` routes
+    the attend through the ``paged_attention`` kernel (K7); the two-step
+    stays as its oracle.
+    """
+    b, s, _ = h.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    qkv = layers.qdense(qcfg, "attn", h, p["wqkv"], p.get("bqkv"),
+                        parallelism="column")
+    q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
+    q = layers.apply_rope(attn.split_heads(q, nh, hd), pos, cfg.rope_theta)
+    k = layers.apply_rope(attn.split_heads(k, nkv, hd), pos, cfg.rope_theta)
+    v = attn.split_heads(v, nkv, hd)
+    attn.paged_scatter(psl, k, v, plan)
+    attend = attn.paged_attend_fused if fused else attn.paged_attend
+    out = attend(q, psl, block_tables, positions + 1, window=cfg.window)
+    return layers.qdense(qcfg, "attn", out.reshape(b, s, nh * hd), p["wo"],
+                         parallelism="row")
+
+
+def _paged_forward(cfg, params, pool, block_tables, positions, tok_active,
+                   batch, qcfg, fused):
+    """The layer stack over the pool for tokens at ``positions`` ([B] or
+    [B, S]); the pool is written in place.  Returns logits [B, S, V]."""
+    _supported(cfg)
+    x = params["embed"][batch["tokens"]]
+    pos = positions[:, None] if positions.ndim == 1 else positions
+    plan = attn.paged_write_plan(block_tables, positions, tok_active,
+                                 pool["k"].shape[2])
+
+    def body(qc):
+        def fn(carry, inp):
+            p, psl = inp
+            h = run_norm(cfg, p["ln1"], carry)
+            y = carry + _attention_paged(qc, cfg, p, h, pos, psl, block_tables,
+                                         positions, plan, fused=fused)
+            h = run_norm(cfg, p["ln2"], y)
+            return y + _ffn(qc, cfg, p, h), None
+        return fn
+
+    x, _ = common.scan_layers(body, x, params["layers"], pool, qcfg,
+                              qcfg.skip_first_layers, qcfg.skip_last_layers)
+    return _lm_head(qcfg, cfg, params, x)
+
+
+def decode_step_paged(cfg, params, pool, block_tables, lens, active, batch,
+                      qcfg: QuantConfig, fused: bool = False):
+    """One-token decode for a slot batch against the paged pool.
+
+    batch["tokens"] [n_slots, 1]; block_tables [n_slots, MB] pool block
+    ids; lens [n_slots] cached-token counts; active [n_slots] bool.
+    Inactive slots compute logits the engine ignores, and their pool
+    writes are dropped.  The pool is updated IN PLACE (the reference
+    donates it).  Returns (logits [n_slots, 1, V], pool).
+    """
+    logits = _paged_forward(cfg, params, pool, block_tables, lens, active,
+                            batch, qcfg, fused)
+    return logits, pool
+
+
+def verify_step_paged(cfg, params, pool, block_tables, lens, active, n_prop,
+                      batch, qcfg: QuantConfig, fused: bool = False):
+    """Score K1 positions per slot at once: the speculative verify step,
+    and the engine's block-granular paged prefill.
+
+    batch["tokens"] [n_slots, K1]: token 0 is the slot's next input, tokens
+    1..n_prop[b] follow it (the tail is padding).  KV for every fed position
+    lens + i (i <= n_prop) is written to the pool IN PLACE; query i attends
+    positions < lens + i + 1.  Positions past n_prop neither write nor
+    influence live positions; their logits are garbage.  With
+    ``act_scope="token"`` the logits at position i are those of a one-token
+    decode on the same prefix.  Returns (logits [n_slots, K1, V], pool).
+    """
+    k1 = batch["tokens"].shape[1]
+    offs = torch.arange(k1, device=lens.device)
+    positions = lens[:, None] + offs[None, :]
+    tok_active = active[:, None] & (offs[None, :] <= n_prop[:, None])
+    logits = _paged_forward(cfg, params, pool, block_tables, positions,
+                            tok_active, batch, qcfg, fused)
+    return logits, pool

@@ -1,0 +1,399 @@
+"""The continuous-batching engine: ``submit`` / ``step`` / ``drain`` (port of
+``repro.serve.engine``).
+
+One ``step()`` = admission + prefill under a token budget, then one
+batched decode over the running slots: ``decoder.decode_step_paged`` over
+[n_slots, 1] tokens against the block-granular KV pool, written in place.
+
+Prefill modes:
+
+  * "exact": the model's ``prefill`` at the request's own prompt length,
+    the cache then written into the pool's blocks (the static
+    ``serve_batch`` path, request by request);
+  * "paged": the context replays in block-size chunks through
+    ``decoder.verify_step_paged`` at ``act_scope="token"``, writing and
+    attending the pool itself, so each block's bytes are a pure function
+    of its token prefix.  Prefix-cache hits and preempt-resume recompute
+    need that property.
+
+Requests are numerically independent: serving uses ``act_scope="row"``
+activation scales and per-request positions and masks, so a request's
+greedy tokens are those of a single-request ``serve_batch``.
+
+With ``fused_kernels`` on (the default "auto" on the paged plan) the
+attention of every paged forward runs the ``paged_attention`` kernel (K7)
+on the card; "off" runs the gather-then-attend two-step.
+
+Not ported yet, and refused with ``NotImplementedError``: ``mesh``/``rules``
+(tensor-parallel slice), ``obs`` and ``shadow_teacher`` (observability
+slice), ``prefill_mode="chunked"`` (a later serving slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..launch import specs
+from ..launch.serve import params_device, resolve_device
+from ..models import decoder
+from ..models.registry import get_model
+from . import state as state_mod
+from .sampling import SamplingParams, sample_tokens_seeded
+from .scheduler import RUNNING, Request, Scheduler
+
+
+class Engine:
+    """Continuous-batching serving engine over the paged KV pool.
+
+    ``qcfg`` is the recipe quantization policy the weights were prepared
+    with (the second return of ``launch.serve.load_quantized``); the engine
+    derives the serving policy from it (no run-time weight fake-quant,
+    per-row activation scales).  ``params`` must live on ``device``, which
+    defaults to the card and raises without one.
+    """
+
+    def __init__(self, cfg, params, qcfg=None, *, n_slots: int = 8,
+                 block_size: int = 16, n_blocks: int = 48,
+                 max_blocks_per_slot: int = 8, prefill_mode: str = "exact",
+                 eos_id: int | None = None, mesh=None, rules=None,
+                 fused_kernels: str = "auto", prefix_cache: bool = False,
+                 kv_alloc: str = "reserve", headroom: int = 2, obs=None,
+                 shadow_teacher=None, device="cuda"):
+        # refuse unservable configs before touching params or the policy
+        plan = state_mod.check_supported(cfg)
+        self.state_plan = plan
+        self.paged = plan == ("paged_kv",)
+        if mesh is not None or rules is not None:
+            raise NotImplementedError("tensor-parallel serving (mesh/rules) "
+                                      "is part of the TP slice of the port")
+        if obs is not None or shadow_teacher is not None:
+            raise NotImplementedError("serving telemetry and the shadow "
+                                      "teacher are part of the "
+                                      "observability slice of the port")
+        if prefill_mode == "chunked":
+            raise NotImplementedError("chunked prefill is part of a later "
+                                      "serving slice of the port")
+        if prefill_mode not in ("exact", "paged"):
+            raise ValueError(prefill_mode)
+        if prefill_mode == "paged" and not self.paged:
+            raise ValueError(
+                f"paged prefill requires the paged-KV state plan; "
+                f"{cfg.name} plans {' + '.join(plan)}")
+        if (prefix_cache or kv_alloc == "ondemand") \
+                and prefill_mode != "paged":
+            # sharing and preempt-resume replay block-granular chunks
+            # through the token-causal verify forward, which makes block
+            # content a pure function of its token prefix; exact prefill
+            # does not have that property
+            raise ValueError(
+                "prefix_cache / kv_alloc='ondemand' require "
+                f"prefill_mode='paged' (got {prefill_mode!r})")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.cfg = cfg
+        self.model = get_model(cfg)
+        decoder._supported(cfg)
+        if params_device(params) != self.device:
+            raise ValueError(f"params live on {params_device(params)}, the "
+                             f"engine on {self.device}")
+        self.params = params
+        if qcfg is None:
+            qcfg = specs.recipe_qconfig(cfg)
+        self.sq = dataclasses.replace(qcfg, quantize_weights=False,
+                                      act_scope="row")
+
+        if fused_kernels not in ("on", "off", "auto"):
+            raise ValueError(f"fused_kernels={fused_kernels!r}: "
+                             "expected 'on', 'off' or 'auto'")
+        if fused_kernels == "on" and not self.paged:
+            raise ValueError("fused_kernels='on' requires the paged-KV "
+                             f"state plan; {cfg.name} plans "
+                             f"{' + '.join(plan)}")
+        self.fused = fused_kernels == "on" or (fused_kernels == "auto"
+                                               and self.paged)
+        if self.fused and self.sq.packed_backend == "auto":
+            self.sq = dataclasses.replace(self.sq, packed_backend="grouped")
+
+        self.n_slots = n_slots
+        self.prefill_mode = prefill_mode
+        # prompt tokens prefilled per step: one worst-case slot
+        self.prefill_budget = max_blocks_per_slot * block_size
+        self.eos_id = eos_id
+        self.kv_alloc = kv_alloc
+        self.state = state_mod.make_state(
+            self, cfg, block_size=block_size, n_blocks=n_blocks,
+            max_blocks_per_slot=max_blocks_per_slot, kv_alloc=kv_alloc,
+            headroom=headroom, prefix_cache=prefix_cache)
+        self.pool = self.state.pool
+        self.sched = Scheduler(self.state, n_slots, max_blocks_per_slot)
+        # paged prefill replays chunks through the token-scope verify
+        # forward (per-position activation scales: sequential-decode
+        # semantics, what makes cache hits and preempt-resume exact)
+        self.psq = dataclasses.replace(self.sq, act_scope="token")
+
+        self.step_count = 0
+        self.decode_steps = 0
+        self.tokens_generated = 0
+        self.decode_tokens = 0
+        self.prefill_tokens = 0
+        self.decode_s = 0.0
+        self.prefill_s = 0.0
+        # per-token decode latencies (step wall time amortized over the
+        # tokens that step emitted): the p50/p95 report
+        self.token_lat_s: list[float] = []
+        self.decode_step_s: list[float] = []
+        self.preempts = 0
+
+    # -- public API --------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int,
+               sampling: SamplingParams | None = None) -> int:
+        """Queue a request; returns its id.  Admission happens in step()."""
+        req = self.sched.submit(prompt, max_new_tokens, sampling,
+                                step=self.step_count)
+        req.submit_t = time.monotonic()
+        return req.rid
+
+    def step(self) -> list[Request]:
+        """One scheduling round: admit and prefill queued requests under
+        ``prefill_budget`` tokens, then one batched decode step for all
+        running slots.  Returns the requests that finished in it."""
+        finished: list[Request] = []
+        self._do_prefills(finished)
+        self._do_decode(finished)
+        self.step_count += 1
+        return finished
+
+    def drain(self, max_steps: int | None = None) -> dict[int, np.ndarray]:
+        """Run ``step()`` until no request is waiting or in flight."""
+        steps = 0
+        while self.sched.has_work():
+            if max_steps is not None and steps >= max_steps:
+                raise RuntimeError(f"drain exceeded {max_steps} steps")
+            self.step()
+            steps += 1
+        return self.outputs()
+
+    def outputs(self) -> dict[int, np.ndarray]:
+        return {rid: np.asarray(r.output, np.int32)
+                for rid, r in self.sched.finished.items()}
+
+    def stats(self) -> dict:
+        d = {"steps": self.step_count, "decode_steps": self.decode_steps,
+             "fused_kernels": self.fused,
+             "packed_backend": self.sq.packed_backend,
+             "requests_finished": len(self.sched.finished),
+             "preempts": self.preempts,
+             "tokens_generated": self.tokens_generated,
+             "prefill_tokens": self.prefill_tokens,
+             "prefill_s": self.prefill_s, "decode_s": self.decode_s,
+             "decode_tok_s": self.decode_tokens / max(self.decode_s, 1e-9),
+             "e2e_tok_s": self.tokens_generated
+             / max(self.decode_s + self.prefill_s, 1e-9)}
+        d.update(self._latency_stats())
+        d.update(self.state.stats())
+        return d
+
+    def _latency_stats(self) -> dict:
+        """TTFT and per-token decode latency percentiles (None with no
+        data: "no data" and "zero latency" are different answers)."""
+        ttfts = [r.ttft_s for r in self.sched.finished.values()
+                 if r.first_tok_t]
+        out = {}
+        for name, vals in (("ttft", ttfts), ("decode_lat", self.token_lat_s),
+                           ("decode_step", self.decode_step_s)):
+            out[f"{name}_p50_s"] = float(np.percentile(vals, 50)) \
+                if vals else None
+            out[f"{name}_p95_s"] = float(np.percentile(vals, 95)) \
+                if vals else None
+        return out
+
+    # -- prefill -----------------------------------------------------------
+
+    def _do_prefills(self, finished: list[Request]) -> None:
+        budget = self.prefill_budget
+        t0 = time.monotonic()
+        while budget > 0:
+            req = self._in_flight_prefill()
+            if req is None:
+                req = self.sched.admit_next()
+            if req is None:
+                break
+            resumed = bool(req.output)     # re-admitted after preemption
+            if self.prefill_mode == "exact":
+                if req.prompt_len > budget and budget < self.prefill_budget:
+                    break                  # defer to next step; never livelock
+                logits = self._prefill_exact(req)
+                used = req.prompt_len
+            else:
+                logits, used = self._prefill_paged(req, budget)
+            budget -= used
+            self.prefill_tokens += used
+            if logits is None:
+                break                      # budget ran out mid-prompt
+            if self.prefill_mode == "paged":
+                # make this context's full blocks shareable (also re-hits
+                # this request's own blocks after a future preemption)
+                self.state.register_prefix(req, req.resume_tokens())
+            if resumed:
+                # the resume prefill only rebuilds KV over tokens already
+                # emitted; its logits re-predict output[-1], which decode
+                # re-feeds: emitting here would duplicate a token
+                req.state = RUNNING
+            else:
+                self._emit(req, self._sample_one(req, logits), finished)
+        self.prefill_s += time.monotonic() - t0
+
+    def _in_flight_prefill(self) -> Request | None:
+        """An admitted request whose prefill hasn't completed (paged mode
+        mid-prompt, or an exact-mode admission deferred by the budget)."""
+        for r in self.sched.in_flight():
+            if r.state == "prefill":
+                return r
+        return None
+
+    def _prefill_exact(self, req: Request) -> torch.Tensor:
+        p = req.prompt_len
+        toks = torch.from_numpy(req.prompt[None].astype(np.int64)).to(self.device)
+        with torch.inference_mode():
+            logits, cache = self.model.prefill(self.cfg, self.params,
+                                               {"tokens": toks}, self.sq, None)
+        cache = {k: v for k, v in cache.items() if k != "pos"}
+        self.state.write_prefill(req, cache)
+        req.n_prefilled = req.n_cached = req.n_written = p
+        return logits[:, -1, :]
+
+    def _prefill_paged(self, req: Request, budget: int):
+        """Advance block-granular paged prefill by up to ``budget`` tokens.
+
+        The context (prompt, or prompt + emitted tokens after preemption)
+        replays as block-size chunks through the token-scope verify
+        forward, attending and writing the pool itself; prefix-cache hit
+        blocks acquired at admission are skipped.  Returns (last-position
+        logits [1, V] | None, tokens consumed).
+        """
+        bs = self.pool.block_size
+        dev = self.device
+        ctx = req.resume_tokens()
+        n_ctx = len(ctx)
+        if req.n_prefilled == 0 and req.n_cache_hit:
+            # hit blocks already hold exactly the bytes this prefill would
+            # write (block content is a pure function of its token prefix)
+            req.n_prefilled = req.n_cached = req.n_written = req.n_cache_hit
+        consumed, logits = 0, None
+        bt = self.state.block_tables([req], 1)
+        active = torch.ones(1, dtype=torch.bool, device=dev)
+        while req.n_prefilled < n_ctx and consumed < budget:
+            n_valid = min(bs, n_ctx - req.n_prefilled)
+            toks = np.zeros((1, bs), np.int64)
+            toks[0, :n_valid] = ctx[req.n_prefilled:req.n_prefilled + n_valid]
+            with torch.inference_mode():
+                lg, _ = decoder.verify_step_paged(
+                    self.cfg, self.params, self.pool.data, bt,
+                    torch.tensor([req.n_prefilled], dtype=torch.int32, device=dev),
+                    active,
+                    torch.tensor([n_valid - 1], dtype=torch.int32, device=dev),
+                    {"tokens": torch.from_numpy(toks).to(dev)}, self.psq,
+                    fused=self.fused)
+            req.n_prefilled += n_valid
+            req.n_cached = req.n_written = req.n_prefilled
+            consumed += n_valid
+            if req.n_prefilled >= n_ctx:
+                logits = lg[:, n_valid - 1, :]
+        return logits, consumed
+
+    # -- preemption (on-demand paging) -------------------------------------
+
+    def _preempt_one(self, victim: Request) -> None:
+        """Evict one running request: release its state, count it, and
+        re-queue it at the front."""
+        self.sched.preempt(victim)
+        self.preempts += 1
+
+    def _ensure_decode_capacity(self, reqs: list[Request]) -> list[Request]:
+        """On-demand mode: grow every running request's block table to
+        cover its next KV write, evicting unreferenced cache blocks first
+        and preempting the lowest-progress running request when the pool
+        is full.  The requester can be its own victim, so one request
+        always makes progress.  Returns the requests still in the round.
+        """
+        if self.kv_alloc != "ondemand":
+            return reqs
+        live = list(reqs)
+        for r in list(live):
+            while r in live and not self.state.grow_to(r, r.n_cached + 1):
+                victim = self.sched.preempt_victim()
+                if victim is None:
+                    raise RuntimeError("no preemption victim while growing")
+                self._preempt_one(victim)
+                if victim in live:
+                    live.remove(victim)
+        return live
+
+    # -- decode ------------------------------------------------------------
+
+    def _do_decode(self, finished: list[Request]) -> None:
+        reqs = self.sched.running()
+        if reqs:
+            reqs = self._ensure_decode_capacity(reqs)
+        if not reqs:
+            return
+        t0 = time.monotonic()
+        ns = self.n_slots
+        toks = np.zeros((ns, 1), np.int64)
+        lens = np.zeros((ns,), np.int32)
+        active = np.zeros((ns,), bool)
+        temps = np.zeros((ns,), np.float32)
+        topks = np.zeros((ns,), np.int64)
+        seeds = np.zeros((ns,), np.int64)
+        idxs = np.zeros((ns,), np.int64)
+        for r in reqs:
+            s = r.slot
+            toks[s, 0] = r.next_input_token()
+            lens[s] = r.n_cached
+            active[s] = True
+            temps[s] = r.sampling.temperature
+            topks[s] = r.sampling.top_k
+            seeds[s] = r.sampling.seed
+            idxs[s] = len(r.output)
+        with torch.inference_mode():
+            logits = self.state.decode(reqs, toks, lens, active)
+            sampled = sample_tokens_seeded(logits[:, 0, :], temps, topks,
+                                           seeds, idxs).tolist()
+        dt = time.monotonic() - t0
+        self.decode_s += dt
+        self.decode_step_s.append(dt)
+        self.decode_steps += 1
+        self.decode_tokens += len(reqs)
+        self.token_lat_s.extend([dt] * len(reqs))
+        for r in reqs:
+            r.n_cached += 1
+            r.n_written = max(r.n_written, r.n_cached)
+            self._emit(r, int(sampled[r.slot]), finished)
+
+    # -- shared ------------------------------------------------------------
+
+    def _sample_one(self, req: Request, logits: torch.Tensor) -> int:
+        req.state = RUNNING
+        tok = sample_tokens_seeded(
+            logits, [req.sampling.temperature], [req.sampling.top_k],
+            [req.sampling.seed], [len(req.output)])
+        return int(tok[0])
+
+    def _emit(self, req: Request, tok: int, finished: list[Request]) -> None:
+        req.output.append(tok)
+        self.tokens_generated += 1
+        if not req.first_tok_t:
+            req.first_tok_t = req.last_tok_t = time.monotonic()
+        if self.eos_id is not None and tok == self.eos_id:
+            reason = "eos"
+        elif len(req.output) >= req.max_new_tokens:
+            reason = "length"
+        else:
+            return
+        self.sched.finish(req, reason, self.step_count)
+        finished.append(req)

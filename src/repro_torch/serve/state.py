@@ -1,0 +1,265 @@
+"""Per-layer serve-state protocol (port of ``repro.serve.state``, lines
+46-392): one engine over the cache architectures a config's state plan
+(``models.registry.serve_state_plan``) names.
+
+  * ``PagedKVState``: plan ("paged_kv",), the block-granular KV pool:
+    block-table decode, capacity-based admission in blocks, on-demand
+    growth, copy-on-write, rollback by page truncation.
+  * ``SlabState``: every other supported plan (RWKV6 / RG-LRU recurrent
+    state, window rings, Whisper's dense self-KV and encoder slots) comes
+    with the slab-family slice of the port and raises here.
+
+The backend answers the contract the engine and scheduler program
+against: admission_check / can_reserve / reserve / release, write_prefill,
+decode, rollback_to, stats / leaked.  Device state lives in the pool's
+tensors and is written in place.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models import decoder
+from ..models.registry import serve_capabilities
+from .paged_kv import PagedKVPool, PoolExhausted, PrefixCache
+
+
+class UnsupportedStateError(ValueError):
+    """A config's state plan needs a kind this engine doesn't implement."""
+
+
+def check_supported(cfg) -> tuple:
+    """Return the config's state plan or raise a one-line capability error."""
+    caps = serve_capabilities(cfg)
+    if not caps["supported"]:
+        raise UnsupportedStateError(
+            f"{cfg.name}: engine cannot serve state kind(s) "
+            f"{', '.join(caps['missing'])} "
+            f"(plan: {' + '.join(caps['plan'])})")
+    return caps["plan"]
+
+
+def make_state(engine, cfg, *, block_size, n_blocks, max_blocks_per_slot,
+               kv_alloc="reserve", headroom=2, prefix_cache=False):
+    """The state backend for ``cfg``'s plan (or a capability error).
+    ``engine`` supplies the parameters, the serving policy and the device."""
+    plan = check_supported(cfg)
+    if plan == ("paged_kv",):
+        return PagedKVState(engine, cfg, n_blocks=n_blocks,
+                            block_size=block_size,
+                            max_blocks_per_slot=max_blocks_per_slot,
+                            kv_alloc=kv_alloc, headroom=headroom,
+                            prefix_cache=prefix_cache)
+    if kv_alloc != "reserve" or prefix_cache:
+        raise UnsupportedStateError(
+            f"{cfg.name}: on-demand paging / prefix caching needs the "
+            f"paged_kv state plan (plan: {' + '.join(plan)})")
+    return SlabState(cfg, plan)
+
+
+class PagedKVState:
+    """Protocol adapter over the block-granular ``PagedKVPool``.
+
+    Admission reasons in blocks (a worst-case reservation up front, or
+    on-demand growth with preemption), decode runs
+    ``decoder.decode_step_paged`` with per-slot block tables and writes
+    the pool in place, and speculative rollback is positional: rejected
+    KV stays dead behind the length mask, ``truncate_to`` releasing whole
+    dead blocks.
+    """
+
+    def __init__(self, engine, cfg, *, n_blocks, block_size,
+                 max_blocks_per_slot, kv_alloc="reserve", headroom=2,
+                 prefix_cache=False):
+        self.eng = engine
+        self.cfg = cfg
+        self.kinds = ("paged_kv",)
+        self.max_blocks_per_slot = max_blocks_per_slot
+        if kv_alloc not in ("reserve", "ondemand"):
+            raise ValueError(f"unknown kv_alloc mode {kv_alloc!r}")
+        self.kv_alloc = kv_alloc
+        self.headroom = int(headroom)
+        self.pool = PagedKVPool(
+            decoder.init_paged_pool(cfg, n_blocks, block_size, engine.device),
+            block_size)
+        self.cache = (PrefixCache(self.pool, f"{cfg.name}|{engine.sq!r}")
+                      if prefix_cache else None)
+
+    # -- capacity ----------------------------------------------------------
+
+    def admission_check(self, req) -> None:
+        need = self.pool.blocks_for(req.max_cached)
+        if need > self.max_blocks_per_slot or need > self.pool.n_blocks:
+            raise ValueError(
+                f"request needs {need} blocks > "
+                f"max_blocks_per_slot={self.max_blocks_per_slot} or "
+                f"pool capacity={self.pool.n_blocks} "
+                f"(prompt {req.prompt_len} + gen {req.max_new_tokens}); "
+                "it could never be admitted")
+
+    def _hit_blocks(self, ctx) -> int:
+        return self.cache.lookup(ctx) if self.cache is not None else 0
+
+    def _admit_capacity(self, ctx) -> tuple[int, int]:
+        """(cache hits for ``ctx``, blocks deliverable AFTER taking them).
+
+        Acquiring a hit revives a CACHED block: it stops being evictable
+        but consumes no free block.  Counting every hit as if it were
+        cached keeps this estimate <= what ``reserve`` can deliver."""
+        hits = self._hit_blocks(ctx)
+        ev = self.cache.evictable if self.cache is not None else 0
+        return hits, self.pool.free_blocks + max(ev - hits, 0)
+
+    def can_reserve(self, req) -> bool:
+        if self.kv_alloc == "reserve":
+            need = self.pool.blocks_for(req.max_cached)
+            if self.cache is None:
+                return self.pool.can_alloc(need)
+            hits, avail = self._admit_capacity(req.resume_tokens())
+            return avail >= need - hits
+        # on-demand: admit on the blocks the prefill needs NOW plus a
+        # headroom watermark, waived when nothing is running (an empty pool
+        # must always admit; admission_check bounded the worst case)
+        ctx = req.resume_tokens()
+        hits, avail = self._admit_capacity(ctx)
+        need = self.pool.blocks_for(len(ctx)) - hits
+        slack = self.headroom if self.pool.active_blocks > 0 else 0
+        return avail >= need + slack
+
+    def _ensure_free(self, n: int) -> bool:
+        """Evict LRU unreferenced cache entries until ``n`` blocks are on
+        the free list.  Returns False if the pool can't get there."""
+        short = n - self.pool.free_blocks
+        if short > 0 and self.cache is not None:
+            self.cache.evict(short)
+            short = n - self.pool.free_blocks
+        return short <= 0
+
+    def reserve(self, req) -> None:
+        hits: list[int] = []
+        if self.cache is not None:
+            hits = self.cache.acquire(req.resume_tokens())
+            req.n_cache_hit = len(hits) * self.pool.block_size
+        if self.kv_alloc == "reserve":
+            need = self.pool.blocks_for(req.max_cached) - len(hits)
+        else:
+            need = self.pool.blocks_for(len(req.resume_tokens())) - len(hits)
+        need = max(need, 0 if hits else 1)
+        if not self._ensure_free(need):
+            # can_reserve said yes, so this only races with same-step churn
+            self.pool.free(hits)
+            req.n_cache_hit = 0
+            raise PoolExhausted(
+                f"need {need} blocks, {self.pool.free_blocks} free")
+        req.block_ids = hits + self.pool.alloc(need)
+
+    def grow_to(self, req, n_tokens: int) -> bool:
+        """On-demand growth: extend the request's block table to cover
+        ``n_tokens`` cached positions, evicting unreferenced cache entries
+        as needed.  False when the pool is exhausted (the engine then
+        preempts a running request and retries)."""
+        target = min(self.pool.blocks_for(n_tokens), self.max_blocks_per_slot)
+        while len(req.block_ids) < target:
+            if not self._ensure_free(1):
+                return False
+            req.block_ids += self.pool.alloc(1)
+        return True
+
+    def register_prefix(self, req, ctx) -> int:
+        """Register the full-block prefix of a freshly prefilled context so
+        later requests (and this one after preemption) can share it."""
+        if self.cache is None:
+            return 0
+        return self.cache.register(ctx, req.block_ids)
+
+    def make_writable(self, req, i: int) -> int:
+        """Copy-on-write guard for block ``i`` of the request's table.
+
+        A block that other tables reference gets a fresh copy (the device
+        page duplicated in place, the old reference dropped); a privately
+        held registered block is just deregistered.  Paged prefill never
+        needs the shared case (it writes only past the acquired prefix), so
+        this is a defensive primitive, tested directly.
+        """
+        b = req.block_ids[i]
+        if self.pool.refcount(b) > 1:
+            if not self._ensure_free(1):
+                raise PoolExhausted("no free block for copy-on-write split")
+            [nb] = self.pool.alloc(1)
+            for page in self.pool.data.values():
+                page[:, nb] = page[:, b]
+            self.pool.free([b])
+            req.block_ids[i] = nb
+            return nb
+        if self.cache is not None:
+            self.cache.drop_block(b)
+        return b
+
+    def rollback_to(self, req, n_tokens: int) -> int:
+        req.block_ids, freed = self.pool.truncate_to(req.block_ids, n_tokens)
+        req.n_written = min(req.n_written, n_tokens)
+        return len(freed)
+
+    def release(self, req) -> None:
+        if req.block_ids:
+            # two-stage release: the speculative tail first, then the live
+            # prefix; both land on the free list the same step
+            self.rollback_to(req, req.n_cached)
+            self.pool.free(req.block_ids)
+            req.block_ids = []
+
+    # -- device state ------------------------------------------------------
+
+    def block_tables(self, reqs, n_rows: int) -> torch.Tensor:
+        """[n_rows, MB] int32 tables on the device: request r's blocks in
+        row ``r.slot`` (or row 0 with ``n_rows == 1``), zeros elsewhere."""
+        bt = np.zeros((n_rows, self.max_blocks_per_slot), np.int32)
+        for r in reqs:
+            bt[r.slot if n_rows > 1 else 0, : len(r.block_ids)] = r.block_ids
+        return torch.from_numpy(bt).to(self.eng.device)
+
+    def write_prefill(self, req, cache) -> None:
+        ids = req.block_ids[: self.pool.blocks_for(req.prompt_len)]
+        decoder.write_prompt_to_pool(self.pool.data, cache, ids)
+
+    def decode(self, reqs, toks, lens, active):
+        dev = self.eng.device
+        logits, _ = decoder.decode_step_paged(
+            self.cfg, self.eng.params, self.pool.data,
+            self.block_tables(reqs, lens.shape[0]),
+            torch.from_numpy(lens).to(dev), torch.from_numpy(active).to(dev),
+            {"tokens": torch.from_numpy(toks).to(dev)}, self.eng.sq,
+            fused=self.eng.fused)
+        return logits
+
+    # -- telemetry ---------------------------------------------------------
+
+    def leaked(self) -> bool:
+        """Refcount-aware leak check: blocks still referenced by a block
+        table after drain are leaks; cached-but-unreferenced blocks are the
+        prefix cache working as intended."""
+        if self.pool.active_blocks != 0:
+            return True
+        if self.pool.used_blocks != self.pool.cached_blocks:
+            raise RuntimeError(
+                f"pool blocks neither referenced, cached, nor free: "
+                f"{self.pool.used_blocks} used, {self.pool.cached_blocks} "
+                "cached")
+        return False
+
+    def stats(self) -> dict:
+        out = dict(self.pool.stats(), state_backend="paged_kv",
+                   state_kinds=list(self.kinds), kv_alloc=self.kv_alloc)
+        if self.cache is not None:
+            out["prefix_cache"] = self.cache.stats()
+        return out
+
+
+class SlabState:
+    """Per-slot constant-size state slabs for non-paged state plans: part
+    of the slab-family slice of the port."""
+
+    def __init__(self, cfg, plan):
+        raise NotImplementedError(
+            f"{cfg.name}: slab state ({' + '.join(plan)}) is part of the "
+            "slab-family slice of the port")

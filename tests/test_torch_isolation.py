@@ -13,6 +13,7 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import serve, train
+from repro_torch.serve import Engine
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -39,7 +40,7 @@ def test_port_sources_import_no_jax():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
-            "repro_torch.bridge; "
+            "repro_torch.bridge, repro_torch.serve; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -63,6 +64,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         train.train("olmo-1b", steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--arch", "olmo-1b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, {"embed": torch.zeros(1)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "acereason-7b", "--engine"])
     assert train.build_parser().parse_args([]).device == "cuda"
 
 
@@ -70,6 +75,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The launch functions take CUDA tensors only; the ops choose the plain
     version for CPU tensors, so the CPU path never reaches them."""
     from repro_torch.kernels import kl_loss, nvfp4_matmul, nvfp4_qdq
+    from repro_torch.kernels import paged_attention
     x = torch.zeros(2, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         nvfp4_qdq.launch(x)
@@ -80,6 +86,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     z = torch.zeros(2)
     with pytest.raises(ValueError, match="CUDA"):
         kl_loss.launch_bwd(x, x, z, z, z)
+    pages = torch.zeros(4, 8, 1, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention.launch(x.reshape(1, 1, 2, 32), pages, pages,
+                               torch.zeros(1, 4, dtype=torch.int32),
+                               torch.ones(1, dtype=torch.int32))
 
 
 def test_launch_counters_count_kernel_launches_only():
@@ -91,15 +102,22 @@ def test_launch_counters_count_kernel_launches_only():
     s = torch.randn(4, 64, requires_grad=True)
     ops.kl_loss(x, s, torch.ones(4)).backward()
     assert s.grad.shape == (4, 64)
+    pool = {"k": torch.randn(4, 8, 1, 32).to(torch.bfloat16),
+            "v": torch.randn(4, 8, 1, 32).to(torch.bfloat16)}
+    out = ops.paged_attention(x[:1].reshape(1, 1, 2, 32), pool,
+                              torch.tensor([[2, 0]], dtype=torch.int32),
+                              torch.tensor([5], dtype=torch.int32))
+    assert out.shape == (1, 1, 2, 32) and out.dtype == torch.bfloat16
     assert ops.launches == {"nvfp4_qdq": 0, "nvfp4_matmul": 0, "kl_loss": 0,
-                            "kl_loss_bwd": 0}
+                            "kl_loss_bwd": 0, "paged_attention": 0}
 
 
 def test_build_is_lazy_and_names_the_sources():
     """Importing builds nothing; the library name hashes every source."""
     assert _build.library.cache_info().currsize == 0
     names = {p.name for p in _build._sources()}
-    assert {"nvfp4_qdq.cu", "nvfp4_matmul.cu", "kl_loss.cu"} <= names
+    assert {"nvfp4_qdq.cu", "nvfp4_matmul.cu", "kl_loss.cu",
+            "paged_attention.cu"} <= names
     assert len(_build._digest()) == 16
     assert set(_build.SIGNATURES) == {"nvfp4_qdq", "nvfp4_matmul", "kl_fwd",
-                                      "kl_bwd"}
+                                      "kl_bwd", "paged_attention"}

@@ -15,7 +15,11 @@ two terms of about log V, and the two versions sum e^x in other orders),
 each logsumexp within 8 ulps; KL exactly 0 for identical logits.  The KL
 backward (K6), given the same logsumexps: within one ulp of its output
 dtype of the plain version's f32 value, plus 4 f32 ulps of
-(p_s + p_t) |g| for the two ``expf``.
+(p_s + p_t) |g| for the two ``expf``.  Paged attention (K7): within one
+bf16 ulp of the larger of the kernel's and the plain version's values,
+plus 1e-3: the two sum the dot products, the exps and p V in other f32
+orders, which moves a rare probability by one bf16 ulp (about 1e-4 of
+the output at these shapes).
 """
 import dataclasses
 import math
@@ -26,6 +30,8 @@ import torch
 from repro_torch.core import nvfp4
 from repro_torch.kernels import kl_loss as kkl
 from repro_torch.kernels import ops, ref
+
+K7_ATOL = 1e-3
 
 pytestmark = pytest.mark.cuda
 
@@ -165,6 +171,90 @@ def test_kl_op_on_card_matches_cpu(gen):
                           rtol=1e-2, atol=1e-6)
 
 
+def _k7_case(gen, b, s_q, h, hkv, hd, n_blocks, bs, mb, pos, fp8=False):
+    """Random pages (bf16, or e4m3 with per-row scales), a table of
+    distinct blocks per request, queries; ``pos`` [B] or [B, S]."""
+    dev = "cuda"
+    k = torch.randn((n_blocks, bs, hkv, hd), generator=gen, device=dev)
+    v = torch.randn((n_blocks, bs, hkv, hd), generator=gen, device=dev)
+    if fp8:
+        def quant(x):
+            scale = x.abs().amax(-1).clamp_min(1e-30) / 448.0
+            return (x / scale[..., None]).to(torch.float8_e4m3fn), scale
+        (k, ks), (v, vs) = quant(k), quant(v)
+        pool = {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
+    else:
+        pool = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    bt = torch.randperm(n_blocks, generator=gen, device=dev)[: b * mb]
+    q = torch.randn((b, s_q, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+    return q, pool, bt.reshape(b, mb).to(torch.int32), \
+        torch.as_tensor(pos, dtype=torch.int32, device=dev)
+
+
+def _k7_ok(q, pool, bt, pos, window=0):
+    got = ops.paged_attention(q, pool, bt, pos, window=window).float()
+    want = ref.paged_attention_ref(q, pool, bt, pos, window=window).float()
+    big = torch.maximum(got.abs(), want.abs())
+    return bool(((got - want).abs() <= _ulp(big, 7) + K7_ATOL).all())
+
+
+def _decode_pos(gen, b, hi):
+    return torch.randint(1, hi + 1, (b,), generator=gen, device="cuda")
+
+
+def test_paged_attention_decode_acereason_shape(gen):
+    """Decode at the engine's acereason-7b shape: 8 slots, 28 heads over 4
+    KV heads, pages [272, 16, 4, 128], tables [8, 34], pos 1..544."""
+    pos = _decode_pos(gen, 8, 544)
+    pos[0], pos[1] = 1, 544
+    assert _k7_ok(*_k7_case(gen, 8, 1, 28, 4, 128, 272, 16, 34, pos))
+
+
+def test_paged_attention_prefill_chunk_shape(gen):
+    """The paged-prefill form: one 16-token chunk, per-query positions."""
+    pos = (300 + torch.arange(1, 17)).reshape(1, 16)
+    assert _k7_ok(*_k7_case(gen, 1, 16, 28, 4, 128, 272, 16, 34, pos))
+
+
+@pytest.mark.parametrize("window", [8, 40, 300])
+@pytest.mark.parametrize("s_q", [1, 3])
+def test_paged_attention_window(gen, window, s_q):
+    pos = 100 + torch.arange(s_q)[None, :] + 37 * torch.arange(4)[:, None]
+    assert _k7_ok(*_k7_case(gen, 4, s_q, 8, 2, 64, 64, 16, 16, pos),
+                  window=window)
+
+
+@pytest.mark.parametrize("s_q", [1, 4])
+def test_paged_attention_fp8_pages(gen, s_q):
+    pos = 50 + torch.arange(s_q)[None, :] + 60 * torch.arange(3)[:, None]
+    assert _k7_ok(*_k7_case(gen, 3, s_q, 28, 4, 128, 48, 16, 16, pos, fp8=True))
+
+
+def test_paged_attention_ignores_dead_table_tail(gen):
+    """Blocks past every query's pos are never read: poisoning them (and
+    the table entries that name them) leaves the output bitwise alone."""
+    q, pool, bt, pos = _k7_case(gen, 2, 1, 8, 2, 64, 20, 16, 8, [9, 20])
+    want = ops.paged_attention(q, pool, bt, pos)
+    dead = bt[:, 2:].reshape(-1).long()
+    poisoned = {n: a.clone() for n, a in pool.items()}
+    for a in poisoned.values():
+        a[dead] = 1e4
+    assert torch.equal(ops.paged_attention(q, poisoned, bt, pos), want)
+    bt2 = bt.clone()
+    bt2[:, 2:] = 2 ** 30                     # out of range, never read
+    assert torch.equal(ops.paged_attention(q, pool, bt2, pos), want)
+
+
+def test_paged_attention_noncontiguous_q(gen):
+    q, pool, bt, pos = _k7_case(gen, 4, 2, 8, 2, 64, 40, 16, 8,
+                                [[5, 6], [60, 61], [100, 101], [127, 128]])
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)   # same values
+    assert not qt.is_contiguous()
+    assert torch.equal(ops.paged_attention(qt, pool, bt, pos),
+                       ops.paged_attention(q, pool, bt, pos))
+    assert _k7_ok(qt, pool, bt, pos)
+
+
 def test_launch_counters_count_card_launches(gen):
     ops.reset_launches()
     x = torch.randn((4, 64), generator=gen, device="cuda").to(torch.bfloat16)
@@ -173,6 +263,7 @@ def test_launch_counters_count_card_launches(gen):
     s = torch.randn((4, 64), generator=gen, device="cuda").to(
         torch.bfloat16).requires_grad_()
     ops.kl_loss(x, s, torch.ones(4, device="cuda")).backward()
+    ops.paged_attention(*_k7_case(gen, 1, 1, 2, 1, 32, 4, 8, 2, [3]))
     torch.cuda.synchronize()
     assert ops.launches == {"nvfp4_qdq": 1, "nvfp4_matmul": 1, "kl_loss": 1,
-                            "kl_loss_bwd": 1}
+                            "kl_loss_bwd": 1, "paged_attention": 1}
