@@ -18,7 +18,12 @@ Phases (every failure exits nonzero):
      below) at the engine's acereason-7b shapes (decode: 8 slots against
      pages [272, 16, 4, 128] through tables [8, 34], pos 1..544; a paged
      prefill chunk of 16 queries), with a dead table tail, a window and
-     FP8 pages;
+     FP8 pages; ``nvfp4_matmul_grouped`` (K3) at the qwen2-moe-a2.7b expert
+     stacks (60 experts, (K, N) = (2048, 1408) and (1408, 2048); M = 8 at
+     decode, 42 at an exact 512-token prefill, 16 in a paged-prefill chunk),
+     within K2's tolerance of its plain version and bitwise equal to K2 run
+     on each expert's slices, with a shared and a per-expert tensor scale
+     and a padded K;
   4. smoke-size models on the card against the same weights on the CPU:
      serving prefill and greedy tokens, and one QAD training step;
   5. the static serving path: ``acereason-7b`` at full width and 14 of its
@@ -36,7 +41,18 @@ Phases (every failure exits nonzero):
      same engine with ``fused_kernels="off"``; a traced decode step.  Run
      B: 16 requests sharing a 256-token prefix with suffixes of 16..128
      tokens, paged prefill, on-demand paging and the prefix cache; tokens
-     bitwise equal to the same workload with the cache off;: ``launch.train.train`` on ``olmo-1b`` at full size
+     bitwise equal to the same workload with the cache off;
+  5c. MoE serving: the engine over packed weights of ``qwen2-moe-a2.7b``
+     at full width and depth (24 layers, 60 experts top-4 and a shared
+     expert), ``fused_kernels="on"``.  Run M: run A's traffic; every
+     request finishes, the pool drains, K3 launches 3 x 24 times per
+     forward and K7 24 times per decode step, and the prefill logits and
+     the first decode step's logits (on the fused run's first token) agree
+     with the same engine with ``fused_kernels="off"`` on the first 8
+     requests; the dropped fraction at prefill; a traced decode step.  Run M-B: 8 requests sharing a 256-token prefix, 8 tokens each,
+     paged prefill (token dispatch, K3 at M = 16), prefix cache on against
+     off: tokens bitwise equal;
+  6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
      (16 layers, d_model 2048, vocab 50304), 4 QAD steps of batch 8 x 512
      tokens with an eval after each, the launch counters read around it;
      a traced step;
@@ -48,6 +64,7 @@ Exits 2 without printing a result when no CUDA device is present.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -106,10 +123,20 @@ RUN_B = dict(requests=16, prefix=256, min_suffix=16, max_suffix=128, gen=8)
 # random-weight layers moves the logits as far as the packed-vs-QDQ GEMM
 # differences do (0.33 measured on an H100, LOGIT_TOL below), so the gate
 # sits at that level.  Logits with nothing in common differ by about 1.4.
+# The MoE run (qwen2-moe-a2.7b) holds its prefill logits and its first
+# decode step's logits (each request fed the fused run's first token) to
+# the same level: there the grouped GEMM (K3) sums in another order than
+# the unfused path's dequantize-and-multiply too.
 FUSED_TOL = 0.5
 # the static serving path runs at this depth (full width): the engine's
 # runs below take the full 28 layers
 SERVE_DEPTH = 14
+# MoE serving (qwen2-moe-a2.7b, full size): run M takes run A's traffic;
+# the fused-off comparison replays its first 8 requests for 4 tokens; run
+# M-B is paged prefill over a shared prefix
+MOE_ARCH = "qwen2-moe-a2.7b"
+RUN_M_OFF = dict(requests=8, gen=4)
+RUN_MB = dict(requests=8, prefix=256, min_suffix=16, max_suffix=128, gen=8)
 # the training path
 TRAIN = dict(arch="olmo-1b", steps=4, lr=1e-5, batch=8, seq=512)
 # one smoke QAD step on the card against the CPU, same weights and batch:
@@ -297,6 +324,79 @@ def main() -> int:
         fail("nvfp4_qdq with one amax per row is not bitwise")
     print("[kernel] edge cases (M=1, padded K, f32 in/out, per-row amax) OK",
           flush=True)
+
+    # K3 against its plain version and, bitwise, against K2 on each group --
+    mcfg = configs.get_config(MOE_ARCH)
+    n_exp, mdm, ffe = mcfg.n_experts, mcfg.d_model, mcfg.moe_d_ff
+    rows["nvfp4_matmul_grouped"] = []
+    err["nvfp4_matmul_grouped"] = 0.0
+    # rows per expert: a decode step (8 slots, capacity 1 each), the exact
+    # prefill of a 512-token prompt, a 16-token paged-prefill chunk (token
+    # dispatch, capacity 1 per token)
+    k3_m = {"decode": 8,
+            "prefill": int(max(1, (512 * mcfg.experts_per_tok
+                                   * mcfg.capacity_factor) // n_exp)),
+            "chunk": 16}
+
+    def k3_check(x, p, what):
+        y = ops.nvfp4_matmul_grouped(x, p)
+        y32 = ref.nvfp4_matmul_grouped_ref(x, p, torch.float32)
+        wdq = nvfp4.unpack(p, torch.bfloat16)[..., : p.k].float()
+        absref = torch.bmm(x.float().abs(), wdq.abs().transpose(1, 2))
+        ulp_y = torch.exp2(torch.floor(torch.log2(
+            y32.abs().clamp_min(1e-30))) - 7)
+        diff = (y.float() - y32).abs()
+        if not bool((diff <= ulp_y + 2.0 ** -20 * absref).all()):
+            fail(f"nvfp4_matmul_grouped outside tolerance ({what}): max abs "
+                 f"err {float(diff.max())}")
+        ts = p.tensor_scale.reshape(-1)
+        for g in range(x.shape[0]):
+            sl = nvfp4.PackedNVFP4(p.codes[g], p.scales[g],
+                                   ts[g if ts.numel() > 1 else 0], p.orig_k)
+            if not torch.equal(y[g].view(torch.int16),
+                               ops.nvfp4_matmul(x[g], sl).view(torch.int16)):
+                fail(f"nvfp4_matmul_grouped group {g} is not K2 on its "
+                     f"slices bitwise ({what})")
+        err["nvfp4_matmul_grouped"] = max(err["nvfp4_matmul_grouped"],
+                                          float(diff.max()))
+        return float(diff.max())
+
+    for site, k, n in (("wg/wu", mdm, ffe), ("wd", ffe, mdm)):
+        w = (torch.randn((n_exp, n, k), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        p = nvfp4.pack(w)                    # one scale per stack, as served
+        wdq_t = nvfp4.unpack(p, torch.bfloat16).transpose(1, 2).contiguous()
+        del w
+        for mname, m in k3_m.items():
+            x = ops.nvfp4_qdq(act(n_exp * m, k)).reshape(n_exp, m, k)
+            e_max = k3_check(x, p, f"{site} {mname} M={m}")
+            bts = kmm.bytes_moved_grouped(x, p, torch.bfloat16)
+            fl = kmm.flops_grouped(x, p)
+            rows["nvfp4_matmul_grouped"].append(dict(
+                m=m, k=k, n=n, site=site, phase=mname, max_abs_err=e_max,
+                shape=f"G={n_exp} M={m:2d} K={k:4d} N={n:4d} {mname}",
+                bound_ms=max(bts / HBM_BYTES_S, fl / BF16_FLOPS) * 1e3,
+                bound_by=("bytes" if bts / HBM_BYTES_S >= fl / BF16_FLOPS
+                          else "operations"),
+                fns=((lambda x=x, p=p: ops.nvfp4_matmul_grouped(x, p)),
+                     (lambda x=x, p=p: ref.nvfp4_matmul_grouped_ref(x, p)),
+                     (lambda x=x, w=wdq_t: torch.bmm(x, w)))))
+    # a scale per expert (experts of different magnitude), and K padded
+    w = (torch.randn((n_exp, ffe, mdm), generator=gen, device=dev)
+         * torch.arange(1, n_exp + 1, device=dev)[:, None, None]).to(torch.bfloat16)
+    k3_check(ops.nvfp4_qdq(act(n_exp * 8, mdm)).reshape(n_exp, 8, mdm),
+             nvfp4.pack(w, n_lead=1), "per-expert scale")
+    wpad = torch.nn.functional.pad(torch.randn((3, 24, 40), generator=gen,
+                                               device=dev), (0, 8))
+    k3_check(act(15, 40).reshape(3, 5, 40),
+             dataclasses.replace(nvfp4.pack(wpad, n_lead=1), orig_k=40),
+             "padded K")
+    del w, wpad, p, wdq_t
+    print(f"[kernel] nvfp4_matmul_grouped within K2's tolerance of its plain "
+          f"version and bitwise equal to K2 per expert at G={n_exp}, "
+          f"(K, N) = ({mdm}, {ffe}) and ({ffe}, {mdm}), M in "
+          f"{tuple(k3_m.values())}; per-expert scale and padded K OK (max "
+          f"abs err {err['nvfp4_matmul_grouped']:.3g})", flush=True)
 
     # K5 and K6 against their plain versions ------------------------------
     rows["kl_loss"], rows["kl_loss_bwd"] = [], []
@@ -810,6 +910,222 @@ def main() -> int:
         fail("engine B: no cache hit, or a preemption the sizing rules out")
     engine_b = dict(st=stb, wall=b_wall)
     del eng_b, eng_c, params
+    # the engines whose decode the recorders wrap sit in reference cycles
+    # (engine -> state -> wrapper -> state): collect them, or their weights
+    # stay alive into the next phase's peak-memory reading
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 5c. MoE serving: full-size qwen2-moe-a2.7b through the engine ----
+    from repro_torch.models import layers as mlayers
+
+    n_moe = mcfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mparams, mqcfg = serve.load_quantized(mcfg, SEED, "packed", dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    wr = serve.weight_report(mparams)
+    print(f"[engine M] {mcfg.name} full size ({n_moe} layers, {n_exp} experts "
+          f"top-{mcfg.experts_per_tok}, shared expert {mcfg.shared_d_ff}): "
+          f"weights total={wr['total_bytes']/1e9:.3f}GB quantized-gemm="
+          f"{wr['q_bytes']/1e9:.3f}GB over {wr['q_params']/1e9:.3f}B params "
+          f"({wr['q_bytes_per_param']:.4f} B/param) load+pack={t_load:.1f}s "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated()/1e9:.2f}", flush=True)
+    if abs(wr["q_bytes_per_param"] - nvfp4.BYTES_PER_ELEM) > 0.01:
+        fail(f"packed MoE weights cost {wr['q_bytes_per_param']} B/param")
+    m_prompts = serve.mixed_prompts(RUN_A["requests"], RUN_A["min_prompt"],
+                                    RUN_A["max_prompt"], mcfg.vocab_size,
+                                    SEED + 2)
+    # the dropped fraction of every prefill's MoE layers, read after the run
+    prefill_drops, inner_moe = [], mlayers.moe_ffn
+
+    def moe_recording(qcfg_, cfg_, x, *a):
+        out, aux = inner_moe(qcfg_, cfg_, x, *a)
+        if x.shape[1] > 1:
+            prefill_drops.append(aux["moe_dropped_frac"])
+        return out, aux
+
+    def prefill_logits(eng_, force=None):
+        """Record each request's prefill logits; with ``force`` (prompt
+        bytes -> token), emit that first token instead of the sampled one."""
+        got, inner = {}, eng_._sample_one
+
+        def sample_one(req, logits):
+            got[req.rid] = logits[0].float().clone()
+            tok = inner(req, logits)
+            return tok if force is None else force[req.prompt.tobytes()]
+        eng_._sample_one = sample_one
+        return got
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(mcfg, mparams, mqcfg, device=dev, fused_kernels="on", **ENGINE)
+    m_first = first_decode_logits(eng)
+    m_pre = prefill_logits(eng)
+    mlayers.moe_ffn = moe_recording
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    m_rids, m_out = serve.run_workload(eng, m_prompts, RUN_A["gen"])
+    torch.cuda.synchronize()
+    m_wall = time.perf_counter() - t0
+    m_launches = dict(ops.launches)
+    mlayers.moe_ffn = inner_moe
+    m_peak = torch.cuda.max_memory_allocated() / 1e9
+    stm = eng.stats()
+    drop = float(torch.stack(prefill_drops).mean()) if prefill_drops else 0.0
+    print(f"[engine M] {RUN_A['requests']} requests, prompts {RUN_A['min_prompt']}.."
+          f"{RUN_A['max_prompt']}, gen {RUN_A['gen']}, {ENGINE['n_slots']} slots, "
+          f"pool {ENGINE['n_blocks']}x{ENGINE['block_size']}, exact prefill, "
+          f"reserve, fused on ({stm['packed_backend']}, dispatch "
+          f"{stm['moe_dispatch']}): wall {m_wall:.2f}s, steps {stm['steps']}, "
+          f"decode steps {stm['decode_steps']}", flush=True)
+    print(f"[engine M] ttft_p50_ms={stm['ttft_p50_s']*1e3:.1f} "
+          f"ttft_p95_ms={stm['ttft_p95_s']*1e3:.1f} "
+          f"decode_step_p50_ms={stm['decode_step_p50_s']*1e3:.2f} "
+          f"decode_step_p95_ms={stm['decode_step_p95_s']*1e3:.2f} "
+          f"decode_tok_s={stm['decode_tok_s']:.1f} e2e_tok_s={stm['e2e_tok_s']:.1f} "
+          f"prefill_s={stm['prefill_s']:.2f} decode_s={stm['decode_s']:.2f} "
+          f"peak_pool_util={stm['peak_utilization']:.2f} peak_mem_gb={m_peak:.2f} "
+          f"prefill_dropped_frac={drop:.4f} ({len(prefill_drops)} MoE layers)",
+          flush=True)
+    print(f"[engine M] launches {m_launches}", flush=True)
+    if len(m_out) != RUN_A["requests"] or any(
+            len(m_out[r]) != RUN_A["gen"] for r in m_rids):
+        fail(f"engine M: {len(m_out)} of {RUN_A['requests']} requests finished")
+    drained(eng, "M")
+    m_forwards = RUN_A["requests"] + stm["decode_steps"]
+    if m_launches["nvfp4_matmul_grouped"] != 3 * n_moe * m_forwards:
+        fail(f"engine M launched nvfp4_matmul_grouped "
+             f"{m_launches['nvfp4_matmul_grouped']} times, expected 3 x "
+             f"{n_moe} x {m_forwards} forwards")
+    if m_launches["paged_attention"] != n_moe * stm["decode_steps"]:
+        fail(f"engine M launched paged_attention {m_launches['paged_attention']} "
+             f"times, expected {n_moe} x {stm['decode_steps']} decode steps")
+    for k in ("nvfp4_qdq", "nvfp4_matmul"):
+        if m_launches[k] == 0:
+            fail(f"engine M never launched {k}")
+
+    # one traced decode step: 8 running requests, nothing left to prefill
+    for p in m_prompts[:ENGINE["n_slots"]]:
+        eng.submit(p, 8)
+    while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.drain()
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_kernel.values())
+    k3_ms = sum(ms for kname, ms in by_kernel.items()
+                if "gemv_kernel<true" in kname or "matmul_kernel<true" in kname)
+    print(f"[trace] MoE engine decode step, 8 slots (traced): wall_ms={wall_ms:.3f} "
+          f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.3f} "
+          f"nvfp4_matmul_grouped_ms={k3_ms:.3f} ({3 * n_moe} launches)", flush=True)
+    for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
+    engine_m = dict(st=stm, wall=m_wall, peak=m_peak, drop=drop,
+                    busy_ms=busy_ms, wall_ms=wall_ms, k3_ms=k3_ms)
+
+    # the first 8 requests with the expert stacks dequantized and the
+    # two-step attention.  Each request's first token is the fused run's, so
+    # both first decode steps see the same input: a prefill near-tie can
+    # flip the argmax (a top-2 gap of one bf16 ulp was seen on an H100)
+    m_rids_off = m_rids[:RUN_M_OFF["requests"]]
+    eng_off = Engine(mcfg, mparams, mqcfg, device=dev, fused_kernels="off",
+                     **ENGINE)
+    off_first = first_decode_logits(eng_off)
+    off_pre = prefill_logits(eng_off, force={
+        p.tobytes(): int(m_out[r][0]) for p, r in zip(m_prompts, m_rids_off)})
+    ops.reset_launches()
+    off_rids, off_out = serve.run_workload(eng_off, m_prompts[:RUN_M_OFF["requests"]],
+                                           RUN_M_OFF["gen"])
+    if ops.launches["nvfp4_matmul_grouped"] or ops.launches["paged_attention"]:
+        fail(f"engine M with fused_kernels off launched {dict(ops.launches)}")
+    drained(eng_off, "M, unfused")
+
+    def rels(a_, b_):
+        return [float((a_[a].float() - b_[b].float()).norm() / b_[b].float().norm())
+                for a, b in zip(m_rids_off, off_rids)]
+    m_rel, pre_rel = rels(m_first, off_first), rels(m_pre, off_pre)
+    own_first = sum(int(m_out[a][0]) == int(off_pre[b].argmax())
+                    for a, b in zip(m_rids_off, off_rids))
+    n_cmp = RUN_M_OFF["gen"]
+    m_agree = float(np.mean([np.mean(m_out[a][:n_cmp] == off_out[b])
+                             for a, b in zip(m_rids_off, off_rids)]))
+    print(f"[engine M] fused vs unfused over {len(m_rel)} requests (tolerance "
+          f"{FUSED_TOL}): prefill logits rel_l2 " + " ".join(f"{x:.4g}" for x in pre_rel)
+          + "; first-decode logits rel_l2 " + " ".join(f"{x:.4g}" for x in m_rel)
+          + f"; unfused argmax first tokens equal {own_first}/{len(m_rel)}; "
+          f"first {n_cmp} tokens equal at {m_agree:.3f} of positions (printed, "
+          f"not gated)", flush=True)
+    if max(m_rel + pre_rel) > FUSED_TOL:
+        fail(f"engine M: fused and unfused logits differ by "
+             f"{max(m_rel + pre_rel)}")
+    del eng, eng_off, m_first, off_first, m_pre, off_pre
+
+    # run M-B: shared 256-token prefix, paged prefill, prefix cache
+    bgen = torch.Generator().manual_seed(SEED + 3)
+    head = torch.randint(4, mcfg.vocab_size, (RUN_MB["prefix"],), generator=bgen)
+    mb_prompts = [torch.cat([head, torch.randint(4, mcfg.vocab_size, (int(n),),
+                                                 generator=bgen)]).numpy().astype("int32")
+                  for n in np.linspace(RUN_MB["min_suffix"], RUN_MB["max_suffix"],
+                                       RUN_MB["requests"]).round()]
+
+    def run_mb(prefix_cache):
+        e = Engine(mcfg, mparams, mqcfg, device=dev, fused_kernels="on",
+                   prefill_mode="paged", kv_alloc="ondemand",
+                   prefix_cache=prefix_cache, **ENGINE)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rids, out = serve.run_workload(e, mb_prompts, RUN_MB["gen"])
+        torch.cuda.synchronize()
+        return e, rids, out, time.perf_counter() - t0, dict(ops.launches)
+
+    eng_mb, mb_rids, mb_out, mb_wall, mb_launches = run_mb(True)
+    stmb = eng_mb.stats()
+    cst = stmb["prefix_cache"]
+    mb_chunks = sum(-(-(r.prompt_len - r.n_cache_hit) // ENGINE["block_size"])
+                    for r in eng_mb.sched.finished.values())
+    print(f"[engine M-B] shared {RUN_MB['prefix']}-token prefix, suffixes "
+          f"{RUN_MB['min_suffix']}..{RUN_MB['max_suffix']}, gen {RUN_MB['gen']}, "
+          f"paged prefill (dispatch {eng_mb.pcfg.moe_dispatch}), on-demand, "
+          f"prefix cache: wall {mb_wall:.2f}s, "
+          f"ttft_p50_ms={stmb['ttft_p50_s']*1e3:.1f} "
+          f"decode_step_p50_ms={stmb['decode_step_p50_s']*1e3:.2f} "
+          f"e2e_tok_s={stmb['e2e_tok_s']:.1f} hits={cst['hits']} "
+          f"misses={cst['misses']} preempts={stmb['preempts']} prefill "
+          f"chunks={mb_chunks} decode steps={stmb['decode_steps']}", flush=True)
+    print(f"[engine M-B] launches {mb_launches}", flush=True)
+    drained(eng_mb, "M-B")
+    mb_forwards = mb_chunks + stmb["decode_steps"]
+    if mb_launches["nvfp4_matmul_grouped"] != 3 * n_moe * mb_forwards:
+        fail(f"engine M-B launched nvfp4_matmul_grouped "
+             f"{mb_launches['nvfp4_matmul_grouped']} times, expected 3 x "
+             f"{n_moe} x ({mb_chunks} chunks + {stmb['decode_steps']} decode steps)")
+    if mb_launches["paged_attention"] != n_moe * mb_forwards:
+        fail(f"engine M-B launched paged_attention {mb_launches['paged_attention']} "
+             f"times, expected {n_moe} x {mb_forwards}")
+    eng_mc, mc_rids, mc_out, mc_wall, _ = run_mb(False)
+    drained(eng_mc, "M-B, cache off")
+    same = all(np.array_equal(mb_out[a], mc_out[b]) for a, b in zip(mb_rids, mc_rids))
+    print(f"[engine M-B] cache on vs off (wall {mc_wall:.2f}s): greedy tokens "
+          f"{'bitwise EQUAL' if same else 'DIFFER'}; preempts "
+          f"{stmb['preempts']} / {eng_mc.preempts}", flush=True)
+    if not same:
+        fail("engine M-B: tokens with the prefix cache differ from without it")
+    if cst["hits"] == 0 or stmb["preempts"] or eng_mc.preempts:
+        fail("engine M-B: no cache hit, or a preemption the sizing rules out")
+    engine_mb = dict(st=stmb, wall=mb_wall, wall_off=mc_wall)
+    del eng_mb, eng_mc, mparams
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 6. the training path: full-size olmo-1b QAD ----------------------
@@ -931,7 +1247,8 @@ def main() -> int:
               else ("bytes" if all(r["bound_by"] == "bytes" for r in dec)
                     else "operations"))
         by_path = {"serve": serve_launches[name], "train": train_launches[name],
-                   "engine_a": a_launches[name], "engine_b": b_launches[name]}
+                   "engine_a": a_launches[name], "engine_b": b_launches[name],
+                   "engine_m": m_launches[name], "engine_mb": mb_launches[name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "max_abs_err": err[name],
@@ -962,7 +1279,9 @@ def main() -> int:
         at = {r["site"]: r for r in rows["paged_attention"]}
         dec = at["decode"]
         by_path = {"engine_a": a_launches["paged_attention"],
-                   "engine_b": b_launches["paged_attention"]}
+                   "engine_b": b_launches["paged_attention"],
+                   "engine_m": m_launches["paged_attention"],
+                   "engine_mb": mb_launches["paged_attention"]}
         return {"name": "paged_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
                 "replaces": "src/repro/kernels/paged_attention.py:93",
@@ -975,6 +1294,31 @@ def main() -> int:
                                   ("shape", "ms", "plain_ms", "bound_ms")},
                 "launches_by_path": by_path}
 
+    def k3_entry():
+        rs = rows["nvfp4_matmul_grouped"]
+        dec = [r for r in rs if r["phase"] == "decode"]
+        per_layer = {"wg/wu": 2, "wd": 1}          # wg and wu share a shape
+
+        def layer_sum(key, sel):
+            return sum(per_layer[r["site"]] * r[key] for r in sel)
+        by_path = {"engine_m": m_launches["nvfp4_matmul_grouped"],
+                   "engine_mb": mb_launches["nvfp4_matmul_grouped"]}
+        return {"name": "nvfp4_matmul_grouped", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/nvfp4_matmul_grouped.cu",
+                "replaces": "src/repro/kernels/nvfp4_matmul.py:233",
+                "launches": sum(by_path.values()),
+                "max_abs_err": err["nvfp4_matmul_grouped"],
+                "ms": layer_sum("ms", dec), "plain_ms": layer_sum("plain_ms", dec),
+                "bound_ms": layer_sum("bound_ms", dec),
+                "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in dec)
+                             else "operations"),
+                "library_ms": layer_sum("library_ms", dec),
+                "per": f"one MoE decode layer: wg, wu, wd at G={n_exp}, M=8",
+                "per_shape": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                                 "bound_ms", "library_ms")}
+                              for r in rs],
+                "launches_by_path": by_path}
+
     kernels = [serve_entry("nvfp4_qdq", "src/repro_torch/kernels/csrc/nvfp4_qdq.cu",
                            "src/repro/kernels/nvfp4_qdq.py:44"),
                serve_entry("nvfp4_matmul",
@@ -984,7 +1328,7 @@ def main() -> int:
                         "src/repro/kernels/kl_loss.py:87"),
                kl_entry("kl_loss_bwd", "src/repro_torch/kernels/csrc/kl_loss.cu",
                         "src/repro/kernels/kl_loss.py:123"),
-               k7_entry()]
+               k7_entry(), k3_entry()]
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

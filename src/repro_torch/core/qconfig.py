@@ -46,8 +46,9 @@ class QuantConfig:
     weight_format: Literal["qdq", "packed"] = "qdq"
 
     # --- packed-GEMM backend: "auto" runs the nvfp4_matmul kernel on 2-D
-    #     packed weights; "dequant" dequantizes and multiplies; "grouped"
-    #     (MoE) behaves as "auto" here ---
+    #     packed weights and dequantizes MoE expert stacks; "grouped" (the
+    #     engine's fused tier) also runs the stacks through the
+    #     nvfp4_matmul_grouped kernel; "dequant" dequantizes everything ---
     packed_backend: Literal["auto", "grouped", "dequant"] = "auto"
 
     act_scale_mode: Literal["dynamic", "calibrated"] = "dynamic"

@@ -40,6 +40,10 @@ SIGNATURES = {
     # (x, x_is_f32, codes, scales, tensor_scale, out, out_is_f32,
     #  m, n, k_logical, k_stored, stream)
     "nvfp4_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (x, x_is_f32, codes, scales, tensor_scale, ts_stride, out, out_is_f32,
+    #  groups, m, n, k_logical, k_stored, stream)
+    "nvfp4_matmul_grouped": [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                             _I, _P],
     # (t, s, is_f32, kl, z_t, z_s, rows, v, stream)
     "kl_fwd": [_P, _P, _I, _P, _P, _P, _I, _I, _P],
     # (t, s, is_f32, z_t, z_s, g_tok, ds, rows, v, stream)

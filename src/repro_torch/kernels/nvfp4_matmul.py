@@ -1,22 +1,30 @@
-"""Packed-NVFP4 matmul: CUDA kernel for Hopper and its plain version.
+"""Packed-NVFP4 matmul, single (K2) and grouped (K3): CUDA kernels for
+Hopper and their plain versions.
 
-Replaces the Pallas TPU kernel ``repro/kernels/nvfp4_matmul.py::nvfp4_matmul``
-(bodies ``_matmul_kernel`` and ``_dequant_tile``).  ``y = x @ W`` where W is
+K2 replaces the Pallas TPU kernel ``repro/kernels/nvfp4_matmul.py::
+nvfp4_matmul`` (bodies ``_matmul_kernel`` and ``_dequant_tile``), K3 its
+``nvfp4_matmul_grouped`` (``_grouped_kernel``).  ``y = x @ W`` where W is
 stored transposed and packed along K: codes uint8 [N, Kp/2], E4M3 scales
 [N, Kp/16] (compact; the TPU's ``lane128`` swizzle does not change the
 output and is not ported), an f32 tensor scale, and ``orig_k`` <= Kp.
 
-The kernel (``csrc/nvfp4_matmul.cu``) decodes each weight tile on chip,
-rounds it to bf16 as the plain version does, and accumulates
-bf16 x bf16 products (exact in f32) in f32: it differs from the plain
-version only in the order of the f32 sum.
+K3 computes ``y[g] = x[g] @ W_g`` over a stack: x [G, M, K], codes
+[G, N, Kp/2], scales [G, N, Kp/16] and a tensor scale per group
+([G, 1, 1], ``pack(..., n_lead=1)``) or shared by the stack (one value,
+what PTQ gives a layer's expert stack).  It is the MoE expert GEMM.
+
+The kernels (one device code for both, ``csrc/nvfp4_matmul.cuh``) decode
+each weight tile on chip, round it to bf16 as the plain versions do, and
+accumulate bf16 x bf16 products (exact in f32) in f32: they differ from
+the plain versions only in the order of the f32 sum.
 
 Bound on the H100: at decode (M = 1..8) the weight bytes, 0.5625 B/param;
 at prefill (M = batch x prompt) the operations.  Decode runs a GEMV (a warp
 per two output columns, the lanes along K, x staged in shared memory) so
 that every weight shape spreads over the 132 SMs with many loads in
-flight; prefill runs a tiled f32-FMA GEMM.  Tensor cores and pipelined
-loads are later work.
+flight; prefill runs a tiled f32-FMA GEMM.  K3 is the same code with the
+group in the grid's z dimension, so group g of K3 equals K2 on group g's
+slices bitwise.  Tensor cores and pipelined loads are later work.
 """
 from __future__ import annotations
 
@@ -96,3 +104,101 @@ def bytes_moved(x: torch.Tensor, packed: PackedNVFP4, out_dtype) -> int:
 def flops(x: torch.Tensor, packed: PackedNVFP4) -> int:
     m = x.numel() // x.shape[-1]
     return 2 * m * packed.codes.shape[0] * x.shape[-1]
+
+
+# ---------------------------------------------------------------------------
+# grouped (K3)
+# ---------------------------------------------------------------------------
+
+
+def _check_grouped(x: torch.Tensor, packed: PackedNVFP4) -> None:
+    if x.ndim != 3 or packed.codes.ndim != 3:
+        raise ValueError(f"nvfp4_matmul_grouped takes x [G, M, K] and codes "
+                         f"[G, N, K/2], got {tuple(x.shape)} and "
+                         f"{tuple(packed.codes.shape)}")
+    if packed.codes.shape[0] != x.shape[0]:
+        raise ValueError(f"{x.shape[0]} groups of x, {packed.codes.shape[0]} "
+                         "of the weight")
+    if packed.k != x.shape[-1]:
+        raise ValueError(f"weight K {packed.k} != activation K {x.shape[-1]}")
+    if packed.tensor_scale.numel() not in (1, x.shape[0]):
+        raise ValueError(f"tensor scale of {packed.tensor_scale.numel()} "
+                         f"values for {x.shape[0]} groups")
+
+
+def sum_k_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [G, M, K] times w [G, N, K] transposed, in f32, summed over K in
+    ascending order from 0 (each product, then each sum, rounded to f32).
+
+    The order in which XLA's CPU dot, and so the reference's Pallas kernel
+    in interpret mode, sums within one K tile; a BLAS product sums in an
+    order that changes with the shape.  K launches of a few ops each."""
+    x, w = x.to(torch.float32), w.to(torch.float32)
+    acc = torch.zeros((x.shape[0], x.shape[1], w.shape[1]),
+                      dtype=torch.float32, device=x.device)
+    for kk in range(x.shape[-1]):
+        acc = acc + x[:, :, kk, None] * w[:, None, :, kk]
+    return acc
+
+
+def plain_grouped(x: torch.Tensor, packed: PackedNVFP4,
+                  out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The plain version of K3: per group, dequantize to bf16, multiply in
+    f32 summing K in order (``sum_k_f32``), round.  x [G, M, K] ->
+    [G, M, N]."""
+    _check_grouped(x, packed)
+    w = nvfp4.unpack(packed, dtype=torch.bfloat16)             # [G, N, Kp]
+    if packed.orig_k and packed.orig_k != w.shape[-1]:
+        w = w[..., : packed.orig_k]
+    return sum_k_f32(x, w).to(out_dtype)
+
+
+def launch_grouped(x: torch.Tensor, packed: PackedNVFP4,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Run K3; x [G, M, K] bf16 or f32 -> [G, M, N] bf16 or f32."""
+    if not x.is_cuda:
+        raise ValueError(f"nvfp4_matmul_grouped kernel needs a CUDA tensor, "
+                         f"got {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"nvfp4_matmul_grouped takes bf16 or f32 x, got {x.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"nvfp4_matmul_grouped writes bf16 or f32, got {out_dtype}")
+    _check_grouped(x, packed)
+    codes, scales = packed.codes, packed.scales
+    g, n, kh = codes.shape
+    kp = kh * 2
+    if (codes.dtype != torch.uint8 or scales.dtype != nvfp4.FP8_E4M3
+            or scales.shape != (g, n, kp // nvfp4.BLOCK) or kp % nvfp4.BLOCK):
+        raise ValueError("packed stack is not in the [G, N, K/2] uint8 + "
+                         "[G, N, K/16] e4m3 layout")
+    if not (codes.is_cuda and scales.is_cuda and packed.tensor_scale.is_cuda):
+        raise ValueError("packed weight must lie on the card")
+    if not (codes.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("packed codes and scales must be contiguous")
+    if codes.data_ptr() % 8:             # read as 8-byte words
+        raise ValueError("packed codes must be 8-byte aligned")
+    ts = packed.tensor_scale.to(torch.float32).reshape(-1).contiguous()
+    xg = x.contiguous()
+    m, k = xg.shape[1], xg.shape[2]
+    out = torch.empty((g, m, n), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().nvfp4_matmul_grouped(
+            xg.data_ptr(), int(x.dtype == torch.float32), codes.data_ptr(),
+            scales.data_ptr(), ts.data_ptr(), int(ts.numel() > 1),
+            out.data_ptr(), int(out_dtype == torch.float32), g, m, n, k, kp,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "nvfp4_matmul_grouped")
+    return out
+
+
+def bytes_moved_grouped(x: torch.Tensor, packed: PackedNVFP4, out_dtype) -> int:
+    """x read once, the whole packed stack read once, y written once."""
+    g, m, _ = x.shape
+    n = packed.codes.shape[1]
+    return (x.numel() * x.element_size() + packed.nbytes
+            + g * m * n * torch.empty((), dtype=out_dtype).element_size())
+
+
+def flops_grouped(x: torch.Tensor, packed: PackedNVFP4) -> int:
+    g, m, k = x.shape
+    return 2 * g * m * packed.codes.shape[1] * k

@@ -40,7 +40,8 @@ class _Counts(collections.Counter):
 
 
 # kernel launches per op since the caller last reset them
-launches = _Counts({"nvfp4_qdq": 0, "nvfp4_matmul": 0, "kl_loss": 0,
+launches = _Counts({"nvfp4_qdq": 0, "nvfp4_matmul": 0,
+                    "nvfp4_matmul_grouped": 0, "kl_loss": 0,
                     "kl_loss_bwd": 0, "paged_attention": 0})
 
 
@@ -119,6 +120,17 @@ def nvfp4_matmul(x: torch.Tensor, packed: PackedNVFP4,
     return out
 
 
+def nvfp4_matmul_grouped(x: torch.Tensor, packed: PackedNVFP4,
+                         out_dtype=torch.bfloat16) -> torch.Tensor:
+    """y[g] = x[g] @ W_g for a packed stack [G, N, K/2] in one grouped
+    launch (the MoE expert GEMM); x [G, M, K]."""
+    if x.device.type == "cpu":
+        return ref.nvfp4_matmul_grouped_ref(x, packed, out_dtype)
+    out = _matmul.launch_grouped(x, packed, out_dtype)
+    launches["nvfp4_matmul_grouped"] += 1
+    return out
+
+
 def paged_attention(q: torch.Tensor, pool_sl: dict, block_tables: torch.Tensor,
                     pos: torch.Tensor, *, window: int = 0) -> torch.Tensor:
     """Page-table gather + FP8-KV dequant + attend over one pool layer:
@@ -146,6 +158,7 @@ def dequant_weight(packed: PackedNVFP4, contract_axis: int,
     return unpack_layout(packed, contract_axis, dtype)
 
 
-__all__ = ["nvfp4_qdq", "nvfp4_matmul", "kl_loss", "paged_attention",
+__all__ = ["nvfp4_qdq", "nvfp4_matmul", "nvfp4_matmul_grouped", "kl_loss",
+           "paged_attention",
            "pack_weight",
            "dequant_weight", "launches", "reset_launches", "ref"]

@@ -7,6 +7,7 @@ import torch
 
 from ..core.losses import kl_from_logits as kl_loss_ref
 from .nvfp4_matmul import plain as nvfp4_matmul_ref
+from .nvfp4_matmul import plain_grouped as nvfp4_matmul_grouped_ref
 from .nvfp4_qdq import plain as nvfp4_qdq_ref
 from .paged_attention import plain as paged_attention_ref
 
@@ -21,5 +22,5 @@ def kl_grad_ref(t_logits: torch.Tensor, s_logits: torch.Tensor,
     return (p_s - p_t) * (maskf / torch.clamp_min(torch.sum(maskf), 1.0))[..., None]
 
 
-__all__ = ["nvfp4_qdq_ref", "nvfp4_matmul_ref", "kl_loss_ref", "kl_grad_ref",
-           "paged_attention_ref"]
+__all__ = ["nvfp4_qdq_ref", "nvfp4_matmul_ref", "nvfp4_matmul_grouped_ref",
+           "kl_loss_ref", "kl_grad_ref", "paged_attention_ref"]

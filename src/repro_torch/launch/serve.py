@@ -4,7 +4,8 @@
 Offline weight PTQ (fake-quantized BF16 or true-packed 4-bit) + prefill +
 greedy decode.  With ``--weight-format packed`` every 2-D quantized GEMM
 runs the ``nvfp4_matmul`` CUDA kernel and every GEMM input the
-``nvfp4_qdq`` kernel.  Full size on the card:
+``nvfp4_qdq`` kernel; MoE expert stacks are dequantized and multiplied,
+or, in the engine's fused tier, run the ``nvfp4_matmul_grouped`` kernel.  Full size on the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
         --arch acereason-7b --weight-format packed
@@ -207,9 +208,13 @@ def run_engine(cfg, params, qcfg, args) -> dict:
         dev = params_device(params)
         strict = dev.type == "cpu"
         agree = []
+        # serve_batch on the engine's config (MoE archs: per-row dispatch)
+        # and GEMM backend (the fused tier runs MoE expert stacks through
+        # the grouped kernel)
+        ref_q = dataclasses.replace(qcfg, packed_backend=eng.sq.packed_backend)
         for rid, prompt in zip(rids, prompts):
-            ref, _ = serve_batch(cfg, params, torch.from_numpy(
-                prompt[None].astype(np.int64)).to(dev), args.gen, qcfg=qcfg)
+            ref, _ = serve_batch(eng.cfg, params, torch.from_numpy(
+                prompt[None].astype(np.int64)).to(dev), args.gen, qcfg=ref_q)
             ref = ref[0].cpu().numpy()
             agree.append(float(np.mean(ref == outputs[rid])))
             if ref[0] != outputs[rid][0] or (strict and agree[-1] < 1.0):
@@ -248,7 +253,9 @@ def run_engine(cfg, params, qcfg, args) -> dict:
           f"prompts={args.min_prompt}..{args.max_prompt} gen={args.gen} "
           f"slots={args.slots} pool={n_blocks}x{args.block_size} "
           f"prefill={args.prefill_mode} kv-alloc={args.kv_alloc} "
-          f"fused-kernels={'on' if st['fused_kernels'] else 'off'}")
+          f"fused-kernels={'on' if st['fused_kernels'] else 'off'}"
+          + (f" moe-dispatch={st['moe_dispatch']}/{st['packed_backend']}"
+             if st["moe_dispatch"] else ""))
     print(f"[engine] decode={st['decode_tok_s']:.1f} tok/s "
           f"e2e={st['e2e_tok_s']:.1f} tok/s "
           f"peak-pool-util={st['peak_utilization']:.2f} "

@@ -9,7 +9,7 @@ operands are cast to f32 (a bf16 x bf16 product is exact in f32).
 
 The cache is a dict of tensors ``{"k", "v"}`` [L, B, S_max, Hkv, hd] and
 is updated IN PLACE by ``cache_update_layer`` (the reference returns a new
-array).  FP8 caches are part of the MoE/FP8 slice of the port.  The paged
+array).  FP8 caches are part of the FP8 KV slice of the port.  The paged
 pool is updated in place too; its FP8 pages can be read (the K7 kernel and
 its plain version dequantize them) but not yet written.
 """
@@ -107,7 +107,7 @@ def cache_update_layer(layer_cache: dict, k_new, v_new, pos: int) -> dict:
     """Write new kv at positions [pos, pos + S) of one layer's cache slice
     {k, v} [B, S_max, Hkv, hd], IN PLACE; returns the same dict."""
     if layer_cache.get("k_scale") is not None:
-        raise NotImplementedError("FP8 KV caches are part of the MoE/FP8 "
+        raise NotImplementedError("FP8 KV caches are part of the FP8 KV "
                                   "slice of the port")
     s = k_new.shape[1]
     layer_cache["k"][:, pos:pos + s] = k_new.to(layer_cache["k"].dtype)
@@ -117,7 +117,7 @@ def cache_update_layer(layer_cache: dict, k_new, v_new, pos: int) -> dict:
 
 def cache_read_layer(layer_cache: dict, dtype=torch.bfloat16):
     if layer_cache.get("k_scale") is not None:
-        raise NotImplementedError("FP8 KV caches are part of the MoE/FP8 "
+        raise NotImplementedError("FP8 KV caches are part of the FP8 KV "
                                   "slice of the port")
     return layer_cache["k"].to(dtype), layer_cache["v"].to(dtype)
 
@@ -180,7 +180,7 @@ def paged_scatter(pool_sl: dict, k_new, v_new, plan) -> dict:
     ``paged_write_plan``; returns the same dict."""
     if pool_sl.get("k_scale") is not None:
         raise NotImplementedError("FP8 pool writes (_quant_kv) are part of "
-                                  "the MoE/FP8 slice of the port")
+                                  "the FP8 KV slice of the port")
     src, dst = plan
     for name, new in (("k", k_new), ("v", v_new)):
         page = pool_sl[name]
@@ -197,7 +197,7 @@ def paged_update_layer(pool_sl: dict, k_new, v_new, block_tables, positions,
 
     k_new/v_new [B, S, Hkv, hd]; positions [B] (S == 1) or [B, S] absolute
     write positions; active [B] or [B, S]: inactive entries are dropped,
-    never touching live blocks.  FP8 pools raise (MoE/FP8 slice).
+    never touching live blocks.  FP8 pools raise (FP8 KV slice).
     """
     plan = paged_write_plan(block_tables, positions, active,
                             pool_sl["k"].shape[1])

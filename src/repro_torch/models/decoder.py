@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense family (port of ``repro.models.decoder``).
+"""Decoder-only LM, dense and MoE families (port of
+``repro.models.decoder``).
 
 The same functional protocol and parameter tree as the reference:
 
@@ -12,9 +13,11 @@ The same functional protocol and parameter tree as the reference:
 
 ``decode_step`` and ``prefill`` write the KV cache IN PLACE; the cache's
 ``pos`` is a Python int.  The paged forwards of the engine write the pool
-in place too.  MoE (``n_experts``), M-RoPE, sliding windows and
-FP8 KV (the ``moe_hybrid`` recipe) raise ``NotImplementedError``: they come
-with later slices of the port.
+in place too.  A MoE layer (``n_experts``) runs ``layers.moe_ffn`` with
+a shared expert behind a sigmoid gate (Qwen1.5-MoE) or a dense residual
+FFN (Arctic).  M-RoPE, sliding windows and FP8 KV (the ``moe_hybrid``
+recipe) raise ``NotImplementedError``: they come with later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -26,9 +29,6 @@ from . import common, layers
 
 
 def _supported(cfg) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE is part of the MoE "
-                                  "slice of the port")
     if cfg.mrope_sections:
         raise NotImplementedError(f"{cfg.name}: M-RoPE is part of the "
                                   "slab-family slice of the port")
@@ -36,8 +36,9 @@ def _supported(cfg) -> None:
         raise NotImplementedError(f"{cfg.name}: sliding-window caches are "
                                   "part of the slab-family slice of the port")
     if _kv_fp8(cfg):
-        raise NotImplementedError(f"{cfg.name}: FP8 KV is part of the "
-                                  "MoE/FP8 slice of the port")
+        raise NotImplementedError(f"{cfg.name}: FP8 KV (the moe_hybrid "
+                                  "recipe) is part of the FP8 KV slice of "
+                                  "the port")
 
 
 # ---------------------------------------------------------------------------
@@ -72,7 +73,27 @@ def _layer_specs(cfg):
     }
     if cfg.qkv_bias:
         spec["bqkv"] = P((cfg.qkv_dim,), ("qkv",), init="zeros")
-    if cfg.mlp == "swiglu":
+    if cfg.n_experts:
+        ffe, e = cfg.moe_d_ff, cfg.n_experts
+        eax = "expert" if cfg.moe_shard == "ep" else "none"
+        spec["router"] = P((d, e), ("embed", "expert"), kind="router")
+        spec["moe_wg"] = P((e, d, ffe), (eax, "embed", "mlp"), kind="mlp",
+                           contract_axis=1)
+        spec["moe_wu"] = P((e, d, ffe), (eax, "embed", "mlp"), kind="mlp",
+                           contract_axis=1)
+        spec["moe_wd"] = P((e, ffe, d), (eax, "mlp", "embed"), kind="mlp",
+                           contract_axis=1, scale=0.5)
+        if cfg.shared_d_ff:
+            sf = cfg.shared_d_ff
+            spec["sh_wg"] = P((d, sf), ("embed", "mlp"), kind="mlp")
+            spec["sh_wu"] = P((d, sf), ("embed", "mlp"), kind="mlp")
+            spec["sh_wd"] = P((sf, d), ("mlp", "embed"), kind="mlp", scale=0.5)
+            spec["sh_gate"] = P((d, 1), ("embed", "none"), kind="router")
+        if cfg.moe_dense_residual:
+            spec["res_wg"] = P((d, ff), ("embed", "mlp"), kind="mlp")
+            spec["res_wu"] = P((d, ff), ("embed", "mlp"), kind="mlp")
+            spec["res_wd"] = P((ff, d), ("mlp", "embed"), kind="mlp", scale=0.5)
+    elif cfg.mlp == "swiglu":
         spec["wg"] = P((d, ff), ("embed", "mlp"), kind="mlp")
         spec["wu"] = P((d, ff), ("embed", "mlp"), kind="mlp")
         spec["wd"] = P((ff, d), ("mlp", "embed"), kind="mlp", scale=0.5)
@@ -131,16 +152,29 @@ def _attention(qcfg, cfg, p, h, pos, mode, cache_sl, pos_idx):
 
 
 def _ffn(qcfg, cfg, p, h):
-    if cfg.mlp == "swiglu":
-        return layers.swiglu_mlp(qcfg, h, p["wg"], p["wu"], p["wd"])
-    return layers.gelu_mlp(qcfg, h, p["wi"], p["wd"])
+    """The layer's FFN: (out, aux); aux holds the MoE dispatch metrics."""
+    if not cfg.n_experts:
+        if cfg.mlp == "swiglu":
+            return layers.swiglu_mlp(qcfg, h, p["wg"], p["wu"], p["wd"]), {}
+        return layers.gelu_mlp(qcfg, h, p["wi"], p["wd"]), {}
+    out, aux = layers.moe_ffn(qcfg, cfg, h, p["router"], p["moe_wg"],
+                              p["moe_wu"], p["moe_wd"])
+    if cfg.shared_d_ff:
+        sh = layers.swiglu_mlp(qcfg, h, p["sh_wg"], p["sh_wu"], p["sh_wd"])
+        gate = torch.sigmoid(layers.qdense(qcfg, "router", h, p["sh_gate"])
+                             .to(torch.float32))
+        out = out + (sh.to(torch.float32) * gate).to(out.dtype)
+    if cfg.moe_dense_residual:
+        out = out + layers.swiglu_mlp(qcfg, h, p["res_wg"], p["res_wu"],
+                                      p["res_wd"])
+    return out, aux
 
 
 def _block(qcfg, cfg, p, x, pos, mode, cache_sl, pos_idx):
     h = run_norm(cfg, p["ln1"], x)
     x = x + _attention(qcfg, cfg, p, h, pos, mode, cache_sl, pos_idx)
     h = run_norm(cfg, p["ln2"], x)
-    return x + _ffn(qcfg, cfg, p, h)
+    return x + _ffn(qcfg, cfg, p, h)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -260,8 +294,8 @@ def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
 def paged_pool_specs(cfg, n_blocks: int, block_size: int):
     """Specs of the block-granular KV pool shared by all requests:
     [L, n_blocks, block_size, Hkv, hd] per K and V, plus f32 scales beside
-    FP8 pages (the ``moe_hybrid`` recipe, whose writes come with the
-    MoE/FP8 slice)."""
+    FP8 pages (the ``moe_hybrid`` recipe, whose writes come with the FP8
+    KV slice)."""
     P = common.ParamSpec
     fp8 = _kv_fp8(cfg)
     kdt = torch.float8_e4m3fn if fp8 else torch.bfloat16
@@ -346,7 +380,7 @@ def _paged_forward(cfg, params, pool, block_tables, positions, tok_active,
             y = carry + _attention_paged(qc, cfg, p, h, pos, psl, block_tables,
                                          positions, plan, fused=fused)
             h = run_norm(cfg, p["ln2"], y)
-            return y + _ffn(qc, cfg, p, h), None
+            return y + _ffn(qc, cfg, p, h)[0], None
         return fn
 
     x, _ = common.scan_layers(body, x, params["layers"], pool, qcfg,

@@ -4,13 +4,19 @@ Every GEMM routes through ``qeinsum`` / ``qdense``, the single NVFP4
 injection point: the activation is fake-quantized along its last dim by
 ``QuantConfig.q_act`` (the ``nvfp4_qdq`` kernel on the card), and the
 weight is a dense tensor or a ``PackedNVFP4``.  A 2-D packed weight goes
-to the ``nvfp4_matmul`` kernel; other packed weights are dequantized and
-multiplied; dense weights are multiplied as they are.
+to the ``nvfp4_matmul`` kernel (K2); a packed MoE expert stack
+[E, K, N] goes to the grouped kernel (K3) under
+``packed_backend="grouped"`` (the engine's fused tier); other packed
+weights are dequantized and multiplied; dense weights are multiplied as
+they are.
 
-Tensor parallelism (the reference's ``cst`` constraints and the mesh
-dispatch) and MoE are later slices of the port.
+``moe_ffn`` is the top-k MoE with sorted capacity dispatch in the
+reference's three scopes.  Tensor parallelism (the reference's ``cst``
+constraints and the mesh dispatch) is a later slice of the port.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -18,8 +24,10 @@ import torch.nn.functional as F
 from ..core.nvfp4 import PackedNVFP4
 from ..core.qconfig import QuantConfig
 from ..kernels import ops
+from ..kernels.nvfp4_matmul import sum_k_f32
 
 _DENSE_EQ = "...k,ko->...o"
+_MOE_EQ = "...eck,eko->...eco"
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -28,21 +36,63 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(dt) @ w.to(dt)
 
 
+def _to_groups(x: torch.Tensor) -> torch.Tensor:
+    """[..., E, C, K] -> [E, (lead * C), K]: every leading batch dim joins
+    each expert's M rows."""
+    *_, e, c, k = x.shape
+    return x.reshape(-1, e, c, k).movedim(1, 0).reshape(e, -1, k)
+
+
+def _from_groups(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_to_groups`` for an output [E, (lead * C), N]."""
+    *lead, e, c, _ = like.shape
+    n = y.shape[-1]
+    return y.reshape(e, -1, c, n).movedim(0, 1).reshape(*lead, e, c, n)
+
+
+def _moe_einsum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum(_MOE_EQ, x, w)`` for a dense expert stack w [E, K, N]: f32
+    products and sums, rounded once to the promoted dtype, as XLA computes
+    a bf16 dot.  On the CPU the sum runs over K in order, as XLA's CPU dot
+    sums (so this is bitwise the grouped kernel's plain version); on the
+    card it is one f32 batched product."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    xg = _to_groups(x)
+    if xg.device.type == "cpu":
+        y = sum_k_f32(xg, w.transpose(1, 2))
+    else:
+        y = torch.bmm(xg.to(torch.float32), w.to(torch.float32))
+    return _from_groups(y, x).to(dt)
+
+
+def _moe_grouped(xq: torch.Tensor, wr: PackedNVFP4) -> torch.Tensor:
+    """``_MOE_EQ`` through ``ops.nvfp4_matmul_grouped``: one launch for all
+    experts; x [..., E, C, K] -> [..., E, C, N]."""
+    y = ops.nvfp4_matmul_grouped(_to_groups(xq), wr, out_dtype=xq.dtype)
+    return _from_groups(y, xq)
+
+
 def qeinsum(qcfg: QuantConfig, kind: str, eq: str, x: torch.Tensor, w,
             contract_axis: int = 0, quantize_act: bool = True,
             parallelism: str | None = None) -> torch.Tensor:
-    """``einsum(eq, q_act(x), resolve(w))`` for the dense equation."""
-    if eq != _DENSE_EQ:
-        raise NotImplementedError(f"einsum {eq!r}: MoE expert GEMMs are part "
-                                  "of the MoE slice of the port")
+    """``einsum(eq, q_act(x), resolve(w))`` for the dense equation
+    (w [K, N]) or the MoE one (w [E, K, N], ``contract_axis=1``).
+    ``quantize_act=False`` lets the MoE fake-quant an activation once and
+    reuse it across GEMMs."""
+    if eq not in (_DENSE_EQ, _MOE_EQ):
+        raise ValueError(f"unsupported einsum {eq!r}")
     xq = qcfg.q_act(x, kind) if quantize_act else x
     wr = qcfg.resolve_weight(w, kind, contract_axis)
+    einsum = _matmul if eq == _DENSE_EQ else _moe_einsum
     if isinstance(wr, PackedNVFP4):
-        if (wr.ndim == 2 and contract_axis == 0
+        if (wr.ndim == 3 and contract_axis == 1 and eq == _MOE_EQ
+                and qcfg.packed_backend == "grouped"):
+            return _moe_grouped(xq, wr)
+        if (wr.ndim == 2 and contract_axis == 0 and eq == _DENSE_EQ
                 and qcfg.packed_backend in ("auto", "grouped")):
             return ops.nvfp4_matmul(xq, wr, out_dtype=xq.dtype)
-        return _matmul(xq, ops.dequant_weight(wr, contract_axis, xq.dtype))
-    return _matmul(xq, wr)
+        return einsum(xq, ops.dequant_weight(wr, contract_axis, xq.dtype))
+    return einsum(xq, wr)
 
 
 def qdense(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,
@@ -50,12 +100,17 @@ def qdense(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,
            quantize_act: bool = True,
            parallelism: str | None = None) -> torch.Tensor:
     """y = x @ w (+ b) with NVFP4 fake-quant per the policy; ``w`` [in, out]
-    dense or packed."""
-    if w.ndim != 2 or contract_axis != 0:
-        raise NotImplementedError(f"weight rank/contract_axis {w.ndim}/"
-                                  f"{contract_axis}: MoE expert weights are "
-                                  "part of the MoE slice of the port")
-    y = qeinsum(qcfg, kind, _DENSE_EQ, x, w, 0, quantize_act, parallelism)
+    or an expert stack [E, in, out] with ``contract_axis=1`` and x
+    [..., E, C, in]; dense or packed."""
+    if w.ndim == 2 and contract_axis == 0:
+        eq = _DENSE_EQ
+    elif w.ndim == 3 and contract_axis == 1:
+        eq = _MOE_EQ
+    else:
+        raise ValueError(f"unsupported weight rank/contract_axis: "
+                         f"{w.ndim}/{contract_axis}")
+    y = qeinsum(qcfg, kind, eq, x, w, contract_axis, quantize_act,
+                parallelism)
     if b is not None:
         y = y + b
     return y
@@ -143,3 +198,149 @@ def gelu_mlp(qcfg, x, wi, wd, bi=None, bd=None, kind: str = "mlp"):
     h = F.gelu(qdense(qcfg, kind, x, wi, bi, parallelism="column"),
                approximate="tanh")
     return qdense(qcfg, kind, h, wd, bd, parallelism="row")
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: capacity-based sorted dispatch (reference lines 304-470)
+# ---------------------------------------------------------------------------
+
+
+def moe_ffn(qcfg, cfg, x, router_w, wg, wu, wd):
+    """Top-k MoE with sorted capacity dispatch; static shapes throughout.
+
+    x [B, S, d]; router_w [d, E]; expert stacks [E, d, ffe] / [E, ffe, d].
+    Returns (out [B, S, d], aux {"moe_dropped_frac",
+    "moe_router_entropy"}).  ``cfg.moe_dispatch`` picks the capacity
+    domain:
+
+      * "global": one sort over all B * S tokens;
+      * "local": one per batch row, so a request's routing (and drops)
+        never depends on the requests batched beside it;
+      * "token": one per token, what the multi-token paged forward needs
+        to reproduce one-token decode; with ``act_scope="token"`` the
+        expert slabs quantize per dispatch row ("row" scope), which is
+        per token here.
+    """
+    dispatch = getattr(cfg, "moe_dispatch", "global")
+    b, s, d = x.shape
+    if dispatch == "token":
+        if qcfg.act_scope == "token":
+            qcfg = dataclasses.replace(qcfg, act_scope="row")
+        out, aux = _moe_dispatch_local(qcfg, cfg, x.reshape(b * s, 1, d),
+                                       router_w, wg, wu, wd)
+        return out.reshape(b, s, d), aux
+    if dispatch == "local":
+        return _moe_dispatch_local(qcfg, cfg, x, router_w, wg, wu, wd)
+    out, aux = _moe_dispatch_flat(qcfg, cfg, x.reshape(b * s, d), router_w,
+                                  wg, wu, wd)
+    return out.reshape(b, s, d), aux
+
+
+def _expert_ffn(qcfg, xe, wg, wu, wd):
+    """Quantized SwiGLU over per-expert token slabs xe [..., E, C, d]; the
+    input is fake-quantized once for the gate and up GEMMs."""
+    xq = qcfg.q_act(xe, "mlp")
+    g = qdense(qcfg, "mlp", xq, wg, contract_axis=1, quantize_act=False)
+    u = qdense(qcfg, "mlp", xq, wu, contract_axis=1, quantize_act=False)
+    h = qcfg.q_act(silu(g) * u, "mlp")
+    return qdense(qcfg, "mlp", h, wd, contract_axis=1, quantize_act=False)
+
+
+def _top_k(gates: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last dim, ties to the
+    lower index (a stable descending sort keeps tied entries in order)."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(qcfg, cfg, x, router_w):
+    """Router, top-k and sorted capacity dispatch over rows x [R, N, d]
+    (R capacity domains of N tokens each).
+
+    Returns (buf_tok [R, E * cap] token of each expert slot, 0 for an empty
+    slot; the combine plan (dst [R, N, k] slot of each kept (token, choice)
+    in expert order, keep [R, N, k], weight [R, N, k]); cap; aux)."""
+    r, n, _ = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_tok
+    dev = x.device
+    gates = torch.softmax(
+        qdense(qcfg, "router", x, router_w).to(torch.float32), -1)  # [R,N,E]
+    topw, topi = _top_k(gates, k)                                    # [R,N,k]
+    topw = topw / torch.clamp_min(torch.sum(topw, -1, keepdim=True), 1e-9)
+
+    flat_e = topi.reshape(r, n * k)
+    flat_t = torch.arange(n, device=dev).repeat_interleave(k).expand(r, n * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    se = torch.take_along_dim(flat_e, order, 1)
+    st = torch.take_along_dim(flat_t, order, 1)
+    # position within each expert's segment, per row
+    seg_start = torch.sum(se[:, None, :] < torch.arange(e, device=dev)[None, :, None], -1)
+    pos_in_e = (torch.arange(n * k, device=dev)[None]
+                - torch.take_along_dim(seg_start, se, 1))
+    cap = int(max(1, (n * k * cfg.capacity_factor) // e))
+    keep = pos_in_e < cap
+    dropped = 1.0 - torch.mean(keep.to(torch.float32))
+
+    # expert slots [R, E * cap]: dropped entries land in a garbage slot
+    dst = torch.where(keep, se * cap + torch.clamp(pos_in_e, 0, cap - 1),
+                      e * cap)
+    rows = torch.arange(r, device=dev)[:, None]
+    buf_tok = torch.zeros((r, e * cap + 1), dtype=torch.int64, device=dev)
+    buf_tok[rows, dst] = st
+    # the combine plan, back in (token, choice) order, choices sorted by
+    # expert: the order in which the reference's scatter-add reaches a token
+    dst_tc = torch.empty_like(dst).scatter_(1, order, dst).reshape(r, n, k)
+    keep_tc = torch.empty_like(keep).scatter_(1, order, keep).reshape(r, n, k)
+    by_e = torch.argsort(topi, dim=-1, stable=True)
+    plan = tuple(torch.take_along_dim(a, by_e, -1)
+                 for a in (dst_tc, keep_tc, topw))
+    aux = {"moe_dropped_frac": dropped,
+           "moe_router_entropy": -torch.mean(torch.sum(
+               gates * torch.log(gates + 1e-9), -1))}
+    return buf_tok[:, :-1], plan, cap, aux
+
+
+def _combine(ye: torch.Tensor, plan) -> torch.Tensor:
+    """out[r, t] = sum over token t's kept choices of ye[r, slot] * weight,
+    in f32, added in expert order from +0: the reference's scatter-add
+    (``_batched_scatter_add``), which XLA applies in slot order, as a
+    gather and a fixed-order sum, the same on every device (no atomics).
+    A dropped choice adds -0.0 (an exact identity); the reference's empty
+    slots add ye * 0 to token 0, which leaves a sum unchanged.
+
+    ye [R, E * cap, d]; plan (dst, keep, weight) [R, N, k] -> [R, N, d] f32.
+    """
+    dst, keep, w = plan
+    r, n, k = dst.shape
+    d = ye.shape[-1]
+    slot = torch.where(keep, dst, 0).reshape(r, n * k, 1).expand(r, n * k, d)
+    c = torch.gather(ye, 1, slot).reshape(r, n, k, d).to(torch.float32) * w[..., None]
+    c = torch.where(keep[..., None], c, torch.full_like(c, -0.0))
+    out = torch.zeros((r, n, d), dtype=torch.float32, device=ye.device)
+    for j in range(k):
+        out = out + c[:, :, j]
+    return out
+
+
+def _moe_dispatch_local(qcfg, cfg, x, router_w, wg, wu, wd):
+    """Per-batch-row dispatch: each row of x [B, S, d] is its own capacity
+    domain; the expert slabs are [B, E, cap, d]."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    buf_tok, plan, cap, aux = _route(qcfg, cfg, x, router_w)
+    xe = torch.take_along_dim(x, buf_tok[:, :, None], 1).reshape(b, e, cap, d)
+    ye = _expert_ffn(qcfg, xe, wg, wu, wd)
+    out = _combine(ye.reshape(b, e * cap, d), plan)
+    return out.to(x.dtype), aux
+
+
+def _moe_dispatch_flat(qcfg, cfg, xf, router_w, wg, wu, wd):
+    """One capacity domain over a flat [T, d] token slab; the expert slabs
+    are [E, cap, d]."""
+    t, d = xf.shape
+    e = cfg.n_experts
+    buf_tok, plan, cap, aux = _route(qcfg, cfg, xf[None], router_w)
+    xe = xf[buf_tok[0]].reshape(e, cap, d)
+    ye = _expert_ffn(qcfg, xe, wg, wu, wd)
+    out = _combine(ye.reshape(1, e * cap, d), plan)[0]
+    return out.to(xf.dtype), aux

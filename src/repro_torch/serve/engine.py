@@ -17,12 +17,15 @@ Prefill modes:
     need that property.
 
 Requests are numerically independent: serving uses ``act_scope="row"``
-activation scales and per-request positions and masks, so a request's
-greedy tokens are those of a single-request ``serve_batch``.
+activation scales, per-request positions and masks and, for MoE archs,
+per-row expert dispatch (``moe_dispatch="local"``; "token" in paged
+prefill), so a request's greedy tokens are those of a single-request
+``serve_batch``.
 
 With ``fused_kernels`` on (the default "auto" on the paged plan) the
 attention of every paged forward runs the ``paged_attention`` kernel (K7)
-on the card; "off" runs the gather-then-attend two-step.
+on the card, and packed MoE expert stacks the grouped GEMM (K3); "off"
+runs the gather-then-attend two-step and dequantizes the expert stacks.
 
 Not ported yet, and refused with ``NotImplementedError``: ``mesh``/``rules``
 (tensor-parallel slice), ``obs`` and ``shadow_teacher`` (observability
@@ -91,6 +94,10 @@ class Engine:
             raise ValueError(
                 "prefix_cache / kv_alloc='ondemand' require "
                 f"prefill_mode='paged' (got {prefill_mode!r})")
+        if cfg.n_experts and cfg.moe_dispatch not in ("local", "token"):
+            # per-row (or per-token) dispatch makes MoE routing independent
+            # of co-batched requests, which continuous batching requires
+            cfg = dataclasses.replace(cfg, moe_dispatch="local")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -131,9 +138,12 @@ class Engine:
         self.pool = self.state.pool
         self.sched = Scheduler(self.state, n_slots, max_blocks_per_slot)
         # paged prefill replays chunks through the token-scope verify
-        # forward (per-position activation scales: sequential-decode
-        # semantics, what makes cache hits and preempt-resume exact)
+        # forward (per-position activation scales and, for MoE, per-token
+        # expert capacity: sequential-decode semantics, what makes cache
+        # hits and preempt-resume exact)
         self.psq = dataclasses.replace(self.sq, act_scope="token")
+        self.pcfg = (dataclasses.replace(cfg, moe_dispatch="token")
+                     if cfg.n_experts else cfg)
 
         self.step_count = 0
         self.decode_steps = 0
@@ -186,6 +196,8 @@ class Engine:
         d = {"steps": self.step_count, "decode_steps": self.decode_steps,
              "fused_kernels": self.fused,
              "packed_backend": self.sq.packed_backend,
+             "moe_dispatch": (self.cfg.moe_dispatch if self.cfg.n_experts
+                              else None),
              "requests_finished": len(self.sched.finished),
              "preempts": self.preempts,
              "tokens_generated": self.tokens_generated,
@@ -293,7 +305,7 @@ class Engine:
             toks[0, :n_valid] = ctx[req.n_prefilled:req.n_prefilled + n_valid]
             with torch.inference_mode():
                 lg, _ = decoder.verify_step_paged(
-                    self.cfg, self.params, self.pool.data, bt,
+                    self.pcfg, self.params, self.pool.data, bt,
                     torch.tensor([req.n_prefilled], dtype=torch.int32, device=dev),
                     active,
                     torch.tensor([n_valid - 1], dtype=torch.int32, device=dev),

@@ -410,8 +410,8 @@ def test_engine_raises_on_unported_plans_and_options(loaded):
         Engine(configs.get_smoke("qwen2-vl-2b"), params={}, device="cpu")
     with pytest.raises(NotImplementedError, match="slab-family"):
         Engine(configs.get_smoke("rwkv6-3b"), params={}, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Engine(configs.get_smoke("qwen2-moe-a2.7b"), params, device="cpu")
+    with pytest.raises(NotImplementedError, match="FP8 KV slice"):
+        Engine(configs.get_smoke("arctic-480b"), params, device="cpu")
     for kw, slice_name in ((dict(mesh=object()), "TP"),
                            (dict(obs=object()), "observability"),
                            (dict(shadow_teacher={}), "observability"),
@@ -444,7 +444,7 @@ def test_fp8_pool_writes_raise():
     assert pool["k_scale"].shape == pool["k"].shape[:-1]
     sl = {k: v[0] for k, v in pool.items()}
     kv = torch.zeros(1, 1, cfg.n_kv_heads, cfg.head_dim)
-    with pytest.raises(NotImplementedError, match="MoE/FP8"):
+    with pytest.raises(NotImplementedError, match="FP8 KV slice"):
         attn.paged_update_layer(sl, kv, kv, torch.zeros(1, 1, dtype=torch.int32),
                                 torch.zeros(1, dtype=torch.int32),
                                 torch.ones(1, dtype=torch.bool))

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.core import nvfp4
 from repro_torch.kernels import _build, ops
 from repro_torch.launch import serve, train
 from repro_torch.serve import Engine
@@ -40,7 +41,8 @@ def test_port_sources_import_no_jax():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
-            "repro_torch.bridge, repro_torch.serve; "
+            "repro_torch.bridge, repro_torch.serve, repro_torch.models.layers, "
+            "repro_torch.kernels.nvfp4_matmul; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -68,6 +70,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         Engine(cfg, {"embed": torch.zeros(1)})
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "acereason-7b", "--engine"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.load_quantized(configs.get_smoke("qwen2-moe-a2.7b"), 0, "packed")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen2-moe-a2.7b", "--engine"])
     assert train.build_parser().parse_args([]).device == "cuda"
 
 
@@ -81,6 +87,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         nvfp4_qdq.launch(x)
     with pytest.raises(ValueError, match="CUDA"):
         nvfp4_matmul.launch(x, ops.pack_weight(torch.zeros(32, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        nvfp4_matmul.launch_grouped(x.reshape(1, 2, 32),
+                                    nvfp4.pack(torch.zeros(1, 16, 32)))
     with pytest.raises(ValueError, match="CUDA"):
         kl_loss.launch_fwd(x, x)
     z = torch.zeros(2)
@@ -108,7 +117,11 @@ def test_launch_counters_count_kernel_launches_only():
                               torch.tensor([[2, 0]], dtype=torch.int32),
                               torch.tensor([5], dtype=torch.int32))
     assert out.shape == (1, 1, 2, 32) and out.dtype == torch.bfloat16
-    assert ops.launches == {"nvfp4_qdq": 0, "nvfp4_matmul": 0, "kl_loss": 0,
+    g = ops.nvfp4_matmul_grouped(x.reshape(2, 2, 64),
+                                 nvfp4.pack(torch.randn(2, 8, 64)))
+    assert g.shape == (2, 2, 8) and g.dtype == torch.bfloat16
+    assert ops.launches == {"nvfp4_qdq": 0, "nvfp4_matmul": 0,
+                            "nvfp4_matmul_grouped": 0, "kl_loss": 0,
                             "kl_loss_bwd": 0, "paged_attention": 0}
 
 
@@ -116,8 +129,9 @@ def test_build_is_lazy_and_names_the_sources():
     """Importing builds nothing; the library name hashes every source."""
     assert _build.library.cache_info().currsize == 0
     names = {p.name for p in _build._sources()}
-    assert {"nvfp4_qdq.cu", "nvfp4_matmul.cu", "kl_loss.cu",
-            "paged_attention.cu"} <= names
+    assert {"nvfp4_qdq.cu", "nvfp4_matmul.cu", "nvfp4_matmul_grouped.cu",
+            "nvfp4_matmul.cuh", "kl_loss.cu", "paged_attention.cu"} <= names
     assert len(_build._digest()) == 16
-    assert set(_build.SIGNATURES) == {"nvfp4_qdq", "nvfp4_matmul", "kl_fwd",
+    assert set(_build.SIGNATURES) == {"nvfp4_qdq", "nvfp4_matmul",
+                                      "nvfp4_matmul_grouped", "kl_fwd",
                                       "kl_bwd", "paged_attention"}

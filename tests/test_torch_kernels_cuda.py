@@ -7,9 +7,10 @@ runs it as it is (that machine has no JAX):
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 Tolerances: ``nvfp4_qdq`` bitwise (the same f32 operations in the same
-order); ``nvfp4_matmul`` within one bf16 ulp of the plain version's f32
-product plus 2^-20 * (|x| @ |W|^T), a bound on summing the same exact
-products in another f32 order.  The KL forward (K5): per-token KL within
+order); ``nvfp4_matmul`` (K2) and ``nvfp4_matmul_grouped`` (K3) within
+one bf16 ulp of the plain version's f32 product plus 2^-20 * (|x| @ |W|^T),
+a bound on summing the same exact products in another f32 order, and K3
+bitwise equal to K2 on every group's slices (one device code).  The KL forward (K5): per-token KL within
 rtol 1e-4 plus 16 f32 ulps of |z_t| + |z_s| (KL is a small difference of
 two terms of about log V, and the two versions sum e^x in other orders),
 each logsumexp within 8 ulps; KL exactly 0 for identical logits.  The KL
@@ -94,6 +95,49 @@ def test_matmul_kernel_padded_k(gen, x_dtype, out_dtype):
                                             device="cuda"), (0, 8))
     p = dataclasses.replace(nvfp4.pack(w), orig_k=40)
     assert _matmul_ok(x, p, out_dtype)
+
+
+def _grouped_case(gen, g, m, k, n, per_group, orig_k=0):
+    """x [G, M, K] (through the qdq kernel unless K is padded) and a packed
+    stack [G, N, K/2] whose experts differ in scale; ``orig_k`` pads the
+    stored K."""
+    x = (torch.randn((g, m, orig_k or k), generator=gen, device="cuda") * 2
+         ).to(torch.bfloat16)
+    if not orig_k:
+        x = ops.nvfp4_qdq(x)
+    w = (torch.randn((g, n, k), generator=gen, device="cuda") / math.sqrt(k)
+         * torch.arange(1, g + 1, device="cuda")[:, None, None])
+    p = nvfp4.pack(w.to(torch.bfloat16), n_lead=1 if per_group else 0)
+    if orig_k:
+        p = dataclasses.replace(p, orig_k=orig_k)
+    return x, p
+
+
+@pytest.mark.parametrize("g,m,k,n,per_group,orig_k", [
+    (60, 8, 2048, 1408, False, 0), (60, 8, 1408, 2048, False, 0),
+    (60, 42, 2048, 1408, False, 0), (60, 16, 1408, 2048, True, 0),
+    (3, 5, 48, 24, True, 40), (4, 1, 64, 40, False, 0)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_grouped_kernel_within_bound_and_bitwise_k2(gen, g, m, k, n, per_group,
+                                                    orig_k, out_dtype):
+    """K3 against its plain version within K2's bound (one ulp of the
+    output plus 2^-20 * (|x| @ |W|^T)), and bitwise equal to K2 run on
+    each group's slices: the Qwen1.5-MoE expert stacks at decode (M = 8),
+    exact prefill (M = 42) and a paged chunk (M = 16), per-group and
+    shared tensor scales, K padded under orig_k, M = 1."""
+    x, p = _grouped_case(gen, g, m, k, n, per_group, orig_k)
+    y = ops.nvfp4_matmul_grouped(x, p, out_dtype)
+    y32 = ref.nvfp4_matmul_grouped_ref(x, p, torch.float32)
+    w = nvfp4.unpack(p, torch.bfloat16).float()[..., : p.k]
+    bound = 2.0 ** -20 * torch.bmm(x.float().abs(), w.abs().transpose(1, 2))
+    if out_dtype == torch.bfloat16:
+        bound += torch.exp2(torch.floor(torch.log2(y32.abs().clamp_min(1e-30))) - 7)
+    assert bool(((y.float() - y32).abs() <= bound).all())
+    ts = p.tensor_scale.reshape(-1)
+    for i in range(g):
+        sl = nvfp4.PackedNVFP4(p.codes[i], p.scales[i], ts[i if per_group else 0],
+                               p.orig_k)
+        assert torch.equal(_bits(y[i]), _bits(ops.nvfp4_matmul(x[i], sl, out_dtype)))
 
 
 def _ulp(x, mant_bits):
@@ -264,6 +308,9 @@ def test_launch_counters_count_card_launches(gen):
         torch.bfloat16).requires_grad_()
     ops.kl_loss(x, s, torch.ones(4, device="cuda")).backward()
     ops.paged_attention(*_k7_case(gen, 1, 1, 2, 1, 32, 4, 8, 2, [3]))
+    ops.nvfp4_matmul_grouped(x.reshape(2, 2, 64), nvfp4.pack(
+        torch.randn((2, 16, 64), generator=gen, device="cuda")))
     torch.cuda.synchronize()
-    assert ops.launches == {"nvfp4_qdq": 1, "nvfp4_matmul": 1, "kl_loss": 1,
+    assert ops.launches == {"nvfp4_qdq": 1, "nvfp4_matmul": 1,
+                            "nvfp4_matmul_grouped": 1, "kl_loss": 1,
                             "kl_loss_bwd": 1, "paged_attention": 1}
