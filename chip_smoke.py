@@ -23,7 +23,10 @@ Phases (every failure exits nonzero):
      decode, 42 at an exact 512-token prefill, 16 in a paged-prefill chunk),
      within K2's tolerance of its plain version and bitwise equal to K2 run
      on each expert's slices, with a shared and a per-expert tensor scale
-     and a padded K;
+     and a padded K; ``nvfp4_matmul_tp`` (K4): each tp = 2 rank tile of
+     the acereason-7b sites (M = 8 and 256) through K2 within K2's
+     tolerance, the row-mode sum of the two tiles within the summation
+     bound of the full-K plain product;
   4. smoke-size models on the card against the same weights on the CPU:
      serving prefill and greedy tokens, and one QAD training step;
   5. the static serving path: ``acereason-7b`` at full width and 14 of its
@@ -52,11 +55,27 @@ Phases (every failure exits nonzero):
      requests; the dropped fraction at prefill; a traced decode step.  Run M-B: 8 requests sharing a 256-token prefix, 8 tokens each,
      paged prefill (token dispatch, K3 at M = 16), prefix cache on against
      off: tokens bitwise equal;
+  5d. tensor-parallel serving: the engine over packed weights of
+     ``acereason-7b`` at full width and depth at tp = 2, two ranks (two
+     processes, a gloo group) sharing the card, exact prefill.  First,
+     on each rank, K4's wrapper ``ops.nvfp4_matmul_tp`` on the rank's tile
+     of every site (M = 8 and 256) against ``ref.nvfp4_matmul_tp_ref`` on
+     the same inputs at K2's tolerance, the row sites' f32 result against
+     the full-K plain product at the summation bound.  Run TP:
+     the first 8 of run A's requests, 16 greedy tokens each, 8 slots, run
+     A's pool; every request finishes and every rank's pool drains, the
+     ranks agree on every token, every packed leaf and the KV pool are
+     sharded (per-rank pool bytes x 2 = run A's), each rank launches
+     ``nvfp4_matmul_tp`` (K4) 5 x 28 times per forward and neither K2 nor
+     K7, and each request's prefill logits lie within LOGIT_TOL of run A's
+     on the same prompt; a traced decode step on rank 0;
   6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
      (16 layers, d_model 2048, vocab 50304), 4 QAD steps of batch 8 x 512
      tokens with an eval after each, the launch counters read around it;
      a traced step;
-  7. kernel, plain, bound and library times;
+  7. kernel, plain, bound and library times (CUDA events around each
+     call, the L2 flushed between calls, the median), K4 as K2 on each
+     rank's tile of every acereason-7b site at M = 8 and 256;
   8. a ``kernels`` JSON line, the card line, and the final JSON line.
 
 Exits 2 without printing a result when no CUDA device is present.
@@ -81,6 +100,7 @@ HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 L2_FLUSH_BYTES = 128 << 20     # larger than the 50 MB L2
+SPIN_CYCLES = 100_000_000      # about 50 ms of one SM: the host queues ahead
 # Packed (kernel) vs QDQ (cuBLAS) paths on bitwise-equal weights, relative
 # L2.  The two differ only in each GEMM's f32 summation order, which moves
 # a rare bf16 output by one ulp.
@@ -137,6 +157,10 @@ SERVE_DEPTH = 14
 MOE_ARCH = "qwen2-moe-a2.7b"
 RUN_M_OFF = dict(requests=8, gen=4)
 RUN_MB = dict(requests=8, prefix=256, min_suffix=16, max_suffix=128, gen=8)
+# tensor-parallel serving (acereason-7b, full size): two ranks share the
+# card; run A's first 8 requests, 16 tokens each
+TP_SIZE = 2
+RUN_TP = dict(requests=8, gen=16)
 # the training path
 TRAIN = dict(arch="olmo-1b", steps=4, lr=1e-5, batch=8, seq=512)
 # one smoke QAD step on the card against the CPU, same weights and batch:
@@ -159,6 +183,145 @@ def card_line() -> str:
     if out.returncode:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def k4_rank_check(tp, cfg):
+    """K4's wrapper, ``ops.nvfp4_matmul_tp``, on this rank's tile of each
+    acereason-7b site at M = 8 and 256 (runs in a rank's process): held
+    against its plain version, ``ref.nvfp4_matmul_tp_ref``, on the same
+    inputs at K2's tolerance (one bf16 ulp of the f32 result plus the f32
+    summation bound of |x| |W| over what it sums), and the row sites' f32
+    result against the full-K plain product at that bound.  Every rank
+    draws the same weights and inputs.  One record per (site, M)."""
+    import torch
+
+    from repro_torch.core import nvfp4
+    from repro_torch.kernels import ops, ref
+
+    dev = tp.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    d, ff, qkv = cfg.d_model, cfg.d_ff, cfg.qkv_dim
+    sites = (("wqkv", d, qkv, "column"), ("wo", d, d, "row"),
+             ("wg", d, ff, "column"), ("wu", d, ff, "column"),
+             ("wd", ff, d, "row"))
+    out = []
+    for m in (ENGINE["n_slots"], BATCH * PROMPT):
+        for wname, k, n, mode in sites:
+            x = ops.nvfp4_qdq((torch.randn((m, k), generator=gen, device=dev)
+                               * 2.0).to(torch.bfloat16))
+            p = ops.pack_weight((torch.randn((k, n), generator=gen, device=dev)
+                                 / math.sqrt(k)).to(torch.bfloat16))
+            tile = nvfp4.tp_tile(p, mode, tp.rank, tp.size)
+            xl = (x if mode == "column"
+                  else x.chunk(tp.size, -1)[tp.rank].contiguous())
+            y = ops.nvfp4_matmul_tp(xl, tile, tp, mode)
+            y32 = ref.nvfp4_matmul_tp_ref(xl, tile, tp, mode, torch.float32)
+            # column: this rank's N over the whole K; row: every N over
+            # the whole K, summed over the group
+            absref = x.float().abs() @ nvfp4.unpack(
+                p if mode == "row" else tile, torch.bfloat16).float().abs().T
+            ulp = torch.exp2(torch.floor(torch.log2(
+                y32.abs().clamp_min(1e-30))) - 7)
+            diff = (y.float() - y32).abs()
+            rec = dict(site=wname, mode=mode, m=m, max_abs_err=float(diff.max()),
+                       ok=bool((diff <= ulp + 2.0 ** -20 * absref).all()))
+            if mode == "row":
+                full = ref.nvfp4_matmul_ref(x, p, torch.float32)
+                fdiff = (ops.nvfp4_matmul_tp(xl, tile, tp, mode, torch.float32)
+                         - full).abs()
+                rec.update(full_err=float(fdiff.max()), full_ok=bool(
+                    (fdiff <= 2.0 ** -20 * absref).all()))
+            out.append(rec)
+            del x, p, tile, xl, y, y32, absref, ulp, diff
+    torch.cuda.synchronize()
+    return out
+
+
+def tp_rank(tp, prompts, n_gen):
+    """One rank of phase 5d (runs in its own process): K4's wrapper held
+    to its plain version (``k4_rank_check``); the seed-0 weights drawn on
+    the card with the rank's own generator, only its tiles kept;
+    the engine over them; run TP's traffic; one traced decode step on
+    rank 0.  Returns host data only."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = configs.get_config("acereason-7b")
+    k4_check = k4_rank_check(tp, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, qcfg = serve.load_quantized(cfg, SEED, "packed", tp.device, tp=tp)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 1e9
+    eng = Engine(cfg, params, qcfg, device=tp.device, mesh=tp, **ENGINE)
+    del params
+    report = serve.tp_shard_report(eng)
+    pre, inner = {}, eng._sample_one
+
+    def sample_one(req, logits):
+        pre[req.rid] = logits[0].float().cpu()
+        return inner(req, logits)
+    eng._sample_one = sample_one
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    eng.mesh.reset_counts()
+    t0 = time.perf_counter()
+    rids, out = serve.run_workload(eng, prompts, n_gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    coll = dict(eng.mesh.counts)
+    st = eng.stats()
+    res = dict(k4_check=k4_check,
+               tokens=[out[r] for r in rids], pre=[pre.get(r) for r in rids],
+               finished=len(out), stats=st, report=report, launches=launches,
+               collectives=coll, wall=wall, load_s=load_s, load_peak=load_peak,
+               peak=torch.cuda.max_memory_allocated() / 1e9,
+               drained=not eng.state.leaked()
+               and eng.pool.used_blocks == eng.pool.cached_blocks)
+
+    # one traced decode step: 8 running requests, nothing left to prefill;
+    # both ranks step alike, rank 0 under the profiler
+    for p in prompts[:ENGINE["n_slots"]]:
+        eng.submit(p, 8)
+    while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
+        eng.step()
+    torch.cuda.synchronize()
+    eng.mesh.reset_counts()
+    if tp.rank == 0:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                                     + e.time_range.elapsed_us() / 1e3)
+        res["trace"] = dict(
+            wall_ms=wall_ms, busy_ms=sum(by_kernel.values()),
+            k4_ms=sum(ms for kname, ms in by_kernel.items()
+                      if "gemv_kernel<false" in kname
+                      or "matmul_kernel<false" in kname),
+            collective_ms=eng.mesh.counts["seconds"] * 1e3,
+            collectives=eng.mesh.counts["calls"],
+            top=sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+    else:
+        eng.step()
+    eng.drain()
+    return res
 
 
 def main() -> int:
@@ -211,38 +374,24 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     def timed(fn, iters: int) -> float:
-        """Device ms of one call: the summed duration of every kernel ``fn``
-        launches (torch.profiler), L2 flushed before each call (cold
-        weights, as a decode step finds them).  CUDA events around each
-        call instead if the profiler sees no device activity."""
+        """Device ms of one call: CUDA events around each of ``iters``
+        calls, the L2 flushed before each (cold weights, as a decode step
+        finds them), the median.  A spin kernel ahead of the loop holds the
+        card while the host queues every call, so no call waits for the
+        host between its two events."""
         fn()
         torch.cuda.synchronize()
-        for _ in range(3):      # the profiler now and then reports nothing
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    flush_buf.zero_()
-                    fn()
-                torch.cuda.synchronize()
-            us = sum(e.time_range.elapsed_us() for e in prof.events()
-                     if e.device_type == DeviceType.CUDA
-                     and "FillFunctor<unsigned char>" not in e.name
-                     and "Memset" not in e.name)
-            if us > 0:
-                return us / 1e3 / iters
-        print("[chip_smoke] profiler saw no device time: CUDA events "
-              "(host overhead included)", flush=True)
-        times = []
-        for _ in range(iters):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        torch.cuda._sleep(SPIN_CYCLES)
+        for a, b in ev:
             flush_buf.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
             a.record()
             fn()
             b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return sorted(times)[len(times) // 2]
+        torch.cuda.synchronize()
+        times = sorted(a.elapsed_time(b) for a, b in ev)
+        return times[len(times) // 2]
 
     # ---- 3. kernels against their plain versions --------------------------
     cfg = configs.get_config("acereason-7b")
@@ -324,6 +473,68 @@ def main() -> int:
         fail("nvfp4_qdq with one amax per row is not bitwise")
     print("[kernel] edge cases (M=1, padded K, f32 in/out, per-row amax) OK",
           flush=True)
+
+    # K4: each rank's tile through K2, the tiles together against the
+    # full-K plain product ------------------------------------------------
+    rows["nvfp4_matmul_tp"] = []
+    err["nvfp4_matmul_tp"] = 0.0
+    tp_mode = {"wqkv": "column", "wo": "row", "wg": "column", "wu": "column",
+               "wd": "row"}
+    for m in (ENGINE["n_slots"], BATCH * PROMPT):
+        for wname, k, n in layer:
+            mode = tp_mode[wname]
+            x = ops.nvfp4_qdq(act(m, k))
+            w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+            p = ops.pack_weight(w.to(torch.bfloat16))
+            wdq = nvfp4.unpack(p, torch.bfloat16).float()
+            absref = x.float().abs() @ wdq.abs().T
+            full = ref.nvfp4_matmul_ref(x, p, torch.float32)
+            parts = []
+            for rank in range(TP_SIZE):
+                tile = nvfp4.tp_tile(p, mode, rank, TP_SIZE)
+                xl = (x if mode == "column"
+                      else x.chunk(TP_SIZE, -1)[rank].contiguous())
+                y = ops.nvfp4_matmul(xl, tile)
+                y32 = ref.nvfp4_matmul_ref(xl, tile, torch.float32)
+                tabs = xl.float().abs() @ nvfp4.unpack(
+                    tile, torch.bfloat16).float().abs().T
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    y32.abs().clamp_min(1e-30))) - 7)
+                diff = (y.float() - y32).abs()
+                if not bool((diff <= ulp + 2.0 ** -20 * tabs).all()):
+                    fail(f"nvfp4_matmul_tp tile {rank} of {wname} ({mode}) "
+                         f"outside K2's tolerance at M={m}: max abs err "
+                         f"{float(diff.max())}")
+                err["nvfp4_matmul_tp"] = max(err["nvfp4_matmul_tp"],
+                                             float(diff.max()))
+                parts.append(ops.nvfp4_matmul(xl, tile, torch.float32))
+                bts = kmm.bytes_moved(xl, tile, torch.bfloat16)
+                fl = kmm.flops(xl, tile)
+                rows["nvfp4_matmul_tp"].append(dict(
+                    m=m, k=xl.shape[-1], n=tile.codes.shape[0],
+                    site=f"{wname} {mode}, rank {rank}", rank=rank,
+                    bound_ms=max(bts / HBM_BYTES_S, fl / BF16_FLOPS) * 1e3,
+                    bound_by=("bytes" if bts / HBM_BYTES_S >= fl / BF16_FLOPS
+                              else "operations"),
+                    fns=((lambda xl=xl, t=tile: ops.nvfp4_matmul(xl, t)),
+                         (lambda xl=xl, t=tile: ref.nvfp4_matmul_ref(xl, t)),
+                         None),
+                    # the dequantized tile is made when it is timed, so the
+                    # tiles of every site do not stay alive until phase 7
+                    lib_make=(lambda xl=xl, t=tile: (
+                        lambda w=nvfp4.unpack(t, torch.bfloat16).T:
+                        torch.matmul(xl, w)))))
+            got = torch.cat(parts, -1) if mode == "column" else sum(parts)
+            if not bool(((got - full).abs() <= 2.0 ** -20 * absref).all()):
+                fail(f"nvfp4_matmul_tp: the {mode} tiles of {wname} at M={m} "
+                     f"do not make the full-K product: max abs err "
+                     f"{float((got - full).abs().max())}")
+            del w, wdq, absref, full, parts
+    print(f"[kernel] nvfp4_matmul_tp: every tp={TP_SIZE} tile of wqkv, wo, wg, "
+          f"wu, wd within K2's tolerance, the tiles together within the "
+          f"summation bound of the full-K product, M in "
+          f"({ENGINE['n_slots']}, {BATCH * PROMPT}) (max abs err "
+          f"{err['nvfp4_matmul_tp']:.3g})", flush=True)
 
     # K3 against its plain version and, bitwise, against K2 on each group --
     mcfg = configs.get_config(MOE_ARCH)
@@ -763,6 +974,18 @@ def main() -> int:
         eng.state.decode = decode
         return got
 
+    def prefill_logits(eng_, force=None):
+        """Record each request's prefill logits; with ``force`` (prompt
+        bytes -> token), emit that first token instead of the sampled one."""
+        got, inner = {}, eng_._sample_one
+
+        def sample_one(req, logits):
+            got[req.rid] = logits[0].float().clone()
+            tok = inner(req, logits)
+            return tok if force is None else force[req.prompt.tobytes()]
+        eng_._sample_one = sample_one
+        return got
+
     def drained(eng, what):
         if eng.state.leaked() or eng.pool.used_blocks != eng.pool.cached_blocks:
             fail(f"engine {what}: the pool did not drain "
@@ -774,6 +997,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(cfg, params, pqcfg, device=dev, **ENGINE)
     a_first = first_decode_logits(eng)
+    a_pre = prefill_logits(eng)
     ops.reset_launches()
     t0 = time.perf_counter()
     a_rids, a_out = serve.run_workload(eng, a_prompts, RUN_A["gen"])
@@ -859,6 +1083,9 @@ def main() -> int:
         fail(f"engine A: fused and unfused first-decode logits differ by "
              f"{max(fused_rel)}")
     engine_a = dict(st=st, wall=a_wall, peak=a_peak)
+    # the oracle of the TP run (5d): run A's prefill logits of its first
+    # requests, on the host
+    a_pre = [a_pre[r].cpu() for r in a_rids[:RUN_TP["requests"]]]
     del eng, eng_off, a_first, off_first
 
     # run B: shared 256-token prefix, paged prefill, prefix cache
@@ -945,18 +1172,6 @@ def main() -> int:
         if x.shape[1] > 1:
             prefill_drops.append(aux["moe_dropped_frac"])
         return out, aux
-
-    def prefill_logits(eng_, force=None):
-        """Record each request's prefill logits; with ``force`` (prompt
-        bytes -> token), emit that first token instead of the sampled one."""
-        got, inner = {}, eng_._sample_one
-
-        def sample_one(req, logits):
-            got[req.rid] = logits[0].float().clone()
-            tok = inner(req, logits)
-            return tok if force is None else force[req.prompt.tobytes()]
-        eng_._sample_one = sample_one
-        return got
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1128,6 +1343,104 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 5d. tensor-parallel serving: acereason-7b at tp = 2 -------------
+    # two ranks, two processes in a gloo group, share the card; the
+    # kernels are built (phase 2), this process holds no engine
+    from repro_torch.launch import mesh as tp_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_prompts = a_prompts[:RUN_TP["requests"]]
+    t0 = time.perf_counter()
+    ranks = tp_mesh.spawn(tp_rank, TP_SIZE, tp_prompts, RUN_TP["gen"],
+                          device="cuda", timeout=900)
+    tp_wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for i, r in enumerate(ranks):
+        for c in r["k4_check"]:
+            if not c["ok"] or not c.get("full_ok", True):
+                fail(f"nvfp4_matmul_tp on rank {i}, {c['site']} ({c['mode']}) "
+                     f"at M={c['m']}: max abs err {c['max_abs_err']} against "
+                     f"its plain version, {c.get('full_err')} against the "
+                     "full-K plain product")
+    k4_wrap_err = max(c["max_abs_err"] for r in ranks for c in r["k4_check"])
+    k4_full_err = max(c["full_err"] for r in ranks for c in r["k4_check"]
+                      if "full_err" in c)
+    err["nvfp4_matmul_tp"] = max(err["nvfp4_matmul_tp"], k4_wrap_err)
+    print(f"[kernel] nvfp4_matmul_tp wrapper on {TP_SIZE} ranks (gloo, one "
+          f"card): every rank's tile of wqkv, wg, wu (column) and wo, wd "
+          f"(row) at M in ({ENGINE['n_slots']}, {BATCH * PROMPT}) within K2's "
+          f"tolerance of nvfp4_matmul_tp_ref on the same inputs (max abs err "
+          f"{k4_wrap_err:.3g}); the row results within the summation bound of "
+          f"the full-K plain product (max abs err {k4_full_err:.3g})",
+          flush=True)
+    stt, rep0 = r0["stats"], r0["report"]
+    n_fwd = RUN_TP["requests"] + stt["decode_steps"]
+    print(f"[engine TP] {cfg.name} full size, packed, tp={TP_SIZE} (gloo, "
+          f"{TP_SIZE} processes on one card): {RUN_TP['requests']} requests "
+          f"(run A's first), gen {RUN_TP['gen']}, {ENGINE['n_slots']} slots, "
+          f"pool {ENGINE['n_blocks']}x{ENGINE['block_size']}, exact prefill: "
+          f"wall {r0['wall']:.2f}s (spawn to results {tp_wall:.1f}s), steps "
+          f"{stt['steps']}, decode steps {stt['decode_steps']}", flush=True)
+    print(f"[engine TP] ttft_p50_ms={stt['ttft_p50_s']*1e3:.1f} "
+          f"ttft_p95_ms={stt['ttft_p95_s']*1e3:.1f} "
+          f"decode_step_p50_ms={stt['decode_step_p50_s']*1e3:.2f} "
+          f"decode_step_p95_ms={stt['decode_step_p95_s']*1e3:.2f} "
+          f"decode_tok_s={stt['decode_tok_s']:.1f} e2e_tok_s={stt['e2e_tok_s']:.1f} "
+          f"collectives={r0['collectives']['calls']} "
+          f"({r0['collectives']['seconds']:.2f}s on the host)", flush=True)
+    for i, r in enumerate(ranks):
+        print(f"[engine TP] rank {i}: load+pack+cut {r['load_s']:.1f}s "
+              f"(peak {r['load_peak']:.2f} GB), peak in the run "
+              f"{r['peak']:.2f} GB, launches {r['launches']}", flush=True)
+    print(f"[engine TP] tp_shard_report (rank 0): {rep0}", flush=True)
+    pool_1 = engine_a["st"]["pool_bytes"]
+    for i, r in enumerate(ranks):
+        rp, ln = r["report"], r["launches"]
+        if r["finished"] != RUN_TP["requests"] or any(
+                len(t) != RUN_TP["gen"] for t in r["tokens"]):
+            fail(f"engine TP rank {i}: {r['finished']} of "
+                 f"{RUN_TP['requests']} requests finished")
+        if not r["drained"]:
+            fail(f"engine TP rank {i}: the pool did not drain")
+        if not (rp["packed_sharded"] == rp["packed_total"] > 0
+                and rp["kv_sharded"]
+                and rp["kv_pool_bytes_per_device"] * TP_SIZE == pool_1):
+            fail(f"engine TP rank {i}: shard report {rp} (single-device "
+                 f"pool {pool_1} B)")
+        if ln["nvfp4_matmul_tp"] != 5 * cfg.n_layers * n_fwd:
+            fail(f"engine TP rank {i} launched nvfp4_matmul_tp "
+                 f"{ln['nvfp4_matmul_tp']} times, expected 5 x "
+                 f"{cfg.n_layers} x {n_fwd} forwards")
+        if ln["nvfp4_matmul"] or ln["paged_attention"]:
+            fail(f"engine TP rank {i} launched K2 or K7 bare: {ln}")
+        if any(not np.array_equal(a, b) for a, b in zip(r["tokens"],
+                                                         r0["tokens"])):
+            fail(f"engine TP: rank {i}'s tokens differ from rank 0's")
+    tp_rel = [float((p.float() - q.float()).norm() / q.float().norm())
+              for p, q in zip(r0["pre"], a_pre)]
+    tp_agree = float(np.mean([np.mean(t == a_out[rid][: RUN_TP["gen"]])
+                              for t, rid in zip(r0["tokens"], a_rids)]))
+    print(f"[engine TP] prefill logits vs run A (one card) rel_l2: "
+          + " ".join(f"{x:.4g}" for x in tp_rel)
+          + f" (tolerance {LOGIT_TOL['nvfp4']}); tokens equal to run A's at "
+          f"{tp_agree:.3f} of positions (printed, not gated)", flush=True)
+    if max(tp_rel) > LOGIT_TOL["nvfp4"]:
+        fail(f"engine TP: prefill logits differ from one card's by {max(tp_rel)}")
+    tr = r0["trace"]
+    print(f"[trace] TP engine decode step, 8 slots, rank 0 (traced): "
+          f"wall_ms={tr['wall_ms']:.3f} device_busy_ms={tr['busy_ms']:.3f} "
+          f"idle_share={1 - tr['busy_ms'] / tr['wall_ms']:.3f} "
+          f"nvfp4_matmul_tp_ms={tr['k4_ms']:.3f} ({5 * cfg.n_layers} launches) "
+          f"collective_ms={tr['collective_ms']:.3f} ({tr['collectives']} "
+          f"collectives, host-staged)", flush=True)
+    for kname, ms in tr["top"]:
+        print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
+    tp_launches = [r["launches"] for r in ranks]
+    engine_tp = dict(st=stt, wall=r0["wall"], trace=tr, rel=tp_rel,
+                     agree=tp_agree)
+    del ranks, r0
+
     # ---- 6. the training path: full-size olmo-1b QAD ----------------------
     tcfg = configs.get_config(TRAIN["arch"])
     n_params = tcfg.n_params()
@@ -1224,6 +1537,8 @@ def main() -> int:
     for kname, rs in rows.items():
         for r in rs:
             kern, plain, lib = r.pop("fns")
+            if "lib_make" in r:
+                lib = r.pop("lib_make")()
             r["ms"] = timed(kern, 20)
             r["plain_ms"] = timed(plain, 5)
             r["library_ms"] = timed(lib, 20) if lib is not None else None
@@ -1235,6 +1550,7 @@ def main() -> int:
                 shape = (f"M={r['m']:4d} K={r['k']:5d}"
                          + (f" N={r['n']:5d}" if "n" in r else ""))
             lib_s = ("" if lib is None else f" library_ms={r['library_ms']:.4f}")
+            del kern, plain, lib
             print(f"[kernel] {kname:12s} {shape} ({r['site']}) "
                   f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                   f"bound_ms={r['bound_ms']:.4f}{lib_s}", flush=True)
@@ -1248,7 +1564,8 @@ def main() -> int:
                     else "operations"))
         by_path = {"serve": serve_launches[name], "train": train_launches[name],
                    "engine_a": a_launches[name], "engine_b": b_launches[name],
-                   "engine_m": m_launches[name], "engine_mb": mb_launches[name]}
+                   "engine_m": m_launches[name], "engine_mb": mb_launches[name],
+                   "engine_tp_rank0": tp_launches[0][name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "max_abs_err": err[name],
@@ -1319,6 +1636,31 @@ def main() -> int:
                               for r in rs],
                 "launches_by_path": by_path}
 
+    def k4_entry():
+        rs = rows["nvfp4_matmul_tp"]
+        dec = [r for r in rs if r["m"] == ENGINE["n_slots"] and r["rank"] == 0]
+        return {"name": "nvfp4_matmul_tp", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/nvfp4_matmul.cu",
+                "wrapper": "src/repro_torch/kernels/nvfp4_matmul.py",
+                "replaces": "src/repro/kernels/nvfp4_matmul.py:318",
+                "launches": tp_launches[0]["nvfp4_matmul_tp"],
+                "max_abs_err": err["nvfp4_matmul_tp"],
+                "ms": sum(r["ms"] for r in dec),
+                "plain_ms": sum(r["plain_ms"] for r in dec),
+                "bound_ms": sum(r["bound_ms"] for r in dec),
+                "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in dec)
+                             else "operations"),
+                "library_ms": sum(r["library_ms"] for r in dec),
+                "per": (f"one decode layer on rank 0 of {TP_SIZE}: K2 on the "
+                        f"tiles of wqkv, wo, wg, wu, wd at M={ENGINE['n_slots']} "
+                        "(the row all-reduce is host-staged, timed in the "
+                        "traced step)"),
+                "per_tile": [{k: r[k] for k in ("site", "m", "k", "n", "ms",
+                                                "plain_ms", "bound_ms",
+                                                "library_ms")} for r in rs],
+                "collective_ms_per_decode_step": engine_tp["trace"]["collective_ms"],
+                "launches_by_rank": [ln["nvfp4_matmul_tp"] for ln in tp_launches]}
+
     kernels = [serve_entry("nvfp4_qdq", "src/repro_torch/kernels/csrc/nvfp4_qdq.cu",
                            "src/repro/kernels/nvfp4_qdq.py:44"),
                serve_entry("nvfp4_matmul",
@@ -1328,7 +1670,7 @@ def main() -> int:
                         "src/repro/kernels/kl_loss.py:87"),
                kl_entry("kl_loss_bwd", "src/repro_torch/kernels/csrc/kl_loss.cu",
                         "src/repro/kernels/kl_loss.py:123"),
-               k7_entry(), k3_entry()]
+               k7_entry(), k3_entry(), k4_entry()]
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -263,3 +263,64 @@ def unpack_layout(p: PackedNVFP4, contract_axis: int,
     if p.orig_k and p.orig_k != w.shape[-1]:
         w = w[..., : p.orig_k]
     return torch.movedim(w, -1, contract_axis % w.ndim)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: which tiles a packed weight admits, and rank r's tile
+# ---------------------------------------------------------------------------
+
+
+def tp_shard_mode(p: PackedNVFP4, n_shards: int,
+                  parallelism: str | None) -> str | None:
+    """Which tensor-parallel layout a 2-D packed weight admits at
+    ``n_shards`` (the reference's rule, ``repro.core.nvfp4.tp_shard_mode``).
+
+    ``"column"``: the codes' and scales' rows (the output dim N) split
+    ``n_shards`` ways; every shard contracts the full K, so each output
+    element is what the unsharded GEMM gives.  ``"row"``: the packed K dim
+    splits in whole 16-element blocks with no K padding; the shards' f32
+    partial products are summed across the group.  ``None``: not
+    shardable this way; the weight stays replicated.
+    """
+    if n_shards <= 1 or p.ndim != 2 or parallelism not in ("column", "row"):
+        return None
+    n, kh = p.codes.shape
+    if parallelism == "column":
+        return "column" if n % n_shards == 0 else None
+    return "row" if row_splits(p.k, kh * 2, n_shards) else None
+
+
+def row_splits(k: int, kp: int, n_shards: int) -> bool:
+    """Does a packed K (logical ``k``, stored ``kp``) split ``n_shards``
+    ways in whole 16-element blocks: no K padding, and the code bytes
+    (K/2) and the block scales (K/16) both divide."""
+    return k == kp and (kp // 2) % n_shards == 0 and (kp // BLOCK) % n_shards == 0
+
+
+def tp_tile(p: PackedNVFP4, mode: str, rank: int, n_shards: int,
+            rows: torch.Tensor | None = None) -> PackedNVFP4:
+    """Rank ``rank``'s tile of a packed weight (leading layer-stack axes
+    kept), as contiguous copies: the kernel reads codes row by row in
+    8-byte words.
+
+    ``"column"`` takes rows [r N/n, (r+1) N/n) of codes and scales (after
+    reordering them by ``rows``, if given); ``"row"`` takes K's whole
+    blocks [r K/n, (r+1) K/n), so a tile row holds K/(2n) code bytes (a
+    multiple of 8) and K/(16n) scales, and ``orig_k`` becomes K/n.  The
+    tensor scale is the global one, unchanged.
+    """
+    codes, scales = p.codes, p.scales
+    if mode == "column":
+        if rows is not None:
+            codes, scales = codes[..., rows, :], scales[..., rows, :]
+        n = codes.shape[-2] // n_shards
+        sl = slice(rank * n, (rank + 1) * n)
+        return PackedNVFP4(codes[..., sl, :].contiguous(),
+                           scales[..., sl, :].contiguous(),
+                           p.tensor_scale.clone(), p.orig_k)
+    if mode == "row":
+        kh, kb = codes.shape[-1] // n_shards, scales.shape[-1] // n_shards
+        return PackedNVFP4(codes[..., rank * kh:(rank + 1) * kh].contiguous(),
+                           scales[..., rank * kb:(rank + 1) * kb].contiguous(),
+                           p.tensor_scale.clone(), p.k // n_shards)
+    raise ValueError(f"unknown tensor-parallel mode {mode!r}")

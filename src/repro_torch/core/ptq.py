@@ -33,14 +33,20 @@ def quantize_weights(params, specs, qcfg: QuantConfig):
     def one(spec, w):
         if isinstance(spec, dict):
             return {name: one(spec[name], w[name]) for name in spec}
-        if not qcfg.quantizes(spec.kind) or not qcfg.quantize_weights:
-            return w
-        n_lead = _n_stack_axes(spec)
-        if qcfg.weight_format == "packed":
-            return _pack_along(w, spec.contract_axis, n_lead)
-        return _qdq_along(w, spec.contract_axis, n_lead)
+        return quantize_leaf(spec, w, qcfg)
 
     return one(specs, params)
+
+
+def quantize_leaf(spec, w: torch.Tensor, qcfg: QuantConfig):
+    """PTQ of one leaf: packed or QDQ along its contraction axis if the
+    policy quantizes its kind, else ``w`` itself."""
+    if not qcfg.quantizes(spec.kind) or not qcfg.quantize_weights:
+        return w
+    n_lead = _n_stack_axes(spec)
+    if qcfg.weight_format == "packed":
+        return _pack_along(w, spec.contract_axis, n_lead)
+    return _qdq_along(w, spec.contract_axis, n_lead)
 
 
 def _n_stack_axes(spec) -> int:

@@ -79,8 +79,12 @@ class QuantConfig:
             raise NotImplementedError("numerics probes are part of the "
                                       "observability slice of the port")
 
-    def q_act(self, x: torch.Tensor, kind: Kind) -> torch.Tensor:
-        """Fake-quantize an activation (blocked along its last dim)."""
+    def q_act(self, x: torch.Tensor, kind: Kind, tp=None) -> torch.Tensor:
+        """Fake-quantize an activation (blocked along its last dim).
+
+        ``tp`` (a ``distributed.ctx.TP``): ``x`` holds this rank's slice
+        of the features, so the scope's amax is the maximum over the
+        group, what the reference computes on the whole activation."""
         if not (self.quantizes(kind) and self.quantize_activations):
             return x
         self._no_numerics()
@@ -91,6 +95,10 @@ class QuantConfig:
         elif self.act_scope == "token":
             amax = torch.amax(torch.abs(x.to(torch.float32)), dim=-1,
                               keepdim=True)
+        if tp is not None:
+            if amax is None:
+                amax = torch.amax(torch.abs(x.to(torch.float32)))
+            amax = tp.all_reduce(amax, "max")
         return _fq_lastdim(x, amax)
 
     def q_weight(self, w: torch.Tensor, kind: Kind,

@@ -1,0 +1,260 @@
+"""Logical-axis sharding rules with a divisibility fallback, and each
+rank's tiles (port of ``repro.distributed.sharding``: ``make_rules``'s
+``tp_only`` table, ``resolve``, ``resolve_packed``, the warn-once fallback,
+``device_bytes`` and ``shard_params``).
+
+Parameters carry logical axis names (``ParamSpec.axes``); the rules map a
+name to the mesh's "model" axis or to nothing.  ``resolve`` gives, per
+dim, "model" where that dim splits over the group and None where it stays
+whole, dropping "model" where the group's size does not divide the dim
+(and warning once per parameter: a silently replicated weight is how TP
+regressions hide).  ``resolve_packed`` does the same for a
+``PackedNVFP4`` leaf, whose contraction axis is stored last: the output
+dim N splits as a dense dim does (column-parallel), and the packed K dim
+splits only in whole 16-element blocks with no K padding (row-parallel).
+
+Where the reference places global arrays with ``NamedSharding``s,
+``shard_params`` returns rank r's tree of tiles.  One layout differs: the
+reference splits the fused QKV projection's N dim contiguously and GSPMD
+then reshards q, k and v to heads.  The port permutes the rows of W^T (and
+of the bias) so that rank r's contiguous tile holds exactly its own q, k
+and v heads, which the head-local attention needs.  Choosing rows of W^T
+is exact: every output element is the unsharded GEMM's.  GQA stays
+aligned only when the KV heads divide the group.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Mapping
+
+import torch
+
+from ..core import nvfp4
+from ..core.nvfp4 import BLOCK, PackedNVFP4
+from ..models.common import ParamSpec, tree_leaves
+
+MODEL = "model"
+# ``make_rules(mesh, "tp_only")``'s table: weights replicated except the
+# tensor-parallel dims (serving at low batch); the data axis has size 1
+TP_ONLY = {"batch": (), "vocab": (MODEL,), "mlp": (MODEL,), "qkv": (MODEL,),
+           "heads": (MODEL,), "kv": (MODEL,), "expert": (MODEL,),
+           "rnn": (MODEL,), "headdim": (MODEL,), "embed": (), "seq": (),
+           "layers": (), "inner": (), "none": ()}
+# leaves whose N dim is the fused [q heads | k heads | v heads] projection
+FUSED_QKV = ("wqkv", "bqkv")
+
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    table: Mapping[str, tuple]
+
+    def axes_for(self, name: str) -> tuple:
+        return tuple(self.table.get(name, ()))
+
+
+def make_rules() -> Rules:
+    """The ``tp_only`` rules (the reference's ``fsdp_tp`` training mesh is
+    a later slice of the port)."""
+    return Rules(TP_ONLY)
+
+
+_FALLBACK_WARNED: set = set()
+
+
+def _warn_fallback(param: str, ax_name: str, dim: int, size: int) -> None:
+    """Warn once per (param, logical axis, group size) when a dim that the
+    rules would split stays whole."""
+    key = (param, ax_name, size)
+    if key in _FALLBACK_WARNED:
+        return
+    _FALLBACK_WARNED.add(key)
+    warnings.warn(
+        f"sharding fallback: param {param!r} dim {dim} (logical axis "
+        f"{ax_name!r}) drops mesh axes {{'model': {size}}} — stays "
+        "replicated on them", RuntimeWarning, stacklevel=3)
+
+
+def resolve(spec: ParamSpec, size: int, rules: Rules, name: str = "") -> tuple:
+    """Per dim, "model" where the dim splits ``size`` ways, else None (the
+    first dim that wants the axis and divides takes it)."""
+    used, out = False, []
+    for dim, ax_name in zip(spec.shape, spec.axes):
+        want = MODEL in rules.axes_for(ax_name) and not used and size > 1
+        ok = want and dim % size == 0
+        if want and not ok:
+            _warn_fallback(name or f"{spec.axes}{spec.shape}", ax_name, dim,
+                           size)
+        out.append(MODEL if ok else None)
+        used = used or ok
+    return tuple(out)
+
+
+def resolve_packed(spec: ParamSpec, size: int, rules: Rules,
+                   name: str = "") -> tuple:
+    """Per stored dim of a ``PackedNVFP4`` leaf (the non-contraction dims
+    in order, then K), "model" or None; codes and scales share it and the
+    tensor scale is replicated.  K splits only when every shard owns
+    whole 16-element blocks and K is not padded."""
+    ax = spec.contract_axis % len(spec.shape)
+    k = spec.shape[ax]
+    kp = k + (-k) % BLOCK
+    pname = name or f"{spec.axes}{spec.shape}"
+    used, parts = False, []
+    for i, (dim, ax_name) in enumerate(zip(spec.shape, spec.axes)):
+        if i == ax:
+            continue
+        want = MODEL in rules.axes_for(ax_name) and not used and size > 1
+        ok = want and dim % size == 0
+        if want and not ok:
+            _warn_fallback(pname, ax_name, dim, size)
+        parts.append(MODEL if ok else None)
+        used = used or ok
+    want_k = MODEL in rules.axes_for(spec.axes[ax]) and not used and size > 1
+    ok_k = want_k and nvfp4.row_splits(k, kp, size)
+    if want_k and not ok_k:
+        _warn_fallback(pname, f"{spec.axes[ax]} (packed K)", k, size)
+    return (*parts, MODEL if ok_k else None)
+
+
+def device_bytes(tree) -> int:
+    """Bytes this rank holds of a tree of local tiles and replicated
+    leaves (every leaf of the port's trees is local)."""
+    total = 0
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, PackedNVFP4):
+            total += leaf.nbytes
+        elif isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+    return total
+
+
+def _qkv_rows(n_heads: int, n_kv: int, head_dim: int, size: int,
+              name: str) -> torch.Tensor:
+    """The order of the fused QKV projection's N rows that puts rank r's
+    q heads, then its k heads, then its v heads in its contiguous tile."""
+    if n_heads % size or n_kv % size:
+        raise NotImplementedError(
+            f"{name}: {n_heads} query and {n_kv} KV heads do not split "
+            f"over {size} ranks (GQA stays aligned only when the KV heads "
+            "divide the group)")
+    qh, kh = n_heads // size, n_kv // size
+    q0, k0, v0 = 0, n_heads * head_dim, (n_heads + n_kv) * head_dim
+    rows = []
+    for r in range(size):
+        rows += [torch.arange(q0 + r * qh * head_dim, q0 + (r + 1) * qh * head_dim),
+                 torch.arange(k0 + r * kh * head_dim, k0 + (r + 1) * kh * head_dim),
+                 torch.arange(v0 + r * kh * head_dim, v0 + (r + 1) * kh * head_dim)]
+    return torch.cat(rows)
+
+
+def _cut(t: torch.Tensor, axis: int, rank: int, size: int) -> torch.Tensor:
+    n = t.shape[axis] // size
+    return t.narrow(axis, rank * n, n).contiguous()
+
+
+def _stored(spec: ParamSpec) -> tuple:
+    """A packed leaf's codes shape: the non-contraction dims, then K/2."""
+    full = list(spec.shape)
+    k = full.pop(spec.contract_axis % len(full))
+    return (*full, (k + (-k) % BLOCK) // 2)
+
+
+def _axis(parts: tuple) -> int | None:
+    """The dim (counted from the end) that splits, or None."""
+    return parts.index(MODEL) - len(parts) if MODEL in parts else None
+
+
+def _is_tile(name: str, held: tuple, full: tuple, axis: int | None,
+             size: int) -> bool:
+    """False for a leaf held whole, True for one held as its tile on
+    ``axis``; any other shape raises (a wrongly cut leaf must not pass)."""
+    if held == full:
+        return False
+    if axis is not None:
+        tile = list(full)
+        tile[axis] //= size
+        if held == tuple(tile):
+            return True
+    raise ValueError(f"{name or 'leaf'}: shape {held} is neither the whole "
+                     f"{full} nor its tile over {size} ranks")
+
+
+def shard_leaf(spec: ParamSpec, leaf, rank: int, size: int, rules: Rules,
+               name: str = "", heads: tuple | None = None):
+    """Rank ``rank``'s tile of one leaf.  A leaf already at its tile's
+    shape is returned as it is, so a loader that cuts tiles as it builds
+    the weights and the engine's own cut compose; a leaf of any other
+    shape than the whole or the tile raises.
+
+    ``heads``: (n_heads, n_kv_heads, head_dim) of the config; the fused
+    QKV leaves (``wqkv``, ``bqkv``) are regrouped by head first."""
+    fused = name.rsplit(".", 1)[-1] in FUSED_QKV
+    if isinstance(leaf, PackedNVFP4):
+        axis = _axis(resolve_packed(spec, size, rules, name))
+        if axis is None or _is_tile(name, tuple(leaf.codes.shape),
+                                    _stored(spec), axis, size):
+            return leaf
+        if axis == -1:
+            return nvfp4.tp_tile(leaf, "row", rank, size)
+        if axis != -2:
+            raise NotImplementedError(f"{name}: a packed leaf split on "
+                                      f"stored dim {axis}")
+        rows = (_qkv_rows(*heads, size, name).to(leaf.codes.device)
+                if fused and heads else None)
+        return nvfp4.tp_tile(leaf, "column", rank, size, rows)
+    axis = _axis(resolve(spec, size, rules, name))
+    if axis is None or _is_tile(name, tuple(leaf.shape), tuple(spec.shape),
+                                axis, size):
+        return leaf
+    axis %= leaf.ndim
+    if fused and heads and axis == leaf.ndim - 1:
+        leaf = leaf.index_select(axis, _qkv_rows(*heads, size, name).to(
+            leaf.device))
+    return _cut(leaf, axis, rank, size)
+
+
+def shard_params(params, specs, tp, rules: Rules, heads: tuple | None = None):
+    """Rank ``tp.rank``'s tree: every leaf's tile (``shard_leaf``), the
+    leaves that do not split shared with ``params``.  The tree path is the
+    warn-once key, so two parameters with the same axes each warn."""
+    def walk(sp, pr, path):
+        if isinstance(sp, dict):
+            return {k: walk(sp[k], pr[k], f"{path}.{k}" if path else k)
+                    for k in pr}
+        return shard_leaf(sp, pr, tp.rank, tp.size, rules, path, heads)
+
+    return walk(specs, params, "")
+
+
+def shard_counts(specs, params, size: int, rules: Rules) -> dict:
+    """Packed leaves, packed leaves this rank holds as tiles (read from the
+    shapes held: column- and row-parallel weights must not silently
+    replicate), and the tree's bytes over the group: a tile counts
+    ``size`` times, a packed leaf's replicated tensor scale once."""
+    out = {"packed_total": 0, "packed_sharded": 0, "weight_bytes_total": 0}
+
+    def walk(sp, pr, path):
+        if isinstance(sp, dict):
+            for k in pr:
+                walk(sp[k], pr[k], f"{path}.{k}" if path else k)
+            return
+        with warnings.catch_warnings():        # warned when it was cut
+            warnings.simplefilter("ignore")
+            if isinstance(pr, PackedNVFP4):
+                split = _is_tile(path, tuple(pr.codes.shape), _stored(sp),
+                                 _axis(resolve_packed(sp, size, rules, path)),
+                                 size)
+                out["packed_total"] += 1
+                out["packed_sharded"] += split
+                tiles = pr.codes.numel() + pr.scales.numel()   # 1 B each
+                out["weight_bytes_total"] += (tiles * (size if split else 1)
+                                              + pr.tensor_scale.numel() * 4)
+            else:
+                split = _is_tile(path, tuple(pr.shape), tuple(sp.shape),
+                                 _axis(resolve(sp, size, rules, path)), size)
+                out["weight_bytes_total"] += (pr.numel() * pr.element_size()
+                                              * (size if split else 1))
+
+    walk(specs, params, "")
+    return out

@@ -1,5 +1,5 @@
-"""Packed-NVFP4 matmul, single (K2) and grouped (K3): CUDA kernels for
-Hopper and their plain versions.
+"""Packed-NVFP4 matmul, single (K2), grouped (K3) and tensor-parallel
+(K4): CUDA kernels for Hopper and their plain versions.
 
 K2 replaces the Pallas TPU kernel ``repro/kernels/nvfp4_matmul.py::
 nvfp4_matmul`` (bodies ``_matmul_kernel`` and ``_dequant_tile``), K3 its
@@ -25,6 +25,15 @@ that every weight shape spreads over the 132 SMs with many loads in
 flight; prefill runs a tiled f32-FMA GEMM.  K3 is the same code with the
 group in the grid's z dimension, so group g of K3 equals K2 on group g's
 slices bitwise.  Tensor cores and pipelined loads are later work.
+
+K4 replaces ``nvfp4_matmul_tp``, which runs K2's Pallas body on each
+shard's tile inside a ``shard_map`` and ``psum``s the row-parallel
+partials outside any kernel.  So K4 is K2's CUDA kernel launched on this
+rank's tile (``core.nvfp4.tp_tile``: N/n rows with the full K in column
+mode, K/n whole blocks in row mode, contiguous, so a tile row is a
+multiple of 8 code bytes as K2's word reads need) and, in row mode,
+``torch.distributed``'s all-reduce of the f32 partials.  No device code of
+its own: the tiles need none.
 """
 from __future__ import annotations
 
@@ -33,6 +42,9 @@ import torch
 from ..core import nvfp4
 from ..core.nvfp4 import PackedNVFP4
 from . import _build
+
+# the reference kernel's default K tile (``tile_k``)
+REF_TILE_K = 512
 
 
 def _check_packed(packed: PackedNVFP4, k: int) -> None:
@@ -45,13 +57,24 @@ def _check_packed(packed: PackedNVFP4, k: int) -> None:
 
 def plain(x: torch.Tensor, packed: PackedNVFP4,
           out_dtype=torch.bfloat16) -> torch.Tensor:
-    """The plain PyTorch version: dequantize to bf16, f32 matmul, round."""
+    """The plain PyTorch version: dequantize to bf16, f32 matmul (on the
+    CPU, for a K of one reference tile, summing K in order,
+    ``sum_k_f32``), round."""
     *lead, k = x.shape
     _check_packed(packed, k)
     w = nvfp4.unpack(packed, dtype=torch.bfloat16).to(torch.float32)  # [N, Kp]
     if packed.orig_k and packed.orig_k != w.shape[-1]:
         w = w[:, : packed.orig_k]
-    y = x.reshape(-1, k).to(torch.float32) @ w.T
+    xm = x.reshape(-1, k).to(torch.float32)
+    if xm.device.type == "cpu" and packed.codes.shape[-1] * 2 <= REF_TILE_K:
+        # within one K tile the reference kernel in interpret mode sums K
+        # in order, as XLA's CPU dot does; a BLAS product's order changes
+        # with the shape (a one- or two-row product runs another kernel).
+        # Past one tile neither is the reference's order, and the K passes
+        # of the in-order sum would only cost time
+        y = sum_k_f32(xm[None], w[None])[0]
+    else:
+        y = xm @ w.T
     return y.to(out_dtype).reshape(*lead, w.shape[0])
 
 
@@ -202,3 +225,33 @@ def bytes_moved_grouped(x: torch.Tensor, packed: PackedNVFP4, out_dtype) -> int:
 def flops_grouped(x: torch.Tensor, packed: PackedNVFP4) -> int:
     g, m, k = x.shape
     return 2 * g * m * packed.codes.shape[1] * k
+
+
+# ---------------------------------------------------------------------------
+# tensor parallel (K4)
+# ---------------------------------------------------------------------------
+
+
+def _tp(gemm, x: torch.Tensor, tile: PackedNVFP4, tp, parallelism: str,
+        out_dtype) -> torch.Tensor:
+    """K4 around a K2 ``gemm`` (the kernel's launch or its plain version):
+    column, ``y_local = gemm(x, tile)``; row, the f32 partial over this
+    rank's whole-block K slice, summed over the group, then cast."""
+    if parallelism == "column":
+        return gemm(x, tile, out_dtype)
+    if parallelism == "row":
+        return tp.all_reduce(gemm(x, tile, torch.float32)).to(out_dtype)
+    raise ValueError(f"unknown parallelism {parallelism!r}")
+
+
+def plain_tp(x: torch.Tensor, tile: PackedNVFP4, tp, parallelism: str,
+             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The plain version of K4: K2's plain version on the rank's tile."""
+    return _tp(plain, x, tile, tp, parallelism, out_dtype)
+
+
+def launch_tp(x: torch.Tensor, tile: PackedNVFP4, tp, parallelism: str,
+              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K4 on the card: K2's CUDA kernel on the rank's tile, then (row
+    mode) the group's all-reduce of the f32 partials."""
+    return _tp(launch, x, tile, tp, parallelism, out_dtype)

@@ -41,8 +41,8 @@ class _Counts(collections.Counter):
 
 # kernel launches per op since the caller last reset them
 launches = _Counts({"nvfp4_qdq": 0, "nvfp4_matmul": 0,
-                    "nvfp4_matmul_grouped": 0, "kl_loss": 0,
-                    "kl_loss_bwd": 0, "paged_attention": 0})
+                    "nvfp4_matmul_grouped": 0, "nvfp4_matmul_tp": 0,
+                    "kl_loss": 0, "kl_loss_bwd": 0, "paged_attention": 0})
 
 
 def reset_launches() -> None:
@@ -131,6 +131,21 @@ def nvfp4_matmul_grouped(x: torch.Tensor, packed: PackedNVFP4,
     return out
 
 
+def nvfp4_matmul_tp(x_local: torch.Tensor, packed_tile: PackedNVFP4, tp,
+                    parallelism: str, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``y = x @ W`` with W split over the tensor-parallel group ``tp``
+    (``distributed.ctx.TP``); ``packed_tile`` is this rank's tile.
+    ``"column"``: x whole, y this rank's N/n columns, no collective.
+    ``"row"``: x this rank's K/n features, y whole: the f32 partials are
+    summed over the group, then cast.  One launch per call and rank."""
+    if x_local.device.type == "cpu":
+        return ref.nvfp4_matmul_tp_ref(x_local, packed_tile, tp, parallelism,
+                                       out_dtype)
+    out = _matmul.launch_tp(x_local, packed_tile, tp, parallelism, out_dtype)
+    launches["nvfp4_matmul_tp"] += 1
+    return out
+
+
 def paged_attention(q: torch.Tensor, pool_sl: dict, block_tables: torch.Tensor,
                     pos: torch.Tensor, *, window: int = 0) -> torch.Tensor:
     """Page-table gather + FP8-KV dequant + attend over one pool layer:
@@ -158,7 +173,8 @@ def dequant_weight(packed: PackedNVFP4, contract_axis: int,
     return unpack_layout(packed, contract_axis, dtype)
 
 
-__all__ = ["nvfp4_qdq", "nvfp4_matmul", "nvfp4_matmul_grouped", "kl_loss",
+__all__ = ["nvfp4_qdq", "nvfp4_matmul", "nvfp4_matmul_grouped",
+           "nvfp4_matmul_tp", "kl_loss",
            "paged_attention",
            "pack_weight",
            "dequant_weight", "launches", "reset_launches", "ref"]

@@ -8,6 +8,7 @@ import torch
 from ..core.losses import kl_from_logits as kl_loss_ref
 from .nvfp4_matmul import plain as nvfp4_matmul_ref
 from .nvfp4_matmul import plain_grouped as nvfp4_matmul_grouped_ref
+from .nvfp4_matmul import plain_tp as nvfp4_matmul_tp_ref
 from .nvfp4_qdq import plain as nvfp4_qdq_ref
 from .paged_attention import plain as paged_attention_ref
 
@@ -23,4 +24,5 @@ def kl_grad_ref(t_logits: torch.Tensor, s_logits: torch.Tensor,
 
 
 __all__ = ["nvfp4_qdq_ref", "nvfp4_matmul_ref", "nvfp4_matmul_grouped_ref",
+           "nvfp4_matmul_tp_ref",
            "kl_loss_ref", "kl_grad_ref", "paged_attention_ref"]

@@ -29,6 +29,15 @@ nothing leaked.  The CLI exits 1 if any check fails:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch qwen1.5-0.5b --weight-format packed --engine --requests 8 --gen 6
+
+``--tp N`` serves the engine tensor-parallel over N ranks, one process
+each (``launch.mesh.spawn``, a gloo group), on ``--device``: every rank
+cuts its tiles of the weights and of the KV pool, the packed GEMMs run
+K4, and rank 0 prints.  Each rank checks its outputs against the
+single-device ``serve_batch`` on the full weights:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch qwen1.5-0.5b --weight-format packed --engine --tp 2
 """
 from __future__ import annotations
 
@@ -66,17 +75,32 @@ def _sync(device: torch.device) -> None:
 
 
 def load_quantized(cfg, seed: int = 0, weight_format: str = "qdq",
-                   device="cuda"):
+                   device="cuda", tp=None):
     """Deploy-time weights: random BF16 init from ``seed``, then one-shot
-    PTQ.  Returns (params, qcfg)."""
+    PTQ.  Returns (params, qcfg).
+
+    With ``tp`` (a ``distributed.ctx.TP``) the rank draws the same seeded
+    weights and keeps only its tiles (``distributed.sharding``): each leaf
+    is quantized and cut as soon as it is drawn, so one full leaf at most
+    is alive at a time."""
     device = resolve_device(device)
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     qcfg = dataclasses.replace(specs.recipe_qconfig(cfg),
                                weight_format=weight_format)
+    pspecs = model.param_specs(cfg)
     with torch.no_grad():
-        params = model.init_params(cfg, gen, device)
-        return ptq.quantize_weights(params, model.param_specs(cfg), qcfg), qcfg
+        if tp is None:
+            params = model.init_params(cfg, gen, device)
+            return ptq.quantize_weights(params, pspecs, qcfg), qcfg
+        from ..distributed import sharding
+        rules = sharding.make_rules()
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+
+        def tile(path, spec, w):
+            return sharding.shard_leaf(spec, ptq.quantize_leaf(spec, w, qcfg),
+                                       tp.rank, tp.size, rules, path, heads)
+        return common.init_params(pspecs, gen, device, leaf_fn=tile), qcfg
 
 
 def serve_batch(cfg, params, prompts: torch.Tensor, n_gen: int, qcfg=None):
@@ -134,9 +158,10 @@ def mixed_prompts(n: int, min_len: int, max_len: int, vocab: int,
             .astype(np.int32) for l in lens]
 
 
-def build_engine(cfg, params, qcfg, args):
+def build_engine(cfg, params, qcfg, args, mesh=None):
     """(Engine, n_blocks) from CLI-style ``args``: the pool holds
-    ``--n-blocks`` blocks, or ``--slots`` worst-case requests."""
+    ``--n-blocks`` blocks, or ``--slots`` worst-case requests; ``mesh``,
+    this rank's ``TP``, serves tensor-parallel."""
     from ..serve import Engine
 
     bs = args.block_size
@@ -154,8 +179,31 @@ def build_engine(cfg, params, qcfg, args):
                  prefill_mode=args.prefill_mode,
                  fused_kernels=args.fused_kernels, prefix_cache=prefix_cache,
                  kv_alloc=kv_alloc, headroom=args.headroom,
-                 device=params_device(params))
+                 device=params_device(params), mesh=mesh)
     return eng, n_blocks
+
+
+def tp_shard_report(eng) -> dict:
+    """How the engine's packed weights and KV pool sharded (the
+    reference's keys).  ``packed_total`` / ``packed_sharded`` count
+    ``PackedNVFP4`` leaves and those cut into tiles (column- and
+    row-parallel layers must not silently replicate); ``kv_sharded`` says
+    the pool pages split on the KV-head dim.  Byte counts are per device
+    and over the whole group."""
+    from ..distributed import sharding
+
+    counts = sharding.shard_counts(eng.model.param_specs(eng.cfg), eng.params,
+                                   eng.mesh.size if eng.mesh else 1, eng.rules)
+    sst = eng.state.stats()
+    return {
+        "packed_total": counts["packed_total"],
+        "packed_sharded": counts["packed_sharded"],
+        "kv_sharded": eng.pool.n_shards > 1,
+        "weight_bytes_per_device": sharding.device_bytes(eng.params),
+        "weight_bytes_total": counts["weight_bytes_total"],
+        "kv_pool_bytes_per_device": sst["pool_bytes_per_device"],
+        "kv_pool_bytes_total": sst["pool_bytes"],
+    }
 
 
 def run_workload(eng, prompts, gen: int):
@@ -170,18 +218,40 @@ def run_workload(eng, prompts, gen: int):
     return rids, eng.drain(max_steps=10_000)
 
 
+def _quiet(*args, **kwargs) -> None:
+    """``print`` on every rank but 0."""
+
+
 def _ms(v) -> str:
     """Seconds as ms; percentiles are None (= "n/a") with no data."""
     return f"{v * 1e3:.1f}ms" if v is not None else "n/a"
 
 
-def run_engine(cfg, params, qcfg, args) -> dict:
+def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
     """Serve the mixed staggered workload through the engine and check it:
     every request finishes, the pool drains with nothing leaked, each
     request's greedy tokens equal a single-request ``serve_batch`` (exact
     prefill, unless ``--no-parity``), and with the prefix cache on the
-    same workload with the cache off gives bitwise the same tokens."""
-    eng, n_blocks = build_engine(cfg, params, qcfg, args)
+    same workload with the cache off gives bitwise the same tokens.
+
+    With ``mesh`` (this rank's ``TP``) the engine cuts its tiles from the
+    full ``params`` and serves tensor-parallel; ``serve_batch`` runs on
+    the full weights, one device, as the oracle.  Rank 0 prints."""
+    say = print if mesh is None or mesh.rank == 0 else _quiet
+    eng, n_blocks = build_engine(cfg, params, qcfg, args, mesh)
+    tp_rep = None
+    if mesh is not None:
+        tp_rep = tp_shard_report(eng)
+        say(f"[engine] tp={mesh.size}: "
+            f"packed-sharded={tp_rep['packed_sharded']}/"
+            f"{tp_rep['packed_total']} kv-sharded={tp_rep['kv_sharded']} "
+            f"weights/device={tp_rep['weight_bytes_per_device']/2**20:.2f}"
+            f"MiB (total {tp_rep['weight_bytes_total']/2**20:.2f}MiB) "
+            f"kv-pool/device={tp_rep['kv_pool_bytes_per_device']/2**20:.2f}"
+            f"MiB")
+        tp_ok = tp_rep["packed_sharded"] == tp_rep["packed_total"]
+        if not tp_ok:
+            say("[engine] FAIL: packed leaves left replicated under TP")
     prompts = mixed_prompts(args.requests, args.min_prompt, args.max_prompt,
                             cfg.vocab_size, args.seed + 1)
     rids, outputs = run_workload(eng, prompts, args.gen)
@@ -189,11 +259,12 @@ def run_engine(cfg, params, qcfg, args) -> dict:
 
     ok = len(outputs) == args.requests
     if not ok:
-        print(f"[engine] FAIL: {len(outputs)}/{args.requests} completed")
+        say(f"[engine] FAIL: {len(outputs)}/{args.requests} completed")
+    ok = ok and (mesh is None or tp_ok)
     leaked = eng.state.leaked()
     if leaked:
         ok = False
-        print(f"[engine] FAIL: {eng.pool.active_blocks} pool blocks leaked")
+        say(f"[engine] FAIL: {eng.pool.active_blocks} pool blocks leaked")
 
     # On the CPU the engine's paged attention and serve_batch's dense cache
     # attention are bitwise equal, so every token must agree.  On the card
@@ -218,21 +289,21 @@ def run_engine(cfg, params, qcfg, args) -> dict:
             ref = ref[0].cpu().numpy()
             agree.append(float(np.mean(ref == outputs[rid])))
             if ref[0] != outputs[rid][0] or (strict and agree[-1] < 1.0):
-                print(f"[engine] FAIL: request {rid} diverges from "
-                      f"serve_batch: {outputs[rid][:8].tolist()} vs "
-                      f"{ref[:8].tolist()}")
+                say(f"[engine] FAIL: request {rid} diverges from "
+                    f"serve_batch: {outputs[rid][:8].tolist()} vs "
+                    f"{ref[:8].tolist()}")
                 parity = False
         parity = parity is None
-        print(f"[engine] tokens equal to single-request serve_batch: "
-              f"{float(np.mean(agree)):.3f} of positions "
-              f"({'all tokens' if strict else 'first tokens'} gated)")
+        say(f"[engine] tokens equal to single-request serve_batch: "
+            f"{float(np.mean(agree)):.3f} of positions "
+            f"({'all tokens' if strict else 'first tokens'} gated)")
         ok = ok and parity
 
     cache_parity = None
     if args.prefix_cache == "on" and args.parity is not False:
         base_args = argparse.Namespace(**vars(args))
         base_args.prefix_cache = "off"
-        base_eng, _ = build_engine(cfg, params, qcfg, base_args)
+        base_eng, _ = build_engine(cfg, params, qcfg, base_args, mesh)
         base_rids, base_out = run_workload(base_eng, prompts, args.gen)
         cache_parity = len(base_out) == len(outputs)
         empty = np.empty(0, np.int32)
@@ -240,41 +311,41 @@ def run_engine(cfg, params, qcfg, args) -> dict:
             if not np.array_equal(outputs.get(rid, empty),
                                   base_out.get(brid, empty)):
                 cache_parity = False
-                print(f"[engine] FAIL: request {rid} cache-on diverges from "
-                      f"cache-off: {outputs.get(rid, empty)[:8].tolist()} vs "
-                      f"{base_out.get(brid, empty)[:8].tolist()}")
+                say(f"[engine] FAIL: request {rid} cache-on diverges from "
+                    f"cache-off: {outputs.get(rid, empty)[:8].tolist()} vs "
+                    f"{base_out.get(brid, empty)[:8].tolist()}")
         if base_eng.state.leaked():
             cache_parity = False
-            print("[engine] FAIL: cache-off baseline leaked pool blocks")
+            say("[engine] FAIL: cache-off baseline leaked pool blocks")
         ok = ok and cache_parity
 
-    print(f"[engine] arch={cfg.name} device={eng.device} "
-          f"requests={args.requests} "
-          f"prompts={args.min_prompt}..{args.max_prompt} gen={args.gen} "
-          f"slots={args.slots} pool={n_blocks}x{args.block_size} "
-          f"prefill={args.prefill_mode} kv-alloc={args.kv_alloc} "
-          f"fused-kernels={'on' if st['fused_kernels'] else 'off'}"
-          + (f" moe-dispatch={st['moe_dispatch']}/{st['packed_backend']}"
-             if st["moe_dispatch"] else ""))
-    print(f"[engine] decode={st['decode_tok_s']:.1f} tok/s "
-          f"e2e={st['e2e_tok_s']:.1f} tok/s "
-          f"peak-pool-util={st['peak_utilization']:.2f} "
-          f"steps={st['steps']} decode-steps={st['decode_steps']} "
-          f"ttft_p50={_ms(st['ttft_p50_s'])} "
-          f"ttft_p95={_ms(st['ttft_p95_s'])} "
-          f"tok_lat_p50={_ms(st['decode_lat_p50_s'])} "
-          f"tok_lat_p95={_ms(st['decode_lat_p95_s'])} "
-          f"parity={'AGREE' if parity else ('skipped' if parity is None else 'DISAGREE')} "
-          f"pool-drained={not leaked}")
+    say(f"[engine] arch={cfg.name} device={eng.device} "
+        f"requests={args.requests} "
+        f"prompts={args.min_prompt}..{args.max_prompt} gen={args.gen} "
+        f"slots={args.slots} pool={n_blocks}x{args.block_size} "
+        f"prefill={args.prefill_mode} kv-alloc={args.kv_alloc} "
+        f"fused-kernels={'on' if st['fused_kernels'] else 'off'}"
+        + (f" moe-dispatch={st['moe_dispatch']}/{st['packed_backend']}"
+           if st["moe_dispatch"] else ""))
+    say(f"[engine] decode={st['decode_tok_s']:.1f} tok/s "
+        f"e2e={st['e2e_tok_s']:.1f} tok/s "
+        f"peak-pool-util={st['peak_utilization']:.2f} "
+        f"steps={st['steps']} decode-steps={st['decode_steps']} "
+        f"ttft_p50={_ms(st['ttft_p50_s'])} "
+        f"ttft_p95={_ms(st['ttft_p95_s'])} "
+        f"tok_lat_p50={_ms(st['decode_lat_p50_s'])} "
+        f"tok_lat_p95={_ms(st['decode_lat_p95_s'])} "
+        f"parity={'AGREE' if parity else ('skipped' if parity is None else 'DISAGREE')} "
+        f"pool-drained={not leaked}")
     cache_st = None
     if args.prefix_cache == "on":
         cache_st = st.get("prefix_cache") or {}
         cp = ("AGREE" if cache_parity
               else ("skipped" if cache_parity is None else "DISAGREE"))
-        print(f"[engine] prefix-cache: hits={cache_st.get('hits', 0)} "
-              f"misses={cache_st.get('misses', 0)} "
-              f"evictions={cache_st.get('evictions', 0)} "
-              f"preempts={st['preempts']} cache-off-parity={cp}")
+        say(f"[engine] prefix-cache: hits={cache_st.get('hits', 0)} "
+            f"misses={cache_st.get('misses', 0)} "
+            f"evictions={cache_st.get('evictions', 0)} "
+            f"preempts={st['preempts']} cache-off-parity={cp}")
     return {"ok": ok, "outputs": outputs, "rids": rids, "prompts": prompts,
             "stats": st, "tokens_match_serve_batch": parity,
             "tokens_match_cache_off": cache_parity, "n_blocks": n_blocks,
@@ -333,6 +404,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged attention through the paged_attention "
                     "kernel (on, or auto) or the gather-then-attend "
                     "two-step (off)")
+    # --- tensor parallelism (engine mode) ---
+    ap.add_argument("--tp", type=int, default=1, metavar="N",
+                    help="tensor-parallel degree: N ranks, one process "
+                    "each, in a gloo group on --device; packed GEMMs split "
+                    "column- and row-parallel, the KV pool by KV heads")
     return ap
 
 
@@ -342,6 +418,17 @@ def main(argv=None) -> dict:
         raise SystemExit("--prefix-cache/--kv-alloc require --engine (they "
                          "configure the paged serving pool)")
     device = resolve_device(args.device)
+    if args.tp > 1:
+        if not args.engine:
+            raise SystemExit("--tp requires --engine (TP serving is an "
+                             "engine path)")
+        from .mesh import spawn
+        print(f"[serve] tp={args.tp} mesh={{'data': 1, 'model': {args.tp}}} "
+              f"(gloo, {args.tp} processes on {device})")
+        res = spawn(_engine_rank, args.tp, args, device=device)
+        if not all(r["ok"] for r in res):
+            raise SystemExit(1)
+        return res[0]
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     params, qcfg = load_quantized(cfg, args.seed, args.weight_format, device)
     wr = weight_report(params)
@@ -387,6 +474,14 @@ def main(argv=None) -> dict:
               f"{'AGREE' if match else 'DISAGREE'}")
         result["tokens_match_qdq"] = match
     return result
+
+
+def _engine_rank(tp, args) -> dict:
+    """One rank of ``--tp``: the full weights (the oracle's), the engine
+    over this rank's tiles, the checks of ``run_engine``."""
+    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
+    params, qcfg = load_quantized(cfg, args.seed, args.weight_format, tp.device)
+    return run_engine(cfg, params, qcfg, args, mesh=tp)
 
 
 if __name__ == "__main__":

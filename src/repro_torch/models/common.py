@@ -67,15 +67,23 @@ def _init_one(spec: ParamSpec, gen: torch.Generator,
     return out
 
 
-def init_params(specs, gen: torch.Generator, device) -> Any:
-    """Random parameters for a spec tree, leaves drawn in sorted-key order."""
+def init_params(specs, gen: torch.Generator, device,
+                leaf_fn: Callable | None = None) -> Any:
+    """Random parameters for a spec tree, leaves drawn in sorted-key order.
+
+    ``leaf_fn(path, spec, tensor)``, if given, replaces each leaf as soon
+    as it is drawn (a loader quantizes it and keeps its tile, so no more
+    than one full leaf is alive at a time); ``path`` is the dotted key
+    path ("layers.wqkv")."""
     device = torch.device(device)
 
-    def build(tree):
+    def build(tree, path):
         if isinstance(tree, dict):
-            return {k: build(tree[k]) for k in sorted(tree)}
-        return _init_one(tree, gen, device)
-    return build(specs)
+            return {k: build(tree[k], f"{path}.{k}" if path else k)
+                    for k in sorted(tree)}
+        leaf = _init_one(tree, gen, device)
+        return leaf if leaf_fn is None else leaf_fn(path, tree, leaf)
+    return build(specs, "")
 
 
 def stack_specs(spec_tree, n: int, axis_name: str = "layers"):

@@ -12,7 +12,15 @@ The same functional protocol and parameter tree as the reference:
     decode_step_paged / verify_step_paged  -> (logits, pool)
 
 ``decode_step`` and ``prefill`` write the KV cache IN PLACE; the cache's
-``pos`` is a Python int.  The paged forwards of the engine write the pool
+``pos`` is a Python int.
+
+Under a tensor-parallel context (``distributed.ctx``) ``params`` holds
+this rank's tiles: attention takes its head counts from the local QKV
+tile (head-local attention, the KV cache and pool hold the local KV
+heads), the embedding is vocab-parallel (the local rows looked up, the
+rest masked, the sum over the group exact since each token has one
+nonzero term), and ``_lm_head`` all-gathers the local logits to the full
+vocabulary on every rank.  The paged forwards of the engine write the pool
 in place too.  A MoE layer (``n_experts``) runs ``layers.moe_ffn`` with
 a shared expert behind a sigmoid gate (Qwen1.5-MoE) or a dense residual
 FFN (Arctic).  M-RoPE, sliding windows and FP8 KV (the ``moe_hybrid``
@@ -24,6 +32,8 @@ from __future__ import annotations
 import torch
 
 from ..core.qconfig import QuantConfig
+from ..distributed import ctx
+from ..core.nvfp4 import PackedNVFP4
 from . import attention as attn
 from . import common, layers
 
@@ -130,9 +140,19 @@ def unembed(cfg, params):
 # ---------------------------------------------------------------------------
 
 
+def _local_heads(cfg, p) -> tuple[int, int]:
+    """(query heads, KV heads) of this rank: the full counts scaled by the
+    local QKV tile's share of the fused projection's width."""
+    w = p["wqkv"]
+    n = w.codes.shape[-2] if isinstance(w, PackedNVFP4) else w.shape[-1]
+    shards = cfg.qkv_dim // n
+    return cfg.n_heads // shards, cfg.n_kv_heads // shards
+
+
 def _attention(qcfg, cfg, p, h, pos, mode, cache_sl, pos_idx):
     b, s, _ = h.shape
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
+    nh, nkv = _local_heads(cfg, p)
     qkv = layers.qdense(qcfg, "attn", h, p["wqkv"], p.get("bqkv"),
                         parallelism="column")
     q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
@@ -182,6 +202,22 @@ def _block(qcfg, cfg, p, x, pos, mode, cache_sl, pos_idx):
 # ---------------------------------------------------------------------------
 
 
+def embed_tokens(cfg, params, tokens):
+    """The embedding lookup; vocab-parallel when ``params["embed"]`` holds
+    this rank's rows: local rows looked up, the others -0.0 (the identity
+    of a float sum), summed over the group in f32, which is exact."""
+    table = params["embed"]
+    v_local = table.shape[0]
+    if v_local == cfg.vocab_size:
+        return table[tokens]
+    tp = ctx.current()
+    local = tokens - tp.rank * v_local
+    mine = (local >= 0) & (local < v_local)
+    rows = table[torch.where(mine, local, torch.zeros_like(local))]
+    rows = torch.where(mine[..., None], rows, torch.full_like(rows, -0.0))
+    return tp.all_reduce(rows)
+
+
 def _positions(batch, s, offset=0):
     tokens = batch["tokens"]
     return (torch.arange(s, device=tokens.device) + offset).expand(
@@ -190,8 +226,11 @@ def _positions(batch, s, offset=0):
 
 def _lm_head(qcfg, cfg, params, x):
     x = run_norm(cfg, params["final_norm"], x)
-    return layers.qdense(qcfg, "lm_head", x, unembed(cfg, params),
-                         parallelism="column")
+    logits = layers.qdense(qcfg, "lm_head", x, unembed(cfg, params),
+                           parallelism="column")
+    if logits.shape[-1] != cfg.vocab_size:      # this rank's vocab tile
+        logits = ctx.current().all_gather(logits, -1)
+    return logits
 
 
 def apply(cfg, params, batch, qcfg: QuantConfig,
@@ -200,7 +239,7 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
     ``output="hidden"`` the final-normed [B,S,d] hidden states (the
     chunked loss applies the unembedding itself)."""
     _supported(cfg)
-    x = params["embed"][batch["tokens"]]
+    x = embed_tokens(cfg, params, batch["tokens"])
     pos = _positions(batch, x.shape[1])
 
     def body(qc):
@@ -216,18 +255,23 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
     return _lm_head(qcfg, cfg, params, x)
 
 
-def cache_specs(cfg, batch_size, s_max):
+def cache_specs(cfg, batch_size, s_max, n_shards: int = 1):
+    """Specs of the dense cache; ``n_shards`` ranks split the KV heads."""
     _supported(cfg)
     P = common.ParamSpec
-    shape = (cfg.n_layers, batch_size, s_max, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch_size, s_max, cfg.n_kv_heads // n_shards,
+             cfg.head_dim)
     axes = ("layers", "batch", "seq", "kv", "headdim")
     return {"k": P(shape, axes, init="zeros"), "v": P(shape, axes, init="zeros")}
 
 
-def init_cache(cfg, batch_size, s_max, device="cuda") -> dict:
-    """Zero cache {"k", "v"} [L, B, s_max, Hkv, hd] bf16 and ``pos`` 0."""
+def init_cache(cfg, batch_size, s_max, device="cuda",
+               n_shards: int = 1) -> dict:
+    """Zero cache {"k", "v"} [L, B, s_max, Hkv, hd] bf16 and ``pos`` 0
+    (Hkv / ``n_shards`` KV heads on each of ``n_shards`` ranks)."""
     cache = {name: torch.zeros(spec.shape, dtype=spec.dtype, device=device)
-             for name, spec in cache_specs(cfg, batch_size, s_max).items()}
+             for name, spec in cache_specs(cfg, batch_size, s_max,
+                                           n_shards).items()}
     cache["pos"] = 0
     return cache
 
@@ -243,7 +287,7 @@ def _cache_slices(cache):
 def decode_step(cfg, params, cache, batch, qcfg: QuantConfig):
     """One-token decode: batch["tokens"] [B,1] against the cache, which is
     updated in place and returned with ``pos`` advanced."""
-    x = params["embed"][batch["tokens"]]
+    x = embed_tokens(cfg, params, batch["tokens"])
     pos_idx = cache["pos"]
     pos = torch.full((x.shape[0], 1), pos_idx, dtype=torch.int64,
                      device=x.device)
@@ -266,10 +310,11 @@ def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
     """Prompt pass: (last-token logits [B,1,V], cache holding the prompt's
     kv in an allocation of ``s_max`` positions)."""
     _supported(cfg)
-    x = params["embed"][batch["tokens"]]
+    x = embed_tokens(cfg, params, batch["tokens"])
     b, s = batch["tokens"].shape
     pos = _positions(batch, s)
-    cache = init_cache(cfg, b, max(s_max or s, s), device=x.device)
+    cache = init_cache(cfg, b, max(s_max or s, s), device=x.device,
+                       n_shards=ctx.tp_size())
 
     def body(qc):
         def fn(carry, inp):
@@ -291,15 +336,17 @@ def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
 # ---------------------------------------------------------------------------
 
 
-def paged_pool_specs(cfg, n_blocks: int, block_size: int):
+def paged_pool_specs(cfg, n_blocks: int, block_size: int, n_shards: int = 1):
     """Specs of the block-granular KV pool shared by all requests:
     [L, n_blocks, block_size, Hkv, hd] per K and V, plus f32 scales beside
     FP8 pages (the ``moe_hybrid`` recipe, whose writes come with the FP8
-    KV slice)."""
+    KV slice).  Under tensor parallelism each of ``n_shards`` ranks holds
+    Hkv / ``n_shards`` KV heads."""
     P = common.ParamSpec
     fp8 = _kv_fp8(cfg)
     kdt = torch.float8_e4m3fn if fp8 else torch.bfloat16
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads // n_shards,
+             cfg.head_dim)
     axes = ("layers", "blocks", "blockslot", "kv", "headdim")
     c = {"k": P(shape, axes, dtype=kdt, init="zeros"),
          "v": P(shape, axes, dtype=kdt, init="zeros")}
@@ -311,10 +358,12 @@ def paged_pool_specs(cfg, n_blocks: int, block_size: int):
     return c
 
 
-def init_paged_pool(cfg, n_blocks: int, block_size: int, device="cuda") -> dict:
-    """A zero pool on ``device``."""
+def init_paged_pool(cfg, n_blocks: int, block_size: int, device="cuda",
+                    n_shards: int = 1) -> dict:
+    """A zero pool (this rank's KV heads) on ``device``."""
     return {name: torch.zeros(spec.shape, dtype=spec.dtype, device=device)
-            for name, spec in paged_pool_specs(cfg, n_blocks, block_size).items()}
+            for name, spec in paged_pool_specs(cfg, n_blocks, block_size,
+                                               n_shards).items()}
 
 
 def write_prompt_to_pool(pool: dict, cache: dict, block_ids) -> dict:
@@ -349,7 +398,8 @@ def _attention_paged(qcfg, cfg, p, h, pos, psl, block_tables, positions,
     stays as its oracle.
     """
     b, s, _ = h.shape
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
+    nh, nkv = _local_heads(cfg, p)
     qkv = layers.qdense(qcfg, "attn", h, p["wqkv"], p.get("bqkv"),
                         parallelism="column")
     q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
@@ -368,7 +418,7 @@ def _paged_forward(cfg, params, pool, block_tables, positions, tok_active,
     """The layer stack over the pool for tokens at ``positions`` ([B] or
     [B, S]); the pool is written in place.  Returns logits [B, S, V]."""
     _supported(cfg)
-    x = params["embed"][batch["tokens"]]
+    x = embed_tokens(cfg, params, batch["tokens"])
     pos = positions[:, None] if positions.ndim == 1 else positions
     plan = attn.paged_write_plan(block_tables, positions, tok_active,
                                  pool["k"].shape[2])

@@ -11,8 +11,20 @@ weights are dequantized and multiplied; dense weights are multiplied as
 they are.
 
 ``moe_ffn`` is the top-k MoE with sorted capacity dispatch in the
-reference's three scopes.  Tensor parallelism (the reference's ``cst``
-constraints and the mesh dispatch) is a later slice of the port.
+reference's three scopes.
+
+Under an active tensor-parallel context (``distributed.ctx``) a dense
+GEMM site names its ``parallelism``.  A column site takes the whole
+activation and gives this rank's N/n output features: a 2-D packed tile
+runs K4 in column mode.  A row site takes this rank's K/n features: a 2-D
+packed tile runs K4 in row mode (f32 partials summed over the group), a
+dense tile an f32 product and the same sum; the activation's QDQ takes
+the group's amax.  A row weight that could not split in whole blocks
+stays replicated, as in the reference: its input is all-gathered along
+the features and the weight dequantized and multiplied, with no sum
+afterwards.  Column weights always split under TP: the engine admits a
+config only when its heads, KV heads and d_ff divide the group, and a
+column split needs no more.
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ import torch.nn.functional as F
 
 from ..core.nvfp4 import PackedNVFP4
 from ..core.qconfig import QuantConfig
+from ..distributed import ctx
 from ..kernels import ops
 from ..kernels.nvfp4_matmul import sum_k_f32
 
@@ -81,6 +94,9 @@ def qeinsum(qcfg: QuantConfig, kind: str, eq: str, x: torch.Tensor, w,
     reuse it across GEMMs."""
     if eq not in (_DENSE_EQ, _MOE_EQ):
         raise ValueError(f"unsupported einsum {eq!r}")
+    tp = ctx.current()
+    if tp is not None and eq == _DENSE_EQ and parallelism == "row":
+        return _qeinsum_row(qcfg, kind, x, w, quantize_act, tp)
     xq = qcfg.q_act(x, kind) if quantize_act else x
     wr = qcfg.resolve_weight(w, kind, contract_axis)
     einsum = _matmul if eq == _DENSE_EQ else _moe_einsum
@@ -90,9 +106,33 @@ def qeinsum(qcfg: QuantConfig, kind: str, eq: str, x: torch.Tensor, w,
             return _moe_grouped(xq, wr)
         if (wr.ndim == 2 and contract_axis == 0 and eq == _DENSE_EQ
                 and qcfg.packed_backend in ("auto", "grouped")):
+            if tp is not None and parallelism == "column":
+                return ops.nvfp4_matmul_tp(xq, wr, tp, "column",
+                                           out_dtype=xq.dtype)
             return ops.nvfp4_matmul(xq, wr, out_dtype=xq.dtype)
         return einsum(xq, ops.dequant_weight(wr, contract_axis, xq.dtype))
     return einsum(xq, wr)
+
+
+def _qeinsum_row(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,
+                 quantize_act: bool, tp) -> torch.Tensor:
+    """A row-parallel dense site under TP: ``x`` [..., K/n] holds this
+    rank's features, ``w`` [K/n, N] (or its packed tile) the matching
+    rows, and every rank gets the whole y [..., N]."""
+    wr = qcfg.resolve_weight(w, kind, 0)
+    packed = isinstance(wr, PackedNVFP4)
+    if (wr.k if packed else wr.shape[0]) != x.shape[-1]:
+        # replicated (no whole-block split): gather the features, no sum
+        x = tp.all_gather(x, -1)
+        xq = qcfg.q_act(x, kind) if quantize_act else x
+        return _matmul(xq, ops.dequant_weight(wr, 0, xq.dtype)
+                       if packed else wr)
+    xq = qcfg.q_act(x, kind, tp) if quantize_act else x
+    if packed and wr.ndim == 2 and qcfg.packed_backend in ("auto", "grouped"):
+        return ops.nvfp4_matmul_tp(xq, wr, tp, "row", out_dtype=xq.dtype)
+    wd = ops.dequant_weight(wr, 0, xq.dtype) if packed else wr
+    part = xq.to(torch.float32) @ wd.to(torch.float32)
+    return tp.all_reduce(part).to(torch.promote_types(xq.dtype, wd.dtype))
 
 
 def qdense(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,

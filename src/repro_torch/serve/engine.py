@@ -27,18 +27,34 @@ attention of every paged forward runs the ``paged_attention`` kernel (K7)
 on the card, and packed MoE expert stacks the grouped GEMM (K3); "off"
 runs the gather-then-attend two-step and dequantizes the expert stacks.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh``/``rules``
-(tensor-parallel slice), ``obs`` and ``shadow_teacher`` (observability
-slice), ``prefill_mode="chunked"`` (a later serving slice).
+Tensor parallelism: ``mesh`` is the port's counterpart of the
+reference's mesh, a ``distributed.ctx.TP`` (this process's rank of a
+``torch.distributed`` group; ``launch.mesh.spawn`` starts the ranks).
+Every rank builds its engine on the same submissions and runs the same
+scheduler; the engine cuts its tiles of the parameters at init
+(``distributed.sharding.shard_params``) and its pool holds the local KV
+heads.  Each forward runs under the context: K4 for the packed GEMMs,
+head-local attention, a vocab-parallel embedding and all-gathered logits,
+so greedy sampling (and seeded sampling) picks the same tokens on every
+rank; ``drain`` checks that.  As in the reference, "auto" turns the fused
+tier off under a mesh and ``fused_kernels="on"`` with one raises.  MoE
+and FP8-KV configs under TP raise ``NotImplementedError``.
+
+Not ported yet, and refused with ``NotImplementedError``: ``obs`` and
+``shadow_teacher`` (observability slice), ``prefill_mode="chunked"`` (a
+later serving slice).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 
 import numpy as np
 import torch
 
+from ..distributed import ctx
+from ..distributed import sharding
 from ..launch import specs
 from ..launch.serve import params_device, resolve_device
 from ..models import decoder
@@ -69,9 +85,12 @@ class Engine:
         plan = state_mod.check_supported(cfg)
         self.state_plan = plan
         self.paged = plan == ("paged_kv",)
-        if mesh is not None or rules is not None:
-            raise NotImplementedError("tensor-parallel serving (mesh/rules) "
-                                      "is part of the TP slice of the port")
+        if rules is not None and mesh is None:
+            raise ValueError("rules without a mesh: pass the TP context")
+        if mesh is not None and not isinstance(mesh, ctx.TP):
+            raise TypeError(f"mesh must be a distributed.ctx.TP (this "
+                            f"rank of a tensor-parallel group), got "
+                            f"{type(mesh).__name__}")
         if obs is not None or shadow_teacher is not None:
             raise NotImplementedError("serving telemetry and the shadow "
                                       "teacher are part of the "
@@ -107,6 +126,13 @@ class Engine:
         if params_device(params) != self.device:
             raise ValueError(f"params live on {params_device(params)}, the "
                              f"engine on {self.device}")
+        self.rules = rules or sharding.make_rules()
+        if mesh is not None:
+            _check_tp(cfg, mesh.size)
+            params = sharding.shard_params(
+                params, self.model.param_specs(cfg), mesh, self.rules,
+                heads=(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim))
+        self.mesh = mesh
         self.params = params
         if qcfg is None:
             qcfg = specs.recipe_qconfig(cfg)
@@ -120,8 +146,14 @@ class Engine:
             raise ValueError("fused_kernels='on' requires the paged-KV "
                              f"state plan; {cfg.name} plans "
                              f"{' + '.join(plan)}")
+        if fused_kernels == "on" and mesh is not None:
+            raise ValueError("fused_kernels='on' is single-device only; "
+                             "drop the mesh or use 'auto'")
+        # "auto" leaves the fused tier off under a mesh, as the reference
+        # does: TP runs the gather-then-attend two-step
         self.fused = fused_kernels == "on" or (fused_kernels == "auto"
-                                               and self.paged)
+                                               and self.paged
+                                               and mesh is None)
         if self.fused and self.sq.packed_backend == "auto":
             self.sq = dataclasses.replace(self.sq, packed_backend="grouped")
 
@@ -173,8 +205,9 @@ class Engine:
         ``prefill_budget`` tokens, then one batched decode step for all
         running slots.  Returns the requests that finished in it."""
         finished: list[Request] = []
-        self._do_prefills(finished)
-        self._do_decode(finished)
+        with ctx.maybe_use(self.mesh):
+            self._do_prefills(finished)
+            self._do_decode(finished)
         self.step_count += 1
         return finished
 
@@ -186,7 +219,24 @@ class Engine:
                 raise RuntimeError(f"drain exceeded {max_steps} steps")
             self.step()
             steps += 1
-        return self.outputs()
+        out = self.outputs()
+        if self.mesh is not None:
+            self._check_ranks_agree(out)
+        return out
+
+    def _check_ranks_agree(self, out: dict[int, np.ndarray]) -> None:
+        """Every rank sampled from the same gathered logits: raise unless
+        all ranks hold the same outputs (a hash of them, all-gathered)."""
+        h = hashlib.blake2b(digest_size=8)
+        for rid in sorted(out):
+            h.update(np.int64(rid).tobytes())
+            h.update(out[rid].astype(np.int32).tobytes())
+        mine = torch.tensor([int.from_bytes(h.digest(), "little",
+                                            signed=True)], dtype=torch.int64)
+        every = self.mesh.all_gather(mine.to(self.device), 0).cpu()
+        if not bool((every == mine).all()):
+            raise RuntimeError(f"tensor-parallel ranks disagree on their "
+                               f"outputs (hashes {every.tolist()})")
 
     def outputs(self) -> dict[int, np.ndarray]:
         return {rid: np.asarray(r.output, np.int32)
@@ -409,3 +459,22 @@ class Engine:
             return
         self.sched.finish(req, reason, self.step_count)
         finished.append(req)
+
+
+def _check_tp(cfg, size: int) -> None:
+    """Refuse what this slice does not serve under tensor parallelism, and
+    configs whose column-parallel dims do not divide the group (a row
+    site's input must then be feature-sharded)."""
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: MoE under tensor "
+                                  "parallelism is part of a later slice of "
+                                  "the port")
+    for leaf, n in (("wqkv (query heads)", cfg.n_heads),
+                    ("wqkv (KV heads)", cfg.n_kv_heads),
+                    ("wg/wu (d_ff)", cfg.d_ff)):
+        if n % size:
+            raise NotImplementedError(
+                f"{cfg.name}: {leaf} = {n} does not split over {size} "
+                "ranks (head-local attention needs whole query and KV heads "
+                "on every rank, and a row-parallel GEMM an input split "
+                "over the ranks)")

@@ -46,9 +46,12 @@ class PagedKVPool:
     replaces ``data`` after each step).
     """
 
-    def __init__(self, data: dict, block_size: int):
+    def __init__(self, data: dict, block_size: int, n_shards: int = 1):
         self.data = data
         self.block_size = int(block_size)
+        # tensor parallelism: ``data`` holds this rank's KV heads, one of
+        # ``n_shards`` equal tiles of the pool
+        self.n_shards = int(n_shards)
         self.n_blocks = int(data["k"].shape[1])
         if data["k"].shape[2] != block_size:
             raise ValueError(f"pages {tuple(data['k'].shape)} do not hold "
@@ -110,12 +113,13 @@ class PagedKVPool:
         return n <= len(self._free)
 
     def nbytes(self) -> int:
-        return sum(a.numel() * a.element_size() for a in self.data.values())
+        """Bytes of the whole pool, over every rank."""
+        return self.nbytes_per_device() * self.n_shards
 
     def nbytes_per_device(self) -> int:
-        """Bytes one device holds: the whole pool (the KV-head sharding of
-        tensor parallelism comes with the TP slice)."""
-        return self.nbytes()
+        """Bytes one device holds: the pool divided by the KV-head
+        sharding under tensor parallelism (``nbytes()`` on one device)."""
+        return sum(a.numel() * a.element_size() for a in self.data.values())
 
     # -- alloc / free ------------------------------------------------------
 

@@ -79,9 +79,11 @@ class PagedKVState:
             raise ValueError(f"unknown kv_alloc mode {kv_alloc!r}")
         self.kv_alloc = kv_alloc
         self.headroom = int(headroom)
+        shards = engine.mesh.size if engine.mesh is not None else 1
         self.pool = PagedKVPool(
-            decoder.init_paged_pool(cfg, n_blocks, block_size, engine.device),
-            block_size)
+            decoder.init_paged_pool(cfg, n_blocks, block_size, engine.device,
+                                    n_shards=shards),
+            block_size, n_shards=shards)
         self.cache = (PrefixCache(self.pool, f"{cfg.name}|{engine.sq!r}")
                       if prefix_cache else None)
 

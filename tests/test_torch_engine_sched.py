@@ -412,8 +412,9 @@ def test_engine_raises_on_unported_plans_and_options(loaded):
         Engine(configs.get_smoke("rwkv6-3b"), params={}, device="cpu")
     with pytest.raises(NotImplementedError, match="FP8 KV slice"):
         Engine(configs.get_smoke("arctic-480b"), params, device="cpu")
-    for kw, slice_name in ((dict(mesh=object()), "TP"),
-                           (dict(obs=object()), "observability"),
+    with pytest.raises(TypeError, match="TP"):
+        _engine(cfg, params, qcfg, mesh=object())
+    for kw, slice_name in ((dict(obs=object()), "observability"),
                            (dict(shadow_teacher={}), "observability"),
                            (dict(prefill_mode="chunked"), "later serving")):
         with pytest.raises(NotImplementedError, match=slice_name):

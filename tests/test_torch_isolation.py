@@ -34,6 +34,8 @@ def _imported_roots(path: pathlib.Path):
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 15
+    assert {PORT / "distributed" / "ctx.py", PORT / "distributed" / "sharding.py",
+            PORT / "launch" / "mesh.py"} <= set(files)
     bad = {(str(f.relative_to(SRC)), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert not bad, bad
@@ -42,7 +44,8 @@ def test_port_sources_import_no_jax():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.bridge, repro_torch.serve, repro_torch.models.layers, "
-            "repro_torch.kernels.nvfp4_matmul; "
+            "repro_torch.kernels.nvfp4_matmul, repro_torch.distributed.ctx, "
+            "repro_torch.distributed.sharding, repro_torch.launch.mesh; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -91,6 +94,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         nvfp4_matmul.launch_grouped(x.reshape(1, 2, 32),
                                     nvfp4.pack(torch.zeros(1, 16, 32)))
     with pytest.raises(ValueError, match="CUDA"):
+        nvfp4_matmul.launch_tp(x, ops.pack_weight(torch.zeros(32, 16)),
+                               _one_rank(), "column")
+    with pytest.raises(ValueError, match="CUDA"):
         kl_loss.launch_fwd(x, x)
     z = torch.zeros(2)
     with pytest.raises(ValueError, match="CUDA"):
@@ -120,9 +126,33 @@ def test_launch_counters_count_kernel_launches_only():
     g = ops.nvfp4_matmul_grouped(x.reshape(2, 2, 64),
                                  nvfp4.pack(torch.randn(2, 8, 64)))
     assert g.shape == (2, 2, 8) and g.dtype == torch.bfloat16
+    t = ops.nvfp4_matmul_tp(y, ops.pack_weight(torch.randn(64, 48)),
+                            _one_rank(), "column")
+    assert t.shape == (4, 48) and t.dtype == torch.bfloat16
     assert ops.launches == {"nvfp4_qdq": 0, "nvfp4_matmul": 0,
-                            "nvfp4_matmul_grouped": 0, "kl_loss": 0,
-                            "kl_loss_bwd": 0, "paged_attention": 0}
+                            "nvfp4_matmul_grouped": 0, "nvfp4_matmul_tp": 0,
+                            "kl_loss": 0, "kl_loss_bwd": 0,
+                            "paged_attention": 0}
+
+
+def _one_rank():
+    """A tensor-parallel context without a group (column mode needs no
+    collective)."""
+    from repro_torch.distributed.ctx import TP
+    return TP(group=None, rank=0, size=1, device=torch.device("cpu"))
+
+
+def test_tp_entry_points_default_to_cuda():
+    """The TP paths default to the card too: the CLI's ranks and the
+    tile loader."""
+    assert serve.build_parser().parse_args(["--tp", "2"]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.load_quantized(configs.get_smoke("acereason-7b"), 0, "packed",
+                             tp=_one_rank())
+    with pytest.raises(SystemExit, match="--engine"):
+        serve.main(["--tp", "2", "--device", "cpu"])
 
 
 def test_build_is_lazy_and_names_the_sources():

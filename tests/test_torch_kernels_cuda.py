@@ -16,7 +16,10 @@ two terms of about log V, and the two versions sum e^x in other orders),
 each logsumexp within 8 ulps; KL exactly 0 for identical logits.  The KL
 backward (K6), given the same logsumexps: within one ulp of its output
 dtype of the plain version's f32 value, plus 4 f32 ulps of
-(p_s + p_t) |g| for the two ``expf``.  Paged attention (K7): within one
+(p_s + p_t) |g| for the two ``expf``.  K4 (``nvfp4_matmul_tp``): each
+rank tile through K2 within K2's bound; the row-mode sum of the tiles' f32
+partials within 2^-20 * (|x| @ |W|^T) of the full-K plain product (the
+same exact products summed in another order).  Paged attention (K7): within one
 bf16 ulp of the larger of the kernel's and the plain version's values,
 plus 1e-3: the two sum the dot products, the exps and p V in other f32
 orders, which moves a rare probability by one bf16 ulp (about 1e-4 of
@@ -314,3 +317,78 @@ def test_launch_counters_count_card_launches(gen):
     assert ops.launches == {"nvfp4_qdq": 1, "nvfp4_matmul": 1,
                             "nvfp4_matmul_grouped": 1, "kl_loss": 1,
                             "kl_loss_bwd": 1, "paged_attention": 1}
+
+
+# acereason-7b's five GEMM sites at tp = 2: (name, K, N, mode)
+TP_SITES = [("wqkv", 3584, 4608, "column"), ("wo", 3584, 3584, "row"),
+            ("wg", 3584, 18944, "column"), ("wd", 18944, 3584, "row")]
+
+
+def _tp_case(gen, m, k, n):
+    x = ops.nvfp4_qdq((torch.randn((m, k), generator=gen, device="cuda") * 2
+                       ).to(torch.bfloat16))
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    return x, ops.pack_weight(w.to(torch.bfloat16))
+
+
+def _full_k_ok(x, p, got):
+    """``got`` [M, N] f32 within the summation-order bound of the full-K
+    plain product."""
+    y32 = ref.nvfp4_matmul_ref(x, p, torch.float32)
+    w = nvfp4.unpack(p, torch.bfloat16).float()[:, : p.k]
+    bound = 2.0 ** -20 * (x.float().abs() @ w.abs().T)
+    return bool(((got.float() - y32).abs() <= bound).all())
+
+
+def _tiles_vs_full(x, p, mode, ys):
+    """Column: the tiles' outputs side by side; row: their f32 sum."""
+    return _full_k_ok(x, p, torch.cat(ys, -1) if mode == "column" else sum(ys))
+
+
+@pytest.mark.parametrize("site", TP_SITES, ids=[s[0] for s in TP_SITES])
+@pytest.mark.parametrize("m", [8, 256])
+def test_tp_tiles_kernel_within_bound(gen, site, m):
+    """Each rank tile (``nvfp4.tp_tile``, contiguous) through K2 within
+    K2's bound of its plain version; the two tiles together against the
+    full-K plain product."""
+    _, k, n, mode = site
+    x, p = _tp_case(gen, m, k, n)
+    ys = []
+    for rank in range(2):
+        tile = nvfp4.tp_tile(p, mode, rank, 2)
+        assert tile.codes.is_contiguous() and tile.codes.shape[-1] % 8 == 0
+        xl = x if mode == "column" else x.chunk(2, -1)[rank].contiguous()
+        assert _matmul_ok(xl, tile, torch.float32)
+        ys.append(ops.nvfp4_matmul(xl, tile, torch.float32))
+    assert _tiles_vs_full(x, p, mode, ys)
+
+
+def _k4_rank(tp, m, k, n, mode):
+    """One rank of the two-rank K4 test: the same seeded inputs on both."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x, p = _tp_case(gen, m, k, n)
+    tile = nvfp4.tp_tile(p, mode, tp.rank, tp.size)
+    xl = x if mode == "column" else x.chunk(tp.size, -1)[tp.rank].contiguous()
+    ops.reset_launches()
+    y = ops.nvfp4_matmul_tp(xl, tile, tp, mode, torch.float32)
+    torch.cuda.synchronize()
+    return y.cpu(), ops.launches["nvfp4_matmul_tp"]
+
+
+@pytest.mark.parametrize("site", [TP_SITES[0], TP_SITES[3]],
+                         ids=["wqkv", "wd"])
+def test_k4_two_gloo_ranks_on_one_card(gen, site):
+    """K4 on two gloo ranks sharing the card: one launch per rank; column
+    outputs side by side, and the row all-reduce on every rank, within the
+    summation-order bound of the full-K plain product."""
+    from repro_torch.launch import mesh
+    _, k, n, mode = site
+    out = mesh.spawn(_k4_rank, 2, 8, k, n, mode, device="cuda", timeout=600)
+    assert [launches for _, launches in out] == [1, 1]
+    x, p = _tp_case(torch.Generator(device="cuda").manual_seed(7), 8, k, n)
+    ys = [y.cuda() for y, _ in out]
+    if mode == "column":
+        assert _tiles_vs_full(x, p, mode, ys)
+    else:
+        assert torch.equal(ys[0], ys[1])
+        assert _full_k_ok(x, p, ys[0])
