@@ -26,7 +26,12 @@ Phases (every failure exits nonzero):
      and a padded K; ``nvfp4_matmul_tp`` (K4): each tp = 2 rank tile of
      the acereason-7b sites (M = 8 and 256) through K2 within K2's
      tolerance, the row-mode sum of the two tiles within the summation
-     bound of the full-K plain product;
+     bound of the full-K plain product; at every acereason-7b site the
+     rows of the M = 256 product (the tensor-core tile form) bitwise equal
+     to the same rows computed at M = 16 (a paged-prefill chunk), M = 4
+     and alone, bf16 and f32 out (row invariance, which the engine's
+     bitwise gates rely on); the largest |kernel - plain| / tolerance of
+     every K2, K3 and K4 shape is printed;
   4. smoke-size models on the card against the same weights on the CPU:
      serving prefill and greedy tokens, and one QAD training step;
   5. the static serving path: ``acereason-7b`` at full width and 14 of its
@@ -74,8 +79,9 @@ Phases (every failure exits nonzero):
      tokens with an eval after each, the launch counters read around it;
      a traced step;
   7. kernel, plain, bound and library times (CUDA events around each
-     call, the L2 flushed between calls, the median), K4 as K2 on each
-     rank's tile of every acereason-7b site at M = 8 and 256;
+     call, the L2 flushed between calls, the median), K2 also at M = 16
+     (the engine's paged-prefill chunk), K4 as K2 on each rank's tile of
+     every acereason-7b site at M = 8 and 256;
   8. a ``kernels`` JSON line, the card line, and the final JSON line.
 
 Exits 2 without printing a result when no CUDA device is present.
@@ -132,6 +138,8 @@ KL_SHAPES = {"train": (8 * 512, 50304), "acereason_row": (1024, 152064)}
 K7_ATOL = 1e-3
 # the engine runs (acereason-7b): pool geometry, run A's and run B's traffic
 ENGINE = dict(n_slots=8, block_size=16, max_blocks_per_slot=34, n_blocks=272)
+# the engine's paged-prefill chunk: rows a GEMM sees per chunk
+CHUNK = 16
 RUN_A = dict(requests=16, min_prompt=64, max_prompt=512, gen=32)
 RUN_B = dict(requests=16, prefix=256, min_suffix=16, max_suffix=128, gen=8)
 # fused (K7) against unfused (gather + attend) decode: the first decode
@@ -313,8 +321,8 @@ def tp_rank(tp, prompts, n_gen):
         res["trace"] = dict(
             wall_ms=wall_ms, busy_ms=sum(by_kernel.values()),
             k4_ms=sum(ms for kname, ms in by_kernel.items()
-                      if "gemv_kernel<false" in kname
-                      or "matmul_kernel<false" in kname),
+                      if "mma_kernel<false" in kname
+                      or "wg_kernel<false" in kname),
             collective_ms=eng.mesh.counts["seconds"] * 1e3,
             collectives=eng.mesh.counts["calls"],
             top=sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
@@ -403,6 +411,9 @@ def main() -> int:
              ("wd", ff, d)]
     rows = {"nvfp4_qdq": [], "nvfp4_matmul": []}
     err = {"nvfp4_qdq": 0.0, "nvfp4_matmul": 0.0}
+    # the largest |kernel - plain| / tolerance over each GEMM's checks
+    err_bound = {"nvfp4_matmul": 0.0, "nvfp4_matmul_grouped": 0.0,
+                 "nvfp4_matmul_tp": 0.0}
 
     def act(m, k):
         return (torch.randn((m, k), generator=gen, device=dev) * 2.0
@@ -440,6 +451,37 @@ def main() -> int:
                 fail(f"nvfp4_matmul outside tolerance at M={m} K={k} N={n}: "
                      f"max abs err {float(diff.max())}")
             err["nvfp4_matmul"] = max(err["nvfp4_matmul"], float(diff.max()))
+            ratio = float((diff / (ulp + 2.0 ** -20 * absref)).max())
+            err_bound["nvfp4_matmul"] = max(err_bound["nvfp4_matmul"], ratio)
+            print(f"[kernel] nvfp4_matmul M={m} {wname} (K={k}, N={n}): max "
+                  f"err/bound {ratio:.4f}", flush=True)
+            if m == BATCH * PROMPT:
+                # a token's row does not depend on M or on the other rows:
+                # rows of the prefill product (tile form) equal bitwise the
+                # same rows at a paged chunk (M = 16), at decode (M = 4)
+                # and alone, in bf16 and f32
+                for od in (torch.bfloat16, torch.float32):
+                    yb = ops.nvfp4_matmul(xq, p, od)
+                    iv = torch.int16 if od == torch.bfloat16 else torch.int32
+                    for sl in (slice(0, CHUNK), slice(100, 100 + BATCH),
+                               slice(m - 1, m)):
+                        if not torch.equal(ops.nvfp4_matmul(xq[sl], p, od).view(iv),
+                                           yb[sl].view(iv)):
+                            fail(f"nvfp4_matmul rows {sl.start}..{sl.stop} of "
+                                 f"{wname} differ between M={m} and "
+                                 f"M={sl.stop - sl.start} ({od})")
+                xc = xq[:CHUNK]
+                bc = kmm.bytes_moved(xc, p, torch.bfloat16)
+                fc = kmm.flops(xc, p)
+                rows["nvfp4_matmul"].append(dict(
+                    m=CHUNK, k=k, n=n, site=wname, phase="chunk",
+                    bound_ms=max(bc / HBM_BYTES_S, fc / BF16_FLOPS) * 1e3,
+                    bound_by=("bytes" if bc / HBM_BYTES_S >= fc / BF16_FLOPS
+                              else "operations"),
+                    max_abs_err=float(diff[:CHUNK].max()),
+                    fns=((lambda xc=xc, p=p: ops.nvfp4_matmul(xc, p)),
+                         (lambda xc=xc, p=p: ref.nvfp4_matmul_ref(xc, p)),
+                         (lambda xc=xc, w=wdq.T: torch.matmul(xc, w)))))
             bts = kmm.bytes_moved(xq, p, torch.bfloat16)
             fl = kmm.flops(xq, p)
             mm_bound = max(bts / HBM_BYTES_S, fl / BF16_FLOPS) * 1e3
@@ -447,13 +489,15 @@ def main() -> int:
             wdq_t = wdq.T
             rows["nvfp4_matmul"].append(dict(
                 m=m, k=k, n=n, site=wname, bound_ms=mm_bound, bound_by=by,
-                max_abs_err=float(diff.max()),
+                max_abs_err=float(diff.max()), err_over_bound=ratio,
                 fns=((lambda xq=xq, p=p: ops.nvfp4_matmul(xq, p)),
                      (lambda xq=xq, p=p: ref.nvfp4_matmul_ref(xq, p)),
                      (lambda xq=xq, w=wdq_t: torch.matmul(xq, w)))))
             del w, absref, y, y32
     print("[kernel] nvfp4_qdq bitwise and nvfp4_matmul within its bound at "
-          "every shape of the layer, M in (4, 256)", flush=True)
+          "every shape of the layer, M in (4, 256); rows of the M=256 product "
+          f"bitwise equal at M in ({CHUNK}, {BATCH}, 1) (max err/bound "
+          f"{err_bound['nvfp4_matmul']:.4f})", flush=True)
 
     # edge cases: M = 1, a ragged N, K padded (orig_k < stored K), f32 in/out,
     # and one amax per row
@@ -507,6 +551,11 @@ def main() -> int:
                          f"{float(diff.max())}")
                 err["nvfp4_matmul_tp"] = max(err["nvfp4_matmul_tp"],
                                              float(diff.max()))
+                ratio = float((diff / (ulp + 2.0 ** -20 * tabs)).max())
+                err_bound["nvfp4_matmul_tp"] = max(err_bound["nvfp4_matmul_tp"],
+                                                   ratio)
+                print(f"[kernel] nvfp4_matmul_tp M={m} {wname} {mode} tile "
+                      f"{rank}: max err/bound {ratio:.4f}", flush=True)
                 parts.append(ops.nvfp4_matmul(xl, tile, torch.float32))
                 bts = kmm.bytes_moved(xl, tile, torch.bfloat16)
                 fl = kmm.flops(xl, tile)
@@ -570,6 +619,11 @@ def main() -> int:
                      f"slices bitwise ({what})")
         err["nvfp4_matmul_grouped"] = max(err["nvfp4_matmul_grouped"],
                                           float(diff.max()))
+        ratio = float((diff / (ulp_y + 2.0 ** -20 * absref)).max())
+        err_bound["nvfp4_matmul_grouped"] = max(
+            err_bound["nvfp4_matmul_grouped"], ratio)
+        print(f"[kernel] nvfp4_matmul_grouped {what}: max err/bound "
+              f"{ratio:.4f}", flush=True)
         return float(diff.max())
 
     for site, k, n in (("wg/wu", mdm, ffe), ("wd", ffe, mdm)):
@@ -1240,7 +1294,7 @@ def main() -> int:
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_kernel.values())
     k3_ms = sum(ms for kname, ms in by_kernel.items()
-                if "gemv_kernel<true" in kname or "matmul_kernel<true" in kname)
+                if "mma_kernel<true" in kname or "wg_kernel<true" in kname)
     print(f"[trace] MoE engine decode step, 8 slots (traced): wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.3f} "
           f"nvfp4_matmul_grouped_ms={k3_ms:.3f} ({3 * n_moe} launches)", flush=True)
@@ -1576,7 +1630,10 @@ def main() -> int:
                 "library_ms": None if None in lib else sum(lib),
                 "per": f"one decode layer: {len(dec)} launches at M={BATCH}",
                 "prefill_layer_ms": sum(r["ms"] for r in rows[name]
-                                        if r["m"] != BATCH),
+                                        if r["m"] == BATCH * PROMPT),
+                "chunk_layer_ms": (sum(r["ms"] for r in rows[name]
+                                       if r["m"] == CHUNK) or None),
+                "max_err_over_bound": err_bound.get(name),
                 "launches_by_path": by_path}
 
     def kl_entry(name, source, replaces):
@@ -1625,6 +1682,7 @@ def main() -> int:
                 "replaces": "src/repro/kernels/nvfp4_matmul.py:233",
                 "launches": sum(by_path.values()),
                 "max_abs_err": err["nvfp4_matmul_grouped"],
+                "max_err_over_bound": err_bound["nvfp4_matmul_grouped"],
                 "ms": layer_sum("ms", dec), "plain_ms": layer_sum("plain_ms", dec),
                 "bound_ms": layer_sum("bound_ms", dec),
                 "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in dec)
@@ -1645,6 +1703,7 @@ def main() -> int:
                 "replaces": "src/repro/kernels/nvfp4_matmul.py:318",
                 "launches": tp_launches[0]["nvfp4_matmul_tp"],
                 "max_abs_err": err["nvfp4_matmul_tp"],
+                "max_err_over_bound": err_bound["nvfp4_matmul_tp"],
                 "ms": sum(r["ms"] for r in dec),
                 "plain_ms": sum(r["plain_ms"] for r in dec),
                 "bound_ms": sum(r["bound_ms"] for r in dec),

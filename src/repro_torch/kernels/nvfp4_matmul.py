@@ -13,25 +13,38 @@ K3 computes ``y[g] = x[g] @ W_g`` over a stack: x [G, M, K], codes
 ([G, 1, 1], ``pack(..., n_lead=1)``) or shared by the stack (one value,
 what PTQ gives a layer's expert stack).  It is the MoE expert GEMM.
 
-The kernels (one device code for both, ``csrc/nvfp4_matmul.cuh``) decode
-each weight tile on chip, round it to bf16 as the plain versions do, and
-accumulate bf16 x bf16 products (exact in f32) in f32: they differ from
-the plain versions only in the order of the f32 sum.
+One device code serves both (``csrc/nvfp4_matmul.cuh``): a tensor-core
+GEMM for every M that computes ``Y^T = W^T X^T`` (weight rows on the
+MMA's rows, tokens on its columns).  Codes, scales and x stream through a
+ring of shared memory filled by ``cp.async``; each thread decodes its A
+fragments from the ring straight into registers, every weight element
+``round_bf16(e2m1 * (e4m3 * tensor_scale))`` bitwise as ``nvfp4.unpack``
+gives it (two byte-table lookups per element).  bf16 x bf16 products are
+exact in f32, each 64-k chunk's MMAs run into a zeroed fragment that an
+f32 add promotes into the sum, and the output is rounded once: the
+kernels differ from the plain versions only in the order of the f32 sum.
+f32 x is split exactly into three bf16 parts, each multiplied on the
+tensor cores.
 
-Bound on the H100: at decode (M = 1..8) the weight bytes, 0.5625 B/param;
-at prefill (M = batch x prompt) the operations.  Decode runs a GEMV (a warp
-per two output columns, the lanes along K, x staged in shared memory) so
-that every weight shape spreads over the 132 SMs with many loads in
-flight; prefill runs a tiled f32-FMA GEMM.  K3 is the same code with the
-group in the grid's z dimension, so group g of K3 equals K2 on group g's
-slices bitwise.  Tensor cores and pipelined loads are later work.
+Bound on the H100: at decode (M = 1..8) the weight bytes, 0.5625 B/param.
+Up to ``TILE_M`` rows per group the kernel runs ``mma.sync`` with the
+warps of a block on separate, fixed K ranges of the same rows, so even a
+short N keeps thousands of warps' loads in flight.  Past it (prefill) the
+operations: ``wgmma`` over 128- or 192-row x 64-token tiles, x brought
+by TMA and read from shared memory in the permuted K order the decode
+uses, which ``_kernel_x`` lays out (``_tile_order``, one copy of x).
+
+Row invariance: every output element sums K in one order that depends on
+Kp alone, at every M and in both forms (fixed K ranges, each summed from
+zero, then added in order), so a token's output row does not depend on M
+or on the other tokens; K3 runs K2's code with the group in the grid's z
+dimension, so group g of K3 equals K2 on group g's slices bitwise.
 
 K4 replaces ``nvfp4_matmul_tp``, which runs K2's Pallas body on each
 shard's tile inside a ``shard_map`` and ``psum``s the row-parallel
 partials outside any kernel.  So K4 is K2's CUDA kernel launched on this
 rank's tile (``core.nvfp4.tp_tile``: N/n rows with the full K in column
-mode, K/n whole blocks in row mode, contiguous, so a tile row is a
-multiple of 8 code bytes as K2's word reads need) and, in row mode,
+mode, K/n whole blocks in row mode, contiguous) and, in row mode,
 ``torch.distributed``'s all-reduce of the f32 partials.  No device code of
 its own: the tiles need none.
 """
@@ -45,6 +58,37 @@ from . import _build
 
 # the reference kernel's default K tile (``tile_k``)
 REF_TILE_K = 512
+
+
+# the kernel's tile form (tensor-core wgmma) takes bf16 x at more than this
+# many rows per group, in the chunk order of ``_tile_order``; the same
+# threshold picks the form in ``csrc/nvfp4_matmul.cuh::dispatch``
+TILE_M = 32
+
+
+def _tile_order(x: torch.Tensor) -> torch.Tensor:
+    """x [..., K], K a multiple of 64, with each 64-value chunk's 4-byte
+    words reordered as the tile form's shared-memory layout wants them:
+    word 8a + 2j + b (values 16a + 4j + 2b + {0, 1}) moves to 4 (2j + b) + a.
+    A copy of x; the weights keep their layout."""
+    *lead, k = x.shape
+    v = x.reshape(*lead, k // 64, 4, 4, 2, 2)             # chunk, a, j, b, pair
+    return v.movedim(-4, -2).reshape(*lead, k).contiguous()
+
+
+def _kernel_x(x: torch.Tensor, kp: int) -> torch.Tensor:
+    """x as the kernel reads it: contiguous and 16-byte aligned, its K a
+    multiple of 8 with zero columns appended (the weight's columns there
+    meet zeros; the stored K ``kp`` is a multiple of 16, so they exist).
+    For the tile form (bf16, more than TILE_M rows per group) K is padded
+    to whole 64-value chunks and put in ``_tile_order``."""
+    rows = x.shape[-2]
+    tile = x.dtype == torch.bfloat16 and rows > TILE_M
+    to = -(-kp // 64) * 64 if tile else -(-x.shape[-1] // 8) * 8
+    if x.shape[-1] != to:
+        x = torch.nn.functional.pad(x, (0, to - x.shape[-1]))
+    x = _tile_order(x) if tile else x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _check_packed(packed: PackedNVFP4, k: int) -> None:
@@ -100,17 +144,17 @@ def launch(x: torch.Tensor, packed: PackedNVFP4,
         raise ValueError("packed weight must lie on the card")
     if not (codes.is_contiguous() and scales.is_contiguous()):
         raise ValueError("packed codes and scales must be contiguous")
-    if codes.data_ptr() % 8:             # read as 8-byte words
+    if codes.data_ptr() % 8:             # copied in 8-byte pieces
         raise ValueError("packed codes must be 8-byte aligned")
     ts = packed.tensor_scale.to(torch.float32).reshape(1)
-    xm = x.reshape(-1, k).contiguous()
+    xm = _kernel_x(x.reshape(-1, k), kp)
     m = xm.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().nvfp4_matmul(
             xm.data_ptr(), int(x.dtype == torch.float32), codes.data_ptr(),
             scales.data_ptr(), ts.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.float32), m, n, k, kp,
+            int(out_dtype == torch.float32), m, n, xm.shape[1], kp,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "nvfp4_matmul")
     return out.reshape(*lead, n)
@@ -198,10 +242,10 @@ def launch_grouped(x: torch.Tensor, packed: PackedNVFP4,
         raise ValueError("packed weight must lie on the card")
     if not (codes.is_contiguous() and scales.is_contiguous()):
         raise ValueError("packed codes and scales must be contiguous")
-    if codes.data_ptr() % 8:             # read as 8-byte words
+    if codes.data_ptr() % 8:             # copied in 8-byte pieces
         raise ValueError("packed codes must be 8-byte aligned")
     ts = packed.tensor_scale.to(torch.float32).reshape(-1).contiguous()
-    xg = x.contiguous()
+    xg = _kernel_x(x, kp)
     m, k = xg.shape[1], xg.shape[2]
     out = torch.empty((g, m, n), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):

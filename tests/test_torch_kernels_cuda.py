@@ -10,7 +10,9 @@ Tolerances: ``nvfp4_qdq`` bitwise (the same f32 operations in the same
 order); ``nvfp4_matmul`` (K2) and ``nvfp4_matmul_grouped`` (K3) within
 one bf16 ulp of the plain version's f32 product plus 2^-20 * (|x| @ |W|^T),
 a bound on summing the same exact products in another f32 order, and K3
-bitwise equal to K2 on every group's slices (one device code).  The KL forward (K5): per-token KL within
+bitwise equal to K2 on every group's slices (one device code); a token's
+output row bitwise the same at every M (row invariance: one K order for
+the decode and the tensor-core tile forms).  The KL forward (K5): per-token KL within
 rtol 1e-4 plus 16 f32 ulps of |z_t| + |z_s| (KL is a small difference of
 two terms of about log V, and the two versions sum e^x in other orders),
 each logsumexp within 8 ulps; KL exactly 0 for identical logits.  The KL
@@ -81,7 +83,17 @@ def test_qdq_kernel_bitwise(gen, shape, dtype, scope):
 
 @pytest.mark.parametrize("m,k,n", [(4, 3584, 4608), (4, 18944, 3584),
                                    (256, 3584, 3584), (1, 48, 40),
-                                   (33, 80, 200), (9, 256, 96)])
+                                   (33, 80, 200), (9, 256, 96),
+                                   # wd at decode, a paged chunk and prefill
+                                   (1, 18944, 3584), (8, 18944, 3584),
+                                   (16, 18944, 3584), (256, 18944, 3584),
+                                   # M at and past each block shape's edge
+                                   (5, 3584, 4608), (9, 3584, 4608),
+                                   (17, 3584, 3584), (42, 3584, 3584),
+                                   (257, 3584, 3584),
+                                   # Kp % 64 != 0 and 88-byte scale rows
+                                   (8, 1408, 2048), (42, 1408, 2048),
+                                   (257, 1408, 24)])
 def test_matmul_kernel_within_bound(gen, m, k, n):
     x = ops.nvfp4_qdq((torch.randn((m, k), generator=gen, device="cuda") * 2
                        ).to(torch.bfloat16))
@@ -98,6 +110,59 @@ def test_matmul_kernel_padded_k(gen, x_dtype, out_dtype):
                                             device="cuda"), (0, 8))
     p = dataclasses.replace(nvfp4.pack(w), orig_k=40)
     assert _matmul_ok(x, p, out_dtype)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 256])
+def test_matmul_kernel_f32_out_at_wd(gen, m):
+    """f32 out at wd (K = 18944): no bf16 ulp to hide in, so the kernel's
+    sum must stay within the summation bound 2^-20 * (|x| @ |W|^T) alone
+    (each 64-k step's MMAs promoted into the f32 sum)."""
+    x = ops.nvfp4_qdq((torch.randn((m, 18944), generator=gen, device="cuda") * 2
+                       ).to(torch.bfloat16))
+    w = torch.randn((18944, 3584), generator=gen, device="cuda") / math.sqrt(18944)
+    assert _matmul_ok(x, ops.pack_weight(w.to(torch.bfloat16)), torch.float32)
+
+
+@pytest.mark.parametrize("m", [1, 8, 42])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_matmul_kernel_f32_x(gen, m, out_dtype):
+    """f32 x at K = 3584 (split into three bf16 parts on the tensor cores)
+    within K2's bound of the plain version's f32 product."""
+    x = torch.randn((m, 3584), generator=gen, device="cuda") * 2
+    w = torch.randn((3584, 4608), generator=gen, device="cuda") / math.sqrt(3584)
+    assert _matmul_ok(x, ops.pack_weight(w.to(torch.bfloat16)), out_dtype)
+
+
+# acereason-7b's GEMM sites: (name, K, N)
+ACE_SITES = [("wqkv", 3584, 4608), ("wo", 3584, 3584), ("wg", 3584, 18944),
+             ("wd", 18944, 3584)]
+
+
+@pytest.mark.parametrize("site", ACE_SITES, ids=[s[0] for s in ACE_SITES])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_matmul_kernel_row_invariance(gen, site, out_dtype):
+    """A token's output row does not depend on M or on the other tokens:
+    rows of an M = 256 product (prefill tiles) equal bitwise the same rows
+    computed at M = 16 (a paged chunk), M = 8 and M = 4 (decode) and alone.
+    The design has one K order for every M, so this holds across all of
+    them.  K3 on the same rows as one group of a stack equals them too."""
+    _, k, n = site
+    x = ops.nvfp4_qdq((torch.randn((256, k), generator=gen, device="cuda") * 2
+                       ).to(torch.bfloat16))
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    p = ops.pack_weight(w.to(torch.bfloat16))
+    full = _bits(ops.nvfp4_matmul(x, p, out_dtype))
+    for rows in (slice(0, 16), slice(200, 216), slice(248, 256), slice(100, 104)):
+        assert torch.equal(_bits(ops.nvfp4_matmul(x[rows], p, out_dtype)), full[rows])
+    for r in (0, 77, 255):
+        assert torch.equal(_bits(ops.nvfp4_matmul(x[r:r + 1], p, out_dtype)),
+                           full[r:r + 1])
+    stack = nvfp4.PackedNVFP4(p.codes[None].expand(2, -1, -1).contiguous(),
+                              p.scales[None].expand(2, -1, -1).contiguous(),
+                              p.tensor_scale.reshape(1), p.orig_k)
+    xg = torch.stack([x[:16], x[16:32]])
+    got = _bits(ops.nvfp4_matmul_grouped(xg, stack, out_dtype))
+    assert torch.equal(got.reshape(32, n), full[:32])
 
 
 def _grouped_case(gen, g, m, k, n, per_group, orig_k=0):
@@ -119,6 +184,7 @@ def _grouped_case(gen, g, m, k, n, per_group, orig_k=0):
 @pytest.mark.parametrize("g,m,k,n,per_group,orig_k", [
     (60, 8, 2048, 1408, False, 0), (60, 8, 1408, 2048, False, 0),
     (60, 42, 2048, 1408, False, 0), (60, 16, 1408, 2048, True, 0),
+    (60, 16, 2048, 1408, False, 0), (60, 42, 1408, 2048, True, 0),
     (3, 5, 48, 24, True, 40), (4, 1, 64, 40, False, 0)])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_grouped_kernel_within_bound_and_bitwise_k2(gen, g, m, k, n, per_group,
