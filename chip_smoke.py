@@ -17,8 +17,14 @@ Phases (every failure exits nonzero):
      masked-out row and identical logits; ``paged_attention`` (tolerance
      below) at the engine's acereason-7b shapes (decode: 8 slots against
      pages [272, 16, 4, 128] through tables [8, 34], pos 1..544; a paged
-     prefill chunk of 16 queries), with a dead table tail, a window and
-     FP8 pages; ``nvfp4_matmul_grouped`` (K3) at the qwen2-moe-a2.7b expert
+     prefill chunk of 16 queries; a decode step at 4096 keys), with a dead
+     table tail, a window, FP8 pages, 4096 and 32768 keys and pos on the
+     boundaries of the blocks' key parts; ``nvfp4_qdq`` with its own amax
+     (bitwise) in the scopes the engine and the trainer use (row at decode
+     and exact prefill, token in a paged chunk, tensor in training; bf16
+     and f32), on a misaligned view and with a NaN and an inf; one device
+     kernel for one K1 call and for one decode-shaped K7 call (the
+     profiler); ``nvfp4_matmul_grouped`` (K3) at the qwen2-moe-a2.7b expert
      stacks (60 experts, (K, N) = (2048, 1408) and (1408, 2048); M = 8 at
      decode, 42 at an exact 512-token prefill, 16 in a paged-prefill chunk),
      within K2's tolerance of its plain version and bitwise equal to K2 run
@@ -79,9 +85,14 @@ Phases (every failure exits nonzero):
      tokens with an eval after each, the launch counters read around it;
      a traced step;
   7. kernel, plain, bound and library times (CUDA events around each
-     call, the L2 flushed between calls, the median), K2 also at M = 16
-     (the engine's paged-prefill chunk), K4 as K2 on each rank's tile of
-     every acereason-7b site at M = 8 and 256;
+     call, the L2 flushed between calls, the median; the floor of one tiny
+     kernel between two events is printed), K2 also at M = 16 (the
+     engine's paged-prefill chunk), K4 as K2 on each rank's tile of every
+     acereason-7b site at M = 8 and 256, K1 as the engine and the trainer
+     call it (each site alone and one layer's five sites back to back,
+     beside the former call with the torch amax), K7 at decode, in a paged
+     chunk and at 4096 keys.  Every traced step counts its device ops: the
+     port's kernels (a QDQ kernel for each QDQ call) and the others;
   8. a ``kernels`` JSON line, the card line, and the final JSON line.
 
 Exits 2 without printing a result when no CUDA device is present.
@@ -179,6 +190,28 @@ TRAIN = dict(arch="olmo-1b", steps=4, lr=1e-5, batch=8, seq=512)
 STEP_TOL = {"loss": 2e-2, "grad_norm": 5e-2}
 
 
+# the port's kernels by the names the profiler shows them under
+PORT_KERNELS = ("qdq_one_pass", "qdq_two_pass", "paged_attention_kernel",
+                "mma_kernel", "wg_kernel", "kl_fwd_kernel", "kl_bwd_kernel")
+
+
+def trace_ops(prof, steps=1):
+    """From a profile of ``steps`` steps, per step: ms by device kernel
+    name, and the counts of device ops that are the port's kernels, that
+    are QDQ kernels, and that are anything else (torch's kernels, copies)."""
+    from torch.autograd import DeviceType
+    by_kernel, n_port, n_qdq, n_other = {}, 0, 0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                                 + e.time_range.elapsed_us() / 1e3 / steps)
+            port = any(k in e.name for k in PORT_KERNELS)
+            n_port += port
+            n_qdq += "qdq_" in e.name
+            n_other += not port
+    return by_kernel, n_port / steps, n_qdq / steps, n_other / steps
+
+
 def fail(msg: str) -> None:
     print(f"[chip_smoke] FAIL: {msg}", flush=True)
     raise SystemExit(1)
@@ -252,7 +285,6 @@ def tp_rank(tp, prompts, n_gen):
     the engine over them; run TP's traffic; one traced decode step on
     rank 0.  Returns host data only."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
@@ -307,18 +339,17 @@ def tp_rank(tp, prompts, n_gen):
     torch.cuda.synchronize()
     eng.mesh.reset_counts()
     if tp.rank == 0:
+        ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             eng.step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
-                                     + e.time_range.elapsed_us() / 1e3)
+        by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
         res["trace"] = dict(
+            n_port=n_port, n_qdq=n_qdq, n_other=n_other,
+            qdq_calls=ops.launches["nvfp4_qdq"],
             wall_ms=wall_ms, busy_ms=sum(by_kernel.values()),
             k4_ms=sum(ms for kname, ms in by_kernel.items()
                       if "mma_kernel<false" in kname
@@ -428,13 +459,6 @@ def main() -> int:
             if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
                 n_bad = int((got.view(torch.int16) != want.view(torch.int16)).sum())
                 fail(f"nvfp4_qdq not bitwise at ({m}, {k}): {n_bad} elements")
-            q_bytes = kqdq.bytes_moved(x)
-            q_bound = max(q_bytes / HBM_BYTES_S,
-                          kqdq.OPS_PER_ELEM * x.numel() / F32_FLOPS) * 1e3
-            rows["nvfp4_qdq"].append(dict(
-                m=m, k=k, site=wname, bound_ms=q_bound, library_ms=None,
-                fns=((lambda x=x: ops.nvfp4_qdq(x)),
-                     (lambda x=x: ref.nvfp4_qdq_ref(x)), None)))
 
             # K2: within one bf16 ulp of the f32 product + summation bound
             w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
@@ -516,6 +540,94 @@ def main() -> int:
     if not torch.equal(ops.nvfp4_qdq(xr, amax), ref.nvfp4_qdq_ref(xr, amax)):
         fail("nvfp4_qdq with one amax per row is not bitwise")
     print("[kernel] edge cases (M=1, padded K, f32 in/out, per-row amax) OK",
+          flush=True)
+
+    # K1 as the engine and the trainer call it: the op takes the scope's
+    # amax in the same launch; bitwise against the plain version with the
+    # amax taken by torch, one device kernel a call, a misaligned view read
+    # in place, a NaN and an inf as the plain version has them
+    def q_bound(x):
+        return max(kqdq.bytes_moved(x) / HBM_BYTES_S,
+                   kqdq.OPS_PER_ELEM * x.numel() / F32_FLOPS) * 1e3
+
+    def old_call(x, scope):
+        """The op as it was called before the amax moved into the kernel:
+        ``q_act``'s torch amax (the tensor scope's the wrapper's
+        ``vector_norm``), then the kernel given it."""
+        amax = (torch.linalg.vector_norm(x, ord=float("inf")).float()
+                if scope == "tensor" else kqdq.scope_amax(x, scope))
+        return ops.nvfp4_qdq(x, amax)
+
+    def qdq_equal(got, want):
+        gn, wn = torch.isnan(got), torch.isnan(want)
+        return bool(torch.equal(gn, wn)) and bool(torch.equal(
+            got[~gn].view(torch.int16 if got.dtype == torch.bfloat16
+                          else torch.int32),
+            want[~wn].view(torch.int16 if want.dtype == torch.bfloat16
+                           else torch.int32)))
+
+    def device_ops(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    tcfg_full = configs.get_config(TRAIN["arch"])
+    # (phase, site, shape, scope): a decode step at 8 slots, an exact
+    # 512-token prefill (row scope over the whole prompt), a paged chunk's
+    # tokens, the training step's activations
+    k1_sites = ([("decode", w, (ENGINE["n_slots"], 1, k), "row") for w, k, _ in layer]
+                + [("prefill", w, (1, 512, k), "row") for w, k, _ in layer]
+                + [("chunk", "wd", (1, CHUNK, ff), "token")]
+                + [("train", w, (TRAIN["batch"], TRAIN["seq"], k), "tensor")
+                   for w, k in (("wqkv", tcfg_full.d_model),
+                                ("wd", tcfg_full.d_ff))])
+    for dt in (torch.bfloat16, torch.float32):
+        for ph, wname, shape, scope in k1_sites + [("big", "-", (4096, 8192), "tensor")]:
+            x = (torch.randn(shape, generator=gen, device=dev) * 2.0).to(dt)
+            got = ops.nvfp4_qdq(x, scope=scope)
+            if not qdq_equal(got, ref.nvfp4_qdq_ref(x, None, scope)):
+                fail(f"nvfp4_qdq with its own {scope} amax not bitwise at "
+                     f"{shape} {dt}")
+            if dt == torch.bfloat16 and ph != "big":
+                rows["nvfp4_qdq"].append(dict(
+                    m=shape[0] * shape[1], k=shape[-1], site=wname, phase=ph,
+                    shape=f"{list(shape)} {scope}", bound_ms=q_bound(x),
+                    library_ms=None,
+                    fns=((lambda x=x, sc=scope: ops.nvfp4_qdq(x, scope=sc)),
+                         (lambda x=x, sc=scope: ref.nvfp4_qdq_ref(x, None, sc)),
+                         None),
+                    old=(lambda x=x, sc=scope: old_call(x, sc))))
+            del x, got
+    for scope in ("row", "token", "tensor"):
+        base = (torch.randn(8 * ff + 16, generator=gen, device=dev) * 2.0
+                ).to(torch.bfloat16)
+        xm = base[3:3 + 8 * ff].view(8, 1, ff)          # 6 bytes off
+        if not qdq_equal(ops.nvfp4_qdq(xm, scope=scope),
+                         ref.nvfp4_qdq_ref(xm, None, scope)):
+            fail(f"nvfp4_qdq on a misaligned view ({scope}) not bitwise")
+        xm = xm.clone()
+        xm.view(-1)[77] = float("nan")
+        xm.view(-1)[-3] = float("inf")
+        if not qdq_equal(ops.nvfp4_qdq(xm, scope=scope),
+                         ref.nvfp4_qdq_ref(xm, None, scope)):
+            fail(f"nvfp4_qdq with a NaN and an inf ({scope}) differs from "
+                 "its plain version")
+    k1_old_ops = {}                  # device ops of the former call, by phase
+    for ph, wname, shape, scope in k1_sites:
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        names = device_ops(lambda: ops.nvfp4_qdq(x, scope=scope))
+        if len(names) != 1:
+            fail(f"nvfp4_qdq {shape} {scope} ran {len(names)} device ops: {names}")
+        k1_old_ops[ph] = len(device_ops(lambda: old_call(x, scope)))
+    print(f"[kernel] nvfp4_qdq with its own amax bitwise in every scope at the "
+          f"engine's and the trainer's shapes ({len(k1_sites)} sites, bf16 and "
+          f"f32) and at [4096, 8192]; a misaligned view, a NaN and an inf as "
+          f"the plain version; one device kernel a call (the former call, the "
+          f"torch amax and the kernel: {k1_old_ops} device ops a call by site)",
           flush=True)
 
     # K4: each rank's tile through K2, the tiles together against the
@@ -748,11 +860,11 @@ def main() -> int:
     n_blk, blk, mbs = (ENGINE["n_blocks"], ENGINE["block_size"],
                        ENGINE["max_blocks_per_slot"])
 
-    def k7_case(b, s_q, pos, fp8=False):
+    def k7_case(b, s_q, pos, fp8=False, n_pages=n_blk, mb=mbs):
         """Random pages (bf16, or e4m3 with one f32 scale per row), tables
         of distinct blocks, queries."""
-        k = torch.randn((n_blk, blk, n_kv, hd), generator=gen, device=dev)
-        v = torch.randn((n_blk, blk, n_kv, hd), generator=gen, device=dev)
+        k = torch.randn((n_pages, blk, n_kv, hd), generator=gen, device=dev)
+        v = torch.randn((n_pages, blk, n_kv, hd), generator=gen, device=dev)
         if fp8:
             def quant(x):
                 sc = x.abs().amax(-1).clamp_min(1e-30) / 448.0
@@ -761,10 +873,10 @@ def main() -> int:
             pool = {"k": k, "v": v, "k_scale": ks, "v_scale": vs}
         else:
             pool = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
-        bt = torch.randperm(n_blk, generator=gen, device=dev)[: b * mbs]
+        bt = torch.randperm(n_pages, generator=gen, device=dev)[: b * mb]
         q = torch.randn((b, s_q, n_heads, hd), generator=gen,
                         device=dev).to(torch.bfloat16)
-        return (q, pool, bt.reshape(b, mbs).to(torch.int32),
+        return (q, pool, bt.reshape(b, mb).to(torch.int32),
                 torch.as_tensor(pos, dtype=torch.int32, device=dev))
 
     def check_k7(what, q, pool, bt, pos, window=0):
@@ -780,8 +892,12 @@ def main() -> int:
 
     dec_pos = torch.linspace(1, mbs * blk, ENGINE["n_slots"]).round().int()
     pre_pos = (256 + torch.arange(1, blk + 1)).reshape(1, blk)
+    long_mb = 4096 // blk + 2                # a 4k-key decode step
     for site, case in (("decode", k7_case(ENGINE["n_slots"], 1, dec_pos)),
-                       ("paged_prefill", k7_case(1, blk, pre_pos))):
+                       ("paged_prefill", k7_case(1, blk, pre_pos)),
+                       ("decode_4k", k7_case(
+                           ENGINE["n_slots"], 1, [4096] * ENGINE["n_slots"],
+                           n_pages=ENGINE["n_slots"] * long_mb, mb=long_mb))):
         check_k7(site, *case)
         q, pool, bt, pos = case
         kb = kpa.bytes_moved(q, pool["k"], bt, pos, fp8=False)
@@ -809,11 +925,27 @@ def main() -> int:
     qn, pool, bt, pos = k7_case(ENGINE["n_slots"], 1, dec_pos)
     qn = qn.transpose(1, 2).contiguous().transpose(1, 2)
     check_k7("non-contiguous q", qn, pool, bt, pos)
+    # long contexts (every block loops over its chunks); pos on the
+    # boundaries of the blocks' parts, at 1 and at MB x bs
+    for keys in (4096, 32768):
+        mbl = keys // blk + 2
+        check_k7(f"{keys} keys", *k7_case(2, 1, [keys, keys - 77],
+                                          n_pages=2 * mbl + 4, mb=mbl))
+    cs = kpa._part_len(mbs * blk, kpa.split_plan(
+        1, n_heads // n_kv, mbs, blk, hd).n_split)      # keys a block's part
+    check_k7("split edges", *k7_case(ENGINE["n_slots"], 1,
+                                     [cs, 2 * cs, 3 * cs, 1, mbs * blk, cs - 1,
+                                      cs + 1, mbs * blk]))
+    case = k7_case(ENGINE["n_slots"], 1, dec_pos)
+    names = device_ops(lambda: ops.paged_attention(*case))
+    if len(names) != 1:
+        fail(f"paged_attention at decode ran {len(names)} device ops: {names}")
     print(f"[kernel] paged_attention within one bf16 ulp + {K7_ATOL} of its "
-          f"plain version: decode, paged-prefill chunk, dead table tail, "
-          f"windows, FP8 pages, a strided q (max abs err "
-          f"{err['paged_attention']:.3g})", flush=True)
-    del q, qn, pool, bt, pos, got
+          f"plain version: decode, paged-prefill chunk, 4k-key decode, dead "
+          f"table tail, windows, FP8 pages, a strided q, 4096 and 32768 keys, "
+          f"split edges (max abs err {err['paged_attention']:.3g}); one device "
+          f"kernel a decode call", flush=True)
+    del q, qn, pool, bt, pos, got, case
 
     # ---- 4. smoke model: card vs CPU on the same weights ------------------
     scfg = configs.get_smoke("acereason-7b")
@@ -934,15 +1066,13 @@ def main() -> int:
                 model.decode_step(scfg, params, cache, {"tokens": nxt}, sq)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / 2
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 2e3
+    by_kernel, n_port, n_qdq, n_other = trace_ops(prof, 2)
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     print(f"[trace] decode step (traced): wall_ms={wall_ms:.3f} "
-          f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.3f}",
-          flush=True)
+          f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.3f}; "
+          f"device ops per step: {n_port:.0f} of the port's kernels ({n_qdq:.0f} "
+          f"QDQ), {n_other:.0f} others", flush=True)
     for kname, ms in top:
         print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
     lp = lp.float()
@@ -1100,21 +1230,30 @@ def main() -> int:
     while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
         eng.step()
     torch.cuda.synchronize()
+    ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = dict(ops.launches)
     eng.drain()
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
     busy_ms = sum(by_kernel.values())
+    k7_ms = sum(ms for kname, ms in by_kernel.items()
+                if "paged_attention_kernel" in kname)
     print(f"[trace] engine decode step, 8 slots (traced): wall_ms={wall_ms:.3f} "
-          f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.3f}",
-          flush=True)
+          f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.3f} "
+          f"paged_attention_ms={k7_ms:.3f} ({step_launches['paged_attention']} "
+          f"launches); device ops: {n_port:.0f} of the port's kernels "
+          f"({n_qdq:.0f} QDQ for {step_launches['nvfp4_qdq']} QDQ calls), "
+          f"{n_other:.0f} others", flush=True)
+    if n_qdq != step_launches["nvfp4_qdq"]:
+        fail(f"engine A decode step: {n_qdq} QDQ kernels for "
+             f"{step_launches['nvfp4_qdq']} QDQ calls")
+    engine_a_trace = dict(wall_ms=wall_ms, busy_ms=busy_ms, k7_ms=k7_ms,
+                          n_port=n_port, n_qdq=n_qdq, n_other=n_other)
     for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
         print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
 
@@ -1281,27 +1420,35 @@ def main() -> int:
     while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
         eng.step()
     torch.cuda.synchronize()
+    ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = dict(ops.launches)
     eng.drain()
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
     busy_ms = sum(by_kernel.values())
     k3_ms = sum(ms for kname, ms in by_kernel.items()
                 if "mma_kernel<true" in kname or "wg_kernel<true" in kname)
+    k7_ms = sum(ms for kname, ms in by_kernel.items()
+                if "paged_attention_kernel" in kname)
     print(f"[trace] MoE engine decode step, 8 slots (traced): wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy_ms:.3f} idle_share={1 - busy_ms / wall_ms:.3f} "
-          f"nvfp4_matmul_grouped_ms={k3_ms:.3f} ({3 * n_moe} launches)", flush=True)
+          f"nvfp4_matmul_grouped_ms={k3_ms:.3f} ({3 * n_moe} launches) "
+          f"paged_attention_ms={k7_ms:.3f}; device ops: {n_port:.0f} of the "
+          f"port's kernels ({n_qdq:.0f} QDQ for {step_launches['nvfp4_qdq']} QDQ "
+          f"calls), {n_other:.0f} others", flush=True)
+    if n_qdq != step_launches["nvfp4_qdq"]:
+        fail(f"engine M decode step: {n_qdq} QDQ kernels for "
+             f"{step_launches['nvfp4_qdq']} QDQ calls")
     for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
     engine_m = dict(st=stm, wall=m_wall, peak=m_peak, drop=drop,
-                    busy_ms=busy_ms, wall_ms=wall_ms, k3_ms=k3_ms)
+                    busy_ms=busy_ms, wall_ms=wall_ms, k3_ms=k3_ms, k7_ms=k7_ms,
+                    n_port=n_port, n_qdq=n_qdq, n_other=n_other)
 
     # the first 8 requests with the expert stacks dequantized and the
     # two-step attention.  Each request's first token is the fused run's, so
@@ -1487,7 +1634,12 @@ def main() -> int:
           f"idle_share={1 - tr['busy_ms'] / tr['wall_ms']:.3f} "
           f"nvfp4_matmul_tp_ms={tr['k4_ms']:.3f} ({5 * cfg.n_layers} launches) "
           f"collective_ms={tr['collective_ms']:.3f} ({tr['collectives']} "
-          f"collectives, host-staged)", flush=True)
+          f"collectives, host-staged); device ops: {tr['n_port']:.0f} of the "
+          f"port's kernels ({tr['n_qdq']:.0f} QDQ for {tr['qdq_calls']} QDQ "
+          f"calls), {tr['n_other']:.0f} others", flush=True)
+    if tr["n_qdq"] != tr["qdq_calls"]:
+        fail(f"engine TP decode step: {tr['n_qdq']} QDQ kernels for "
+             f"{tr['qdq_calls']} QDQ calls")
     for kname, ms in tr["top"]:
         print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
     tp_launches = [r["launches"] for r in ranks]
@@ -1553,26 +1705,31 @@ def main() -> int:
         AdamW(lr=warmup_cosine(TRAIN["lr"], 0, TRAIN["steps"]), clip_norm=1.0))
     tb = make_batch(dcfg, TRAIN["steps"], device=dev)
     torch.cuda.synchronize()
+    ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, m = step_fn(state, tb)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = dict(ops.launches)
     if not math.isfinite(float(m["grad_norm"])):
         fail(f"non-finite gradient norm {float(m['grad_norm'])}")
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
     busy_ms = sum(by_kernel.values())
     print(f"[trace] training step (traced): wall_ms={wall_ms:.1f} "
           f"device_busy_ms={busy_ms:.1f} idle_share={1 - busy_ms / wall_ms:.3f} "
-          f"grad_norm={float(m['grad_norm']):.4g}", flush=True)
+          f"grad_norm={float(m['grad_norm']):.4g}; device ops: {n_port:.0f} of "
+          f"the port's kernels ({n_qdq:.0f} QDQ for "
+          f"{step_launches['nvfp4_qdq']} QDQ calls), {n_other:.0f} others",
+          flush=True)
+    if n_qdq != step_launches["nvfp4_qdq"]:
+        fail(f"training step: {n_qdq} QDQ kernels for "
+             f"{step_launches['nvfp4_qdq']} QDQ calls")
     groups = {}
     for kname, ms in by_kernel.items():
         has = lambda *words: any(w in kname for w in words)
-        g = ("port kernels" if has("kl_fwd", "kl_bwd", "qdq_kernel")
+        g = ("port kernels" if has(*PORT_KERNELS)
              else "gemm" if has("nvjet", "gemm", "cutlass", "sm90_xmma")
              else "copy/cast" if "copy" in kname
              else "reduction" if "reduce" in kname
@@ -1588,12 +1745,30 @@ def main() -> int:
 
     # ---- 7. timings, after the main paths (the profiler's hooks stay out of
     # the host-bound decode loop) -------------------------------------------
+    # the floor of this timing: one tiny kernel between two events
+    floor_ms = timed(lambda: flush_buf[:16].add_(1), 20)
+    print(f"[kernel] timing floor (one tiny kernel between the events): "
+          f"{floor_ms:.4f} ms", flush=True)
+    # K1 as one layer of the engine calls it: its five sites back to back,
+    # the op taking its own amax, and the op given q_act's former torch amax
+    k1_layer = {}
+    for ph in ("decode", "prefill"):
+        rs = [r for r in rows["nvfp4_qdq"] if r["phase"] == ph]
+        fs = [r["fns"][0] for r in rs]
+        olds = [r["old"] for r in rs]
+        k1_layer[ph] = dict(ms=timed(lambda fs=fs: [f() for f in fs], 20),
+                            old_ms=timed(lambda fs=olds: [f() for f in fs], 20))
+        print(f"[kernel] nvfp4_qdq one {ph} layer ({len(fs)} sites back to "
+              f"back): {k1_layer[ph]['ms']:.4f} ms; with the torch amax of "
+              f"q_act before: {k1_layer[ph]['old_ms']:.4f} ms", flush=True)
     for kname, rs in rows.items():
         for r in rs:
             kern, plain, lib = r.pop("fns")
             if "lib_make" in r:
                 lib = r.pop("lib_make")()
             r["ms"] = timed(kern, 20)
+            if "old" in r:
+                r["old_ms"] = timed(r.pop("old"), 20)
             r["plain_ms"] = timed(plain, 5)
             r["library_ms"] = timed(lib, 20) if lib is not None else None
             if "shape" in r:
@@ -1604,6 +1779,8 @@ def main() -> int:
                 shape = (f"M={r['m']:4d} K={r['k']:5d}"
                          + (f" N={r['n']:5d}" if "n" in r else ""))
             lib_s = ("" if lib is None else f" library_ms={r['library_ms']:.4f}")
+            if "old_ms" in r:
+                lib_s += f" old_call_ms={r['old_ms']:.4f}"
             del kern, plain, lib
             print(f"[kernel] {kname:12s} {shape} ({r['site']}) "
                   f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -1613,9 +1790,8 @@ def main() -> int:
     def serve_entry(name, source, replaces):
         dec = [r for r in rows[name] if r["m"] == BATCH]
         lib = [r["library_ms"] for r in dec]
-        by = ("bytes" if name == "nvfp4_qdq"
-              else ("bytes" if all(r["bound_by"] == "bytes" for r in dec)
-                    else "operations"))
+        by = ("bytes" if all(r["bound_by"] == "bytes" for r in dec)
+              else "operations")
         by_path = {"serve": serve_launches[name], "train": train_launches[name],
                    "engine_a": a_launches[name], "engine_b": b_launches[name],
                    "engine_m": m_launches[name], "engine_mb": mb_launches[name],
@@ -1634,6 +1810,39 @@ def main() -> int:
                 "chunk_layer_ms": (sum(r["ms"] for r in rows[name]
                                        if r["m"] == CHUNK) or None),
                 "max_err_over_bound": err_bound.get(name),
+                "launches_by_path": by_path}
+
+    def qdq_entry():
+        rs = rows["nvfp4_qdq"]
+        dec = [r for r in rs if r["phase"] == "decode"]
+        by_path = {"serve": serve_launches["nvfp4_qdq"],
+                   "train": train_launches["nvfp4_qdq"],
+                   "engine_a": a_launches["nvfp4_qdq"],
+                   "engine_b": b_launches["nvfp4_qdq"],
+                   "engine_m": m_launches["nvfp4_qdq"],
+                   "engine_mb": mb_launches["nvfp4_qdq"],
+                   "engine_tp_rank0": tp_launches[0]["nvfp4_qdq"]}
+        return {"name": "nvfp4_qdq", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/nvfp4_qdq.cu",
+                "replaces": "src/repro/kernels/nvfp4_qdq.py:44",
+                "launches": sum(by_path.values()), "max_abs_err": err["nvfp4_qdq"],
+                "ms": sum(r["ms"] for r in dec),
+                "plain_ms": sum(r["plain_ms"] for r in dec),
+                "bound_ms": sum(r["bound_ms"] for r in dec), "bound_by": "bytes",
+                "library_ms": None,
+                "per": (f"one decode layer as the engine calls it: {len(dec)} "
+                        f"row-scope launches at [{ENGINE['n_slots']}, 1, K], "
+                        "each timed alone"),
+                "old_call_ms": sum(r["old_ms"] for r in dec),
+                "layer_ms": k1_layer["decode"]["ms"],
+                "layer_old_call_ms": k1_layer["decode"]["old_ms"],
+                "prefill_layer_ms": k1_layer["prefill"]["ms"],
+                "prefill_layer_old_call_ms": k1_layer["prefill"]["old_ms"],
+                "timing_floor_ms": floor_ms,
+                "old_call_device_ops": k1_old_ops,
+                "per_shape": [{k: r[k] for k in ("phase", "site", "shape", "ms",
+                                                 "old_ms", "plain_ms", "bound_ms")}
+                              for r in rs],
                 "launches_by_path": by_path}
 
     def kl_entry(name, source, replaces):
@@ -1666,6 +1875,10 @@ def main() -> int:
                 "per": f"one decode launch: {dec['shape']}",
                 "paged_prefill": {k: at["paged_prefill"][k] for k in
                                   ("shape", "ms", "plain_ms", "bound_ms")},
+                "decode_4k": {k: at["decode_4k"][k] for k in
+                              ("shape", "ms", "plain_ms", "bound_ms")},
+                "traced_decode_step_ms": {"engine_a": engine_a_trace["k7_ms"],
+                                          "engine_m": engine_m["k7_ms"]},
                 "launches_by_path": by_path}
 
     def k3_entry():
@@ -1720,8 +1933,7 @@ def main() -> int:
                 "collective_ms_per_decode_step": engine_tp["trace"]["collective_ms"],
                 "launches_by_rank": [ln["nvfp4_matmul_tp"] for ln in tp_launches]}
 
-    kernels = [serve_entry("nvfp4_qdq", "src/repro_torch/kernels/csrc/nvfp4_qdq.cu",
-                           "src/repro/kernels/nvfp4_qdq.py:44"),
+    kernels = [qdq_entry(),
                serve_entry("nvfp4_matmul",
                            "src/repro_torch/kernels/csrc/nvfp4_matmul.cu",
                            "src/repro/kernels/nvfp4_matmul.py:130"),

@@ -4,7 +4,10 @@ NVFP4, which stay BF16.
 ``QuantConfig`` is the reference's frozen dataclass with the same fields.
 ``q_act`` fake-quantizes a GEMM input through ``kernels.ops.nvfp4_qdq``:
 the CUDA kernel for a tensor on the card, the plain version on the CPU,
-with a straight-through gradient.  Both compute the reference's jitted
+with a straight-through gradient.  The op takes the ``act_scope``'s amax
+itself (on the card: in the same launch); only under tensor parallelism
+is the amax a torch reduction, all-reduced over the group before the op.
+Both compute the reference's jitted
 form of the QDQ (divisions by constants as reciprocal multiplications),
 for weights as for activations: the reference's training step quantizes
 both inside ``jax.jit``.
@@ -17,6 +20,7 @@ from typing import Literal
 import torch
 import torch.nn.functional as F
 
+from ..kernels import nvfp4_qdq as _qdq
 from ..kernels import ops
 from . import nvfp4
 
@@ -88,18 +92,10 @@ class QuantConfig:
         if not (self.quantizes(kind) and self.quantize_activations):
             return x
         self._no_numerics()
-        amax = None
-        if self.act_scope == "row":
-            amax = torch.amax(torch.abs(x.to(torch.float32)),
-                              dim=tuple(range(1, x.ndim)), keepdim=True)
-        elif self.act_scope == "token":
-            amax = torch.amax(torch.abs(x.to(torch.float32)), dim=-1,
-                              keepdim=True)
-        if tp is not None:
-            if amax is None:
-                amax = torch.amax(torch.abs(x.to(torch.float32)))
-            amax = tp.all_reduce(amax, "max")
-        return _fq_lastdim(x, amax)
+        if tp is None:
+            return _fq_lastdim(x, scope=self.act_scope)
+        amax = _qdq.scope_amax(x, self.act_scope)
+        return _fq_lastdim(x, tp.all_reduce(amax, "max"))
 
     def q_weight(self, w: torch.Tensor, kind: Kind,
                  contract_axis: int = 0) -> torch.Tensor:
@@ -128,10 +124,11 @@ NVFP4_MOE_HYBRID = QuantConfig(                 # Nemotron 3 Nano
     skip_attention=True, kv_cache_dtype="fp8")
 
 
-def _fq_lastdim(x: torch.Tensor,
-                tensor_amax: torch.Tensor | None = None) -> torch.Tensor:
+def _fq_lastdim(x: torch.Tensor, tensor_amax: torch.Tensor | None = None,
+                scope: str = "tensor") -> torch.Tensor:
     """QDQ along the last dim through the ``nvfp4_qdq`` op, padding to the
-    block size if needed.  ``tensor_amax`` overrides the whole-tensor amax.
+    block size if needed (zeros, which leave every amax as it is).  The
+    amax is the ``scope``'s, taken by the op, or ``tensor_amax``.
 
     The op's backward is straight through (the reference's ``fake_quant``
     and ``fake_quant_calibrated``); the amax gets no gradient.
@@ -139,8 +136,9 @@ def _fq_lastdim(x: torch.Tensor,
     k = x.shape[-1]
     pad = (-k) % nvfp4.BLOCK
     if pad:
-        return ops.nvfp4_qdq(F.pad(x, (0, pad)), tensor_amax)[..., :k]
-    return ops.nvfp4_qdq(x, tensor_amax)
+        return ops.nvfp4_qdq(F.pad(x, (0, pad)), tensor_amax,
+                             scope=scope)[..., :k]
+    return ops.nvfp4_qdq(x, tensor_amax, scope=scope)
 
 
 def _fq_axis(w: torch.Tensor, axis: int) -> torch.Tensor:

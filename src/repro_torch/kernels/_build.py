@@ -33,10 +33,12 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: every pointer and the stream are void*, sizes are int
 SIGNATURES = {
-    # (x, x_is_f32, amax, amax_stride, out, rows, k, stream)
-    "nvfp4_qdq": [_P, _I, _P, _I, _P, _I, _I, _P],
+    # (x, x_is_f32, amax, mode, n_blocks, seg_blocks, chunk_blocks, ws,
+    #  n_items, out, stream)
+    "nvfp4_qdq": [_P, _I, _P, _I, _L, _L, _L, _P, _L, _P, _P],
     # (x, x_is_f32, codes, scales, tensor_scale, out, out_is_f32,
     #  m, n, k_logical, k_stored, stream)
     "nvfp4_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -48,10 +50,12 @@ SIGNATURES = {
     "kl_fwd": [_P, _P, _I, _P, _P, _P, _I, _I, _P],
     # (t, s, is_f32, z_t, z_s, g_tok, ds, rows, v, stream)
     "kl_bwd": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
-    # (q, k, v, k_scale, v_scale, fp8, block_tables, pos, out,
-    #  b, s, h, hkv, hd, bs, mb, window, scale, stream)
-    "paged_attention": [_P, _P, _P, _P, _P, _I, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # (q, q strides b, s, h, k, v, k_scale, v_scale, fp8, block_tables,
+    #  its row stride, pos, pos strides b, s, pos_is_i64, out, b, s, h, hkv,
+    #  hd, bs, mb, window, n_split, chunk, q_vec, scale, stream)
+    "paged_attention": [_P, _L, _L, _L, _P, _P, _P, _P, _I, _P, _L, _P, _L,
+                        _L, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _P],
 }
 
 

@@ -54,24 +54,28 @@ class _QDQ(torch.autograd.Function):
     """QDQ forward (kernel or plain); straight-through backward."""
 
     @staticmethod
-    def forward(ctx, x, tensor_amax):
+    def forward(ctx, x, tensor_amax, scope):
         if x.device.type == "cpu":
-            return ref.nvfp4_qdq_ref(x, tensor_amax)
-        out = _qdq.launch(x, tensor_amax)
+            return ref.nvfp4_qdq_ref(x, tensor_amax, scope)
+        out = _qdq.launch(x, tensor_amax, scope)
         launches["nvfp4_qdq"] += 1
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
-def nvfp4_qdq(x: torch.Tensor, tensor_amax: torch.Tensor | None = None) -> torch.Tensor:
-    """Fused NVFP4 fake-quant, blocked along the last dim.  Differentiable
-    in ``x`` (straight through); ``tensor_amax`` gets no gradient."""
+def nvfp4_qdq(x: torch.Tensor, tensor_amax: torch.Tensor | None = None, *,
+              scope: str = "tensor") -> torch.Tensor:
+    """Fused NVFP4 fake-quant, blocked along the last dim, with the amax of
+    ``scope`` ("tensor", "row": per leading-axis element, "token": per
+    last-dim vector) or the caller's ``tensor_amax``; one kernel launch on
+    the card.  Differentiable in ``x`` (straight through); the amax gets no
+    gradient."""
     if tensor_amax is not None:
         tensor_amax = tensor_amax.detach()
-    return _QDQ.apply(x, tensor_amax)
+    return _QDQ.apply(x, tensor_amax, scope)
 
 
 class _KLLoss(torch.autograd.Function):

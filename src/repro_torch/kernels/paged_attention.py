@@ -7,16 +7,17 @@ dequantization and grouped-query attention for one-token decode
 (q_len 1) and multi-query verify / paged-prefill chunks (q_len k + 1), in
 one launch, without a dense [B, MB * bs, Hkv, hd] copy of the pages.
 
-The kernel (``csrc/paged_attention.cu``) gives one thread block to each
-(request, KV head, up to 16 query rows) and walks the valid keys twice: a
-first pass for each query row's max and sum of exp, a second for
-``p = bf16(exp(s - m) / l)`` and ``p V``.  It keeps every rounding point of the plain version and
-differs from it only in the order of f32 sums, so it is held to a
-tolerance, not bitwise.  It reads only the pages that hold valid keys.
+The kernel (``csrc/paged_attention.cu``) gives a thread-block cluster to
+each (request, KV head, up to 16 query rows) and splits its keys over the
+cluster's blocks (``split_plan``, ``key_ranges``); the softmax is taken in
+three exchanges through distributed shared memory (row max, sum of exp,
+p V partials, each summed in split order), with no rescaling, and q K^T and
+p V run on the tensor cores.  It keeps every rounding point of the plain
+version and differs from it only in the order of f32 sums, so it is held
+to a tolerance, not bitwise.  It reads only the pages that hold valid keys.
 
 Bound on the H100: bytes, the valid K and V pages (2 KB per token and
-layer for acereason-7b).  At decode only B * Hkv blocks run (no split over
-the keys yet).
+layer for acereason-7b).
 
 The plain version is the reference's gather-then-attend arithmetic: every
 one of the MB pages is gathered, FP8 pages are dequantized as
@@ -25,12 +26,20 @@ in f32.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from . import _build
 
 NEG_INF = -1e30
+ROWS = 16                # query rows per cluster (the MMA's M)
+TILE = 16                # keys per MMA step; parts start at multiples of it
+MAX_SPLIT = 8            # blocks per cluster (the portable limit)
+KEYS_PER_BLOCK = 96      # the split's aim: about this many keys a block
+MAX_CHUNK = 128          # keys a block holds in shared memory at once
+MAX_SMEM = 232448        # shared memory a block can use on Hopper
 
 
 def _scale(hd: int) -> float:
@@ -99,8 +108,8 @@ def plain(q: torch.Tensor, pool_sl: dict, block_tables: torch.Tensor,
     return out.reshape(b, s, h, hd).to(q.dtype)
 
 
-def _check(q, k, v, k_scale, v_scale, block_tables):
-    if not all(t.is_cuda for t in (q, k, v, block_tables)):
+def _check(q, k, v, k_scale, v_scale, block_tables, pos):
+    if not all(t.is_cuda for t in (q, k, v, block_tables, pos)):
         raise ValueError(f"paged_attention kernel needs CUDA tensors, got q "
                          f"on {q.device}, pages on {k.device}")
     if q.dtype != torch.bfloat16:
@@ -114,18 +123,94 @@ def _check(q, k, v, k_scale, v_scale, block_tables):
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q [B,S,H,hd] and pages [n,bs,Hkv,hd], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, _, h, hd = q.shape
-    if k.shape[3] != hd or h % k.shape[2] or hd % 8:
+    b, s, h, hd = q.shape
+    if k.shape[3] != hd or h % k.shape[2] or hd % 16 or hd > 256:
         raise ValueError(f"head dims: q {tuple(q.shape)} against pages "
-                         f"{tuple(k.shape)} (hd % 8 == 0, H % Hkv == 0)")
+                         f"{tuple(k.shape)} (hd % 16 == 0, hd <= 256, "
+                         "H % Hkv == 0)")
     if block_tables.ndim != 2 or block_tables.shape[0] != b:
         raise ValueError(f"block_tables {tuple(block_tables.shape)} for B={b}")
+    if tuple(pos.shape) not in ((b,), (b, s)):
+        raise ValueError(f"pos {tuple(pos.shape)} for B={b}, S={s}")
     for t in (k, v):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("pool pages must be contiguous and 16-byte aligned")
     if fp8 and (v_scale is None or k_scale.shape != k.shape[:3]
                 or v_scale.shape != k.shape[:3]):
         raise ValueError("FP8 pages take k_scale and v_scale [n, bs, Hkv]")
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch's shape: ``n_split`` blocks per cluster (the cluster
+    shape is (n_split, 1, 1)), ``row_blocks`` clusters per (request, KV
+    head), ``chunk`` keys a block stages at once, and the block's shared
+    memory in bytes."""
+    n_split: int
+    row_blocks: int
+    chunk: int
+    smem: int
+
+
+def _part_len(span: int, n_split: int) -> int:
+    """Keys per part when ``span`` keys are cut into ``n_split`` parts at
+    multiples of TILE (the kernel's ``cs``)."""
+    per = -(-span // n_split)                 # ceil
+    return -(-per // TILE) * TILE
+
+
+def smem_bytes(hd: int, chunk: int, mb: int) -> int:
+    """The kernel's shared memory: q, the K (then V) chunk and p in bf16;
+    the score strip, the partial outputs the blocks send, their row maxes
+    and sums, and the block's own in f32; the positions and the table row."""
+    ldq = hd + 8
+    return (2 * (ROWS * ldq + chunk * ldq + ROWS * (chunk + 8))
+            + 4 * (ROWS * chunk + ROWS * hd + MAX_SPLIT + 2 * MAX_SPLIT * ROWS
+                   + 4 * ROWS) + 4 * (ROWS + mb))
+
+
+def split_plan(s: int, n_rep: int, mb: int, bs: int, hd: int,
+               window: int = 0) -> Plan:
+    """The launch's plan from the shapes alone: pos stays on the device (a
+    host copy would cost a synchronisation per launch), so the split count
+    comes from the longest key range the table and the window admit, with
+    about KEYS_PER_BLOCK keys a block."""
+    cap = mb * bs
+    longest = min(cap, window + s - 1) if window else cap
+    n_split = max(1, min(MAX_SPLIT, -(-longest // KEYS_PER_BLOCK)))
+    # a part starts at a multiple of TILE, so a range gains up to TILE - 1
+    chunk = max(TILE, min(MAX_CHUNK, _part_len(longest + TILE - 1, n_split)))
+    while smem_bytes(hd, chunk, mb) > MAX_SMEM and chunk > TILE:
+        chunk -= TILE
+    return Plan(n_split, -(-(n_rep * s) // ROWS), chunk,
+                smem_bytes(hd, chunk, mb))
+
+
+def key_ranges(pos: torch.Tensor, s: int, n_rep: int, mb: int, bs: int,
+               window: int, n_split: int) -> torch.Tensor:
+    """[B, row_blocks, n_split, 2] int64: the keys [lo, hi) each block
+    reads, as the kernel computes them.  A cluster's keys run from the
+    window's start to the largest pos of its rows, capped at the table;
+    from that start rounded down to a multiple of TILE they are cut into
+    n_split parts of ``_part_len`` keys."""
+    pos2 = _pos2(pos, pos.shape[0], s).to(torch.int64).cpu()
+    b = pos2.shape[0]
+    r_all = n_rep * s
+    out = torch.zeros((b, -(-r_all // ROWS), n_split, 2), dtype=torch.int64)
+    for rb in range(out.shape[1]):
+        queries = torch.arange(rb * ROWS, min(r_all, (rb + 1) * ROWS)) % s
+        p = pos2[:, queries]
+        lo = (torch.clamp(p.amin(1) - window, min=0) if window
+              else torch.zeros(b, dtype=torch.int64))
+        hi = torch.clamp(p.amax(1), max=mb * bs)
+        base = lo - lo % TILE
+        for i in range(b):
+            cs = _part_len(max(int(hi[i] - base[i]), 0), n_split)
+            for r in range(n_split):
+                t0 = int(base[i]) + r * cs
+                out[i, rb, r, 0] = max(int(lo[i]), t0)
+                out[i, rb, r, 1] = max(min(int(hi[i]), t0 + cs), int(out[i, rb, r, 0]))
+    return out
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -135,27 +220,38 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: int = 0) -> torch.Tensor:
     """Run the CUDA kernel: [B, S, H, hd] bf16 out.
 
+    q is read through its strides and pos ([B] or [B, S], int32 or int64)
+    as it is, so an engine step adds no device op besides the launch.
     Every table entry that addresses a valid key (key < max pos) must be a
     block id of the pool; the kernel reads no other entry.
     """
-    _check(q, k, v, k_scale, v_scale, block_tables)
+    _check(q, k, v, k_scale, v_scale, block_tables, pos)
     b, s, h, hd = q.shape
     bs, hkv = k.shape[1], k.shape[2]
-    q = q.contiguous()
-    bt = block_tables.to(torch.int32).contiguous()
-    pos2 = _pos2(pos, b, s).contiguous()
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    bt = block_tables
+    if bt.dtype != torch.int32 or bt.stride(1) != 1:
+        bt = bt.to(torch.int32).contiguous()
+    if pos.dtype not in (torch.int32, torch.int64):
+        pos = pos.to(torch.int32)
+    pos_sb, pos_ss = (pos.stride(0), 0) if pos.ndim == 1 else pos.stride()
     fp8 = k_scale is not None
     if fp8:
         k_scale = k_scale.to(torch.float32).contiguous()
         v_scale = v_scale.to(torch.float32).contiguous()
-    out = torch.empty_like(q)
+    plan = split_plan(s, h // hkv, bt.shape[1], bs, hd, window)
+    q_vec = q.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in q.stride()[:3])
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = _build.library().paged_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q.data_ptr(), *q.stride()[:3], k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if fp8 else None,
             v_scale.data_ptr() if fp8 else None, int(fp8), bt.data_ptr(),
-            pos2.data_ptr(), out.data_ptr(), b, s, h, hkv, hd, bs,
-            bt.shape[1], int(window), _scale(hd),
+            bt.stride(0), pos.data_ptr(), pos_sb, pos_ss,
+            int(pos.dtype == torch.int64), out.data_ptr(), b, s, h, hkv, hd,
+            bs, bt.shape[1], int(window), plan.n_split, plan.chunk,
+            int(q_vec), _scale(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention")
     return out
@@ -163,8 +259,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def key_range(pos: torch.Tensor, s: int, mb: int, bs: int,
               window: int = 0) -> torch.Tensor:
-    """Keys each request's block reads: from the window's start to its
-    largest pos, capped at the table (the kernel's loop bounds), [B]."""
+    """Keys each request's queries can see: from the window's start to its
+    largest pos, capped at the table, [B]."""
     pos2 = _pos2(pos, pos.shape[0], s).to(torch.int64)
     hi = torch.clamp(pos2.amax(1), max=mb * bs)
     lo = torch.clamp(pos2.amin(1) - window, min=0) if window else torch.zeros_like(hi)

@@ -7,7 +7,8 @@ runs it as it is (that machine has no JAX):
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 Tolerances: ``nvfp4_qdq`` bitwise (the same f32 operations in the same
-order); ``nvfp4_matmul`` (K2) and ``nvfp4_matmul_grouped`` (K3) within
+order), with the amax the caller's or the kernel's own in every scope, a
+NaN where the plain version has one; ``nvfp4_matmul`` (K2) and ``nvfp4_matmul_grouped`` (K3) within
 one bf16 ulp of the plain version's f32 product plus 2^-20 * (|x| @ |W|^T),
 a bound on summing the same exact products in another f32 order, and K3
 bitwise equal to K2 on every group's slices (one device code); a token's
@@ -35,7 +36,9 @@ import torch
 
 from repro_torch.core import nvfp4
 from repro_torch.kernels import kl_loss as kkl
+from repro_torch.kernels import nvfp4_qdq as kqdq
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as kpa
 
 K7_ATOL = 1e-3
 
@@ -79,6 +82,92 @@ def test_qdq_kernel_bitwise(gen, shape, dtype, scope):
     got = ops.nvfp4_qdq(x, amax)
     assert got.dtype == dtype and got.shape == x.shape
     assert torch.equal(_bits(got), _bits(ref.nvfp4_qdq_ref(x, amax)))
+
+
+def _qdq_equal(got, want):
+    """Bitwise, a NaN matching a NaN (the kernel's NaN payload may differ)."""
+    torch.cuda.synchronize()
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    return torch.equal(gn, wn) and torch.equal(_bits(got)[~gn], _bits(want)[~wn])
+
+
+def _device_ops(fn):
+    """Names of the device kernels and copies one call of ``fn`` runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+# the engine's and the trainer's QDQ sites: decode rows (one block and a
+# cluster), the exact-prefill row and the training tensor (two passes), a
+# paged chunk's tokens
+QDQ_SCOPED = [((8, 1, 3584), "row"), ((8, 1, 18944), "row"),
+              ((1, 512, 18944), "row"), ((16, 3584), "token"),
+              ((4096, 8192), "tensor"), ((8, 512, 2048), "tensor"),
+              ((1, 16, 18944), "token"), ((3, 5, 48), "row")]
+
+
+@pytest.mark.parametrize("shape,scope", QDQ_SCOPED, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qdq_kernel_own_amax_bitwise(gen, shape, scope, dtype):
+    """The kernel takes the scope's amax itself: bitwise equal to the plain
+    version with the amax taken by torch."""
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
+    x.view(-1)[:16] = 0.0
+    got = ops.nvfp4_qdq(x, scope=scope)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _qdq_equal(got, ref.nvfp4_qdq_ref(x, None, scope))
+
+
+@pytest.mark.parametrize("scope", ["tensor", "row", "token"])
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 1), (torch.bfloat16, 2),
+                                          (torch.bfloat16, 4), (torch.float32, 1),
+                                          (torch.float32, 2)])
+def test_qdq_kernel_misaligned_view(gen, scope, dtype, offset):
+    """A view that starts off a 16-byte boundary is read in place with
+    narrower loads, in every scope and with the caller's amax."""
+    base = (torch.randn(8 * 18944 + 16, generator=gen, device="cuda") * 3).to(dtype)
+    x = base[offset:offset + 8 * 18944].view(8, 1, 18944)
+    assert x.data_ptr() % 16
+    assert _qdq_equal(ops.nvfp4_qdq(x, scope=scope), ref.nvfp4_qdq_ref(x, None, scope))
+    amax = kqdq.scope_amax(x, scope)
+    assert _qdq_equal(ops.nvfp4_qdq(x, amax), ref.nvfp4_qdq_ref(x, amax))
+
+
+@pytest.mark.parametrize("shape,scope", [((8, 1, 3584), "row"), ((8, 1, 18944), "row"),
+                                         ((8, 512, 2048), "tensor"),
+                                         ((16, 3584), "token")], ids=str)
+def test_qdq_kernel_nan_and_inf(gen, shape, scope):
+    """A NaN or an inf in x: the kernel's amax propagates a NaN as
+    torch.amax does, so every segment the plain version makes NaN is NaN
+    and the others are bitwise equal; with the caller's finite amax only
+    the NaN's block is NaN."""
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    flat = x.view(-1)
+    flat[100] = float("nan")
+    flat[flat.numel() - 5] = float("inf")
+    want = ref.nvfp4_qdq_ref(x, None, scope)
+    assert bool(torch.isnan(want).any())
+    assert _qdq_equal(ops.nvfp4_qdq(x, scope=scope), want)
+    amax = torch.full((), 4.0, device="cuda")
+    assert _qdq_equal(ops.nvfp4_qdq(x, amax), ref.nvfp4_qdq_ref(x, amax))
+
+
+@pytest.mark.parametrize("shape,scope", [((8, 1, 3584), "row"), ((8, 1, 18944), "row"),
+                                         ((1, 512, 18944), "row"),
+                                         ((1, 16, 3584), "token"),
+                                         ((8, 512, 2048), "tensor")], ids=str)
+def test_qdq_scope_is_one_device_kernel(gen, shape, scope):
+    """One ``ops.nvfp4_qdq`` call with a scope runs one device kernel and
+    nothing else (no amax reduction, copy or memset)."""
+    x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    names = _device_ops(lambda: ops.nvfp4_qdq(x, scope=scope))
+    assert len(names) == 1 and "qdq" in names[0], names
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 3584, 4608), (4, 18944, 3584),
@@ -366,6 +455,44 @@ def test_paged_attention_noncontiguous_q(gen):
     assert torch.equal(ops.paged_attention(qt, pool, bt, pos),
                        ops.paged_attention(q, pool, bt, pos))
     assert _k7_ok(qt, pool, bt, pos)
+
+
+@pytest.mark.parametrize("keys", [4096, 32768])
+def test_paged_attention_long_context(gen, keys):
+    """Decode at 4k and 32k valid keys: every block of a cluster holds
+    more keys than it stages at once, so it loops and recomputes."""
+    mb = keys // 16 + 2
+    pos = torch.tensor([keys, keys - 77], device="cuda")
+    assert _k7_ok(*_k7_case(gen, 2, 1, 28, 4, 128, 2 * mb + 4, 16, mb, pos))
+
+
+@pytest.mark.parametrize("where", ["boundaries", "ends", "beside"])
+def test_paged_attention_split_edges(gen, where):
+    """pos on the boundaries of the blocks' parts of a 544-key table, at 1
+    and at MB x bs, and one key to either side of a boundary."""
+    cs = kpa._part_len(544, kpa.split_plan(1, 7, 34, 16, 128).n_split)
+    pos = {"boundaries": [cs * i for i in range(1, 8)] + [1],
+           "ends": [1, 1, 1, 1, 544, 544, 544, 544],
+           "beside": [cs - 1, cs + 1, 2 * cs - 1, 2 * cs + 1, 16, 17, 15, 33]}[where]
+    pos = [min(p, 544) for p in pos]
+    assert _k7_ok(*_k7_case(gen, 8, 1, 28, 4, 128, 272, 16, 34, pos))
+
+
+@pytest.mark.parametrize("window", [40, 200])
+def test_paged_attention_fp8_window_chunk(gen, window):
+    """FP8 pages with a window at S = 16 (a paged-prefill chunk)."""
+    pos = (300 + torch.arange(1, 17)).reshape(1, 16)
+    assert _k7_ok(*_k7_case(gen, 1, 16, 28, 4, 128, 272, 16, 34, pos, fp8=True),
+                  window=window)
+
+
+def test_paged_attention_decode_is_one_device_kernel(gen):
+    """The engine-shaped decode call (pos [B] int32, tables int32) runs one
+    device kernel and nothing else."""
+    pos = _decode_pos(gen, 8, 544).to(torch.int32)
+    q, pool, bt, pos = _k7_case(gen, 8, 1, 28, 4, 128, 272, 16, 34, pos)
+    names = _device_ops(lambda: ops.paged_attention(q, pool, bt, pos))
+    assert len(names) == 1 and "paged_attention" in names[0], names
 
 
 def test_launch_counters_count_card_launches(gen):
