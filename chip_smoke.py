@@ -12,8 +12,10 @@ Phases (every failure exits nonzero):
      bf16 ulp of the f32 product plus the f32 summation-order bound) at
      the acereason-7b serving shapes (M = 4 for decode, M = 4 * 64 for
      prefill); the KL forward and backward (tolerances below) at the
-     olmo-1b training shape (T = 8 * 512, V = 50304) and at a full
-     acereason-7b vocabulary (T = 1024, V = 152064), with a ragged V, a
+     olmo-1b training shape (T = 8 * 512, V = 50304), at a full
+     acereason-7b vocabulary (T = 1024, V = 152064), at MoE QAD's
+     (T = 4 * 512, V = 151936) and data-free QAD's (T = 8 * 256, V = 50304)
+     shapes, with a ragged V, a
      masked-out row and identical logits; ``paged_attention`` (tolerance
      below) at the engine's acereason-7b shapes (decode: 8 slots against
      pages [272, 16, 4, 128] through tables [8, 34], pos 1..544; a paged
@@ -21,8 +23,10 @@ Phases (every failure exits nonzero):
      table tail, a window, FP8 pages, 4096 and 32768 keys and pos on the
      boundaries of the blocks' key parts; ``nvfp4_qdq`` with its own amax
      (bitwise) in the scopes the engine and the trainer use (row at decode
-     and exact prefill, token in a paged chunk, tensor in training; bf16
-     and f32), on a misaligned view and with a NaN and an inf; one device
+     and exact prefill, token in a paged chunk, tensor in training, also
+     on the qwen2-moe-a2.7b expert stacks [60, 1408, 2048] and
+     [60, 2048, 1408] and its routed experts' input slab; bf16 and f32),
+     on a misaligned view and with a NaN and an inf; one device
      kernel for one K1 call and for one decode-shaped K7 call (the
      profiler); ``nvfp4_matmul_grouped`` (K3) at the qwen2-moe-a2.7b expert
      stacks (60 experts, (K, N) = (2048, 1408) and (1408, 2048); M = 8 at
@@ -81,12 +85,36 @@ Phases (every failure exits nonzero):
      K7, and each request's prefill logits lie within LOGIT_TOL of run A's
      on the same prompt; a traced decode step on rank 0;
   6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
-     (16 layers, d_model 2048, vocab 50304), 4 QAD steps of batch 8 x 512
-     tokens with an eval after each, the launch counters read around it;
-     a traced step;
-  7. kernel, plain, bound and library times (CUDA events around each
-     call, the L2 flushed between calls, the median; the floor of one tiny
-     kernel between two events is printed), K2 also at M = 16 (the
+     (16 layers, d_model 2048, vocab 50304) under its config's
+     rematerialization (``remat="full"``: the student's QDQ runs twice a
+     step), 4 QAD steps of batch 8 x 512 tokens with an eval after each,
+     the launch counters read around it; a traced step; then one step
+     under each of remat "none", "dots" and "full" from one host copy of
+     the state: the updated student and moments bitwise equal, the step ms
+     and peak memory of each, "full"'s peak at most 75% of "none"'s;
+  6b. MoE QAD: ``launch.train.train`` on ``qwen2-moe-a2.7b`` at full width
+     (d_model 2048, 60 experts top-4 of d_ff 1408, a shared expert of
+     5632, vocab 151936) and 4 of its 24 layers (the config cut in depth
+     here), remat "full", local dispatch, 3 steps of 4 x 512 with an eval
+     after each: K1, K5 and K6 launch counts, finite metrics, a changed
+     student, the step ms against a bound from the active parameters; a
+     traced step;
+  6c. data-free QAD: olmo-1b's BF16 teacher generates 8 x 256 tokens from
+     BOS (``data.generated``, temperature 1, top_p 1), and 2 QAD steps of
+     8 x 256 train on them: tokens in the vocabulary after the BOS id, a
+     finite KL, a changed student, the generation's tok/s;
+  6d. the numerics plane: 2 olmo-1b steps through ``train.train`` with
+     ``numerics=True, metrics_out=...`` and 2 without, and the probe-free
+     run once more as a control: the student and moments bitwise equal
+     across all three, the snapshot and its ``.prom`` valid
+     (``obs.validate``), per-layer SQNR and hidden divergence printed;
+     then ``core.ptq.calibrate_activations`` (max, percentile, mse) over
+     the teacher's 16 hidden taps on 2 batches of 2 x 512;
+  7. (run after phase 5d, before phase 6, so that the training paths
+     run without phase 3's tensors resident) kernel, plain, bound and
+     library times (CUDA events around each call, the L2 flushed between
+     calls, the median; the floor of one tiny kernel between two events
+     is printed), K2 also at M = 16 (the
      engine's paged-prefill chunk), K4 as K2 on each rank's tile of every
      acereason-7b site at M = 8 and 256, K1 as the engine and the trainer
      call it (each site alone and one layer's five sites back to back,
@@ -141,7 +169,8 @@ LOGIT_TOL = {"bf16_act": 5e-2, "nvfp4": 0.5}
 #  * backward (K6), given the same logsumexps: within one ulp of the
 #    output dtype of the plain version's f32 value, plus 4 f32 ulps of
 #    (p_s + p_t) |g| for the two expf.
-KL_SHAPES = {"train": (8 * 512, 50304), "acereason_row": (1024, 152064)}
+KL_SHAPES = {"train": (8 * 512, 50304), "acereason_row": (1024, 152064),
+             "moe_train": (4 * 512, 151936), "data_free": (8 * 256, 50304)}
 # paged attention (K7) against its plain version: within one bf16 ulp of
 # the larger of the two values plus this absolute term.  The two sum the
 # dot products, the exps and p V in other f32 orders, which moves a rare
@@ -182,6 +211,12 @@ TP_SIZE = 2
 RUN_TP = dict(requests=8, gen=16)
 # the training path
 TRAIN = dict(arch="olmo-1b", steps=4, lr=1e-5, batch=8, seq=512)
+# MoE QAD (qwen2-moe-a2.7b at full width, cut in depth), data-free QAD from
+# the teacher's own tokens, the numerics runs and activation calibration
+MOE_TRAIN = dict(layers=4, steps=3, batch=4, seq=512)
+DATA_FREE = dict(batch=8, n_new=256, steps=2)
+NUMERICS = dict(steps=2)
+CALIB = dict(batches=2, batch=2, seq=512)
 # one smoke QAD step on the card against the CPU, same weights and batch:
 # the forwards differ by bf16 GEMM summation order, which NVFP4 rounding
 # amplifies; loss and gradient norm within these relative tolerances, each
@@ -210,6 +245,81 @@ def trace_ops(prof, steps=1):
             n_qdq += "qdq_" in e.name
             n_other += not port
     return by_kernel, n_port / steps, n_qdq / steps, n_other / steps
+
+
+def trace_step(label, step, qdq_gate: bool = True) -> None:
+    """Trace one training step, ``step()`` (it returns the gradient norm),
+    and print it: wall and busy ms, the idle share, its device ops (one
+    QDQ kernel for each QDQ launch) and its time by kind of kernel.  A
+    profile that holds another number of QDQ kernels than the step
+    launched is printed and the step traced once more (the profiler can
+    miss a kernel record); a second mismatch fails under ``qdq_gate``,
+    and is printed otherwise."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    for attempt in (1, 2):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            grad_norm = step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.launches)
+        by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
+        if n_qdq == launches["nvfp4_qdq"]:
+            break
+        print(f"[trace] {label}: the profile holds {n_qdq:.0f} QDQ kernels "
+              f"for {launches['nvfp4_qdq']} QDQ launches (trace {attempt})",
+              flush=True)
+    else:
+        if qdq_gate:
+            fail(f"{label}: {n_qdq} QDQ kernels for {launches['nvfp4_qdq']} "
+                 "QDQ calls in two traces")
+    if not math.isfinite(grad_norm):
+        fail(f"{label}: non-finite gradient norm {grad_norm}")
+    busy_ms = sum(by_kernel.values())
+    print(f"[trace] {label} (traced): wall_ms={wall_ms:.1f} "
+          f"device_busy_ms={busy_ms:.1f} idle_share={1 - busy_ms / wall_ms:.3f} "
+          f"grad_norm={grad_norm:.4g}; device ops: {n_port:.0f} of "
+          f"the port's kernels ({n_qdq:.0f} QDQ for "
+          f"{launches['nvfp4_qdq']} QDQ calls), {n_other:.0f} others",
+          flush=True)
+    groups = {}
+    for kname, ms in by_kernel.items():
+        has = lambda *words: any(w in kname for w in words)
+        g = ("port kernels" if has(*PORT_KERNELS)
+             else "gemm" if has("nvjet", "gemm", "cutlass", "sm90_xmma")
+             else "copy/cast" if "copy" in kname
+             else "reduction" if "reduce" in kname
+             else "elementwise" if "elementwise" in kname else "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    print(f"[trace] {label} by kind: " + ", ".join(
+        f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
+        flush=True)
+    for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[trace]   {ms:8.2f} ms  {kname[:110]}")
+
+
+def to_host(tree):
+    """A tree of tensors (dicts, named tuples, None) copied to the host."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_host(t) for t in tree))
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return None if tree is None else tree.to("cpu")
+
+
+def to_device(tree, device="cuda"):
+    """``to_host``'s inverse."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(t, device) for t in tree))
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return None if tree is None else tree.to(device)
 
 
 def fail(msg: str) -> None:
@@ -576,15 +686,25 @@ def main() -> int:
         return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
     tcfg_full = configs.get_config(TRAIN["arch"])
+    mcfg_full = configs.get_config(MOE_ARCH)
+    m_e, m_d, m_ff = mcfg_full.n_experts, mcfg_full.d_model, mcfg_full.moe_d_ff
+    m_cap = int(max(1, (MOE_TRAIN["seq"] * mcfg_full.experts_per_tok
+                        * mcfg_full.capacity_factor) // m_e))
     # (phase, site, shape, scope): a decode step at 8 slots, an exact
     # 512-token prefill (row scope over the whole prompt), a paged chunk's
-    # tokens, the training step's activations
+    # tokens, the training step's activations; MoE QAD's expert stacks
+    # (blocked along their contraction axis, moved last) and its routed
+    # experts' input slab [B, E, capacity, d]
     k1_sites = ([("decode", w, (ENGINE["n_slots"], 1, k), "row") for w, k, _ in layer]
                 + [("prefill", w, (1, 512, k), "row") for w, k, _ in layer]
                 + [("chunk", "wd", (1, CHUNK, ff), "token")]
                 + [("train", w, (TRAIN["batch"], TRAIN["seq"], k), "tensor")
                    for w, k in (("wqkv", tcfg_full.d_model),
-                                ("wd", tcfg_full.d_ff))])
+                                ("wd", tcfg_full.d_ff))]
+                + [("train_moe", "moe_wg", (m_e, m_ff, m_d), "tensor"),
+                   ("train_moe", "moe_wd", (m_e, m_d, m_ff), "tensor"),
+                   ("train_moe", "xe", (MOE_TRAIN["batch"], m_e, m_cap, m_d),
+                    "tensor")])
     for dt in (torch.bfloat16, torch.float32):
         for ph, wname, shape, scope in k1_sites + [("big", "-", (4096, 8192), "tensor")]:
             x = (torch.randn(shape, generator=gen, device=dev) * 2.0).to(dt)
@@ -1647,104 +1767,9 @@ def main() -> int:
                      agree=tp_agree)
     del ranks, r0
 
-    # ---- 6. the training path: full-size olmo-1b QAD ----------------------
-    tcfg = configs.get_config(TRAIN["arch"])
-    n_params = tcfg.n_params()
-    tokens = TRAIN["batch"] * TRAIN["seq"]
-    step_bound_ms = 8 * n_params * tokens / BF16_FLOPS * 1e3
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    state, hist = train.train(TRAIN["arch"], smoke=False, steps=TRAIN["steps"],
-                              lr=TRAIN["lr"], method="qad",
-                              batch=TRAIN["batch"], seq=TRAIN["seq"],
-                              eval_every=1, seed=SEED, device=dev,
-                              log=lambda msg: print(msg, flush=True))
-    torch.cuda.synchronize()
-    t_train = time.perf_counter() - t0
-    train_launches = dict(ops.launches)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    n_evals = 2 * TRAIN["steps"]              # two eval batches per step
-    per_forward = 10 * tcfg.n_layers          # 5 activations + 5 weights
-    expect = {"nvfp4_qdq": per_forward * (TRAIN["steps"] + n_evals),
-              "kl_loss": TRAIN["steps"] + n_evals,
-              "kl_loss_bwd": TRAIN["steps"], "nvfp4_matmul": 0}
-    step_s = [h["step_s"] for h in hist]
-    steady = step_s[1:]
-    print(f"[train] {tcfg.name} full size ({n_params / 1e9:.3f} B params, "
-          f"{tcfg.n_layers} layers), {TRAIN['steps']} steps of {TRAIN['batch']} x "
-          f"{TRAIN['seq']} tokens in {t_train:.1f}s; step_ms "
-          + " ".join(f"{x * 1e3:.1f}" for x in step_s)
-          + f"; after the first: {sum(steady) / len(steady) * 1e3:.1f} ms/step, "
-          f"{tokens * len(steady) / sum(steady):.0f} tokens/s; bound "
-          f"{step_bound_ms:.1f} ms (8 N T operations); peak_mem_gb={peak_gb:.2f}",
-          flush=True)
-    print("[train] per-step eval KL " + " ".join(f"{h['kl']:.6g}" for h in hist)
-          + " | CE " + " ".join(f"{h['ce']:.5g}" for h in hist)
-          + " | train loss " + " ".join(f"{h['loss']:.6g}" for h in hist),
-          flush=True)
-    print(f"[train] launches {train_launches} (expected {expect})", flush=True)
-    for k, n in expect.items():
-        if train_launches[k] != n:
-            fail(f"the training path launched {k} {train_launches[k]} times, "
-                 f"expected {n}")
-    for h in hist:
-        if not all(math.isfinite(h[k]) for k in ("kl", "ce", "loss")):
-            fail(f"non-finite training metrics {h}")
-    changed = sum(int((a != b).sum()) for a, b in zip(
-        common.tree_leaves(state.student), common.tree_leaves(state.teacher)))
-    print(f"[train] student elements changed from the initial weights: "
-          f"{changed} of {n_params}", flush=True)
-    if changed == 0:
-        fail("the student's parameters did not change")
-
-    # one traced step: where the time goes
-    dcfg = DataConfig(tcfg.vocab_size, TRAIN["seq"], TRAIN["batch"], seed=SEED)
-    step_fn = qad.make_train_step(
-        get_model(tcfg), tcfg, specs.recipe_qconfig(tcfg),
-        AdamW(lr=warmup_cosine(TRAIN["lr"], 0, TRAIN["steps"]), clip_norm=1.0))
-    tb = make_batch(dcfg, TRAIN["steps"], device=dev)
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step_fn(state, tb)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    step_launches = dict(ops.launches)
-    if not math.isfinite(float(m["grad_norm"])):
-        fail(f"non-finite gradient norm {float(m['grad_norm'])}")
-    by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
-    busy_ms = sum(by_kernel.values())
-    print(f"[trace] training step (traced): wall_ms={wall_ms:.1f} "
-          f"device_busy_ms={busy_ms:.1f} idle_share={1 - busy_ms / wall_ms:.3f} "
-          f"grad_norm={float(m['grad_norm']):.4g}; device ops: {n_port:.0f} of "
-          f"the port's kernels ({n_qdq:.0f} QDQ for "
-          f"{step_launches['nvfp4_qdq']} QDQ calls), {n_other:.0f} others",
-          flush=True)
-    if n_qdq != step_launches["nvfp4_qdq"]:
-        fail(f"training step: {n_qdq} QDQ kernels for "
-             f"{step_launches['nvfp4_qdq']} QDQ calls")
-    groups = {}
-    for kname, ms in by_kernel.items():
-        has = lambda *words: any(w in kname for w in words)
-        g = ("port kernels" if has(*PORT_KERNELS)
-             else "gemm" if has("nvjet", "gemm", "cutlass", "sm90_xmma")
-             else "copy/cast" if "copy" in kname
-             else "reduction" if "reduce" in kname
-             else "elementwise" if "elementwise" in kname else "other")
-        groups[g] = groups.get(g, 0.0) + ms
-    print("[trace] training step by kind: " + ", ".join(
-        f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
-        flush=True)
-    for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[trace]   {ms:8.2f} ms  {kname[:110]}")
-    del state, m, prof
-    torch.cuda.empty_cache()
-
-    # ---- 7. timings, after the main paths (the profiler's hooks stay out of
-    # the host-bound decode loop) -------------------------------------------
+    # ---- 7. timings, after the serving paths (the profiler's hooks stay out
+    # of the host-bound decode loop) and before the training paths, which
+    # then run without phase 3's tensors resident --------------------------
     # the floor of this timing: one tiny kernel between two events
     floor_ms = timed(lambda: flush_buf[:16].add_(1), 20)
     print(f"[kernel] timing floor (one tiny kernel between the events): "
@@ -1785,6 +1810,436 @@ def main() -> int:
             print(f"[kernel] {kname:12s} {shape} ({r['site']}) "
                   f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                   f"bound_ms={r['bound_ms']:.4f}{lib_s}", flush=True)
+    # the timed calls held phase 3's tensors: they go before the training
+    del fs, olds, rs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] resident before the training paths: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    # ---- 6. the training path: full-size olmo-1b QAD, remat "full" --------
+    tcfg = configs.get_config(TRAIN["arch"])
+    n_params = tcfg.n_params()
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    # 2 N T each for the teacher's forward, the student's forward and its
+    # recompute under remat, 4 N T for the student's backward
+    step_bound_ms = 10 * n_params * tokens / BF16_FLOPS * 1e3
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state, hist = train.train(TRAIN["arch"], smoke=False, steps=TRAIN["steps"],
+                              lr=TRAIN["lr"], method="qad",
+                              batch=TRAIN["batch"], seq=TRAIN["seq"],
+                              eval_every=1, seed=SEED, device=dev,
+                              log=lambda msg: print(msg, flush=True))
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    train_launches = dict(ops.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_evals = 2 * TRAIN["steps"]              # two eval batches per step
+    per_forward = 10 * tcfg.n_layers          # 5 activations + 5 weights
+    # under remat the backward reruns each layer's forward: every QDQ of
+    # the student twice per train step (an eval runs no backward)
+    fwd_per_step = 1 if tcfg.remat == "none" else 2
+    expect = {"nvfp4_qdq": per_forward * (fwd_per_step * TRAIN["steps"] + n_evals),
+              "kl_loss": TRAIN["steps"] + n_evals,
+              "kl_loss_bwd": TRAIN["steps"], "nvfp4_matmul": 0}
+    step_s = [h["step_s"] for h in hist]
+    steady = step_s[1:]
+    print(f"[train] {tcfg.name} full size ({n_params / 1e9:.3f} B params, "
+          f"{tcfg.n_layers} layers, remat={tcfg.remat}), {TRAIN['steps']} steps "
+          f"of {TRAIN['batch']} x {TRAIN['seq']} tokens in {t_train:.1f}s; step_ms "
+          + " ".join(f"{x * 1e3:.1f}" for x in step_s)
+          + f"; after the first: {sum(steady) / len(steady) * 1e3:.1f} ms/step, "
+          f"{tokens * len(steady) / sum(steady):.0f} tokens/s; bound "
+          f"{step_bound_ms:.1f} ms (10 N T operations: teacher and student "
+          f"forward, the student's recompute, its backward); "
+          f"peak_mem_gb={peak_gb:.2f} ({resident_gb:.2f} resident before the "
+          "run)", flush=True)
+    print("[train] per-step eval KL " + " ".join(f"{h['kl']:.6g}" for h in hist)
+          + " | CE " + " ".join(f"{h['ce']:.5g}" for h in hist)
+          + " | train loss " + " ".join(f"{h['loss']:.6g}" for h in hist),
+          flush=True)
+    print(f"[train] launches {train_launches} (expected {expect})", flush=True)
+    for k, n in expect.items():
+        if train_launches[k] != n:
+            fail(f"the training path launched {k} {train_launches[k]} times, "
+                 f"expected {n}")
+    for h in hist:
+        if not all(math.isfinite(h[k]) for k in ("kl", "ce", "loss")):
+            fail(f"non-finite training metrics {h}")
+    changed = sum(int((a != b).sum()) for a, b in zip(
+        common.tree_leaves(state.student), common.tree_leaves(state.teacher)))
+    print(f"[train] student elements changed from the initial weights: "
+          f"{changed} of {n_params}", flush=True)
+    if changed == 0:
+        fail("the student's parameters did not change")
+
+    # one traced step: where the time goes
+    dcfg = DataConfig(tcfg.vocab_size, TRAIN["seq"], TRAIN["batch"], seed=SEED)
+    step_fn = qad.make_train_step(
+        get_model(tcfg), tcfg, specs.recipe_qconfig(tcfg),
+        AdamW(lr=warmup_cosine(TRAIN["lr"], 0, TRAIN["steps"]), clip_norm=1.0))
+    tb = make_batch(dcfg, TRAIN["steps"], device=dev)
+    box = {"state": state}
+
+    def one_step(fn=step_fn, b=tb):
+        box["state"], m = fn(box["state"], b)
+        return float(m["grad_norm"])
+
+    trace_step("training step", one_step)
+    state = box.pop("state")
+
+    # remat "none", "dots" and "full": the same step twice each from one
+    # host copy of the state (the second timed); the updated student and
+    # moments bitwise equal, the peak memory of each step net of what the
+    # script keeps resident (phase 3's tensors, kept for phase 7's timing)
+    host = to_host(state)
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    rb = make_batch(dcfg, TRAIN["steps"] + 1, device=dev)
+    remat = {}
+    first = None
+    ops.reset_launches()
+    for mode in ("none", "dots", "full"):
+        mcfg = dataclasses.replace(tcfg, remat=mode)
+        fn = qad.make_train_step(
+            get_model(mcfg), mcfg, specs.recipe_qconfig(mcfg),
+            AdamW(lr=warmup_cosine(TRAIN["lr"], 0, TRAIN["steps"]),
+                  clip_norm=1.0))
+        resident = torch.cuda.memory_allocated()
+        st = to_device(host, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn(st, rb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, mm = fn(st, rb)
+        torch.cuda.synchronize()
+        remat[mode] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                           peak_gb=(torch.cuda.max_memory_allocated()
+                                    - resident) / 1e9,
+                           resident_gb=resident / 1e9,
+                           loss=float(mm["loss"]))
+        del st, mm
+        out = {"student": new.student, "m": new.opt_state.m,
+               "v": new.opt_state.v}
+        if first is None:
+            first = to_host(out)
+        else:
+            for part in out:
+                for a, b in zip(common.tree_leaves(out[part]),
+                                common.tree_leaves(first[part])):
+                    if not torch.equal(a.cpu(), b):
+                        fail(f"remat {mode}: the updated {part} differs from "
+                             "remat none's")
+        del new, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    remat_launches = dict(ops.launches)
+    del first, host
+    print("[train] remat, the same step from one host copy of the state "
+          "(the second of two timed; peak of the step, its state included, "
+          f"net of the {remat['none']['resident_gb']:.2f} GB resident before "
+          "it): "
+          + "; ".join(f"{k}: {v['ms']:.1f} ms, peak {v['peak_gb']:.2f} GB"
+                      for k, v in remat.items())
+          + f"; student and moments bitwise equal; full/none peak "
+          f"{remat['full']['peak_gb'] / remat['none']['peak_gb']:.3f}",
+          flush=True)
+    if remat["full"]["peak_gb"] > 0.75 * remat["none"]["peak_gb"]:
+        fail(f"remat full peaks at {remat['full']['peak_gb']:.2f} GB, more "
+             f"than 75% of remat none's {remat['none']['peak_gb']:.2f} GB")
+    # two steps a mode: none's QDQ once a step, dots' and full's twice
+    want_q = 2 * per_forward * (1 + 2 + 2)
+    if remat_launches["nvfp4_qdq"] != want_q or remat_launches["kl_loss"] != 6:
+        fail(f"the remat steps launched {remat_launches}, expected "
+             f"{want_q} QDQ and 6 KL")
+
+    # ---- 6b. MoE QAD: qwen2-moe-a2.7b at full width, 4 of its 24 layers ---
+    # through train.train with the config cut in depth here (the package
+    # keeps its configs): the training state of all 24 layers (14.3 B
+    # parameters at 14 B each) does not fit one card
+    mfull = configs.get_config(MOE_ARCH)
+    mcut = dataclasses.replace(mfull, n_layers=MOE_TRAIN["layers"])
+    get_config = configs.get_config
+    configs.get_config = lambda name: mcut if name == MOE_ARCH else get_config(name)
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        state, hist = train.train(MOE_ARCH, smoke=False,
+                                  steps=MOE_TRAIN["steps"], lr=TRAIN["lr"],
+                                  method="qad", batch=MOE_TRAIN["batch"],
+                                  seq=MOE_TRAIN["seq"], eval_every=1,
+                                  seed=SEED, device=dev,
+                                  log=lambda msg: print(msg, flush=True))
+    finally:
+        configs.get_config = get_config
+    torch.cuda.synchronize()
+    t_moe = time.perf_counter() - t0
+    moe_launches = dict(ops.launches)
+    moe_peak = torch.cuda.max_memory_allocated() / 1e9
+    # QDQ sites of one MoE layer (models/decoder.py::_block, layers.py):
+    # attention's two GEMMs (activation + weight each), the routed
+    # experts' input and hidden activations and three expert stacks, the
+    # shared expert's three GEMMs (activation + weight each); the routers
+    # stay BF16
+    moe_per_forward = (2 * 2 + 2 + 3 + 3 * 2) * mcut.n_layers
+    m_evals = 2 * MOE_TRAIN["steps"]
+    m_expect = {"nvfp4_qdq": moe_per_forward * (2 * MOE_TRAIN["steps"] + m_evals),
+                "kl_loss": MOE_TRAIN["steps"] + m_evals,
+                "kl_loss_bwd": MOE_TRAIN["steps"], "nvfp4_matmul": 0,
+                "nvfp4_matmul_grouped": 0, "paged_attention": 0}
+    m_tokens = MOE_TRAIN["batch"] * MOE_TRAIN["seq"]
+    d_m, n_e, k_e = mcut.d_model, mcut.n_experts, mcut.experts_per_tok
+    cap = int(max(1, (MOE_TRAIN["seq"] * k_e * mcut.capacity_factor) // n_e))
+    pad = n_e * cap / (MOE_TRAIN["seq"] * k_e)   # expert rows per routed choice
+    routed = 3 * d_m * mcut.moe_d_ff               # one expert, one token
+    # active parameters, the input embedding (a lookup) left out, the
+    # routed experts' share counted at the rows capacity dispatch computes
+    n_act = mcut.n_params(active_only=True) - mcut.vocab_size * d_m
+    n_eff = n_act + mcut.n_layers * k_e * routed * (pad - 1)
+    m_bound_ms = 10 * n_eff * m_tokens / BF16_FLOPS * 1e3
+    m_steps = [h["step_s"] * 1e3 for h in hist]
+    print(f"[train-moe] {MOE_ARCH} at full width, {mcut.n_layers} of "
+          f"{mfull.n_layers} layers ({mcut.n_params() / 1e9:.3f} B params, "
+          f"{mcut.n_params(active_only=True) / 1e9:.3f} B active), remat="
+          f"{mcut.remat}, moe_dispatch={mcut.moe_dispatch}, "
+          f"{MOE_TRAIN['steps']} steps of {MOE_TRAIN['batch']} x "
+          f"{MOE_TRAIN['seq']} in {t_moe:.1f}s; step_ms "
+          + " ".join(f"{x:.1f}" for x in m_steps)
+          + f"; bound {m_bound_ms:.1f} ms (10 N_eff T, N_eff {n_eff / 1e9:.3f} B: "
+          f"active parameters less the input embedding, the routed experts "
+          f"at capacity {cap} of {n_e} experts a row, x{pad:.3f} padding); "
+          f"peak_mem_gb={moe_peak:.2f} ({resident_gb:.2f} resident before the "
+          "run)", flush=True)
+    print("[train-moe] per-step eval KL " + " ".join(f"{h['kl']:.6g}" for h in hist)
+          + " | CE " + " ".join(f"{h['ce']:.5g}" for h in hist)
+          + " | train loss " + " ".join(f"{h['loss']:.6g}" for h in hist),
+          flush=True)
+    print(f"[train-moe] launches {moe_launches} (expected {m_expect})", flush=True)
+    for k, n in m_expect.items():
+        if moe_launches[k] != n:
+            fail(f"MoE QAD launched {k} {moe_launches[k]} times, expected {n}")
+    for h in hist:
+        if not all(math.isfinite(h[k]) for k in ("kl", "ce", "loss")):
+            fail(f"non-finite MoE QAD metrics {h}")
+    changed = sum(int((a != b).sum()) for a, b in zip(
+        common.tree_leaves(state.student), common.tree_leaves(state.teacher)))
+    print(f"[train-moe] student elements changed: {changed} of "
+          f"{mcut.n_params()}", flush=True)
+    if changed == 0:
+        fail("MoE QAD: the student's parameters did not change")
+    mstep = qad.make_train_step(
+        get_model(mcut), mcut, specs.recipe_qconfig(mcut),
+        AdamW(lr=warmup_cosine(TRAIN["lr"], 0, MOE_TRAIN["steps"]),
+              clip_norm=1.0))
+    mb = make_batch(DataConfig(mcut.vocab_size, MOE_TRAIN["seq"],
+                               MOE_TRAIN["batch"], seed=SEED),
+                    MOE_TRAIN["steps"], device=dev)
+    box["state"] = state
+    del state
+    # its QDQ kernels are counted, not gated: in this process the profile
+    # of this step has held one QDQ kernel record fewer than its launches
+    # (never more), while phase 6's step and phase 3's one-call profiles
+    # at these shapes hold one kernel per launch; the launch count above
+    # is exact
+    trace_step("MoE training step", lambda: one_step(fn=mstep, b=mb),
+               qdq_gate=False)
+    del box["state"], mstep, mb, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 6c. data-free QAD: olmo-1b from the teacher's own tokens --------
+    from repro_torch.data import generated
+    tmodel = get_model(tcfg)
+    topt = AdamW(lr=warmup_cosine(TRAIN["lr"], 0, DATA_FREE["steps"]),
+                 clip_norm=1.0)
+    with torch.no_grad():
+        state = qad.init_state(tmodel, tcfg,
+                               torch.Generator(device=dev).manual_seed(SEED),
+                               topt, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    toks = generated.generate_tokens(
+        tmodel, tcfg, state.teacher,
+        generated.bos_prompts(DATA_FREE["batch"], device=dev),
+        DATA_FREE["n_new"], seed=SEED, temperature=1.0, top_p=1.0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    want_shape = (DATA_FREE["batch"], 1 + DATA_FREE["n_new"])
+    if tuple(toks.shape) != want_shape:
+        fail(f"generated tokens {tuple(toks.shape)}, expected {want_shape}")
+    if not bool(((toks >= 0) & (toks < tcfg.vocab_size)).all()):
+        fail("generated tokens outside the vocabulary")
+    if not bool((toks[:, 0] == 1).all()):
+        fail("generated sequences do not start with the BOS id")
+    gen_launches = dict(ops.launches)
+    fb = generated.batch_from_generated(toks, DATA_FREE["n_new"])
+    fstep = qad.make_train_step(tmodel, tcfg, specs.recipe_qconfig(tcfg), topt)
+    df_ms, df_kl = [], []
+    for _ in range(DATA_FREE["steps"]):
+        t0 = time.perf_counter()
+        state, m = fstep(state, fb)
+        torch.cuda.synchronize()
+        df_ms.append((time.perf_counter() - t0) * 1e3)
+        df_kl.append(float(m["kl"]))
+    df_launches = dict(ops.launches)
+    distinct = len(set(toks[:, 1:].reshape(-1).tolist()))
+    print(f"[train-free] {tcfg.name}: generated {want_shape[0]} x "
+          f"{DATA_FREE['n_new']} tokens from BOS (temperature 1.0, top_p 1.0) "
+          f"in {gen_s:.2f}s, {want_shape[0] * DATA_FREE['n_new'] / gen_s:.0f} "
+          f"tok/s, {distinct} distinct token ids; {DATA_FREE['steps']} QAD "
+          f"steps of {want_shape[0]} x {DATA_FREE['n_new']} on them: step_ms "
+          + " ".join(f"{x:.1f}" for x in df_ms) + "; train KL "
+          + " ".join(f"{x:.6g}" for x in df_kl), flush=True)
+    if any(v for k, v in gen_launches.items()):
+        fail(f"the BF16 teacher's generation launched kernels: {gen_launches}")
+    df_expect = {"nvfp4_qdq": per_forward * 2 * DATA_FREE["steps"],
+                 "kl_loss": DATA_FREE["steps"],
+                 "kl_loss_bwd": DATA_FREE["steps"]}
+    for k, n in df_expect.items():
+        if df_launches[k] != n:
+            fail(f"data-free QAD launched {k} {df_launches[k]} times, "
+                 f"expected {n}")
+    if not all(math.isfinite(x) for x in df_kl):
+        fail(f"data-free QAD: non-finite KL {df_kl}")
+    if not any(bool((a != b).any()) for a, b in zip(
+            common.tree_leaves(state.student), common.tree_leaves(state.teacher))):
+        fail("data-free QAD: the student's parameters did not change")
+    del state, m, fstep, fb, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 6d. the numerics plane and calibration: olmo-1b ----------------
+    import tempfile
+
+    from repro_torch.core import ptq
+    from repro_torch.core.qconfig import BF16
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import numerics as obs_numerics
+    from repro_torch.obs import validate as obs_validate
+
+    def numerics_run(**kw):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        st, hs = train.train(TRAIN["arch"], smoke=False,
+                             steps=NUMERICS["steps"], lr=TRAIN["lr"],
+                             method="qad", batch=TRAIN["batch"],
+                             seq=TRAIN["seq"], eval_every=1, seed=SEED,
+                             device=dev, log=lambda msg: None, **kw)
+        torch.cuda.synchronize()
+        out = to_host({"student": st.student, "m": st.opt_state.m,
+                       "v": st.opt_state.v})
+        run = dict(s=time.perf_counter() - t0, launches=dict(ops.launches),
+                   step_ms=[h["step_s"] * 1e3 for h in hs])
+        del st
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, run
+
+    def same(a, b):
+        return all(torch.equal(x, y) for part in a for x, y in zip(
+            common.tree_leaves(a[part]), common.tree_leaves(b[part])))
+
+    snap_dir = tempfile.mkdtemp(prefix="chip_smoke_numerics_")
+    snap_path = os.path.join(snap_dir, "metrics.json")
+    on, run_on = numerics_run(numerics=True, metrics_out=snap_path)
+    off, run_off = numerics_run()
+    off2, run_off2 = numerics_run()
+    control = same(off, off2)
+    bitwise = same(on, off)
+    del off2
+    num_expect = per_forward * (2 * NUMERICS["steps"] + 2 * NUMERICS["steps"])
+    print(f"[numerics] {tcfg.name}: {NUMERICS['steps']} steps with probes "
+          f"(step_ms " + " ".join(f"{x:.1f}" for x in run_on["step_ms"])
+          + f", {run_on['s']:.1f}s the run) and without (step_ms "
+          + " ".join(f"{x:.1f}" for x in run_off["step_ms"])
+          + f", {run_off['s']:.1f}s): student and moments bitwise equal: "
+          f"{bitwise}; control, the probe-free run twice: bitwise equal: "
+          f"{control}", flush=True)
+    if not control:
+        fail("the probe-free training run is not run-to-run deterministic "
+             "on this card (the control)")
+    if not bitwise:
+        fail("numerics probes changed the training state")
+    for r in (run_on, run_off):
+        if r["launches"]["nvfp4_qdq"] != num_expect:
+            fail(f"numerics runs launched {r['launches']}, expected "
+                 f"{num_expect} QDQ")
+    with open(snap_path) as f:
+        snap = json.load(f)
+    with open(obs_export.prom_path(snap_path)) as f:
+        prom = f.read()
+    problems = obs_validate.check_metrics(snap) + obs_validate.check_prometheus(prom)
+    if problems:
+        fail(f"the numerics snapshot is not valid: {problems[:5]}")
+    per = snap["numerics"]["per_layer"]
+    sq_by_layer, cos_by_layer, mse_by_layer = [], [], []
+    for i in range(tcfg.n_layers):
+        sq = [v["sqnr_db"] for s, v in per.items()
+              if s.endswith(f".{i:03d}") and "sqnr_db" in v]
+        sq_by_layer.append((min(sq), sum(sq) / len(sq)))
+        hid = per[f"layers.hidden.{i:03d}"]
+        cos_by_layer.append(hid["hidden_cos"])
+        mse_by_layer.append(hid["hidden_mse"])
+    print(f"[numerics] snapshot {len(snap['metrics'])} instruments, "
+          f"{len(per)} per-layer sites, prom {len(prom.splitlines())} lines: "
+          f"valid (0 problems); SQNR dB min/mean by layer "
+          + " ".join(f"{a:.2f}/{b:.2f}" for a, b in sq_by_layer), flush=True)
+    print("[numerics] hidden cosine by layer " + " ".join(
+        f"{x:.6f}" for x in cos_by_layer) + " | hidden MSE by layer "
+        + " ".join(f"{x:.3g}" for x in mse_by_layer), flush=True)
+    del on, off, snap, prom
+
+    # calibration: the teacher's 16 hidden taps over 2 batches of 2 x 512
+    cparams = tmodel.init_params(tcfg, torch.Generator(device=dev)
+                                 .manual_seed(SEED), dev)
+    tap_qc = dataclasses.replace(BF16, numerics=True)
+    sites = [f"layers.hidden.{i:03d}" for i in range(tcfg.n_layers)]
+
+    def taps(batch):
+        tape = obs_numerics.Tape()
+        with torch.no_grad(), obs_numerics.collecting(tape):
+            tmodel.apply(tcfg, cparams, batch, tap_qc, output="hidden")
+        h = tape.drain()["layers.hidden"]["h"]
+        return dict(zip(sites, h))
+
+    cbatches = [make_batch(DataConfig(tcfg.vocab_size, CALIB["seq"],
+                                      CALIB["batch"], seed=SEED), i, device=dev)
+                for i in range(CALIB["batches"])]
+    ops.reset_launches()
+    calib = {}
+    for method in ("max", "percentile", "mse"):
+        t0 = time.perf_counter()
+        amax = ptq.calibrate_activations(taps, cbatches, sites, method)
+        calib[method] = dict(s=time.perf_counter() - t0,
+                             amax=[amax[s] for s in sites])
+        if not all(math.isfinite(a) and a > 0 for a in amax.values()):
+            fail(f"calibration ({method}) gave {amax}")
+        print(f"[calib] {method}: {calib[method]['s']:.2f}s; amax by layer "
+              + " ".join(f"{a:.4g}" for a in calib[method]["amax"]), flush=True)
+    if sum(ops.launches.values()):
+        fail(f"calibration launched kernels: {dict(ops.launches)}")
+    if not all(p <= mx for p, mx in zip(calib["percentile"]["amax"],
+                                         calib["max"]["amax"])):
+        fail("a percentile amax above the running max")
+    del cparams, cbatches
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every training path's launches, for the kernels line
+    train_paths = {"qad_olmo": train_launches, "remat_steps": remat_launches,
+                   "qad_moe": moe_launches, "data_free": df_launches,
+                   "numerics_on": run_on["launches"],
+                   "numerics_off": run_off["launches"],
+                   "numerics_control": run_off2["launches"]}
+    train_total = {k: sum(p.get(k, 0) for p in train_paths.values())
+                   for k in ops.launches}
 
     # ---- 8. the kernels line, the card, the result ------------------------
     def serve_entry(name, source, replaces):
@@ -1792,7 +2247,7 @@ def main() -> int:
         lib = [r["library_ms"] for r in dec]
         by = ("bytes" if all(r["bound_by"] == "bytes" for r in dec)
               else "operations")
-        by_path = {"serve": serve_launches[name], "train": train_launches[name],
+        by_path = {"serve": serve_launches[name], "train": train_total[name],
                    "engine_a": a_launches[name], "engine_b": b_launches[name],
                    "engine_m": m_launches[name], "engine_mb": mb_launches[name],
                    "engine_tp_rank0": tp_launches[0][name]}
@@ -1816,7 +2271,7 @@ def main() -> int:
         rs = rows["nvfp4_qdq"]
         dec = [r for r in rs if r["phase"] == "decode"]
         by_path = {"serve": serve_launches["nvfp4_qdq"],
-                   "train": train_launches["nvfp4_qdq"],
+                   "train": train_total["nvfp4_qdq"],
                    "engine_a": a_launches["nvfp4_qdq"],
                    "engine_b": b_launches["nvfp4_qdq"],
                    "engine_m": m_launches["nvfp4_qdq"],
@@ -1840,6 +2295,8 @@ def main() -> int:
                 "prefill_layer_old_call_ms": k1_layer["prefill"]["old_ms"],
                 "timing_floor_ms": floor_ms,
                 "old_call_device_ops": k1_old_ops,
+                "train_launches_by_part": {p: n["nvfp4_qdq"] for p, n in
+                                           train_paths.items()},
                 "per_shape": [{k: r[k] for k in ("phase", "site", "shape", "ms",
                                                  "old_ms", "plain_ms", "bound_ms")}
                               for r in rs],
@@ -1849,14 +2306,17 @@ def main() -> int:
         at = {r["site"]: r for r in rows[name]}
         tr = at["train"]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": train_launches[name],
+                "replaces": replaces, "launches": train_total[name],
                 "max_abs_err": err[name], "ms": tr["ms"],
                 "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"],
                 "bound_by": "bytes", "library_ms": None,
                 "per": f"one launch at T={tr['m']} V={tr['k']} bf16",
-                "acereason_row": {k: at["acereason_row"][k] for k in
-                                  ("m", "k", "ms", "plain_ms", "bound_ms")},
-                "launches_by_path": {"serve": 0, "train": train_launches[name]}}
+                **{site: {k: at[site][k] for k in
+                          ("m", "k", "ms", "plain_ms", "bound_ms")}
+                   for site in ("acereason_row", "moe_train", "data_free")},
+                "launches_by_path": {"serve": 0, "train": train_total[name],
+                                     "train_parts": {p: n[name] for p, n in
+                                                     train_paths.items()}}}
 
     def k7_entry():
         at = {r["site"]: r for r in rows["paged_attention"]}

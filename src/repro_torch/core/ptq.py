@@ -1,4 +1,20 @@
-"""One-shot weight PTQ (port of ``repro.core.ptq``, lines 77-141).
+"""Post-training quantization: activation calibration and one-shot weight
+PTQ (port of ``repro.core.ptq``).
+
+PTQ is the paper's baseline (§2.1): calibrate scale factors on a small
+set, then quantize without training.  ``calibrate_activations`` estimates
+each activation site's tensor amax with an ``AmaxObserver``, by one of
+three methods:
+
+  * ``max``        - the running max of |x| (the paper's default);
+  * ``percentile`` - a percentile of the observed |x| (clips outliers);
+  * ``mse``        - the grid point of 0.5 .. 1 x max whose NVFP4 QDQ has
+    the least mean squared error.
+
+The samples of ``percentile`` and ``mse`` go to host numpy, as in the
+reference (``torch.quantile`` refuses more than 2^24 values and
+interpolates otherwise); ``mse``'s QDQ is ``core.nvfp4.qdq`` in its
+division form on the host, the reference's eager ``nvfp4.qdq``.
 
 ``quantize_weights`` fake-quantizes (``weight_format="qdq"``) or packs to
 true 4-bit NVFP4 (``"packed"``) every GEMM weight the policy quantizes.
@@ -9,18 +25,71 @@ no f32 temporary of the whole stack is made (packing all 28 slices of a
 [28, 3584, 18944] weight at once would need several 7.6 GB temporaries).
 So the reference's ``_lead_amax`` has no counterpart: each slice's amax
 is taken where the slice is quantized.
-
-Activation calibration waits for a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Iterable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import nvfp4
 from .qconfig import QuantConfig
+
+
+@dataclasses.dataclass
+class AmaxObserver:
+    """Streaming per-tensor amax estimator for one activation site."""
+
+    method: str = "max"          # max | percentile | mse
+    percentile: float = 99.9
+    _samples: list = dataclasses.field(default_factory=list)
+    _running_max: float = 0.0
+
+    def observe(self, x: torch.Tensor) -> None:
+        ax = torch.abs(x)
+        self._running_max = max(self._running_max, float(torch.amax(ax)))
+        if self.method != "max":
+            self._samples.append(ax.to("cpu", torch.float32).numpy().ravel())
+
+    def amax(self) -> float:
+        if self.method == "max" or not self._samples:
+            return self._running_max
+        flat = np.concatenate(self._samples)
+        if self.method == "percentile":
+            return float(np.percentile(flat, self.percentile))
+        if self.method == "mse":
+            return _mse_amax(flat, self._running_max)
+        raise ValueError(self.method)
+
+
+def _mse_amax(flat: np.ndarray, running_max: float, n_grid: int = 32) -> float:
+    """Grid-search the clipping amax minimizing the NVFP4 QDQ MSE of the
+    samples ``flat`` (zero-padded to a block multiple)."""
+    pad = (-len(flat)) % nvfp4.BLOCK
+    x = torch.from_numpy(np.pad(flat, (0, pad)))
+    best, best_err = running_max, np.inf
+    for frac in np.linspace(0.5, 1.0, n_grid):
+        amax = running_max * float(frac)
+        dq = nvfp4.qdq(x, torch.tensor(amax, dtype=torch.float32))
+        err = float(torch.mean((dq - x) ** 2))
+        if err < best_err:
+            best, best_err = amax, err
+    return best
+
+
+def calibrate_activations(fwd: Callable, batches: Iterable,
+                          sites: list[str], method: str = "max") -> dict[str, float]:
+    """Run ``fwd(batch) -> {site: activation}`` over batches, calibrate
+    each site's amax."""
+    obs = {s: AmaxObserver(method=method) for s in sites}
+    for b in batches:
+        acts = fwd(b)
+        for s in sites:
+            obs[s].observe(acts[s])
+    return {s: o.amax() for s, o in obs.items()}
 
 
 def quantize_weights(params, specs, qcfg: QuantConfig):

@@ -16,6 +16,11 @@ goes through ``ops.nvfp4_qdq`` (the K1 kernel forward, straight-through
 backward).  Metrics: the loss, the paper's Table-1 diagnostics (KL against
 the teacher and CE against the labels), top-1 agreement, and the global
 norms of the gradient and of the update, all as 0-dim tensors.
+
+With ``qcfg.numerics`` on, the step also returns ``metrics["numerics"]``:
+the student's per-layer quantization-error probes, the per-layer
+teacher-student hidden divergence and the per-layer gradient norms
+(``obs.numerics``); the step's state is bitwise the same as without.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..kernels import ops
-from ..models.common import tree_map
+from ..models.common import tree_leaves, tree_map
+from ..obs import numerics as obs_numerics
 from ..optim.adamw import AdamW, global_norm
 from . import losses
 from .qconfig import BF16, QuantConfig
@@ -57,12 +63,6 @@ def init_state(model, cfg, gen: torch.Generator, opt: AdamW,
                       opt_state=opt.init(params))
 
 
-def _no_numerics(qcfg: QuantConfig) -> None:
-    if qcfg.numerics:
-        raise NotImplementedError("numerics probes are part of the "
-                                  "observability slice of the port")
-
-
 def _flat_kl(t_logits: torch.Tensor, s_logits: torch.Tensor,
              mask: torch.Tensor) -> torch.Tensor:
     v = s_logits.shape[-1]
@@ -73,7 +73,6 @@ def _flat_kl(t_logits: torch.Tensor, s_logits: torch.Tensor,
 def make_loss_fn(model, cfg, qcfg: QuantConfig, qad: QADConfig):
     """``loss(student, teacher, batch) -> (loss, metrics)``; the metrics
     carry no gradient."""
-    _no_numerics(qcfg)
 
     def loss_fn(student, teacher, batch):
         mask = batch["mask"].to(torch.float32)
@@ -92,7 +91,16 @@ def make_loss_fn(model, cfg, qcfg: QuantConfig, qad: QADConfig):
                                         qad.loss_chunks)
             return kl, {"kl": kl.detach()}
 
-        s_logits = model.apply(cfg, student, batch, qcfg)
+        # numerics probes (obs.numerics): with qcfg.numerics on, a local
+        # tape collects per-layer quant-error stats from the student
+        # forward and per-layer hiddens from both forwards
+        tape = obs_numerics.Tape() if qcfg.numerics else None
+        if tape is not None:
+            with obs_numerics.collecting(tape):
+                s_logits = model.apply(cfg, student, batch, qcfg)
+            s_aux = tape.drain()
+        else:
+            s_logits = model.apply(cfg, student, batch, qcfg)
         metrics = {}
         if qad.loss in ("ce", "kl+ce"):
             ce = losses.ce_from_logits(s_logits, batch["labels"], mask)
@@ -102,10 +110,19 @@ def make_loss_fn(model, cfg, qcfg: QuantConfig, qad: QADConfig):
                 metrics["ce"] = losses.ce_from_logits(s_logits.detach(),
                                                       batch["labels"], mask)
         if qad.loss == "ce":                       # QAT
+            if tape is not None:
+                metrics["numerics"] = _numerics_metrics(s_aux, None, mask)
             return ce, metrics
 
         with torch.no_grad():
-            t_logits = model.apply(cfg, teacher, batch, BF16)
+            if tape is not None:
+                with obs_numerics.collecting(tape):
+                    t_logits = model.apply(
+                        cfg, teacher, batch,
+                        dataclasses.replace(BF16, numerics=True))
+                t_aux = tape.drain()
+            else:
+                t_logits = model.apply(cfg, teacher, batch, BF16)
         if temp != 1.0:
             t_in, s_in = t_logits / temp, s_logits / temp
         else:
@@ -119,6 +136,8 @@ def make_loss_fn(model, cfg, qcfg: QuantConfig, qad: QADConfig):
         with torch.no_grad():
             metrics["top1_agree"] = losses.top1_agreement(
                 t_logits, s_logits.detach(), mask)
+        if tape is not None:
+            metrics["numerics"] = _numerics_metrics(s_aux, t_aux, mask)
 
         if qad.loss == "kl":                       # QAD
             return kl, metrics
@@ -131,6 +150,32 @@ def make_loss_fn(model, cfg, qcfg: QuantConfig, qad: QADConfig):
         raise ValueError(qad.loss)
 
     return loss_fn
+
+
+def _numerics_metrics(s_aux: dict, t_aux: dict | None,
+                      mask: torch.Tensor) -> dict:
+    """The drained probe tapes as ``metrics["numerics"]``: the two
+    forwards' per-layer hiddens (``layers.hidden``) reduced to per-layer
+    cosine / MSE, every other student probe site passed through as
+    ``{site: {stat: tensor}}``, all without gradient."""
+    out = {}
+    h_s = s_aux.pop("layers.hidden", None)
+    h_t = t_aux.pop("layers.hidden", None) if t_aux else None
+    if h_s is not None and h_t is not None:
+        out["layers.hidden"] = obs_numerics.hidden_divergence(
+            h_t["h"], h_s["h"], mask)
+    for site, stats in s_aux.items():
+        out[site] = {k: v.detach() for k, v in stats.items()}
+    return out
+
+
+def _layer_grad_norms(layer_grads) -> torch.Tensor:
+    """[n_layers] f32: the gradient norm of each layer, over every leaf of
+    the stacked layer tree (each leaf carries the [n_layers, ...] axis)."""
+    sq = sum(torch.sum(torch.square(g.to(torch.float32)).reshape(g.shape[0], -1),
+                       -1)
+             for g in tree_leaves(layer_grads))
+    return torch.sqrt(sq)
 
 
 def value_and_grad(loss_fn, student, teacher, batch):
@@ -153,7 +198,8 @@ def value_and_grad(loss_fn, student, teacher, batch):
 
 def make_train_step(model, cfg, qcfg: QuantConfig, opt: AdamW,
                     qad: QADConfig | None = None) -> Callable:
-    """The training step: the loss's gradient, one AdamW update."""
+    """The training step: the loss's gradient, one AdamW update
+    (``AdamW.apply``: the update added leaf by leaf)."""
     qad = qad or QADConfig()
     loss_fn = make_loss_fn(model, cfg, qcfg, qad)
 
@@ -161,12 +207,15 @@ def make_train_step(model, cfg, qcfg: QuantConfig, opt: AdamW,
         loss, metrics, grads = value_and_grad(loss_fn, state.student,
                                               state.teacher, batch)
         with torch.no_grad():
-            updates, opt_state = opt.update(grads, state.opt_state,
-                                            state.student, state.step)
-            student = tree_map(lambda p, u: (p.to(torch.float32) + u).to(p.dtype),
-                               state.student, updates)
-            metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads),
-                           update_norm=global_norm(updates))
+            metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads))
+            if qcfg.numerics and isinstance(grads, dict) and "layers" in grads:
+                num = dict(metrics.get("numerics") or {})
+                num["layers.grad"] = {
+                    "grad_norm": _layer_grad_norms(grads["layers"])}
+                metrics["numerics"] = num
+            # the update, leaf by leaf (it consumes ``grads``)
+            student, opt_state, metrics["update_norm"] = opt.apply(
+                grads, state.opt_state, state.student, state.step)
         return TrainState(step=state.step + 1, student=student,
                           teacher=state.teacher, opt_state=opt_state), metrics
 
@@ -177,7 +226,6 @@ def make_eval_step(model, cfg, qcfg: QuantConfig,
                    qad: QADConfig | None = None) -> Callable:
     """Validation step: KL against the teacher and CE against the labels
     (paper Table 1), with top-1 agreement."""
-    _no_numerics(qcfg)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch) -> dict:

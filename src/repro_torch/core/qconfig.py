@@ -11,6 +11,11 @@ Both compute the reference's jitted
 form of the QDQ (divisions by constants as reciprocal multiplications),
 for weights as for activations: the reference's training step quantizes
 both inside ``jax.jit``.
+
+With ``numerics`` on and a probe tape installed (``obs.numerics``),
+``q_act`` and ``q_weight`` also put the site's quantization-error stats
+on the tape, computed from the same input with the same scope and amax
+as the QDQ the forward applies; the forward's values do not change.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels import nvfp4_qdq as _qdq
 from ..kernels import ops
+from ..obs import numerics as obs_numerics
 from . import nvfp4
 
 Kind = Literal["mlp", "attn", "recurrent", "router", "embed", "lm_head"]
@@ -61,7 +67,9 @@ class QuantConfig:
     #     leading-axis element), "token" (one per last-dim vector) ---
     act_scope: Literal["tensor", "row", "token"] = "tensor"
 
-    # numerics probes come with the observability slice
+    # --- numerics observability (obs.numerics): with a probe tape
+    #     installed, q_act / q_weight record per-site quantization-error
+    #     stats; off (the default) adds no operation ---
     numerics: bool = False
 
     def quantizes(self, kind: Kind) -> bool:
@@ -78,11 +86,6 @@ class QuantConfig:
             return False
         return True
 
-    def _no_numerics(self) -> None:
-        if self.numerics:
-            raise NotImplementedError("numerics probes are part of the "
-                                      "observability slice of the port")
-
     def q_act(self, x: torch.Tensor, kind: Kind, tp=None) -> torch.Tensor:
         """Fake-quantize an activation (blocked along its last dim).
 
@@ -91,11 +94,19 @@ class QuantConfig:
         group, what the reference computes on the whole activation."""
         if not (self.quantizes(kind) and self.quantize_activations):
             return x
-        self._no_numerics()
-        if tp is None:
+        amax = None
+        if tp is not None:
+            amax = tp.all_reduce(_qdq.scope_amax(x, self.act_scope), "max")
+        tape = obs_numerics.active() if self.numerics else None
+        if tape is not None:
+            probe_amax = amax
+            if probe_amax is None and self.act_scope != "tensor":
+                probe_amax = _qdq.scope_amax(x, self.act_scope)
+            tape.put(f"{kind}.act",
+                     obs_numerics.quant_error_stats(x, probe_amax))
+        if amax is None:
             return _fq_lastdim(x, scope=self.act_scope)
-        amax = _qdq.scope_amax(x, self.act_scope)
-        return _fq_lastdim(x, tp.all_reduce(amax, "max"))
+        return _fq_lastdim(x, amax)
 
     def q_weight(self, w: torch.Tensor, kind: Kind,
                  contract_axis: int = 0) -> torch.Tensor:
@@ -105,7 +116,10 @@ class QuantConfig:
                             "go through resolve_weight / layers.qeinsum")
         if not (self.quantizes(kind) and self.quantize_weights):
             return w
-        self._no_numerics()
+        tape = obs_numerics.active() if self.numerics else None
+        if tape is not None:
+            wm = torch.movedim(w, contract_axis % w.ndim, -1)
+            tape.put(f"{kind}.w", obs_numerics.quant_error_stats(wm))
         return _fq_axis(w, contract_axis)
 
     def resolve_weight(self, w, kind: Kind, contract_axis: int = 0):

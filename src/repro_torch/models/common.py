@@ -13,8 +13,12 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..core.nvfp4 import PackedNVFP4
+from ..obs import numerics as obs_numerics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,35 +145,137 @@ def n_layers(stacked) -> int:
 # the layer loop with selective quantization (paper §3.4)
 # ---------------------------------------------------------------------------
 
+# the weight GEMMs of ``layers._matmul``: dot products with no batch
+# dimension, what ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+# saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if func in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _rematerialized(fn, remat: str):
+    """``fn(carry, (p, x))`` under ``torch.utils.checkpoint`` (what
+    ``jax.checkpoint`` does to the reference's scanned body): the layer's
+    activations are dropped after its forward and recomputed in the
+    backward.  ``"full"`` keeps only the layer's inputs; ``"dots"`` also
+    keeps the outputs of the weight GEMMs (``_DOTS``) and recomputes the
+    rest: attention's batched products, the expert GEMMs, every QDQ (the
+    ``nvfp4_qdq`` kernel runs again and writes a fresh output).  The
+    recompute records no numerics probe: only the original forward does.
+    """
+    if remat == "none":
+        return fn
+    if remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {remat!r}")
+    calls = 0
+
+    def run(carry, p, x):
+        nonlocal calls
+        calls += 1
+        if calls > 1:                 # the recompute in the backward
+            with obs_numerics.collecting(None):
+                return fn(carry, (p, x))
+        return fn(carry, (p, x))
+
+    def wrapped(carry, inp):
+        return checkpoint(run, carry, *inp, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=(_dots_contexts if remat == "dots"
+                                      else noop_context_fn))
+    return wrapped
+
 
 def scan_layers(body_fn, carry, stacked_params, stacked_xs, qcfg,
-                skip_first: int = 0, skip_last: int = 0):
+                skip_first: int = 0, skip_last: int = 0,
+                remat: str = "none"):
     """Run the layer stack in up to three segments, as the reference's
     ``jax.lax.scan`` does: the first ``skip_first`` and last ``skip_last``
     layers under ``BF16``, the middle under ``qcfg``.
 
     ``body_fn(qcfg)(carry, (layer_params, layer_xs)) -> (carry, y)``;
     returns the final carry and the list of per-layer ``y``.  The layer
-    slices come from ``unstack``.  Rematerialization (``cfg.remat``)
-    changes memory, not values, and is not ported yet: every layer's
-    activations stay live for the backward.
+    slices come from ``unstack``.
+
+    ``remat`` ("none" | "full" | "dots", the config's ``remat``) runs each
+    layer under rematerialization (``_rematerialized``); it changes memory
+    and time, never values.  Without grad (the teacher's forward, evals,
+    serving) nothing is kept for a backward, so no layer is wrapped.
+
+    Numerics probes: when ``qcfg.numerics`` is on and a tape is installed,
+    each layer's probes are taken in a scope of their own and merged into
+    ``[n_layers]`` series under ``layers.<site>`` (``_merge_probes``).  The
+    BF16 segments keep the numerics flag, so the decoder's hidden-state tap
+    covers them too; their quant probes stay silent.
     """
     from ..core.qconfig import BF16
 
-    if qcfg.numerics:
-        raise NotImplementedError("numerics probes are part of the "
-                                  "observability slice of the port")
     n = n_layers(stacked_params)
     skip_first = min(skip_first, n)
     skip_last = min(skip_last, n - skip_first)
-    bounds = [(0, skip_first, BF16), (skip_first, n - skip_last, qcfg),
-              (n - skip_last, n, BF16)]
+    tape = obs_numerics.active() if qcfg.numerics else None
+    skip_qc = (dataclasses.replace(BF16, numerics=True)
+               if tape is not None else BF16)
+    bounds = [(0, skip_first, skip_qc), (skip_first, n - skip_last, qcfg),
+              (n - skip_last, n, skip_qc)]
+    if not torch.is_grad_enabled():
+        remat = "none"
     params = unstack(stacked_params, n)
     xs = unstack(stacked_xs, n) if stacked_xs is not None else [None] * n
-    ys = []
+    ys, probes = [], []
     for lo, hi, qc in bounds:
         fn = body_fn(qc)
         for i in range(lo, hi):
-            carry, y = fn(carry, (params[i], xs[i]))
+            layer = _rematerialized(fn, remat)
+            if tape is not None:
+                layer = _probe_scoped(layer, tape)
+            carry, y = layer(carry, (params[i], xs[i]))
+            if tape is not None:
+                y, p = y
+                probes.append(p)
             ys.append(y)
+    if tape is not None:
+        for site, stats in _merge_probes(probes).items():
+            tape.put(f"layers.{site}", stats)
     return carry, ys
+
+
+def _probe_scoped(fn, tape):
+    """Run one layer in a tape scope of its own and return its probes as
+    an extra component of ``y``: ``(carry, (y, probes))``."""
+    def wrapped(carry, inp):
+        tape.push_scope()
+        try:
+            carry, y = fn(carry, inp)
+        finally:
+            probes = tape.pop_scope()
+        return carry, (y, probes)
+    return wrapped
+
+
+def _merge_probes(layers: list) -> dict:
+    """Key-union merge of per-layer probe dicts into ``[n_layers]`` f32
+    series (the stack of each stat along a new leading axis).  A site
+    missing from a layer (the BF16 segments record no quant probes) is
+    NaN for that layer, so every series keeps the length ``n_layers``."""
+    sites = sorted({s for d in layers for s in d})
+    out = {}
+    for site in sites:
+        stats = sorted({k for d in layers if site in d for k in d[site]})
+        out[site] = {}
+        for st in stats:
+            first = next(d[site][st] for d in layers
+                         if site in d and st in d[site])
+            parts = [d[site][st].to(torch.float32)
+                     if site in d and st in d[site]
+                     else torch.full(first.shape, float("nan"),
+                                     dtype=torch.float32, device=first.device)
+                     for d in layers]
+            out[site][st] = torch.stack(parts)
+    return out

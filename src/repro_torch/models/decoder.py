@@ -34,6 +34,7 @@ import torch
 from ..core.qconfig import QuantConfig
 from ..distributed import ctx
 from ..core.nvfp4 import PackedNVFP4
+from ..obs import numerics as obs_numerics
 from . import attention as attn
 from . import common, layers
 
@@ -237,7 +238,8 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
           output: str = "logits") -> torch.Tensor:
     """Teacher-forcing forward: [B,S] tokens -> [B,S,V] logits, or with
     ``output="hidden"`` the final-normed [B,S,d] hidden states (the
-    chunked loss applies the unembedding itself)."""
+    chunked loss applies the unembedding itself).  The layers run under
+    ``cfg.remat`` when grad is on (``common.scan_layers``)."""
     _supported(cfg)
     x = embed_tokens(cfg, params, batch["tokens"])
     pos = _positions(batch, x.shape[1])
@@ -245,11 +247,19 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
     def body(qc):
         def fn(carry, inp):
             p, _ = inp
-            return _block(qc, cfg, p, carry, pos, "train", None, None), None
+            y = _block(qc, cfg, p, carry, pos, "train", None, None)
+            if qc.numerics:
+                # per-layer hidden-state tap: scan_layers stacks these
+                # into [n_layers, B, S, d] for teacher-student geometry
+                tape = obs_numerics.active()
+                if tape is not None:
+                    tape.put("hidden", {"h": y.detach()})
+            return y, None
         return fn
 
     x, _ = common.scan_layers(body, x, params["layers"], None, qcfg,
-                              qcfg.skip_first_layers, qcfg.skip_last_layers)
+                              qcfg.skip_first_layers, qcfg.skip_last_layers,
+                              cfg.remat)
     if output == "hidden":
         return run_norm(cfg, params["final_norm"], x)
     return _lm_head(qcfg, cfg, params, x)

@@ -38,6 +38,7 @@ from ..core.qconfig import QuantConfig
 from ..distributed import ctx
 from ..kernels import ops
 from ..kernels.nvfp4_matmul import sum_k_f32
+from ..obs import numerics as obs_numerics
 
 _DENSE_EQ = "...k,ko->...o"
 _MOE_EQ = "...eck,eko->...eco"
@@ -99,6 +100,11 @@ def qeinsum(qcfg: QuantConfig, kind: str, eq: str, x: torch.Tensor, w,
         return _qeinsum_row(qcfg, kind, x, w, quantize_act, tp)
     xq = qcfg.q_act(x, kind) if quantize_act else x
     wr = qcfg.resolve_weight(w, kind, contract_axis)
+    tape = obs_numerics.active() if qcfg.numerics else None
+    if tape is not None and isinstance(wr, PackedNVFP4):
+        # a packed weight bypasses q_weight: its scale-structure probe
+        # lives here, at the dispatch point
+        tape.put(f"{kind}.w", obs_numerics.packed_weight_stats(wr))
     einsum = _matmul if eq == _DENSE_EQ else _moe_einsum
     if isinstance(wr, PackedNVFP4):
         if (wr.ndim == 3 and contract_axis == 1 and eq == _MOE_EQ

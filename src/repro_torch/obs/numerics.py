@@ -1,0 +1,286 @@
+"""Numerics observability: quantization-error and divergence probes
+(port of ``repro.obs.numerics``).
+
+Where a profiler observes time, this plane observes *values*: per-layer
+NVFP4 quantization error (SQNR, amax, clip fraction, scale utilization)
+of every quantized site, per-layer teacher-student hidden-state geometry
+(cosine / MSE) and per-layer gradient norms.
+
+Collection: instrumented call sites (``QuantConfig.q_act`` / ``q_weight``,
+``layers.qeinsum`` for a packed weight, the decoder's layer body) put 0-d
+tensors on the active ``Tape`` when ``QuantConfig.numerics`` is on and a
+tape is installed with ``collecting(tape)``.  Every probe is computed
+under ``torch.no_grad()`` on the tensor's own device from the values the
+forward already has, so it adds nothing to the autograd graph and changes
+no value the step computes: probes on or off, the step's state is
+bitwise the same.  ``models.common.scan_layers`` pushes a tape scope
+around each layer and stacks the per-layer dicts into ``[n_layers]``
+series (NaN for layers a site does not occur in: the BF16 segments of a
+selective recipe); under rematerialization only the original forward
+records, the recompute in the backward does not.
+
+Host side, ``NumericsRecorder`` aggregates the drained dicts into a
+``MetricsRegistry`` as ``layer=``-labeled gauges and histograms plus
+chart-ready ``(step, value)`` series.  ``python -m repro_torch.obs.numerics
+A.json B.json`` diffs two exported snapshots (see ``obs.compare``).
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager
+
+import numpy as np
+import torch
+
+from ..core import nvfp4
+
+_tape = None
+
+
+def active():
+    """The installed numerics Tape, or None (the common fast path)."""
+    return _tape
+
+
+@contextmanager
+def collecting(tape):
+    """Install ``tape`` (or None: no recording) as the active probe tape
+    for the block."""
+    global _tape
+    prev = _tape
+    _tape = tape
+    try:
+        yield tape
+    finally:
+        _tape = prev
+
+
+class Tape:
+    """Scoped probe store: site name -> {stat: 0-d tensor}.
+
+    Scopes nest (``scan_layers`` pushes one around each layer so the
+    per-layer probes stay separable from the surrounding forward).
+    Duplicate site names within a scope dedup with ``#2``, ``#3``
+    suffixes, in call order.
+    """
+
+    def __init__(self):
+        self._scopes = [{}]
+
+    def push_scope(self) -> None:
+        self._scopes.append({})
+
+    def pop_scope(self) -> dict:
+        return self._scopes.pop()
+
+    def put(self, site: str, stats: dict) -> None:
+        scope = self._scopes[-1]
+        name, i = site, 1
+        while name in scope:
+            i += 1
+            name = f"{site}#{i}"
+        scope[name] = stats
+
+    def drain(self) -> dict:
+        """Return and clear the current scope's contents."""
+        out = self._scopes[-1]
+        self._scopes[-1] = {}
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Probe math (torch, on the tensor's device, no autograd)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def quant_error_stats(x: torch.Tensor, tensor_amax=None) -> dict:
+    """NVFP4 quantization-error stats for ``x``, blocked along the last dim.
+
+    Returns 0-d f32 tensors:
+
+      * ``sqnr_db``    - 10 log10(sum x^2 / sum (x - qdq(x))^2)
+      * ``amax``       - max |x|
+      * ``clip_frac``  - fraction of elements whose magnitude exceeds
+        what their block's (FP8-rounded) scale can represent
+      * ``scale_util`` - mean block scale / E4M3_MAX
+
+    ``tensor_amax`` is the amax of the forward's scope (row or token), so
+    the probe measures the quantization the layer applies.  The scales
+    take the form the forward's QDQ takes (``reciprocal=True``: the
+    divisions by constants as f32 reciprocal multiplications, as the
+    ``nvfp4_qdq`` kernel and the reference's jitted step compute them);
+    the dequantized values stay in f32, as in the reference.
+    """
+    xf = x.detach().to(torch.float32)
+    k = xf.shape[-1]
+    pad = (-k) % nvfp4.BLOCK
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, pad))
+    scales = nvfp4.compute_scales(xf, tensor_amax, reciprocal=True)
+    q = nvfp4.quantize_blocked(xf, scales)
+    s = (scales.block * scales.tensor)[..., None]
+    y = (q * s).reshape(xf.shape)
+    err = xf - y
+    sig = torch.sum(xf * xf)
+    noise = torch.sum(err * err)
+    sqnr_db = 10.0 * (torch.log10(torch.clamp_min(sig, 1e-30))
+                      - torch.log10(torch.clamp_min(noise, 1e-30)))
+    cap = (scales.block * scales.tensor) * nvfp4.E2M1_MAX
+    xb = torch.abs(xf).reshape(*xf.shape[:-1], xf.shape[-1] // nvfp4.BLOCK,
+                               nvfp4.BLOCK)
+    # the mean as the jitted reference takes it: the sum times the f32
+    # reciprocal of the count
+    clipped = (xb > cap[..., None]).to(torch.float32)
+    clip_frac = torch.sum(clipped) * float(np.float32(1.0) /
+                                           np.float32(clipped.numel()))
+    return {
+        "sqnr_db": sqnr_db,
+        "amax": torch.amax(torch.abs(xf)),
+        "clip_frac": clip_frac,
+        "scale_util": torch.mean(scales.block) / nvfp4.E4M3_MAX,
+    }
+
+
+@torch.no_grad()
+def packed_weight_stats(p: "nvfp4.PackedNVFP4") -> dict:
+    """Probe stats for an already-packed weight: the reconstructed amax
+    (max block scale x tensor scale x E2M1_MAX) and the FP8 scale-range
+    utilization (the original values are gone, so no SQNR)."""
+    sb = p.scales.to(torch.float32)
+    ts = p.tensor_scale.to(torch.float32)
+    return {
+        "amax": torch.amax(sb * ts) * nvfp4.E2M1_MAX,
+        "scale_util": torch.mean(sb) / nvfp4.E4M3_MAX,
+    }
+
+
+@torch.no_grad()
+def hidden_divergence(h_t: torch.Tensor, h_s: torch.Tensor,
+                      mask: torch.Tensor) -> dict:
+    """Per-layer teacher-student hidden-state geometry.
+
+    ``h_t`` / ``h_s``: stacked per-layer hiddens ``[L, B, S, d]`` (the
+    ``layers.hidden`` probe merged by ``scan_layers``); ``mask`` ``[B, S]``
+    float, 1 = real token.  Returns ``[L]`` f32 series: the masked mean
+    of the per-token cosine similarity and of the per-dim MSE.
+    """
+    t = h_t.to(torch.float32)
+    s = h_s.to(torch.float32)
+    m = mask.to(torch.float32)[None]                          # [1, B, S]
+    denom = torch.clamp_min(torch.sum(m, dim=(1, 2)), 1.0)    # [1]
+    dot = torch.sum(t * s, -1)
+    nt = torch.sqrt(torch.clamp_min(torch.sum(t * t, -1), 1e-12))
+    ns = torch.sqrt(torch.clamp_min(torch.sum(s * s, -1), 1e-12))
+    cos = torch.sum((dot / (nt * ns)) * m, dim=(1, 2)) / denom
+    mse = torch.sum(torch.mean((t - s) ** 2, -1) * m, dim=(1, 2)) / denom
+    return {"hidden_cos": cos, "hidden_mse": mse}
+
+
+def _host(v) -> np.ndarray:
+    """A probe value as a float64 numpy array on the host."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", torch.float64).numpy()
+    return np.asarray(v, dtype=np.float64)
+
+
+# ---------------------------------------------------------------------------
+# Host-side aggregation into the registry
+# ---------------------------------------------------------------------------
+
+_STAT_HELP = {
+    "sqnr_db": "per-layer signal-to-quantization-noise ratio, dB",
+    "amax": "per-layer activation/weight amax",
+    "clip_frac": "per-layer fraction of values clipped by the block scale",
+    "scale_util": "per-layer mean FP8 block-scale / E4M3_MAX",
+    "hidden_cos": "per-layer teacher-student hidden cosine similarity",
+    "hidden_mse": "per-layer teacher-student hidden MSE",
+    "grad_norm": "per-layer student gradient norm",
+    "kl": "teacher-student KL at the probe site",
+    "top1_agree": "teacher-student top-1 agreement at the probe site",
+}
+
+# stats exported as layer=-labeled reservoir histograms rather than
+# last-write gauges: the distribution of the block scales' use over layers
+_HIST_STATS = ("scale_util",)
+
+
+class NumericsRecorder:
+    """Aggregates drained probe aux into a MetricsRegistry.
+
+    ``record(aux)`` takes the probe dict a train step returned,
+    ``{site: {stat: 0-d | [n_layers] tensor}}`` (on any device; one copy
+    to the host per value).
+    Per-layer arrays expand into one ``layer="<site>.<ii>"``-labeled
+    series per index (zero-padded, so sorted label order == layer
+    order); NaN entries (BF16 skip segments) are dropped, not recorded.
+    ``series_point`` accumulates the chart-ready ``(step, value)``
+    series (``qad_live_kl``, ``spec_accept_rate``) that the snapshot's
+    ``numerics`` section exports.
+    """
+
+    def __init__(self, registry):
+        self._reg = registry
+        self._gauges: dict = {}
+        self._hists: dict = {}
+        self.last: dict = {}          # flattened site -> {stat: float}
+        self.series: dict = {}        # name -> [[step, value], ...]
+        self.records = 0              # record() calls (sampled steps seen)
+
+    def _instrument(self, stat: str):
+        if stat in _HIST_STATS:
+            h = self._hists.get(stat)
+            if h is None:
+                h = self._hists[stat] = self._reg.histogram(
+                    f"numerics_{stat}", _STAT_HELP.get(stat, ""),
+                    labels=("layer",))
+            return h, "observe"
+        g = self._gauges.get(stat)
+        if g is None:
+            g = self._gauges[stat] = self._reg.gauge(
+                f"numerics_{stat}", _STAT_HELP.get(stat, ""),
+                labels=("layer",))
+        return g, "set"
+
+    def _record_one(self, site: str, stat: str, value: float) -> None:
+        if value != value:            # NaN: layer not probed (BF16 segment)
+            return
+        inst, method = self._instrument(stat)
+        getattr(inst.labels(layer=site), method)(value)
+        self.last.setdefault(site, {})[stat] = value
+
+    def record(self, aux: dict) -> None:
+        for site in sorted(aux):
+            for stat in sorted(aux[site]):
+                arr = _host(aux[site][stat])
+                if arr.ndim == 0:
+                    self._record_one(site, stat, float(arr))
+                else:
+                    for i, v in enumerate(arr.reshape(-1).tolist()):
+                        self._record_one(f"{site}.{i:03d}", stat, float(v))
+        self.records += 1
+
+    def series_point(self, name: str, step: int, value) -> None:
+        if value is None or value != value:
+            return
+        self.series.setdefault(name, []).append([int(step), float(value)])
+
+    def summary(self) -> dict:
+        """The snapshot document's ``numerics`` section."""
+        sqnr = [s["sqnr_db"] for s in self.last.values() if "sqnr_db" in s]
+        return {
+            "sampled_records": self.records,
+            "per_layer": {site: dict(sorted(stats.items()))
+                          for site, stats in sorted(self.last.items())},
+            "series": {k: list(v) for k, v in sorted(self.series.items())},
+            "sqnr_db_min": min(sqnr) if sqnr else None,
+            "sqnr_db_mean": (sum(sqnr) / len(sqnr)) if sqnr else None,
+        }
+
+
+def main(argv=None) -> int:
+    from . import compare
+    return compare.main(argv)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -35,7 +35,10 @@ def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 15
     assert {PORT / "distributed" / "ctx.py", PORT / "distributed" / "sharding.py",
-            PORT / "launch" / "mesh.py"} <= set(files)
+            PORT / "launch" / "mesh.py", PORT / "data" / "generated.py",
+            PORT / "obs" / "numerics.py", PORT / "obs" / "metrics.py",
+            PORT / "obs" / "schema.py", PORT / "obs" / "validate.py",
+            PORT / "obs" / "compare.py", PORT / "obs" / "export.py"} <= set(files)
     bad = {(str(f.relative_to(SRC)), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert not bad, bad
@@ -45,7 +48,10 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.bridge, repro_torch.serve, repro_torch.models.layers, "
             "repro_torch.kernels.nvfp4_matmul, repro_torch.distributed.ctx, "
-            "repro_torch.distributed.sharding, repro_torch.launch.mesh; "
+            "repro_torch.distributed.sharding, repro_torch.launch.mesh, "
+            "repro_torch.data.generated, repro_torch.core.ptq, "
+            "repro_torch.obs.validate, repro_torch.obs.compare, "
+            "repro_torch.obs.export, repro_torch.obs.numerics; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(SRC))

@@ -379,15 +379,6 @@ def test_eval_step_matches_reference(jref, arch):
     assert float(ev["top1_agree"]) == float(jref[f"{arch}/eval/top1_agree"])
 
 
-def test_numerics_raises():
-    cfg = configs.get_smoke("olmo-1b")
-    qc = qconfig.QuantConfig(numerics=True)
-    with pytest.raises(NotImplementedError, match="observability"):
-        qad.make_loss_fn(get_model(cfg), cfg, qc, qad.QADConfig())
-    with pytest.raises(NotImplementedError, match="observability"):
-        train.main(["--device", "cpu", "--numerics"])
-
-
 # ---------------------------------------------------------------------------
 # chunked losses, schedule, data, trainer, checkpoints
 # ---------------------------------------------------------------------------
