@@ -41,7 +41,13 @@ Phases (every failure exits nonzero):
      to the same rows computed at M = 16 (a paged-prefill chunk), M = 4
      and alone, bf16 and f32 out (row invariance, which the engine's
      bitwise gates rely on); the largest |kernel - plain| / tolerance of
-     every K2, K3 and K4 shape is printed;
+     every K2, K3 and K4 shape is printed; at the rglru_hybrid family's
+     shapes (nemotron-nano-9b-sim: K and N of 4480 and 15680, 15680 not a
+     multiple of 128; recurrentgemma-2b: 2560 and 7680) K2 on one
+     [layer, inner] slice of a weight stacked over two leading axes,
+     packed as PTQ packs ``blocks/rec``, at M = 8 and 256 within its
+     bound, rows bitwise equal, and K1 in row scope at [8, 1, K] bitwise
+     (phase 3h);
   4. smoke-size models on the card against the same weights on the CPU:
      serving prefill and greedy tokens, and one QAD training step;
   5. the static serving path: ``acereason-7b`` at full width and 14 of its
@@ -84,6 +90,28 @@ Phases (every failure exits nonzero):
      ``nvfp4_matmul_tp`` (K4) 5 x 28 times per forward and neither K2 nor
      K7, and each request's prefill logits lie within LOGIT_TOL of run A's
      on the same prompt; a traced decode step on rank 0;
+  5e. the rglru_hybrid family on the slab engine: ``nemotron-nano-9b-sim``
+     at full width and depth (56 layers, 18.4 B params, packed, the hybrid
+     recipe: attention in BF16), the slab plan recurrent + dense_kv, run
+     A's traffic: every request finishes and every slot is released, K1
+     and K2 launch as many times as the code's quantized sites say per
+     forward, and each request's prefill and first-decode-step logits lie
+     within LOGIT_TOL of ``serve_batch``'s path on its prompt; load and
+     serving peak, state bytes a slot, the decode step's byte bound and a
+     traced decode step printed;
+  5f. ``recurrentgemma-2b`` at full size (26 layers, window 2048): 4
+     requests of prompts 2100..2600 tokens and 32 greedy tokens, so its
+     ring wraps in prefill and in decode: served one slot at a time,
+     tokens equal to single-request ``serve_batch``'s; over 4 slots,
+     first tokens equal and the first decode step's logits within
+     LOGIT_TOL (cuBLAS sums the BF16 GEMMs' 4 rows in another order than
+     1, and NVFP4 rounding amplifies it); every slot released;
+  5g. (inside 5b, on its weights) chunked prefill: run A's traffic with
+     ``prefill_mode="chunked"`` and chunks of 256: every request finishes,
+     the pool drains, K1, K2 and K7 launch counts, each request's prefill
+     logits within LOGIT_TOL of run A's exact prefill (chunk-granular
+     activation amaxes make them approximate), a 256-token prompt in one
+     chunk against exact prefill; TTFT beside run A's;
   6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
      (16 layers, d_model 2048, vocab 50304) under its config's
      rematerialization (``remat="full"``: the student's QDQ runs twice a
@@ -110,6 +138,11 @@ Phases (every failure exits nonzero):
      (``obs.validate``), per-layer SQNR and hidden divergence printed;
      then ``core.ptq.calibrate_activations`` (max, percentile, mse) over
      the teacher's 16 hidden taps on 2 batches of 2 x 512;
+  6e. QAD on ``nemotron-nano-9b-sim`` at full width cut to one
+     super-block (n_layers 5, attn_period 5: 4 RG-LRU layers and 1
+     attention layer, 2.67 B params), remat "full", 3 steps of 4 x 512
+     with an eval after each: K1, K5 and K6 launch counts, finite metrics,
+     a changed student, the step ms against 10 N T and the peak;
   7. (run after phase 5d, before phase 6, so that the training paths
      run without phase 3's tensors resident) kernel, plain, bound and
      library times (CUDA events around each call, the L2 flushed between
@@ -170,7 +203,8 @@ LOGIT_TOL = {"bf16_act": 5e-2, "nvfp4": 0.5}
 #    output dtype of the plain version's f32 value, plus 4 f32 ulps of
 #    (p_s + p_t) |g| for the two expf.
 KL_SHAPES = {"train": (8 * 512, 50304), "acereason_row": (1024, 152064),
-             "moe_train": (4 * 512, 151936), "data_free": (8 * 256, 50304)}
+             "moe_train": (4 * 512, 151936), "data_free": (8 * 256, 50304),
+             "nemo_train": (4 * 512, 131072)}
 # paged attention (K7) against its plain version: within one bf16 ulp of
 # the larger of the two values plus this absolute term.  The two sum the
 # dot products, the exps and p V in other f32 orders, which moves a rare
@@ -209,11 +243,24 @@ RUN_MB = dict(requests=8, prefix=256, min_suffix=16, max_suffix=128, gen=8)
 # card; run A's first 8 requests, 16 tokens each
 TP_SIZE = 2
 RUN_TP = dict(requests=8, gen=16)
+# the rglru_hybrid family (the slab engine): nemotron-nano-9b-sim at full
+# width and depth takes run A's traffic (phase 5e); recurrentgemma-2b at
+# full size serves prompts longer than its window of 2048, so its ring
+# wraps in prefill and in decode (phase 5f)
+NEMO_ARCH = "nemotron-nano-9b-sim"
+RGEMMA = dict(arch="recurrentgemma-2b", requests=4, min_prompt=2100,
+              max_prompt=2600, gen=32)
+# chunked prefill on run A's engine and traffic (phase 5g)
+RUN_G = dict(chunk=256)
 # the training path
 TRAIN = dict(arch="olmo-1b", steps=4, lr=1e-5, batch=8, seq=512)
 # MoE QAD (qwen2-moe-a2.7b at full width, cut in depth), data-free QAD from
 # the teacher's own tokens, the numerics runs and activation calibration
 MOE_TRAIN = dict(layers=4, steps=3, batch=4, seq=512)
+# QAD on nemotron-nano-9b-sim at full width and one super-block (4 RG-LRU
+# layers and 1 attention layer): its 56 layers' training state does not
+# fit one card (phase 6e)
+NEMO_TRAIN = dict(layers=5, steps=3, batch=4, seq=512)
 DATA_FREE = dict(batch=8, n_new=256, steps=2)
 NUMERICS = dict(steps=2)
 CALIB = dict(batches=2, batch=2, seq=512)
@@ -225,6 +272,8 @@ CALIB = dict(batches=2, batch=2, seq=512)
 STEP_TOL = {"loss": 2e-2, "grad_norm": 5e-2}
 
 
+# spin kernels a training step's trace records ahead of the step
+WARMUP_SPINS = 32
 # the port's kernels by the names the profiler shows them under
 PORT_KERNELS = ("qdq_one_pass", "qdq_two_pass", "paged_attention_kernel",
                 "mma_kernel", "wg_kernel", "kl_fwd_kernel", "kl_bwd_kernel")
@@ -233,11 +282,12 @@ PORT_KERNELS = ("qdq_one_pass", "qdq_two_pass", "paged_attention_kernel",
 def trace_ops(prof, steps=1):
     """From a profile of ``steps`` steps, per step: ms by device kernel
     name, and the counts of device ops that are the port's kernels, that
-    are QDQ kernels, and that are anything else (torch's kernels, copies)."""
+    are QDQ kernels, and that are anything else (torch's kernels, copies);
+    ``trace_step``'s warm-up spin kernels left out."""
     from torch.autograd import DeviceType
     by_kernel, n_port, n_qdq, n_other = {}, 0, 0, 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
             by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
                                  + e.time_range.elapsed_us() / 1e3 / steps)
             port = any(k in e.name for k in PORT_KERNELS)
@@ -250,20 +300,25 @@ def trace_ops(prof, steps=1):
 def trace_step(label, step, qdq_gate: bool = True) -> None:
     """Trace one training step, ``step()`` (it returns the gradient norm),
     and print it: wall and busy ms, the idle share, its device ops (one
-    QDQ kernel for each QDQ launch) and its time by kind of kernel.  A
-    profile that holds another number of QDQ kernels than the step
-    launched is printed and the step traced once more (the profiler can
-    miss a kernel record); a second mismatch fails under ``qdq_gate``,
-    and is printed otherwise."""
+    QDQ kernel for each QDQ launch) and its time by kind of kernel.  The
+    profiler first records WARMUP_SPINS spin kernels, which ``trace_ops``
+    leaves out, so that it is running when the step starts (profiles have
+    missed a few of a step's kernel records).  A profile that holds another number of QDQ kernels than
+    the step launched is printed and the step traced again, up to three
+    times in all; a third mismatch fails under ``qdq_gate``, and is
+    printed otherwise."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
-    for attempt in (1, 2):
+    for attempt in (1, 2, 3):
         torch.cuda.synchronize()
         ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(WARMUP_SPINS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             grad_norm = step()
             torch.cuda.synchronize()
@@ -278,7 +333,7 @@ def trace_step(label, step, qdq_gate: bool = True) -> None:
     else:
         if qdq_gate:
             fail(f"{label}: {n_qdq} QDQ kernels for {launches['nvfp4_qdq']} "
-                 "QDQ calls in two traces")
+                 "QDQ calls in three traces")
     if not math.isfinite(grad_norm):
         fail(f"{label}: non-finite gradient norm {grad_norm}")
     busy_ms = sum(by_kernel.values())
@@ -288,6 +343,13 @@ def trace_step(label, step, qdq_gate: bool = True) -> None:
           f"the port's kernels ({n_qdq:.0f} QDQ for "
           f"{launches['nvfp4_qdq']} QDQ calls), {n_other:.0f} others",
           flush=True)
+    print_by_kind(label, by_kernel)
+    for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[trace]   {ms:8.2f} ms  {kname[:110]}")
+
+
+def print_by_kind(label, by_kernel) -> None:
+    """Print a trace's device ms by kind of kernel."""
     groups = {}
     for kname, ms in by_kernel.items():
         has = lambda *words: any(w in kname for w in words)
@@ -298,10 +360,8 @@ def trace_step(label, step, qdq_gate: bool = True) -> None:
              else "elementwise" if "elementwise" in kname else "other")
         groups[g] = groups.get(g, 0.0) + ms
     print(f"[trace] {label} by kind: " + ", ".join(
-        f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
+        f"{g} {ms:.2f} ms" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])),
         flush=True)
-    for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[trace]   {ms:8.2f} ms  {kname[:110]}")
 
 
 def to_host(tree):
@@ -1067,6 +1127,84 @@ def main() -> int:
           f"kernel a decode call", flush=True)
     del q, qn, pool, bt, pos, got, case
 
+    # ---- 3h. the rglru_hybrid family's shapes (phases 5e-5f, 6e) ---------
+    # K2 on one [layer, inner] slice of a weight stacked over two leading
+    # axes and packed as PTQ packs blocks/rec (a tensor scale per slice),
+    # at decode (M = 8 slots) and prefill (M = 256) within its bound, the
+    # prefill rows bitwise equal to the decode rows; K1 in row scope at the
+    # decode inputs [8, 1, K], bitwise.  nemotron-nano-9b-sim's K = 15680 is
+    # the first K that is not a multiple of 128 (245 chunks of 64)
+    from repro_torch.core import ptq as cptq
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models.common import ParamSpec
+    rg_sites = []
+    for arch in (NEMO_ARCH, RGEMMA["arch"]):
+        c = configs.get_config(arch)
+        rg_sites += [(arch, "wx", c.d_model, c.d_rnn),
+                     (arch, "wg", c.d_model, c.d_ff),
+                     (arch, "wd", c.d_ff, c.d_model)]
+    n_slots = ENGINE["n_slots"]
+    for arch, wname, k, n in rg_sites:
+        spec = ParamSpec((2, 2, k, n), ("layers", "inner", "embed", "mlp"),
+                         kind="mlp", contract_axis=2)
+        w = (torch.randn((2, 2, k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(torch.bfloat16)
+        stack = cptq.quantize_leaf(spec, w, QuantConfig(weight_format="packed"))
+        del w
+        p = stack[1][0]
+        if p.k != k or p.tensor_scale.shape != (1, 1):
+            fail(f"a slice of the {arch} {wname} stack lost orig_k or its "
+                 f"scale shape: {p.k}, {tuple(p.tensor_scale.shape)}")
+        x = act(BATCH * PROMPT, k)
+        got = ops.nvfp4_qdq(x[:n_slots, None], scope="row")
+        if not qdq_equal(got, ref.nvfp4_qdq_ref(x[:n_slots, None], None, "row")):
+            fail(f"nvfp4_qdq row scope not bitwise at [{n_slots}, 1, {k}]")
+        xq = ops.nvfp4_qdq(x, scope="row")
+        wdq = nvfp4.unpack(p, torch.bfloat16)
+        for m in (n_slots, BATCH * PROMPT):
+            y = ops.nvfp4_matmul(xq[:m], p)
+            y32 = ref.nvfp4_matmul_ref(xq[:m], p, torch.float32)
+            absref = xq[:m].float().abs() @ wdq.float().abs().T
+            one_ulp = torch.exp2(torch.floor(torch.log2(
+                y32.abs().clamp_min(1e-30))) - 7)
+            diff = (y.float() - y32).abs()
+            ratio = float((diff / (one_ulp + 2.0 ** -20 * absref)).max())
+            if ratio > 1.0:
+                fail(f"nvfp4_matmul on a {arch} stack slice ({wname}, K={k}, "
+                     f"N={n}) outside tolerance at M={m}: err/bound {ratio}")
+            err["nvfp4_matmul"] = max(err["nvfp4_matmul"], float(diff.max()))
+            err_bound["nvfp4_matmul"] = max(err_bound["nvfp4_matmul"], ratio)
+            print(f"[kernel] nvfp4_matmul {arch} {wname} stack slice M={m} "
+                  f"(K={k}, N={n}): max err/bound {ratio:.4f}", flush=True)
+        if not torch.equal(ops.nvfp4_matmul(xq, p)[:n_slots].view(torch.int16),
+                           ops.nvfp4_matmul(xq[:n_slots], p).view(torch.int16)):
+            fail(f"nvfp4_matmul rows of {arch} {wname} differ between M=256 "
+                 f"and M={n_slots}")
+        xd = xq[:n_slots]
+        bts, fl = kmm.bytes_moved(xd, p, torch.bfloat16), kmm.flops(xd, p)
+        rows["nvfp4_matmul"].append(dict(
+            m=n_slots, k=k, n=n, site=f"{arch} {wname}", phase=arch,
+            bound_ms=max(bts / HBM_BYTES_S, fl / BF16_FLOPS) * 1e3,
+            bound_by=("bytes" if bts / HBM_BYTES_S >= fl / BF16_FLOPS
+                      else "operations"),
+            max_abs_err=float(diff.max()),
+            fns=((lambda xd=xd, p=p: ops.nvfp4_matmul(xd, p)),
+                 (lambda xd=xd, p=p: ref.nvfp4_matmul_ref(xd, p)),
+                 (lambda xd=xd, w=wdq.T: torch.matmul(xd, w)))))
+        xr = x[:n_slots, None]
+        rows["nvfp4_qdq"].append(dict(
+            m=n_slots, k=k, site=wname, phase=f"decode {arch}",
+            shape=f"{list(xr.shape)} row", bound_ms=q_bound(xr),
+            library_ms=None,
+            fns=((lambda x=xr: ops.nvfp4_qdq(x, scope="row")),
+                 (lambda x=xr: ref.nvfp4_qdq_ref(x, None, "row")), None),
+            old=(lambda x=xr: old_call(x, "row"))))
+        del stack, x, y, y32, absref, diff, one_ulp
+    print(f"[kernel] rglru_hybrid shapes: nvfp4_matmul on [layer, inner] "
+          f"slices of two-axis stacks within its bound at M in ({n_slots}, "
+          f"{BATCH * PROMPT}), rows bitwise equal; nvfp4_qdq row scope "
+          f"bitwise at [{n_slots}, 1, K] ({len(rg_sites)} sites)", flush=True)
+
     # ---- 4. smoke model: card vs CPU on the same weights ------------------
     scfg = configs.get_smoke("acereason-7b")
     sparams, _ = serve.load_quantized(scfg, SEED, "packed", "cpu")
@@ -1398,6 +1536,7 @@ def main() -> int:
     engine_a = dict(st=st, wall=a_wall, peak=a_peak)
     # the oracle of the TP run (5d): run A's prefill logits of its first
     # requests, on the host
+    a_pre_all = [a_pre[r] for r in a_rids]       # phase 5g's oracle
     a_pre = [a_pre[r].cpu() for r in a_rids[:RUN_TP["requests"]]]
     del eng, eng_off, a_first, off_first
 
@@ -1449,7 +1588,85 @@ def main() -> int:
     if cst["hits"] == 0 or stb["preempts"] or eng_c.preempts:
         fail("engine B: no cache hit, or a preemption the sizing rules out")
     engine_b = dict(st=stb, wall=b_wall)
-    del eng_b, eng_c, params
+    del eng_b, eng_c
+
+    # ---- 5g. chunked prefill: run A's traffic, chunks of 256 ---------------
+    # each chunk's activation amaxes cover the chunk (padding included), so
+    # a request's prefill logits approximate exact prefill's, run A's
+    from repro_torch.models import decoder as mdecoder
+    chunk = RUN_G["chunk"]
+    eng_g = Engine(cfg, params, pqcfg, device=dev, prefill_mode="chunked",
+                   prefill_chunk=chunk, **ENGINE)
+    g_pre = prefill_logits(eng_g)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    g_rids, g_out = serve.run_workload(eng_g, a_prompts, RUN_A["gen"])
+    torch.cuda.synchronize()
+    g_wall = time.perf_counter() - t0
+    g_launches = dict(ops.launches)
+    stg, sta = eng_g.stats(), engine_a["st"]
+    g_chunks = sum(-(-len(p) // chunk) for p in a_prompts)
+    print(f"[engine G] {cfg.name} full size, packed: run A's traffic, chunked "
+          f"prefill ({chunk}-token chunks, {g_chunks} of them, budget "
+          f"{eng_g.prefill_budget}): wall {g_wall:.2f}s, steps {stg['steps']}, "
+          f"decode steps {stg['decode_steps']}; ttft_p50_ms="
+          f"{stg['ttft_p50_s']*1e3:.1f} ttft_p95_ms={stg['ttft_p95_s']*1e3:.1f} "
+          f"(run A, exact prefill: {sta['ttft_p50_s']*1e3:.1f} / "
+          f"{sta['ttft_p95_s']*1e3:.1f}); decode_step_p50_ms="
+          f"{stg['decode_step_p50_s']*1e3:.2f} decode_tok_s="
+          f"{stg['decode_tok_s']:.1f} prefill_s={stg['prefill_s']:.2f} "
+          f"(run A {sta['prefill_s']:.2f})", flush=True)
+    print(f"[engine G] launches {g_launches}", flush=True)
+    if len(g_out) != RUN_A["requests"] or any(
+            len(g_out[r]) != RUN_A["gen"] for r in g_rids):
+        fail(f"engine G: {len(g_out)} of {RUN_A['requests']} requests finished")
+    drained(eng_g, "G")
+    n_fwd = g_chunks + stg["decode_steps"]
+    g_expect = {"nvfp4_qdq": 5 * cfg.n_layers * n_fwd,
+                "nvfp4_matmul": 5 * cfg.n_layers * n_fwd,
+                "paged_attention": cfg.n_layers * stg["decode_steps"]}
+    for k, n_want in g_expect.items():
+        if g_launches[k] != n_want:
+            fail(f"engine G launched {k} {g_launches[k]} times, expected "
+                 f"{n_want} ({g_chunks} chunks + {stg['decode_steps']} decode "
+                 "steps)")
+    g_rel = [float((g_pre[g].float() - a.float()).norm() / a.float().norm())
+             for g, a in zip(g_rids, a_pre_all)]
+    g_agree = float(np.mean([np.mean(g_out[g] == a_out[a])
+                             for g, a in zip(g_rids, a_rids)]))
+    one = [i for i, p in enumerate(a_prompts) if len(p) <= chunk]
+    print(f"[engine G] prefill logits vs run A's exact prefill, rel_l2: max "
+          f"{max(g_rel):.4g} median {float(np.median(g_rel)):.4g} (one-chunk "
+          f"prompts {[len(a_prompts[i]) for i in one]}: "
+          + " ".join(f"{g_rel[i]:.4g}" for i in one)
+          + f"; tolerance {LOGIT_TOL['nvfp4']}); tokens equal to run A's at "
+          f"{g_agree:.3f} of positions (printed, not gated)", flush=True)
+    if max(g_rel) > LOGIT_TOL["nvfp4"]:
+        fail(f"engine G: chunked prefill logits differ from exact prefill's "
+             f"by {max(g_rel)}")
+    # a prompt of exactly one chunk: the chunk's amaxes are the prompt's
+    p1 = torch.randint(4, cfg.vocab_size, (1, chunk), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(SEED + 5))
+    with torch.inference_mode():
+        ex, _ = mdecoder.prefill(cfg, params, {"tokens": p1}, eng_g.sq, None)
+        scratch = common.zeros_from_specs(
+            mdecoder.prefill_scratch_specs(cfg, eng_g.s_alloc), dev)
+        pool1 = mdecoder.init_paged_pool(cfg, eng_g.max_blocks_per_slot,
+                                         ENGINE["block_size"], dev)
+        ch = mdecoder.prefill_chunk_paged(
+            cfg, params, scratch, pool1,
+            torch.arange(eng_g.max_blocks_per_slot, device=dev), 0, chunk,
+            {"tokens": p1}, eng_g.sq)
+    one_rel = float((ch[0, -1].float() - ex[0, -1].float()).norm()
+                    / ex[0, -1].float().norm())
+    one_equal = bool(torch.equal(ch[0, -1], ex[0, -1]))
+    print(f"[engine G] a {chunk}-token prompt in one chunk against exact "
+          f"prefill: logits {'bitwise EQUAL' if one_equal else 'differ'}, "
+          f"rel_l2 {one_rel:.4g} (tolerance {LOGIT_TOL['nvfp4']})", flush=True)
+    if one_rel > LOGIT_TOL["nvfp4"]:
+        fail(f"engine G: a one-chunk prompt's logits differ from exact "
+             f"prefill's by {one_rel}")
+    del eng_g, g_pre, a_pre_all, scratch, pool1, ch, ex, params
     # the engines whose decode the recorders wrap sit in reference cycles
     # (engine -> state -> wrapper -> state): collect them, or their weights
     # stay alive into the next phase's peak-memory reading
@@ -1766,6 +1983,251 @@ def main() -> int:
     engine_tp = dict(st=stt, wall=r0["wall"], trace=tr, rel=tp_rel,
                      agree=tp_agree)
     del ranks, r0
+
+    # ---- 5e. the rglru_hybrid family through the slab engine ---------------
+    from repro_torch.models import rglru
+
+    def rec_sites(c, qc):
+        """Quantized GEMM sites of one forward: (per recurrent layer, per
+        attention layer, recurrent layers, attention layers).  A recurrent
+        layer runs wx, wgate, w_a, w_i, wo and the MLP's three; an
+        attention layer its MLP, and wqkv and wo unless the recipe keeps
+        attention in BF16 (``models/rglru.py``)."""
+        n_sb, n_rec, n_rem = rglru._counts(c)
+        per_rec = 8 if qc.quantizes("recurrent") else 3
+        per_attn = 3 + (2 if qc.quantizes("attn") else 0)
+        return per_rec, per_attn, n_sb * n_rec + n_rem, n_sb
+
+    def trace_slab_step(eng, prompts, label):
+        """Fill every slot, then trace one engine step (a decode step and
+        nothing else) and print it: wall and busy ms, the idle share,
+        device ops and time by kind."""
+        for p in prompts[:eng.n_slots]:
+            eng.submit(p, 8)
+        while eng.sched.waiting or len(eng.sched.running()) < eng.n_slots:
+            eng.step()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.launches)
+        eng.drain()
+        by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
+        busy_ms = sum(by_kernel.values())
+        print(f"[trace] {label} decode step, {eng.n_slots} slots (traced): "
+              f"wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+              f"idle_share={1 - busy_ms / wall_ms:.3f}; device ops: "
+              f"{n_port:.0f} of the port's kernels ({n_qdq:.0f} QDQ for "
+              f"{launches['nvfp4_qdq']} QDQ calls), {n_other:.0f} others",
+              flush=True)
+        print_by_kind(f"{label} decode step", by_kernel)
+        for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
+
+    def slab_drained(eng, what):
+        if eng.state.leaked() or eng.stats()["used_slots"]:
+            fail(f"engine {what}: a state slot was not released")
+
+    # nemotron-nano-9b-sim at full width and depth, packed, the hybrid
+    # recipe; run A's traffic on the slab plan (recurrent + dense_kv)
+    ncfg = configs.get_config(NEMO_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    nparams, nqcfg = serve.load_quantized(ncfg, SEED, "packed", dev)
+    torch.cuda.synchronize()
+    n_load_s = time.perf_counter() - t0
+    n_load_peak = torch.cuda.max_memory_allocated() / 1e9
+    nwr = serve.weight_report(nparams)
+    n_total = sum(math.prod(sp.shape) for sp in
+                  common.tree_leaves(rglru.param_specs(ncfg)))
+    embed_b = nparams["embed"].numel() * nparams["embed"].element_size()
+    attn_b = sum(a.numel() * a.element_size()
+                 for a in common.tree_leaves(nparams["blocks"]["attn"])
+                 if not isinstance(a, nvfp4.PackedNVFP4))
+    head_b = nparams["lm_head"].numel() * nparams["lm_head"].element_size()
+    # a decode step reads every weight once but the embedding (a lookup)
+    n_step_b = nwr["total_bytes"] - embed_b
+    print(f"[engine E] {ncfg.name}: {ncfg.n_layers} layers ({rglru._counts(ncfg)[0]} "
+          f"super-blocks of {ncfg.attn_period - 1} RG-LRU layers and one "
+          f"attention layer), d_model {ncfg.d_model}, {n_total / 1e9:.3f} B params "
+          f"({2 * n_total / 1e9:.2f} GB in bf16); load + PTQ {n_load_s:.1f}s, "
+          f"peak {n_load_peak:.2f} GB ({resident_gb:.2f} resident before); "
+          f"packed {nwr['q_params'] / 1e9:.3f} B params in "
+          f"{nwr['q_bytes'] / 1e9:.3f} GB ({nwr['q_bytes_per_param']:.4f} B/param), "
+          f"BF16 attention {attn_b / 1e9:.3f} GB, lm_head {head_b / 1e9:.3f} GB; "
+          f"decode bound {n_step_b / 1e9:.3f} GB a step at "
+          f"{HBM_BYTES_S / 1e12:.2f} TB/s = {n_step_b / HBM_BYTES_S * 1e3:.2f} ms "
+          "(every weight but the embedding read once; the state slabs "
+          "besides)", flush=True)
+    # run A's lengths, tokens from nemotron's (smaller) vocabulary
+    e_prompts = serve.mixed_prompts(RUN_A["requests"], RUN_A["min_prompt"],
+                                    RUN_A["max_prompt"], ncfg.vocab_size,
+                                    SEED + 2)
+    torch.cuda.reset_peak_memory_stats()
+    eng_e = Engine(ncfg, nparams, nqcfg, device=dev, **ENGINE)
+    e_first = first_decode_logits(eng_e)
+    e_pre = prefill_logits(eng_e)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    e_rids, e_out = serve.run_workload(eng_e, e_prompts, RUN_A["gen"])
+    torch.cuda.synchronize()
+    e_wall = time.perf_counter() - t0
+    e_launches = dict(ops.launches)
+    e_peak = torch.cuda.max_memory_allocated() / 1e9
+    ste = eng_e.stats()
+    print(f"[engine E] {ncfg.name} full size, packed, slab plan "
+          f"{'+'.join(eng_e.state_plan)}: run A's traffic ({RUN_A['requests']} "
+          f"requests, prompts {RUN_A['min_prompt']}..{RUN_A['max_prompt']}, gen "
+          f"{RUN_A['gen']}, {ENGINE['n_slots']} slots, exact prefill): wall "
+          f"{e_wall:.2f}s, steps {ste['steps']}, decode steps "
+          f"{ste['decode_steps']}; state {ste['state_bytes_per_slot'] / 2**20:.2f} "
+          f"MiB a slot ({ste['pool_bytes'] / 1e9:.3f} GB for "
+          f"{ENGINE['n_slots']}, dense KV bound {ste['state_dense_bound']})",
+          flush=True)
+    print(f"[engine E] ttft_p50_ms={ste['ttft_p50_s']*1e3:.1f} "
+          f"ttft_p95_ms={ste['ttft_p95_s']*1e3:.1f} "
+          f"decode_step_p50_ms={ste['decode_step_p50_s']*1e3:.2f} "
+          f"decode_step_p95_ms={ste['decode_step_p95_s']*1e3:.2f} "
+          f"decode_tok_s={ste['decode_tok_s']:.1f} e2e_tok_s={ste['e2e_tok_s']:.1f} "
+          f"prefill_s={ste['prefill_s']:.2f} decode_s={ste['decode_s']:.2f} "
+          f"serving_peak_gb={e_peak:.2f} load_peak_gb={n_load_peak:.2f}",
+          flush=True)
+    print(f"[engine E] launches {e_launches}", flush=True)
+    if len(e_out) != RUN_A["requests"] or any(
+            len(e_out[r]) != RUN_A["gen"] for r in e_rids):
+        fail(f"engine E: {len(e_out)} of {RUN_A['requests']} requests finished")
+    slab_drained(eng_e, "E")
+    per_rec, per_attn, n_rec_l, n_attn_l = rec_sites(ncfg, eng_e.sq)
+    per_fwd = per_rec * n_rec_l + per_attn * n_attn_l
+    e_fwd = RUN_A["requests"] + ste["decode_steps"]
+    for k in ("nvfp4_qdq", "nvfp4_matmul"):
+        if e_launches[k] != per_fwd * e_fwd:
+            fail(f"engine E launched {k} {e_launches[k]} times, expected "
+                 f"{per_fwd} a forward ({per_rec} x {n_rec_l} recurrent + "
+                 f"{per_attn} x {n_attn_l} attention layers) x {e_fwd} "
+                 f"forwards ({RUN_A['requests']} prefills + "
+                 f"{ste['decode_steps']} decode steps)")
+    if e_launches["paged_attention"] or e_launches["nvfp4_matmul_grouped"]:
+        fail(f"engine E launched a paged-plan kernel: {e_launches}")
+    # each request against the port's serve_batch path on its prompt:
+    # prefill at s_max = prompt + gen, then one decode step fed the
+    # engine's first token
+    nsq = specs.serve_qconfig(ncfg)
+    e_rel_p, e_rel_d = [], []
+    with torch.inference_mode():
+        for rid, p in zip(e_rids, e_prompts):
+            toks = torch.from_numpy(p[None].astype("int64")).to(dev)
+            lp, cache = rglru.prefill(ncfg, nparams, {"tokens": toks}, nsq,
+                                      s_max=len(p) + RUN_A["gen"])
+            first = torch.full((1, 1), int(e_out[rid][0]), dtype=torch.int64,
+                               device=dev)
+            ld, _ = rglru.decode_step(ncfg, nparams, cache, {"tokens": first},
+                                      nsq)
+            for got, want, acc in ((e_pre[rid], lp[0, -1], e_rel_p),
+                                   (e_first[rid], ld[0, -1], e_rel_d)):
+                acc.append(float((got.float() - want.float()).norm()
+                                 / want.float().norm()))
+            del cache
+    print(f"[engine E] against serve_batch's prefill and first decode step "
+          f"on each prompt, rel_l2: prefill max {max(e_rel_p):.4g} median "
+          f"{float(np.median(e_rel_p)):.4g}, first decode step max "
+          f"{max(e_rel_d):.4g} median {float(np.median(e_rel_d)):.4g} "
+          f"(tolerance {LOGIT_TOL['nvfp4']})", flush=True)
+    if max(e_rel_p + e_rel_d) > LOGIT_TOL["nvfp4"]:
+        fail(f"engine E: logits differ from serve_batch's by "
+             f"{max(e_rel_p + e_rel_d)}")
+    trace_slab_step(eng_e, e_prompts, "nemotron engine")
+    del eng_e, e_first, e_pre, nparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 5f. recurrentgemma-2b at full size: the window ring wraps ---------
+    rcfg = configs.get_config(RGEMMA["arch"])
+    rparams, rqcfg = serve.load_quantized(rcfg, SEED, "packed", dev)
+    f_prompts = serve.mixed_prompts(RGEMMA["requests"], RGEMMA["min_prompt"],
+                                    RGEMMA["max_prompt"], rcfg.vocab_size,
+                                    SEED + 4)
+    bs = ENGINE["block_size"]
+    f_mb = -(-(RGEMMA["max_prompt"] + RGEMMA["gen"]) // bs)
+    eng_f = Engine(rcfg, rparams, rqcfg, device=dev,
+                   n_slots=RGEMMA["requests"], block_size=bs,
+                   max_blocks_per_slot=f_mb)
+    f_first = first_decode_logits(eng_f)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    f_rids, f_out = serve.run_workload(eng_f, f_prompts, RGEMMA["gen"])
+    torch.cuda.synchronize()
+    f_wall = time.perf_counter() - t0
+    f_launches = dict(ops.launches)
+    stf = eng_f.stats()
+    print(f"[engine F] {rcfg.name} full size ({rcfg.n_layers} layers, window "
+          f"{rcfg.window}), packed, slab plan {'+'.join(eng_f.state_plan)}: "
+          f"{RGEMMA['requests']} requests of prompts "
+          f"{[len(p) for p in f_prompts]}, gen {RGEMMA['gen']}: wall "
+          f"{f_wall:.2f}s, ttft_p50_ms={stf['ttft_p50_s']*1e3:.1f} "
+          f"decode_step_p50_ms={stf['decode_step_p50_s']*1e3:.2f} "
+          f"decode_tok_s={stf['decode_tok_s']:.1f}; state "
+          f"{stf['state_bytes_per_slot'] / 2**20:.2f} MiB a slot; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{f_launches}", flush=True)
+    if len(f_out) != RGEMMA["requests"] or any(
+            len(f_out[r]) != RGEMMA["gen"] for r in f_rids):
+        fail(f"engine F: {len(f_out)} of {RGEMMA['requests']} requests finished")
+    slab_drained(eng_f, "F")
+    # the same requests one slot at a time: every GEMM then sees the rows
+    # serve_batch's do (M = 1 at decode), so the greedy streams must be
+    # equal token for token; with 4 slots the BF16 GEMMs (attention and
+    # the tied lm_head, which the hybrid recipe keeps in BF16) run cuBLAS
+    # at M = 4, whose summation order differs from M = 1's, and NVFP4
+    # rounding amplifies those last bits: first tokens and the first
+    # decode step's logits are gated there, the streams printed
+    eng_1 = Engine(rcfg, rparams, rqcfg, device=dev, n_slots=1, block_size=bs,
+                   max_blocks_per_slot=f_mb)
+    one_rids, one_out = serve.run_workload(eng_1, f_prompts, RGEMMA["gen"])
+    slab_drained(eng_1, "F, one slot")
+    nsq = specs.serve_qconfig(rcfg)
+    f_agree, f_rel = [], []
+    for rid, orid, p in zip(f_rids, one_rids, f_prompts):
+        toks = torch.from_numpy(p[None].astype("int64")).to(dev)
+        want, _ = serve.serve_batch(rcfg, rparams, toks, RGEMMA["gen"])
+        want = want[0].cpu().numpy()
+        if not np.array_equal(want, one_out[orid]):
+            fail(f"engine F at one slot: request {orid} {one_out[orid][:12].tolist()} "
+                 f"against serve_batch's {want[:12].tolist()}")
+        f_agree.append(float(np.mean(want == f_out[rid])))
+        if want[0] != f_out[rid][0]:
+            fail(f"engine F: request {rid}'s first token differs from "
+                 "serve_batch's")
+        with torch.inference_mode():
+            _, cache = rglru.prefill(rcfg, rparams, {"tokens": toks}, nsq,
+                                     s_max=len(p) + RGEMMA["gen"])
+            ld, _ = rglru.decode_step(rcfg, rparams, cache, {"tokens": torch.full(
+                (1, 1), int(want[0]), dtype=torch.int64, device=dev)}, nsq)
+        f_rel.append(float((f_first[rid].float() - ld[0, -1].float()).norm()
+                           / ld[0, -1].float().norm()))
+        del cache
+    print(f"[engine F] one slot at a time: greedy tokens equal to single-"
+          f"request serve_batch on {len(one_rids)}/{len(one_rids)} requests "
+          f"(the ring wrapped in prefill and decode); {RGEMMA['requests']} "
+          f"slots: first tokens equal, first decode step's logits rel_l2 "
+          + " ".join(f"{x:.4g}" for x in f_rel)
+          + f" (tolerance {LOGIT_TOL['nvfp4']}), tokens equal at "
+          f"{float(np.mean(f_agree)):.3f} of positions (printed, not gated)",
+          flush=True)
+    if max(f_rel) > LOGIT_TOL["nvfp4"]:
+        fail(f"engine F: first decode step logits differ from serve_batch's "
+             f"by {max(f_rel)}")
+    del eng_f, eng_1, f_first, rparams
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 7. timings, after the serving paths (the profiler's hooks stay out
     # of the host-bound decode loop) and before the training paths, which
@@ -2232,12 +2694,90 @@ def main() -> int:
     del cparams, cbatches
     gc.collect()
     torch.cuda.empty_cache()
+    # ---- 6e. QAD on nemotron-nano-9b-sim: full width, one super-block ----
+    # through train.train with the config cut in depth here: 56 layers'
+    # training state (18.4 B parameters) does not fit one card
+    nfull = configs.get_config(NEMO_ARCH)
+    ncut = dataclasses.replace(nfull, n_layers=NEMO_TRAIN["layers"],
+                               attn_period=NEMO_TRAIN["layers"])
+    get_config = configs.get_config
+    configs.get_config = lambda name: ncut if name == NEMO_ARCH else get_config(name)
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        state, hist = train.train(NEMO_ARCH, smoke=False,
+                                  steps=NEMO_TRAIN["steps"], lr=TRAIN["lr"],
+                                  method="qad", batch=NEMO_TRAIN["batch"],
+                                  seq=NEMO_TRAIN["seq"], eval_every=1,
+                                  seed=SEED, device=dev,
+                                  log=lambda msg: print(msg, flush=True))
+    finally:
+        configs.get_config = get_config
+    torch.cuda.synchronize()
+    t_nemo = time.perf_counter() - t0
+    nemo_launches = dict(ops.launches)
+    nemo_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_specs = rglru.param_specs(ncut)
+    n_all = sum(math.prod(sp.shape) for sp in common.tree_leaves(n_specs))
+    # the bound counts every parameter but the input embedding (a lookup)
+    n_eff = n_all - math.prod(n_specs["embed"].shape)
+    n_tokens = NEMO_TRAIN["batch"] * NEMO_TRAIN["seq"]
+    n_bound_ms = 10 * n_eff * n_tokens / BF16_FLOPS * 1e3
+    per_rec, per_attn, n_rec_l, n_attn_l = rec_sites(ncut,
+                                                     specs.recipe_qconfig(ncut))
+    # a training forward fake-quantizes each site's activation and weight;
+    # under remat "full" the student's forward runs twice a step
+    n_per_fwd = 2 * (per_rec * n_rec_l + per_attn * n_attn_l)
+    nemo_evals = 2 * NEMO_TRAIN["steps"]
+    n_expect = {"nvfp4_qdq": n_per_fwd * ((1 if ncut.remat == "none" else 2)
+                                          * NEMO_TRAIN["steps"] + nemo_evals),
+                "kl_loss": NEMO_TRAIN["steps"] + nemo_evals,
+                "kl_loss_bwd": NEMO_TRAIN["steps"], "nvfp4_matmul": 0,
+                "paged_attention": 0}
+    n_steps_ms = [h["step_s"] * 1e3 for h in hist]
+    print(f"[train-nemo] {NEMO_ARCH} at full width (d_model {ncut.d_model}, "
+          f"d_ff {ncut.d_ff}, vocab {ncut.vocab_size}), cut to n_layers="
+          f"{ncut.n_layers}, attn_period={ncut.attn_period}: {n_rec_l} RG-LRU "
+          f"layers and {n_attn_l} attention layer of its {nfull.n_layers} "
+          f"({n_all / 1e9:.3f} B params), remat={ncut.remat}, "
+          f"{NEMO_TRAIN['steps']} steps of {NEMO_TRAIN['batch']} x "
+          f"{NEMO_TRAIN['seq']} in {t_nemo:.1f}s; step_ms "
+          + " ".join(f"{x:.1f}" for x in n_steps_ms)
+          + f"; bound {n_bound_ms:.1f} ms (10 N T, N {n_eff / 1e9:.3f} B: the "
+          f"parameters less the input embedding); peak_mem_gb={nemo_peak:.2f} "
+          f"({resident_gb:.2f} resident before the run)", flush=True)
+    print("[train-nemo] per-step eval KL " + " ".join(f"{h['kl']:.6g}" for h in hist)
+          + " | CE " + " ".join(f"{h['ce']:.5g}" for h in hist)
+          + " | train loss " + " ".join(f"{h['loss']:.6g}" for h in hist),
+          flush=True)
+    print(f"[train-nemo] launches {nemo_launches} (expected {n_expect})",
+          flush=True)
+    for k, n_want in n_expect.items():
+        if nemo_launches[k] != n_want:
+            fail(f"nemotron QAD launched {k} {nemo_launches[k]} times, "
+                 f"expected {n_want}")
+    for h in hist:
+        if not all(math.isfinite(h[k]) for k in ("kl", "ce", "loss")):
+            fail(f"non-finite nemotron QAD metrics {h}")
+    changed = sum(int((a != b).sum()) for a, b in zip(
+        common.tree_leaves(state.student), common.tree_leaves(state.teacher)))
+    print(f"[train-nemo] student elements changed: {changed} of {n_all}",
+          flush=True)
+    if changed == 0:
+        fail("nemotron QAD: the student's parameters did not change")
+    del state, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # every training path's launches, for the kernels line
     train_paths = {"qad_olmo": train_launches, "remat_steps": remat_launches,
                    "qad_moe": moe_launches, "data_free": df_launches,
                    "numerics_on": run_on["launches"],
                    "numerics_off": run_off["launches"],
-                   "numerics_control": run_off2["launches"]}
+                   "numerics_control": run_off2["launches"],
+                   "qad_nemotron": nemo_launches}
     train_total = {k: sum(p.get(k, 0) for p in train_paths.values())
                    for k in ops.launches}
 
@@ -2250,7 +2790,10 @@ def main() -> int:
         by_path = {"serve": serve_launches[name], "train": train_total[name],
                    "engine_a": a_launches[name], "engine_b": b_launches[name],
                    "engine_m": m_launches[name], "engine_mb": mb_launches[name],
-                   "engine_tp_rank0": tp_launches[0][name]}
+                   "engine_tp_rank0": tp_launches[0][name],
+                   "engine_g_chunked": g_launches[name],
+                   "engine_e_nemotron": e_launches[name],
+                   "engine_f_rgemma": f_launches[name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "max_abs_err": err[name],
@@ -2276,7 +2819,10 @@ def main() -> int:
                    "engine_b": b_launches["nvfp4_qdq"],
                    "engine_m": m_launches["nvfp4_qdq"],
                    "engine_mb": mb_launches["nvfp4_qdq"],
-                   "engine_tp_rank0": tp_launches[0]["nvfp4_qdq"]}
+                   "engine_tp_rank0": tp_launches[0]["nvfp4_qdq"],
+                   "engine_g_chunked": g_launches["nvfp4_qdq"],
+                   "engine_e_nemotron": e_launches["nvfp4_qdq"],
+                   "engine_f_rgemma": f_launches["nvfp4_qdq"]}
         return {"name": "nvfp4_qdq", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/nvfp4_qdq.cu",
                 "replaces": "src/repro/kernels/nvfp4_qdq.py:44",
@@ -2313,7 +2859,8 @@ def main() -> int:
                 "per": f"one launch at T={tr['m']} V={tr['k']} bf16",
                 **{site: {k: at[site][k] for k in
                           ("m", "k", "ms", "plain_ms", "bound_ms")}
-                   for site in ("acereason_row", "moe_train", "data_free")},
+                   for site in ("acereason_row", "moe_train", "data_free",
+                                "nemo_train")},
                 "launches_by_path": {"serve": 0, "train": train_total[name],
                                      "train_parts": {p: n[name] for p, n in
                                                      train_paths.items()}}}
@@ -2323,6 +2870,7 @@ def main() -> int:
         dec = at["decode"]
         by_path = {"engine_a": a_launches["paged_attention"],
                    "engine_b": b_launches["paged_attention"],
+                   "engine_g_chunked": g_launches["paged_attention"],
                    "engine_m": m_launches["paged_attention"],
                    "engine_mb": mb_launches["paged_attention"]}
         return {"name": "paged_attention", "route": "cuda",

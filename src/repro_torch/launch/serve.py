@@ -20,7 +20,11 @@ the kernels, at smoke size.
 mixed prompt lengths (``--min-prompt``..``--max-prompt``) arrive
 staggered, half up front and one after each engine step, and are
 scheduled into ``--slots`` decode slots over a paged KV pool
-(``--block-size``, ``--n-blocks``).  Each request's greedy output is
+(``--block-size``, ``--n-blocks``), or for the ``rglru_hybrid`` family
+(``--arch nemotron-nano-9b-sim``, ``recurrentgemma-2b``) over per-slot
+state slabs.  ``--prefill-mode chunked`` prefills paged-plan prompts in
+chunks of ``--prefill-chunk`` tokens (approximate: its parity check is
+off unless ``--parity`` asks for it).  Each request's greedy output is
 checked against a single-request ``serve_batch`` (exact prefill): token for
 token on the CPU, the first token on the card (see ``run_engine``).  With
 ``--prefix-cache on`` the whole workload again with the cache off must give
@@ -177,6 +181,7 @@ def build_engine(cfg, params, qcfg, args, mesh=None):
     eng = Engine(cfg, params, qcfg, n_slots=args.slots, block_size=bs,
                  n_blocks=n_blocks, max_blocks_per_slot=mb,
                  prefill_mode=args.prefill_mode,
+                 prefill_chunk=args.prefill_chunk,
                  fused_kernels=args.fused_kernels, prefix_cache=prefix_cache,
                  kv_alloc=kv_alloc, headroom=args.headroom,
                  device=params_device(params), mesh=mesh)
@@ -264,7 +269,10 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
     leaked = eng.state.leaked()
     if leaked:
         ok = False
-        say(f"[engine] FAIL: {eng.pool.active_blocks} pool blocks leaked")
+        say("[engine] FAIL: " + (f"{eng.pool.active_blocks} pool blocks"
+                                  if eng.pool is not None else
+                                  f"{st['used_slots']} state slots")
+            + " leaked")
 
     # On the CPU the engine's paged attention and serve_batch's dense cache
     # attention are bitwise equal, so every token must agree.  On the card
@@ -319,10 +327,13 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
             say("[engine] FAIL: cache-off baseline leaked pool blocks")
         ok = ok and cache_parity
 
+    pool_desc = (f"pool={n_blocks}x{args.block_size}" if eng.pool is not None
+                 else f"state-slabs={st['state_bytes_per_slot']}B/slot")
     say(f"[engine] arch={cfg.name} device={eng.device} "
+        f"state-plan={'+'.join(eng.state_plan)} "
         f"requests={args.requests} "
         f"prompts={args.min_prompt}..{args.max_prompt} gen={args.gen} "
-        f"slots={args.slots} pool={n_blocks}x{args.block_size} "
+        f"slots={args.slots} {pool_desc} "
         f"prefill={args.prefill_mode} kv-alloc={args.kv_alloc} "
         f"fused-kernels={'on' if st['fused_kernels'] else 'off'}"
         + (f" moe-dispatch={st['moe_dispatch']}/{st['packed_backend']}"
@@ -336,7 +347,7 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
         f"tok_lat_p50={_ms(st['decode_lat_p50_s'])} "
         f"tok_lat_p95={_ms(st['decode_lat_p95_s'])} "
         f"parity={'AGREE' if parity else ('skipped' if parity is None else 'DISAGREE')} "
-        f"pool-drained={not leaked}")
+        f"{'pool' if eng.pool is not None else 'state'}-drained={not leaked}")
     cache_st = None
     if args.prefix_cache == "on":
         cache_st = st.get("prefix_cache") or {}
@@ -379,12 +390,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--n-blocks", type=int, default=0,
                     help="pool blocks (0 = slots * blocks-per-request)")
-    ap.add_argument("--prefill-mode", choices=("exact", "paged"),
+    ap.add_argument("--prefill-mode", choices=("exact", "chunked", "paged"),
                     default="exact",
                     help="exact = whole-prompt prefill (token parity with "
-                    "serve_batch); paged = block-granular prefill through "
-                    "the pool, whose blocks depend only on their token "
-                    "prefix (what prefix caching and preemption need)")
+                    "serve_batch); chunked = fixed-size chunks of "
+                    "--prefill-chunk tokens (approximate: chunk-granular "
+                    "activation amaxes); paged = block-granular prefill "
+                    "through the pool, whose blocks depend only on their "
+                    "token prefix (what prefix caching and preemption need)")
+    ap.add_argument("--prefill-chunk", type=int, default=8,
+                    help="chunk size of --prefill-mode chunked")
     ap.add_argument("--prefix-cache", choices=("on", "off"), default="off",
                     help="content-hashed prefix cache over the pool; forces "
                     "--prefill-mode paged and (unless --kv-alloc says "

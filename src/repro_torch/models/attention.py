@@ -9,9 +9,12 @@ operands are cast to f32 (a bf16 x bf16 product is exact in f32).
 
 The cache is a dict of tensors ``{"k", "v"}`` [L, B, S_max, Hkv, hd] and
 is updated IN PLACE by ``cache_update_layer`` (the reference returns a new
-array).  FP8 caches are part of the FP8 KV slice of the port.  The paged
-pool is updated in place too; its FP8 pages can be read (the K7 kernel and
-its plain version dequantize them) but not yet written.
+array); a sliding-window cache is a ring of ``window`` positions, slot
+``p % window`` holding position ``p``.  The slab engine's per-row write,
+``cache_update_slots``, makes new tensors instead: a slab tree may be held
+as a snapshot.  FP8 caches are part of the FP8 KV slice of the port.  The
+paged pool is updated in place too; its FP8 pages can be read (the K7
+kernel and its plain version dequantize them) but not yet written.
 """
 from __future__ import annotations
 
@@ -44,13 +47,18 @@ def _scale(hd: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
-def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
-                        kv_chunk: int = 1024) -> torch.Tensor:
+def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
+                        q_chunk: int = 1024, kv_chunk: int = 1024,
+                        q_offset: int = 0,
+                        kv_valid: int | None = None) -> torch.Tensor:
     """q: [B,Sq,H,hd], k/v: [B,Sk,Hkv,hd] -> [B,Sq,H,hd].
 
     Online softmax over kv chunks, per q chunk; padded keys are masked.
-    (The reference's ``window``, ``q_offset`` and ``kv_valid`` serve the
-    engine and sliding-window slices of the port.)
+    ``q_offset`` is the absolute position of q[0] (a chunk of a longer
+    prompt), ``window`` > 0 masks keys ``window`` or more positions older
+    than the query, ``kv_valid`` masks keys at positions >= it (k and v
+    may be a right-padded allocation).  A fully masked kv chunk adds
+    exactly nothing: its probabilities are 0.0 and the max unchanged.
     """
     b, sq0, h, hd = q.shape
     sk0, hkv = k.shape[1], k.shape[2]
@@ -68,8 +76,9 @@ def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
 
     qh = q.transpose(1, 2)                       # [B,H,Sq,hd]
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
-    q_pos = torch.arange(sq, device=dev)
+    q_pos = torch.arange(sq, device=dev) + q_offset
     k_pos = torch.arange(sk, device=dev)
+    n_keys = sk0 if kv_valid is None else kv_valid
     outs = []
     for q0 in range(0, sq, q_chunk):
         qi = qh[:, :, q0:q0 + q_chunk].to(torch.float32)
@@ -82,9 +91,11 @@ def blockwise_attention(q, k, v, *, causal: bool, q_chunk: int = 1024,
             vi = vh[:, :, k0:k0 + kv_chunk].to(torch.float32)
             kpos = k_pos[k0:k0 + kv_chunk]
             s = (qi @ ki.transpose(-1, -2)) * scale
-            mask = (kpos[None, :] < sk0).expand(q_chunk, kv_chunk)
+            mask = (kpos[None, :] < n_keys).expand(q_chunk, kv_chunk)
             if causal:
                 mask = mask & (qpos[:, None] >= kpos[None, :])
+            if window:
+                mask = mask & (qpos[:, None] - kpos[None, :] < window)
             s = torch.where(mask, s, NEG_INF)
             m2 = torch.maximum(m, torch.amax(s, -1))
             p = torch.exp(s - m2[..., None])
@@ -115,6 +126,44 @@ def cache_update_layer(layer_cache: dict, k_new, v_new, pos: int) -> dict:
     return layer_cache
 
 
+def ring_align(a: torch.Tensor, window: int) -> torch.Tensor:
+    """The last ``window`` positions of a [B, S, ...] prompt KV with
+    S > window, laid out as the ring keeps them: slot ``p % window``
+    holds position ``p``."""
+    s = a.shape[1]
+    return torch.roll(a[:, s - window:], s % window, 1)
+
+
+def cache_prefill_layer(layer_cache: dict, k_new, v_new, window: int = 0) -> dict:
+    """Write a prompt's kv [B, S, Hkv, hd] into one layer's cache slice,
+    IN PLACE, from slot 0; a windowed layer whose prompt outruns its ring
+    keeps the last ``window`` positions, ring-aligned."""
+    if window and k_new.shape[1] > window:
+        k_new, v_new = ring_align(k_new, window), ring_align(v_new, window)
+    return cache_update_layer(layer_cache, k_new, v_new, 0)
+
+
+def cache_update_slots(layer_cache: dict, k_new, v_new, positions,
+                       active) -> dict:
+    """Per-row decode write into a dense [B, S_alloc, Hkv, hd] cache layer:
+    row b's k_new/v_new [B, 1, Hkv, hd] at slot ``positions[b]`` (ring
+    callers pass ``pos % S_alloc``); inactive rows keep their values.
+    Returns a new dict of NEW tensors (an exact select, as the reference's
+    out-of-place scatter): the given cache is not written."""
+    if layer_cache.get("k_scale") is not None:
+        raise NotImplementedError("FP8 KV caches are part of the FP8 KV "
+                                  "slice of the port")
+    s_alloc = layer_cache["k"].shape[1]
+    slot = torch.arange(s_alloc, device=positions.device)
+    hit = (slot[None, :] == positions[:, None]) & active[:, None]
+    hit = hit[:, :, None, None]                           # [B, S_alloc, 1, 1]
+    out = dict(layer_cache)
+    for name, new in (("k", k_new), ("v", v_new)):
+        old = layer_cache[name]
+        out[name] = torch.where(hit, new.to(old.dtype), old)
+    return out
+
+
 def cache_read_layer(layer_cache: dict, dtype=torch.bfloat16):
     if layer_cache.get("k_scale") is not None:
         raise NotImplementedError("FP8 KV caches are part of the FP8 KV "
@@ -122,12 +171,15 @@ def cache_read_layer(layer_cache: dict, dtype=torch.bfloat16):
     return layer_cache["k"].to(dtype), layer_cache["v"].to(dtype)
 
 
-def decode_attend(q, layer_cache: dict, pos) -> torch.Tensor:
+def decode_attend(q, layer_cache: dict, pos, *, window: int = 0) -> torch.Tensor:
     """One-token decode: q [B,1,H,hd] against cache [B,S_max,Hkv,hd].
 
     ``pos``: number of valid cache positions (the new token's kv already
-    written), an int for every row or a [B] tensor, one per row.  (The
-    reference's sliding-window ring comes with the slab-family slice.)
+    written), an int for every row or a [B] tensor, one per row.  A
+    windowed cache is a ring: slot i holds the most recent position
+    p(i) = i + S_max * floor((pos - 1 - i) / S_max), valid when
+    pos - window <= p(i) < pos.  The mask is integer arithmetic, so the
+    per-row form equals the scalar form row by row.
     """
     k, v = cache_read_layer(layer_cache, q.dtype)
     b, s_max, hkv, hd = k.shape
@@ -138,7 +190,14 @@ def decode_attend(q, layer_cache: dict, pos) -> torch.Tensor:
                      k.to(torch.float32)) * _scale(hd)
     slot = torch.arange(s_max, device=dev)[None, :]        # [1, S_max]
     rpos = pos[:, None] if torch.is_tensor(pos) else pos    # [B, 1] or int
-    valid = slot < rpos
+    if window:
+        newest = rpos - 1
+        abs_pos = slot + s_max * torch.div(newest - slot, s_max,
+                                           rounding_mode="floor")
+        valid = ((abs_pos >= 0) & (abs_pos >= rpos - window)
+                 & (abs_pos <= newest))
+    else:
+        valid = slot < rpos
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, -1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).to(torch.float32),

@@ -26,7 +26,7 @@ class ParamSpec:
     shape: tuple
     axes: tuple                 # logical axis names, len == len(shape)
     dtype: torch.dtype = torch.bfloat16
-    init: str = "normal"        # normal | zeros | ones | embed
+    init: str = "normal"        # normal | zeros | ones | embed | lru_lambda
     scale: float = 1.0          # multiplier on the default init std
     kind: str = ""              # quant kind ("mlp"|"attn"|...) if a GEMM weight
     contract_axis: int = 0      # which axis is the GEMM contraction dim
@@ -58,6 +58,13 @@ def _init_one(spec: ParamSpec, gen: torch.Generator,
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "lru_lambda":
+        # RG-LRU: softplus^-1 of -log(u) / 8 for u ~ U(0.9, 0.999), so the
+        # decay a = exp(-8 softplus(lam) r) starts at 0.9-0.999
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32,
+                       device=device) * (0.999 - 0.9) + 0.9
+        lam = torch.log(torch.exp(-torch.log(u) / 8.0) - 1.0)
+        return lam.to(spec.dtype)
     fan_in = spec.shape[spec.contract_axis] if len(spec.shape) else 1
     std = spec.scale * (0.02 if spec.init == "embed"
                         else 1.0 / np.sqrt(max(fan_in, 1)))
@@ -97,6 +104,38 @@ def stack_specs(spec_tree, n: int, axis_name: str = "layers"):
             s, shape=(n, *s.shape), axes=(axis_name, *s.axes),
             contract_axis=s.contract_axis + 1 if s.kind else s.contract_axis)
     return tree_map(one, spec_tree)
+
+
+def zeros_from_specs(specs, device) -> Any:
+    """A zero tensor for every spec of a tree, on ``device``."""
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=device), specs)
+
+
+def spec_bytes(specs) -> int:
+    """Bytes of a spec tree, priced without allocating it."""
+    return sum(int(np.prod(s.shape)) * torch.empty((), dtype=s.dtype)
+               .element_size() for s in tree_leaves(specs))
+
+
+def stack_trees(trees: list):
+    """Stack a list of same-structured trees leaf by leaf along a new
+    leading axis (what a scan's ``ys`` are)."""
+    return tree_map(lambda *a: torch.stack(a), trees[0], *trees[1:])
+
+
+def merge_slot_state(specs, old, new, active: torch.Tensor):
+    """Keep inactive slots' state bit for bit across a batched decode step.
+
+    ``specs`` names each leaf's "batch" axis; ``active`` [n_slots] selects
+    per slot between the new leaf and the old one.  The select is exact
+    (no arithmetic) and makes new tensors: ``old`` is never written, so a
+    tree held elsewhere (a snapshot) stays as it was."""
+    def one(spec, o, n):
+        ax = spec.axes.index("batch")
+        act = active.reshape((1,) * ax + (-1,) + (1,) * (n.ndim - ax - 1))
+        return torch.where(act, n.to(o.dtype), o)
+    return tree_map(one, specs, old, new)
 
 
 def weight_stats(params) -> dict:

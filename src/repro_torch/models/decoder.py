@@ -12,7 +12,9 @@ The same functional protocol and parameter tree as the reference:
     decode_step_paged / verify_step_paged  -> (logits, pool)
 
 ``decode_step`` and ``prefill`` write the KV cache IN PLACE; the cache's
-``pos`` is a Python int.
+``pos`` is a Python int.  A sliding-window layer (``cfg.window``, the
+local attention of the ``rglru_hybrid`` family) keeps a ring of
+``window`` positions.
 
 Under a tensor-parallel context (``distributed.ctx``) ``params`` holds
 this rank's tiles: attention takes its head counts from the local QKV
@@ -23,9 +25,10 @@ nonzero term), and ``_lm_head`` all-gathers the local logits to the full
 vocabulary on every rank.  The paged forwards of the engine write the pool
 in place too.  A MoE layer (``n_experts``) runs ``layers.moe_ffn`` with
 a shared expert behind a sigmoid gate (Qwen1.5-MoE) or a dense residual
-FFN (Arctic).  M-RoPE, sliding windows and FP8 KV (the ``moe_hybrid``
-recipe) raise ``NotImplementedError``: they come with later slices of the
-port.
+FFN (Arctic).  The slab engine's per-row decode (``_block_slots``) and
+the paged engine's chunked prefill (``prefill_chunk_paged``) are here
+too.  M-RoPE and FP8 KV (the ``moe_hybrid`` recipe) raise
+``NotImplementedError``: they come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -43,9 +46,6 @@ def _supported(cfg) -> None:
     if cfg.mrope_sections:
         raise NotImplementedError(f"{cfg.name}: M-RoPE is part of the "
                                   "slab-family slice of the port")
-    if cfg.window:
-        raise NotImplementedError(f"{cfg.name}: sliding-window caches are "
-                                  "part of the slab-family slice of the port")
     if _kv_fp8(cfg):
         raise NotImplementedError(f"{cfg.name}: FP8 KV (the moe_hybrid "
                                   "recipe) is part of the FP8 KV slice of "
@@ -150,8 +150,9 @@ def _local_heads(cfg, p) -> tuple[int, int]:
     return cfg.n_heads // shards, cfg.n_kv_heads // shards
 
 
-def _attention(qcfg, cfg, p, h, pos, mode, cache_sl, pos_idx):
-    b, s, _ = h.shape
+def _qkv(qcfg, cfg, p, h, pos):
+    """The layer's q, k, v [B, S, heads, hd] (this rank's heads), q and k
+    rotated to positions ``pos``."""
     hd = cfg.head_dim
     nh, nkv = _local_heads(cfg, p)
     qkv = layers.qdense(qcfg, "attn", h, p["wqkv"], p.get("bqkv"),
@@ -159,17 +160,29 @@ def _attention(qcfg, cfg, p, h, pos, mode, cache_sl, pos_idx):
     q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
     q = layers.apply_rope(attn.split_heads(q, nh, hd), pos, cfg.rope_theta)
     k = layers.apply_rope(attn.split_heads(k, nkv, hd), pos, cfg.rope_theta)
-    v = attn.split_heads(v, nkv, hd)
+    return q, k, attn.split_heads(v, nkv, hd)
 
-    if mode == "decode":
-        attn.cache_update_layer(cache_sl, k, v, pos_idx)
-        out = attn.decode_attend(q, cache_sl, pos_idx + 1)
-    else:
-        out = attn.blockwise_attention(q, k, v, causal=True)
-        if mode == "prefill":
-            attn.cache_update_layer(cache_sl, k, v, 0)
-    return layers.qdense(qcfg, "attn", out.reshape(b, s, nh * hd), p["wo"],
+
+def _out_proj(qcfg, p, out):
+    """The attention output [B, S, heads, hd] through ``wo``."""
+    b, s = out.shape[:2]
+    return layers.qdense(qcfg, "attn", out.reshape(b, s, -1), p["wo"],
                          parallelism="row")
+
+
+def _attention(qcfg, cfg, p, h, pos, mode, cache_sl, pos_idx):
+    q, k, v = _qkv(qcfg, cfg, p, h, pos)
+    if mode == "decode":
+        s_max = cache_sl["k"].shape[1]
+        write_at = pos_idx % s_max if cfg.window else pos_idx
+        attn.cache_update_layer(cache_sl, k, v, write_at)
+        out = attn.decode_attend(q, cache_sl, pos_idx + 1, window=cfg.window)
+    else:
+        out = attn.blockwise_attention(q, k, v, causal=True,
+                                       window=cfg.window)
+        if mode == "prefill":
+            attn.cache_prefill_layer(cache_sl, k, v, cfg.window)
+    return _out_proj(qcfg, p, out)
 
 
 def _ffn(qcfg, cfg, p, h):
@@ -196,6 +209,31 @@ def _block(qcfg, cfg, p, x, pos, mode, cache_sl, pos_idx):
     x = x + _attention(qcfg, cfg, p, h, pos, mode, cache_sl, pos_idx)
     h = run_norm(cfg, p["ln2"], x)
     return x + _ffn(qcfg, cfg, p, h)[0]
+
+
+def _attention_slots(qcfg, cfg, p, h, lens, active, cache_sl):
+    """Per-row decode attention against a dense [B, S_alloc, ...] cache
+    layer for the slab engine: ``lens`` [B] is each row's cached-token
+    count (this token's position), ``active`` [B] masks rows with no
+    work.  Per-row RoPE, ring writes at ``lens % S_alloc`` for a windowed
+    layer and per-row validity: an active row computes what a batch-1
+    ``decode_step`` computes.  Returns (out, new cache layer: new tensors)."""
+    q, k, v = _qkv(qcfg, cfg, p, h, lens[:, None])
+    s_max = cache_sl["k"].shape[1]
+    write_at = lens % s_max if cfg.window else lens
+    new_cache = attn.cache_update_slots(cache_sl, k, v, write_at, active)
+    out = attn.decode_attend(q, new_cache, lens + 1, window=cfg.window)
+    return _out_proj(qcfg, p, out), new_cache
+
+
+def _block_slots(qcfg, cfg, p, x, lens, active, cache_sl):
+    """A transformer layer of the slab decode step (per-row positions):
+    (x, new cache layer)."""
+    h = run_norm(cfg, p["ln1"], x)
+    a, new_cache = _attention_slots(qcfg, cfg, p, h, lens, active, cache_sl)
+    x = x + a
+    h = run_norm(cfg, p["ln2"], x)
+    return x + _ffn(qcfg, cfg, p, h)[0], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -266,10 +304,12 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
 
 
 def cache_specs(cfg, batch_size, s_max, n_shards: int = 1):
-    """Specs of the dense cache; ``n_shards`` ranks split the KV heads."""
+    """Specs of the dense cache (a windowed one holds at most ``window``
+    positions); ``n_shards`` ranks split the KV heads."""
     _supported(cfg)
     P = common.ParamSpec
-    shape = (cfg.n_layers, batch_size, s_max, cfg.n_kv_heads // n_shards,
+    s_alloc = min(s_max, cfg.window) if cfg.window else s_max
+    shape = (cfg.n_layers, batch_size, s_alloc, cfg.n_kv_heads // n_shards,
              cfg.head_dim)
     axes = ("layers", "batch", "seq", "kv", "headdim")
     return {"k": P(shape, axes, init="zeros"), "v": P(shape, axes, init="zeros")}
@@ -277,8 +317,9 @@ def cache_specs(cfg, batch_size, s_max, n_shards: int = 1):
 
 def init_cache(cfg, batch_size, s_max, device="cuda",
                n_shards: int = 1) -> dict:
-    """Zero cache {"k", "v"} [L, B, s_max, Hkv, hd] bf16 and ``pos`` 0
-    (Hkv / ``n_shards`` KV heads on each of ``n_shards`` ranks)."""
+    """Zero cache {"k", "v"} [L, B, s_alloc, Hkv, hd] bf16 and ``pos`` 0
+    (Hkv / ``n_shards`` KV heads on each of ``n_shards`` ranks; s_alloc
+    is ``s_max``, or at most ``window`` for a windowed config)."""
     cache = {name: torch.zeros(spec.shape, dtype=spec.dtype, device=device)
              for name, spec in cache_specs(cfg, batch_size, s_max,
                                            n_shards).items()}
@@ -318,7 +359,8 @@ def decode_step(cfg, params, cache, batch, qcfg: QuantConfig):
 
 def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
     """Prompt pass: (last-token logits [B,1,V], cache holding the prompt's
-    kv in an allocation of ``s_max`` positions)."""
+    kv in an allocation of ``s_max`` positions; a windowed config keeps
+    at most ``window``, ring-aligned)."""
     _supported(cfg)
     x = embed_tokens(cfg, params, batch["tokens"])
     b, s = batch["tokens"].shape
@@ -407,20 +449,11 @@ def _attention_paged(qcfg, cfg, p, h, pos, psl, block_tables, positions,
     the attend through the ``paged_attention`` kernel (K7); the two-step
     stays as its oracle.
     """
-    b, s, _ = h.shape
-    hd = cfg.head_dim
-    nh, nkv = _local_heads(cfg, p)
-    qkv = layers.qdense(qcfg, "attn", h, p["wqkv"], p.get("bqkv"),
-                        parallelism="column")
-    q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
-    q = layers.apply_rope(attn.split_heads(q, nh, hd), pos, cfg.rope_theta)
-    k = layers.apply_rope(attn.split_heads(k, nkv, hd), pos, cfg.rope_theta)
-    v = attn.split_heads(v, nkv, hd)
+    q, k, v = _qkv(qcfg, cfg, p, h, pos)
     attn.paged_scatter(psl, k, v, plan)
     attend = attn.paged_attend_fused if fused else attn.paged_attend
     out = attend(q, psl, block_tables, positions + 1, window=cfg.window)
-    return layers.qdense(qcfg, "attn", out.reshape(b, s, nh * hd), p["wo"],
-                         parallelism="row")
+    return _out_proj(qcfg, p, out)
 
 
 def _paged_forward(cfg, params, pool, block_tables, positions, tok_active,
@@ -483,3 +516,81 @@ def verify_step_paged(cfg, params, pool, block_tables, lens, active, n_prop,
     logits = _paged_forward(cfg, params, pool, block_tables, positions,
                             tok_active, batch, qcfg, fused)
     return logits, pool
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill (the engine's prefill_mode="chunked"; reference lines
+# 364-377 and 536-608)
+# ---------------------------------------------------------------------------
+
+
+def prefill_scratch_specs(cfg, s_alloc: int, n_shards: int = 1):
+    """BF16 KV scratch [L, 1, s_alloc, Hkv, hd] for one request's chunked
+    prefill: later chunks attend the prompt's BF16 prefix here, as whole-
+    prompt prefill attends BF16 KV; the pool gets its own copy for the
+    decode steps.  ``n_shards`` ranks split the KV heads."""
+    P = common.ParamSpec
+    shape = (cfg.n_layers, 1, s_alloc, cfg.n_kv_heads // n_shards,
+             cfg.head_dim)
+    axes = ("layers", "batch", "seq", "kv", "headdim")
+    return {"k": P(shape, axes, init="zeros"), "v": P(shape, axes, init="zeros")}
+
+
+def _attention_prefill_chunk(qcfg, cfg, p, h, pos, ssl, psl, bt, positions,
+                             tok_active, start: int, n_valid: int):
+    """One layer's attention over a chunk of C prompt tokens at positions
+    start..start + C - 1 (the first ``n_valid`` real): its kv written to
+    the scratch from ``start`` and, per valid token, to the pool, both IN
+    PLACE; the chunk's queries attend the scratch's prefix."""
+    q, k, v = _qkv(qcfg, cfg, p, h, pos)
+    c = q.shape[1]
+    # the scratch keeps the chunk from ``start`` (its padded tail, masked
+    # by kv_valid, only as far as the allocation reaches)
+    n_w = min(c, ssl["k"].shape[1] - start)
+    ssl["k"][:, start:start + n_w] = k[:, :n_w].to(ssl["k"].dtype)
+    ssl["v"][:, start:start + n_w] = v[:, :n_w].to(ssl["v"].dtype)
+    out = attn.blockwise_attention(q, ssl["k"], ssl["v"], causal=True,
+                                   window=cfg.window, q_offset=start,
+                                   kv_valid=start + n_valid)
+    # the pool's copy, one write per valid chunk token
+    attn.paged_update_layer(psl, k.transpose(0, 1), v.transpose(0, 1), bt,
+                            positions, tok_active)
+    return _out_proj(qcfg, p, out)
+
+
+def prefill_chunk_paged(cfg, params, scratch, pool, block_table, start: int,
+                        n_valid: int, batch, qcfg: QuantConfig):
+    """Prefill one fixed-size prompt chunk of a single request.
+
+    batch["tokens"] [1, C] (the chunk, right-padded past ``n_valid``);
+    ``scratch``: the BF16 prefix KV (``prefill_scratch_specs``);
+    ``block_table`` [MB] this request's pool blocks; ``start``: tokens
+    already prefilled; ``n_valid``: real tokens in this chunk (1..C).
+    The scratch and the pool are written IN PLACE.  Returns the logits at
+    the last real position [1, 1, V].  Activation amaxes cover the chunk
+    (padding included), so the logits approximate whole-prompt prefill's;
+    a chunk that is the whole prompt derives the same amaxes."""
+    _supported(cfg)
+    x = embed_tokens(cfg, params, batch["tokens"])
+    c = x.shape[1]
+    offs = torch.arange(c, device=x.device)
+    pos = (offs + start)[None, :]                     # [1, C]
+    positions = offs + start                          # [C] pool positions
+    tok_active = offs < n_valid
+    bt = block_table[None, :].expand(c, block_table.shape[0])
+
+    def body(qc):
+        def fn(carry, inp):
+            p, sl = inp
+            h = run_norm(cfg, p["ln1"], carry)
+            y = carry + _attention_prefill_chunk(
+                qc, cfg, p, h, pos, sl["scratch"], sl["pool"], bt, positions,
+                tok_active, start, n_valid)
+            h = run_norm(cfg, p["ln2"], y)
+            return y + _ffn(qc, cfg, p, h)[0], None
+        return fn
+
+    x, _ = common.scan_layers(body, x, params["layers"],
+                              {"scratch": scratch, "pool": pool}, qcfg,
+                              qcfg.skip_first_layers, qcfg.skip_last_layers)
+    return _lm_head(qcfg, cfg, params, x[:, n_valid - 1:n_valid])

@@ -1,13 +1,13 @@
 """Family registry: ``ModelConfig.family`` -> model module, and the
 per-layer serve-state plans (port of ``repro.models.registry``).  The port
-serves the ``decoder`` family; the recurrent and encoder-decoder families
-come with the slab-family slice."""
+has the ``decoder`` and ``rglru_hybrid`` families; ``rwkv6`` and the
+encoder-decoder family come with later slab-family slices."""
 from __future__ import annotations
 
-from . import decoder
+from . import decoder, rglru
 
-_FAMILIES = {"decoder": decoder}
-_LATER = {"rglru_hybrid", "rwkv6", "encdec"}
+_FAMILIES = {"decoder": decoder, "rglru_hybrid": rglru}
+_LATER = {"rwkv6", "encdec"}
 
 
 def get_model(cfg):
@@ -20,8 +20,8 @@ def get_model(cfg):
 
 
 # state kinds the engine's design implements; anything else in a plan makes
-# the config unservable.  Of these the port has "paged_kv"; the slab kinds
-# come with the slab-family slice (``serve.state.SlabState`` raises).
+# the config unservable.  The port serves "paged_kv" and, through
+# ``serve.state.SlabState``, the slab kinds of the families it has.
 SUPPORTED_STATE_KINDS = frozenset({
     "paged_kv",          # block-granular KV pool (decoder family)
     "recurrent",         # constant-size RNN state slabs (RWKV6 / RG-LRU)

@@ -2,14 +2,26 @@
 ``repro.serve.engine``).
 
 One ``step()`` = admission + prefill under a token budget, then one
-batched decode over the running slots: ``decoder.decode_step_paged`` over
-[n_slots, 1] tokens against the block-granular KV pool, written in place.
+batched decode over the running slots.  The config's state plan picks the
+backend (``serve.state``):
+
+  * paged KV (decoder family): ``decoder.decode_step_paged`` over
+    [n_slots, 1] tokens against the block-granular KV pool, written in
+    place;
+  * state slabs (the ``rglru_hybrid`` family): the model's
+    ``decode_step_slots`` over constant-size per-slot state at
+    independent positions, returned as a new state tree.
 
 Prefill modes:
 
   * "exact": the model's ``prefill`` at the request's own prompt length,
-    the cache then written into the pool's blocks (the static
-    ``serve_batch`` path, request by request);
+    the cache then written into the pool's blocks or the request's slab
+    slot (the static ``serve_batch`` path, request by request);
+  * "chunked" (paged plans): ``decoder.prefill_chunk_paged`` at a fixed
+    chunk of ``prefill_chunk`` tokens, the prompt's BF16 KV kept in a
+    scratch for the later chunks to attend and copied to the pool.  The
+    logits are approximate: the activation amaxes cover a chunk, not the
+    prompt (a prompt of exactly one chunk gets exact prefill's amaxes);
   * "paged": the context replays in block-size chunks through
     ``decoder.verify_step_paged`` at ``act_scope="token"``, writing and
     attending the pool itself, so each block's bytes are a pure function
@@ -37,12 +49,11 @@ heads.  Each forward runs under the context: K4 for the packed GEMMs,
 head-local attention, a vocab-parallel embedding and all-gathered logits,
 so greedy sampling (and seeded sampling) picks the same tokens on every
 rank; ``drain`` checks that.  As in the reference, "auto" turns the fused
-tier off under a mesh and ``fused_kernels="on"`` with one raises.  MoE
-and FP8-KV configs under TP raise ``NotImplementedError``.
+tier off under a mesh and ``fused_kernels="on"`` with one raises.  MoE,
+FP8-KV and slab-state configs under TP raise ``NotImplementedError``.
 
 Not ported yet, and refused with ``NotImplementedError``: ``obs`` and
-``shadow_teacher`` (observability slice), ``prefill_mode="chunked"`` (a
-later serving slice).
+``shadow_teacher`` (observability slice).
 """
 from __future__ import annotations
 
@@ -57,7 +68,7 @@ from ..distributed import ctx
 from ..distributed import sharding
 from ..launch import specs
 from ..launch.serve import params_device, resolve_device
-from ..models import decoder
+from ..models import common, decoder
 from ..models.registry import get_model
 from . import state as state_mod
 from .sampling import SamplingParams, sample_tokens_seeded
@@ -65,18 +76,23 @@ from .scheduler import RUNNING, Request, Scheduler
 
 
 class Engine:
-    """Continuous-batching serving engine over the paged KV pool.
+    """Continuous-batching serving engine over the config's state backend.
 
     ``qcfg`` is the recipe quantization policy the weights were prepared
     with (the second return of ``launch.serve.load_quantized``); the engine
     derives the serving policy from it (no run-time weight fake-quant,
     per-row activation scales).  ``params`` must live on ``device``, which
-    defaults to the card and raises without one.
+    defaults to the card and raises without one.  For a slab plan the
+    block geometry only sets ``s_alloc = max_blocks_per_slot *
+    block_size``, the bound of a dense-KV slab.  ``prefill_budget`` (prompt
+    tokens prefilled per step) defaults to the larger of ``s_alloc`` and
+    ``prefill_chunk``.
     """
 
     def __init__(self, cfg, params, qcfg=None, *, n_slots: int = 8,
                  block_size: int = 16, n_blocks: int = 48,
                  max_blocks_per_slot: int = 8, prefill_mode: str = "exact",
+                 prefill_chunk: int = 8, prefill_budget: int | None = None,
                  eos_id: int | None = None, mesh=None, rules=None,
                  fused_kernels: str = "auto", prefix_cache: bool = False,
                  kv_alloc: str = "reserve", headroom: int = 2, obs=None,
@@ -95,14 +111,11 @@ class Engine:
             raise NotImplementedError("serving telemetry and the shadow "
                                       "teacher are part of the "
                                       "observability slice of the port")
-        if prefill_mode == "chunked":
-            raise NotImplementedError("chunked prefill is part of a later "
-                                      "serving slice of the port")
-        if prefill_mode not in ("exact", "paged"):
+        if prefill_mode not in ("exact", "chunked", "paged"):
             raise ValueError(prefill_mode)
-        if prefill_mode == "paged" and not self.paged:
+        if prefill_mode in ("chunked", "paged") and not self.paged:
             raise ValueError(
-                f"paged prefill requires the paged-KV state plan; "
+                f"{prefill_mode} prefill requires the paged-KV state plan; "
                 f"{cfg.name} plans {' + '.join(plan)}")
         if (prefix_cache or kv_alloc == "ondemand") \
                 and prefill_mode != "paged":
@@ -158,17 +171,27 @@ class Engine:
             self.sq = dataclasses.replace(self.sq, packed_backend="grouped")
 
         self.n_slots = n_slots
+        self.max_blocks_per_slot = max_blocks_per_slot
+        self.s_alloc = max_blocks_per_slot * block_size
         self.prefill_mode = prefill_mode
-        # prompt tokens prefilled per step: one worst-case slot
-        self.prefill_budget = max_blocks_per_slot * block_size
+        self.prefill_chunk = prefill_chunk
+        self.prefill_budget = prefill_budget or max(self.s_alloc,
+                                                    prefill_chunk)
         self.eos_id = eos_id
         self.kv_alloc = kv_alloc
         self.state = state_mod.make_state(
-            self, cfg, block_size=block_size, n_blocks=n_blocks,
-            max_blocks_per_slot=max_blocks_per_slot, kv_alloc=kv_alloc,
-            headroom=headroom, prefix_cache=prefix_cache)
-        self.pool = self.state.pool
+            self, cfg, n_slots=n_slots, block_size=block_size,
+            n_blocks=n_blocks, max_blocks_per_slot=max_blocks_per_slot,
+            s_alloc=self.s_alloc, kv_alloc=kv_alloc, headroom=headroom,
+            prefix_cache=prefix_cache)
+        self.pool = getattr(self.state, "pool", None)   # paged plans only
         self.sched = Scheduler(self.state, n_slots, max_blocks_per_slot)
+        self.scratch = None
+        if prefill_mode == "chunked":
+            shards = mesh.size if mesh is not None else 1
+            self.scratch = common.zeros_from_specs(
+                decoder.prefill_scratch_specs(cfg, self.s_alloc, shards),
+                self.device)
         # paged prefill replays chunks through the token-scope verify
         # forward (per-position activation scales and, for MoE, per-token
         # expert capacity: sequential-decode semantics, what makes cache
@@ -291,6 +314,8 @@ class Engine:
                     break                  # defer to next step; never livelock
                 logits = self._prefill_exact(req)
                 used = req.prompt_len
+            elif self.prefill_mode == "chunked":
+                logits, used = self._prefill_chunked(req, budget)
             else:
                 logits, used = self._prefill_paged(req, budget)
             budget -= used
@@ -311,8 +336,9 @@ class Engine:
         self.prefill_s += time.monotonic() - t0
 
     def _in_flight_prefill(self) -> Request | None:
-        """An admitted request whose prefill hasn't completed (paged mode
-        mid-prompt, or an exact-mode admission deferred by the budget)."""
+        """An admitted request whose prefill hasn't completed (chunked or
+        paged mode mid-prompt, or an exact-mode admission deferred by the
+        budget)."""
         for r in self.sched.in_flight():
             if r.state == "prefill":
                 return r
@@ -324,10 +350,35 @@ class Engine:
         with torch.inference_mode():
             logits, cache = self.model.prefill(self.cfg, self.params,
                                                {"tokens": toks}, self.sq, None)
-        cache = {k: v for k, v in cache.items() if k != "pos"}
-        self.state.write_prefill(req, cache)
+            cache = {k: v for k, v in cache.items() if k != "pos"}
+            self.state.write_prefill(req, cache)
         req.n_prefilled = req.n_cached = req.n_written = p
         return logits[:, -1, :]
+
+    def _prefill_chunked(self, req: Request, budget: int):
+        """Advance chunked prefill by up to ``budget`` tokens, whole chunks
+        of ``prefill_chunk``; returns (last-position logits [1, V] | None,
+        tokens consumed).  The scratch and the pool are written in place."""
+        c = self.prefill_chunk
+        dev = self.device
+        consumed, logits = 0, None
+        bt = self.state.block_tables([req], 1)[0]
+        while req.n_prefilled < req.prompt_len and consumed < budget:
+            n_valid = min(c, req.prompt_len - req.n_prefilled)
+            toks = np.zeros((1, c), np.int64)
+            toks[0, :n_valid] = req.prompt[req.n_prefilled:
+                                           req.n_prefilled + n_valid]
+            with torch.inference_mode():
+                lg = decoder.prefill_chunk_paged(
+                    self.cfg, self.params, self.scratch, self.pool.data, bt,
+                    req.n_prefilled, n_valid,
+                    {"tokens": torch.from_numpy(toks).to(dev)}, self.sq)
+            req.n_prefilled += n_valid
+            req.n_cached = req.n_written = req.n_prefilled
+            consumed += n_valid
+            if req.n_prefilled >= req.prompt_len:
+                logits = lg[:, -1, :]
+        return logits, consumed
 
     def _prefill_paged(self, req: Request, budget: int):
         """Advance block-granular paged prefill by up to ``budget`` tokens.
@@ -465,6 +516,10 @@ def _check_tp(cfg, size: int) -> None:
     """Refuse what this slice does not serve under tensor parallelism, and
     configs whose column-parallel dims do not divide the group (a row
     site's input must then be feature-sharded)."""
+    if cfg.family != "decoder":
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
+                                  "under tensor parallelism is part of a "
+                                  "later slice of the port")
     if cfg.n_experts:
         raise NotImplementedError(f"{cfg.name}: MoE under tensor "
                                   "parallelism is part of a later slice of "

@@ -1,26 +1,30 @@
-"""Per-layer serve-state protocol (port of ``repro.serve.state``, lines
-46-392): one engine over the cache architectures a config's state plan
+"""Per-layer serve-state protocol (port of ``repro.serve.state``): one
+engine over the cache architectures a config's state plan
 (``models.registry.serve_state_plan``) names.
 
   * ``PagedKVState``: plan ("paged_kv",), the block-granular KV pool:
     block-table decode, capacity-based admission in blocks, on-demand
-    growth, copy-on-write, rollback by page truncation.
-  * ``SlabState``: every other supported plan (RWKV6 / RG-LRU recurrent
-    state, window rings, Whisper's dense self-KV and encoder slots) comes
-    with the slab-family slice of the port and raises here.
+    growth, copy-on-write, rollback by page truncation.  Its device state
+    lives in the pool's tensors and is written in place.
+  * ``SlabState``: every other supported plan, per-slot constant-size
+    state slabs (the RG-LRU family's recurrent state with its window ring
+    or dense KV).  The slot index is the state address; decode is the
+    model's batched ``decode_step_slots``.  The state tree is never
+    written in place: every write makes new tensors, so a tree the
+    backend handed out (``snapshot``) stays as it was, and
+    ``restore_select`` is an exact gather from such trees.
 
 The backend answers the contract the engine and scheduler program
 against: admission_check / can_reserve / reserve / release, write_prefill,
-decode, rollback_to, stats / leaked.  Device state lives in the pool's
-tensors and is written in place.
+decode, rollback_to, stats / leaked.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..models import decoder
-from ..models.registry import serve_capabilities
+from ..models import common, decoder
+from ..models.registry import get_model, serve_capabilities
 from .paged_kv import PagedKVPool, PoolExhausted, PrefixCache
 
 
@@ -39,10 +43,12 @@ def check_supported(cfg) -> tuple:
     return caps["plan"]
 
 
-def make_state(engine, cfg, *, block_size, n_blocks, max_blocks_per_slot,
-               kv_alloc="reserve", headroom=2, prefix_cache=False):
+def make_state(engine, cfg, *, n_slots, block_size, n_blocks,
+               max_blocks_per_slot, s_alloc, kv_alloc="reserve", headroom=2,
+               prefix_cache=False):
     """The state backend for ``cfg``'s plan (or a capability error).
-    ``engine`` supplies the parameters, the serving policy and the device."""
+    ``engine`` supplies the parameters, the serving policy and the device;
+    ``s_alloc`` bounds a slab plan's dense KV."""
     plan = check_supported(cfg)
     if plan == ("paged_kv",):
         return PagedKVState(engine, cfg, n_blocks=n_blocks,
@@ -54,7 +60,57 @@ def make_state(engine, cfg, *, block_size, n_blocks, max_blocks_per_slot,
         raise UnsupportedStateError(
             f"{cfg.name}: on-demand paging / prefix caching needs the "
             f"paged_kv state plan (plan: {' + '.join(plan)})")
-    return SlabState(cfg, plan)
+    return SlabState(engine, cfg, n_slots=n_slots, s_alloc=s_alloc, plan=plan)
+
+
+# ---------------------------------------------------------------------------
+# slab machinery (reference lines 87-130)
+# ---------------------------------------------------------------------------
+
+
+def slab_write(specs, data, cache, slot: int):
+    """A batch-1 prefill cache written into slot ``slot`` of every slab
+    leaf: each cache leaf right-padded with zeros up to the slab's size on
+    every non-batch axis (a P-token prompt's KV into an S_alloc slab, the
+    padding ``prefill(s_max=...)`` would apply), then placed at ``slot``
+    along the spec's "batch" axis.  Returns a new tree: ``data`` is not
+    written."""
+    def one(spec, d, c):
+        ax = spec.axes.index("batch")
+        pads = []
+        for i in reversed(range(d.ndim)):          # F.pad: last axis first
+            pads += [0, 0 if i == ax else d.shape[i] - c.shape[i]]
+        if any(pads):
+            c = torch.nn.functional.pad(c, pads)
+        out = d.clone()
+        out.narrow(ax, slot, 1).copy_(c.to(d.dtype))
+        return out
+    return common.tree_map(one, specs, data, cache)
+
+
+def slab_restore_select(specs, snaps: list, sel):
+    """Per-slot restore from a chain of state trees: slot ``s`` takes its
+    slab rows from ``snaps[sel[s]]``.  An exact gather (no arithmetic), so
+    a restored slot is bit for bit the state its snapshot held."""
+    sel = torch.as_tensor(np.asarray(sel), dtype=torch.long)
+
+    def one(spec, *leaves):
+        ax = spec.axes.index("batch")
+        st = torch.stack(leaves)                   # [K, ...leaf]
+        m = torch.movedim(st, ax + 1, 1)           # [K, n_slots, ...]
+        rows = torch.arange(m.shape[1], device=m.device)
+        out = m[sel.to(m.device), rows]            # [n_slots, ...]
+        return torch.movedim(out, 0, ax)
+    return common.tree_map(one, specs, *snaps)
+
+
+def slab_bytes_per_slot(specs, n_slots: int) -> int:
+    """Constant per-request state footprint of a slab spec tree."""
+    return common.spec_bytes(specs) // max(n_slots, 1)
+
+
+def _tree_nbytes(tree) -> int:
+    return sum(a.numel() * a.element_size() for a in common.tree_leaves(tree))
 
 
 class PagedKVState:
@@ -258,10 +314,115 @@ class PagedKVState:
 
 
 class SlabState:
-    """Per-slot constant-size state slabs for non-paged state plans: part
-    of the slab-family slice of the port."""
+    """Per-slot constant-size state slabs for non-paged state plans.
 
-    def __init__(self, cfg, plan):
-        raise NotImplementedError(
-            f"{cfg.name}: slab state ({' + '.join(plan)}) is part of the "
-            "slab-family slice of the port")
+    The model declares its per-slot state (``slot_state_specs``, batch
+    axis = slot) and steps it (``decode_step_slots``, per-slot positions
+    and an active mask).  Capacity is one slab slot per engine slot; only
+    a plan with a finite dense KV ("dense_kv") bounds a request's prompt
+    and generation, by the slab's ``s_alloc`` positions.  ``snapshot`` is
+    a reference to the state tree, which nothing writes in place;
+    ``restore_select`` gathers each slot's state from a chain of them.
+    """
+
+    def __init__(self, engine, cfg, *, n_slots, s_alloc, plan):
+        if engine.mesh is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: slab state under tensor parallelism is part "
+                "of a later slice of the port")
+        self.eng = engine
+        self.cfg = cfg
+        self.kinds = tuple(plan)
+        self.model = get_model(cfg)
+        self.n_slots = n_slots
+        self.specs = self.model.slot_state_specs(cfg, n_slots, s_alloc)
+        self.data = common.zeros_from_specs(self.specs, engine.device)
+        # a finite dense KV bounds admission; recurrent slabs and window
+        # rings are O(1) per slot whatever the sequence length
+        self.dense_bound = s_alloc if "dense_kv" in self.kinds else None
+        self.in_use = [False] * n_slots
+        self.peak_used = 0
+
+    # -- capacity ----------------------------------------------------------
+
+    def admission_check(self, req) -> None:
+        if self.dense_bound is not None and req.max_cached > self.dense_bound:
+            raise ValueError(
+                f"request needs {req.max_cached} cached positions > "
+                f"state slab capacity={self.dense_bound} "
+                f"(prompt {req.prompt_len} + gen {req.max_new_tokens}); "
+                "it could never be admitted")
+
+    def can_reserve(self, req) -> bool:
+        return True          # one slab slot per engine slot, nothing else
+
+    def reserve(self, req) -> None:
+        self.in_use[req.slot] = True
+        self.peak_used = max(self.peak_used, sum(self.in_use))
+
+    def rollback_to(self, req, n_tokens: int) -> int:
+        # no positional storage to truncate: device-state rollback is
+        # snapshot / restore; only the host mark is clamped
+        req.n_written = min(req.n_written, n_tokens)
+        return 0
+
+    def release(self, req) -> None:
+        if req.slot is not None:
+            self.in_use[req.slot] = False
+
+    # -- device state ------------------------------------------------------
+
+    def write_prefill(self, req, cache) -> None:
+        self.data = slab_write(self.specs, self.data, cache, req.slot)
+
+    def decode(self, reqs, toks, lens, active):
+        del reqs                               # slot index == state address
+        dev = self.eng.device
+        logits, self.data = self.model.decode_step_slots(
+            self.cfg, self.eng.params, self.data,
+            {"tokens": torch.from_numpy(toks).to(dev)},
+            torch.from_numpy(lens).to(dev), torch.from_numpy(active).to(dev),
+            self.eng.sq)
+        return logits
+
+    # -- speculative -------------------------------------------------------
+
+    def draft_cap(self, req) -> int:
+        if self.dense_bound is not None:
+            return self.dense_bound - req.n_cached - 1
+        return 1 << 30       # recurrent / ring state: no positional bound
+
+    def snapshot(self):
+        """The state tree itself: nothing writes it in place."""
+        return self.data
+
+    def restore(self, snap) -> None:
+        self.data = snap
+
+    def restore_select(self, snaps, sel) -> None:
+        """Set each slot's state to its rows in ``snaps[sel[slot]]``."""
+        self.data = slab_restore_select(self.specs, list(snaps), sel)
+
+    # -- telemetry ---------------------------------------------------------
+
+    def leaked(self) -> bool:
+        return any(self.in_use)
+
+    def stats(self) -> dict:
+        used = sum(self.in_use)
+        nbytes = _tree_nbytes(self.data)
+        return {
+            "state_backend": "slab",
+            "state_kinds": list(self.kinds),
+            "n_slots": self.n_slots,
+            "used_slots": used,
+            "peak_used_slots": self.peak_used,
+            "utilization": used / max(self.n_slots, 1),
+            "peak_utilization": self.peak_used / max(self.n_slots, 1),
+            "fp8": False,
+            "pool_bytes": nbytes,
+            "pool_bytes_per_device": nbytes,
+            "state_bytes_per_slot": slab_bytes_per_slot(self.specs,
+                                                        self.n_slots),
+            "state_dense_bound": self.dense_bound,
+        }

@@ -415,10 +415,13 @@ def test_engine_raises_on_unported_plans_and_options(loaded):
     with pytest.raises(TypeError, match="TP"):
         _engine(cfg, params, qcfg, mesh=object())
     for kw, slice_name in ((dict(obs=object()), "observability"),
-                           (dict(shadow_teacher={}), "observability"),
-                           (dict(prefill_mode="chunked"), "later serving")):
+                           (dict(shadow_teacher={}), "observability")):
         with pytest.raises(NotImplementedError, match=slice_name):
             _engine(cfg, params, qcfg, **kw)
+    for mode in ("chunked", "paged"):          # paged-KV plans only
+        with pytest.raises(ValueError, match="paged-KV"):
+            Engine(configs.get_smoke("recurrentgemma-2b"), params,
+                   prefill_mode=mode, device="cpu")
     with pytest.raises(ValueError):
         _engine(cfg, params, qcfg, fused_kernels="sometimes")
     for kw in (dict(prefix_cache=True), dict(kv_alloc="ondemand")):

@@ -38,7 +38,8 @@ def test_port_sources_import_no_jax():
             PORT / "launch" / "mesh.py", PORT / "data" / "generated.py",
             PORT / "obs" / "numerics.py", PORT / "obs" / "metrics.py",
             PORT / "obs" / "schema.py", PORT / "obs" / "validate.py",
-            PORT / "obs" / "compare.py", PORT / "obs" / "export.py"} <= set(files)
+            PORT / "obs" / "compare.py", PORT / "obs" / "export.py",
+            PORT / "models" / "rglru.py", PORT / "serve" / "state.py"} <= set(files)
     bad = {(str(f.relative_to(SRC)), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert not bad, bad
@@ -51,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.distributed.sharding, repro_torch.launch.mesh, "
             "repro_torch.data.generated, repro_torch.core.ptq, "
             "repro_torch.obs.validate, repro_torch.obs.compare, "
-            "repro_torch.obs.export, repro_torch.obs.numerics; "
+            "repro_torch.obs.export, repro_torch.obs.numerics, "
+            "repro_torch.models.rglru, repro_torch.serve.state; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(SRC))

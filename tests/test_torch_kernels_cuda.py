@@ -105,11 +105,13 @@ def _device_ops(fn):
 
 # the engine's and the trainer's QDQ sites: decode rows (one block and a
 # cluster), the exact-prefill row and the training tensor (two passes), a
-# paged chunk's tokens
+# paged chunk's tokens; nemotron-nano-9b-sim's decode rows (d_model 4480,
+# d_ff 15680: 980 blocks of 16, not a multiple of 128 values)
 QDQ_SCOPED = [((8, 1, 3584), "row"), ((8, 1, 18944), "row"),
               ((1, 512, 18944), "row"), ((16, 3584), "token"),
               ((4096, 8192), "tensor"), ((8, 512, 2048), "tensor"),
-              ((1, 16, 18944), "token"), ((3, 5, 48), "row")]
+              ((1, 16, 18944), "token"), ((3, 5, 48), "row"),
+              ((8, 1, 4480), "row"), ((8, 1, 15680), "row")]
 
 
 @pytest.mark.parametrize("shape,scope", QDQ_SCOPED, ids=str)
@@ -220,6 +222,42 @@ def test_matmul_kernel_f32_x(gen, m, out_dtype):
     x = torch.randn((m, 3584), generator=gen, device="cuda") * 2
     w = torch.randn((3584, 4608), generator=gen, device="cuda") / math.sqrt(3584)
     assert _matmul_ok(x, ops.pack_weight(w.to(torch.bfloat16)), out_dtype)
+
+
+# nemotron-nano-9b-sim's recurrent-layer sites: (name, K, N); wd's K =
+# 15680 is 245 chunks of 64, not a multiple of 128
+NEMO_SITES = [("wx", 4480, 4480), ("wg", 4480, 15680), ("wd", 15680, 4480)]
+
+
+@pytest.mark.parametrize("site", NEMO_SITES, ids=[s[0] for s in NEMO_SITES])
+def test_matmul_kernel_on_stack_slice(gen, site):
+    """K2 on one [layer, inner] slice of a weight stacked over two leading
+    axes, packed as PTQ packs the rglru family's ``blocks/rec`` (a tensor
+    scale per slice, [2, 2, 1, 1]): the slice keeps ``orig_k`` and its own
+    scale, and K2 at M = 8 (decode) and 256 (prefill tiles) is within its
+    bound of the plain version; row 3 of the M = 256 product equals the
+    M = 8 product's bitwise (row invariance at this K)."""
+    from repro_torch.core import ptq
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.models.common import ParamSpec
+    _, k, n = site
+    spec = ParamSpec((2, 2, k, n), ("layers", "inner", "embed", "mlp"),
+                     kind="mlp", contract_axis=2)
+    w = (torch.randn((2, 2, k, n), generator=gen, device="cuda")
+         / math.sqrt(k)).to(torch.bfloat16)
+    w[1, 0] *= 4.0                                 # another tensor scale
+    packed = ptq.quantize_leaf(spec, w, QuantConfig(weight_format="packed"))
+    assert packed.tensor_scale.shape == (2, 2, 1, 1)
+    sl = packed[1][0]
+    assert sl.codes.shape == (n, k // 2) and sl.k == k
+    assert sl.tensor_scale.shape == (1, 1)
+    assert float(sl.tensor_scale) != float(packed[0][0].tensor_scale)
+    x = ops.nvfp4_qdq((torch.randn((256, k), generator=gen, device="cuda") * 2
+                       ).to(torch.bfloat16))
+    for m in (8, 256):
+        assert _matmul_ok(x[:m], sl)
+    assert torch.equal(_bits(ops.nvfp4_matmul(x, sl)[:8]),
+                       _bits(ops.nvfp4_matmul(x[:8], sl)))
 
 
 # acereason-7b's GEMM sites: (name, K, N)
