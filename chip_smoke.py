@@ -48,8 +48,18 @@ Phases (every failure exits nonzero):
      packed as PTQ packs ``blocks/rec``, at M = 8 and 256 within its
      bound, rows bitwise equal, and K1 in row scope at [8, 1, K] bitwise
      (phase 3h);
+     at the shapes of rwkv6-3b (K2 at (K, N) = (2560, 64), (2560, 160)
+     below one 128-row weight tile, (2560, 2560), (2560, 8960), (8960,
+     2560)), whisper-tiny (the cross-attention KV's (384, 1152) at M =
+     12000, 8 slots x 1500 frames; (1536, 384)) and qwen2-vl-2b ((1536,
+     2048), (8960, 1536)) at M = 8 and the larger M within K2's bound,
+     rows bitwise equal across M, and K1 in row scope at [8, 1, K] for K =
+     2560, 8960, 384, 1536 bitwise (phase 3i);
   4. smoke-size models on the card against the same weights on the CPU:
-     serving prefill and greedy tokens, and one QAD training step;
+     serving prefill and greedy tokens, and one QAD training step, for
+     acereason-7b / olmo-1b and for rwkv6-3b, whisper-tiny (each sequence
+     with encoder frames) and qwen2-vl-2b (a patch grid, pos3), whose QAD
+     step launches one K5, one K6 and two K1 a quantized site;
   5. the static serving path: ``acereason-7b`` at full width and 14 of its
      28 layers, packed NVFP4 weights from a seed, ``serve_batch`` with
      batch 4, prompt 64, gen 16, with the launch counters read around it; a traced decode
@@ -112,6 +122,31 @@ Phases (every failure exits nonzero):
      logits within LOGIT_TOL of run A's exact prefill (chunk-granular
      activation amaxes make them approximate), a 256-token prompt in one
      chunk against exact prefill; TTFT beside run A's;
+  5h. ``rwkv6-3b`` at full size (32 layers, 40 WKV heads of 64, 3.10 B
+     params) on the slab engine, plan ("recurrent",), 8 slots: run A's
+     arrivals, 16 prompts of 64 k tokens (k = 1..8, each twice: the
+     chunked WKV takes at most 64 tokens or a multiple of 64) from its own
+     vocabulary, 32 greedy tokens: every request finishes and every slot
+     is released, K1 and K2 launch 320 times a forward, each request's
+     prefill logits bitwise the static path's and its first decode step
+     within LOGIT_TOL, 4 requests one slot at a time equal to
+     ``serve_batch``'s tokens; load and serving peak, state a slot, the
+     decode step's byte bound and a traced decode step printed;
+  5i. ``whisper-tiny`` at full size (4 + 4 layers, 1500 encoder frames) on
+     the slab engine, plan dense_kv + encoder_output, 8 slots of 448
+     positions: 16 requests, each with its own seeded ``enc_frames``,
+     prompts 4..192, 64 greedy tokens: 5h's gates (K1 and K2: 44 a
+     prefill, 28 a decode step; one slot at a time against the static
+     path at the slab's 448 positions), and a request without frames
+     refused at admission;
+  5j. ``qwen2-vl-2b`` at full size (28 layers, M-RoPE sections (16, 24,
+     24)), packed: 2 sequences of 512 tokens with a 16 x 16 patch grid at
+     16 (``vis_embeds`` from the seed, pos3 in Qwen2-VL's layout): prefill
+     of 480 tokens and 32 ``decode_step``s with their pos3 against
+     teacher-forcing ``apply`` over all 512, with BF16 activations within
+     LOGIT_TOL["bf16_act"] and with NVFP4 activations (per-token scales)
+     printed; K1 and K2 launch counts; the engine refuses it
+     (``vision_prefix``);
   6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
      (16 layers, d_model 2048, vocab 50304) under its config's
      rematerialization (``remat="full"``: the student's QDQ runs twice a
@@ -143,6 +178,13 @@ Phases (every failure exits nonzero):
      attention layer, 2.67 B params), remat "full", 3 steps of 4 x 512
      with an eval after each: K1, K5 and K6 launch counts, finite metrics,
      a changed student, the step ms against 10 N T and the peak;
+  6f. QAD on ``rwkv6-3b`` at full width and 16 of its 32 layers through
+     ``launch.train.train``, remat "full", 3 steps of 4 x 512 with an eval
+     after each: K1, K5 and K6 launch counts, finite metrics, a changed
+     student, the step ms against 10 N T and the peak;
+  6g. QAD on ``qwen2-vl-2b`` at full size through ``core.qad.
+     make_train_step`` on batches in 5j's layout (one grid a sequence),
+     remat "full", 3 steps of 4 x 512 with an eval after each: as 6f;
   7. (run after phase 5d, before phase 6, so that the training paths
      run without phase 3's tensors resident) kernel, plain, bound and
      library times (CUDA events around each call, the L2 flushed between
@@ -152,7 +194,8 @@ Phases (every failure exits nonzero):
      acereason-7b site at M = 8 and 256, K1 as the engine and the trainer
      call it (each site alone and one layer's five sites back to back,
      beside the former call with the torch amax), K7 at decode, in a paged
-     chunk and at 4096 keys.  Every traced step counts its device ops: the
+     chunk and at 4096 keys, K2 at rwkv6-3b's sites at M = 8 and at
+     whisper-tiny's cross-KV at M = 12000.  Every traced step counts its device ops: the
      port's kernels (a QDQ kernel for each QDQ call) and the others;
   8. a ``kernels`` JSON line, the card line, and the final JSON line.
 
@@ -261,6 +304,20 @@ MOE_TRAIN = dict(layers=4, steps=3, batch=4, seq=512)
 # layers and 1 attention layer): its 56 layers' training state does not
 # fit one card (phase 6e)
 NEMO_TRAIN = dict(layers=5, steps=3, batch=4, seq=512)
+# the last model families: rwkv6-3b on the slab engine with run A's
+# arrivals (prompts of 64 k tokens: the chunked WKV takes at most 64 tokens
+# or a multiple of 64), 4 requests again one slot at a time; whisper-tiny
+# with each request's encoder frames, 8 slots of its 448-token text
+# context; qwen2-vl-2b's M-RoPE over a 16 x 16 patch grid (phases 5h-5j);
+# their QAD (rwkv6 at 16 of its 32 layers: the full depth's training state
+# would come to about 70 GB; phases 6f, 6g)
+RWKV = dict(arch="rwkv6-3b", gen=32, one_slot=4)
+WHISPER = dict(arch="whisper-tiny", requests=16, min_prompt=4, max_prompt=192,
+               gen=64, s_alloc=448, one_slot=4)
+QWEN_VL = dict(arch="qwen2-vl-2b", batch=2, seq=512, grid_at=16, grid=16,
+               prompt=480)
+RWKV_TRAIN = dict(layers=16, steps=3, batch=4, seq=512)
+VL_TRAIN = dict(steps=3, batch=4, seq=512)
 DATA_FREE = dict(batch=8, n_new=256, steps=2)
 NUMERICS = dict(steps=2)
 CALIB = dict(batches=2, batch=2, seq=512)
@@ -274,6 +331,9 @@ STEP_TOL = {"loss": 2e-2, "grad_norm": 5e-2}
 
 # spin kernels a training step's trace records ahead of the step
 WARMUP_SPINS = 32
+# tokens each request of a traced engine decode step is given: the slots
+# stay full for three traced steps after they fill
+TRACE_GEN = 16
 # the port's kernels by the names the profiler shows them under
 PORT_KERNELS = ("qdq_one_pass", "qdq_two_pass", "paged_attention_kernel",
                 "mma_kernel", "wg_kernel", "kl_fwd_kernel", "kl_bwd_kernel")
@@ -346,6 +406,47 @@ def trace_step(label, step, qdq_gate: bool = True) -> None:
     print_by_kind(label, by_kernel)
     for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[trace]   {ms:8.2f} ms  {kname[:110]}")
+
+
+def profile_step(step) -> dict:
+    """One call of ``step`` under the profiler, WARMUP_SPINS spin kernels
+    recorded ahead of it (``trace_ops`` leaves them out): its device ops
+    (``trace_ops``'s four values), its wall ms and its launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(WARMUP_SPINS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
+    return dict(by_kernel=by_kernel, n_port=n_port, n_qdq=n_qdq,
+                n_other=n_other, wall_ms=wall_ms, launches=dict(ops.launches))
+
+
+def trace_engine_step(eng, label) -> dict:
+    """``profile_step`` of one engine step, every slot decoding (the
+    caller fills them, with tokens to spare for two more steps).  The
+    profiler drops a kernel's record now and then but never adds one: a
+    profile that holds fewer QDQ kernels than the step launched is
+    printed and the next step traced, up to three in all, while every
+    slot still decodes.  The caller gates the count of the last one."""
+    for attempt in (1, 2, 3):
+        t = profile_step(eng.step)
+        if (t["n_qdq"] >= t["launches"]["nvfp4_qdq"] or attempt == 3
+                or len(eng.sched.running()) < eng.n_slots):
+            return t
+        print(f"[trace] {label}: the profile holds {t['n_qdq']:.0f} QDQ "
+              f"kernels for {t['launches']['nvfp4_qdq']} QDQ launches "
+              f"(trace {attempt})", flush=True)
 
 
 def print_by_kind(label, by_kernel) -> None:
@@ -431,11 +532,11 @@ def k4_rank_check(tp, cfg):
             # the whole K, summed over the group
             absref = x.float().abs() @ nvfp4.unpack(
                 p if mode == "row" else tile, torch.bfloat16).float().abs().T
-            ulp = torch.exp2(torch.floor(torch.log2(
+            one_ulp = torch.exp2(torch.floor(torch.log2(
                 y32.abs().clamp_min(1e-30))) - 7)
             diff = (y.float() - y32).abs()
             rec = dict(site=wname, mode=mode, m=m, max_abs_err=float(diff.max()),
-                       ok=bool((diff <= ulp + 2.0 ** -20 * absref).all()))
+                       ok=bool((diff <= one_ulp + 2.0 ** -20 * absref).all()))
             if mode == "row":
                 full = ref.nvfp4_matmul_ref(x, p, torch.float32)
                 fdiff = (ops.nvfp4_matmul_tp(xl, tile, tp, mode, torch.float32)
@@ -443,7 +544,7 @@ def k4_rank_check(tp, cfg):
                 rec.update(full_err=float(fdiff.max()), full_ok=bool(
                     (fdiff <= 2.0 ** -20 * absref).all()))
             out.append(rec)
-            del x, p, tile, xl, y, y32, absref, ulp, diff
+            del x, p, tile, xl, y, y32, absref, one_ulp, diff
     torch.cuda.synchronize()
     return out
 
@@ -455,7 +556,6 @@ def tp_rank(tp, prompts, n_gen):
     the engine over them; run TP's traffic; one traced decode step on
     rank 0.  Returns host data only."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
     from repro_torch.kernels import ops
@@ -503,34 +603,894 @@ def tp_rank(tp, prompts, n_gen):
     # one traced decode step: 8 running requests, nothing left to prefill;
     # both ranks step alike, rank 0 under the profiler
     for p in prompts[:ENGINE["n_slots"]]:
-        eng.submit(p, 8)
+        eng.submit(p, TRACE_GEN)
     while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
         eng.step()
+    # (both ranks take three steps; rank 0 traces them until a profile
+    # holds one QDQ kernel for each QDQ launch, as ``trace_engine_step``)
     torch.cuda.synchronize()
-    eng.mesh.reset_counts()
-    if tp.rank == 0:
-        ops.reset_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+    for attempt in (1, 2, 3):
+        eng.mesh.reset_counts()
+        if tp.rank or ("trace" in res and res["trace"]["n_qdq"]
+                       >= res["trace"]["qdq_calls"]):
             eng.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
+            continue
+        t = profile_step(eng.step)
+        by_kernel = t["by_kernel"]
         res["trace"] = dict(
-            n_port=n_port, n_qdq=n_qdq, n_other=n_other,
-            qdq_calls=ops.launches["nvfp4_qdq"],
-            wall_ms=wall_ms, busy_ms=sum(by_kernel.values()),
+            n_port=t["n_port"], n_qdq=t["n_qdq"], n_other=t["n_other"],
+            qdq_calls=t["launches"]["nvfp4_qdq"], attempt=attempt,
+            wall_ms=t["wall_ms"], busy_ms=sum(by_kernel.values()),
             k4_ms=sum(ms for kname, ms in by_kernel.items()
                       if "mma_kernel<false" in kname
                       or "wg_kernel<false" in kname),
             collective_ms=eng.mesh.counts["seconds"] * 1e3,
             collectives=eng.mesh.counts["calls"],
             top=sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
-    else:
-        eng.step()
     eng.drain()
     return res
+
+
+def q_bound(x):
+    """The least time of one K1 call on x (ms): its bytes or its operations."""
+    from repro_torch.kernels import nvfp4_qdq as kqdq
+    return max(kqdq.bytes_moved(x) / HBM_BYTES_S,
+               kqdq.OPS_PER_ELEM * x.numel() / F32_FLOPS) * 1e3
+
+
+def old_call(x, scope):
+    """The op as it was called before the amax moved into the kernel:
+    ``q_act``'s torch amax (the tensor scope's the wrapper's
+    ``vector_norm``), then the kernel given it."""
+    import torch
+
+    from repro_torch.kernels import nvfp4_qdq as kqdq
+    from repro_torch.kernels import ops
+    amax = (torch.linalg.vector_norm(x, ord=float("inf")).float()
+            if scope == "tensor" else kqdq.scope_amax(x, scope))
+    return ops.nvfp4_qdq(x, amax)
+
+
+def qdq_equal(got, want):
+    """Bitwise equal, NaNs where the other has them."""
+    import torch
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    return bool(torch.equal(gn, wn)) and bool(torch.equal(
+        got[~gn].view(torch.int16 if got.dtype == torch.bfloat16
+                      else torch.int32),
+        want[~wn].view(torch.int16 if want.dtype == torch.bfloat16
+                       else torch.int32)))
+
+
+def first_decode_logits(eng):
+    """Record each request's logits at its first decode step."""
+    got, inner = {}, eng.state.decode
+
+    def decode(reqs, toks, lens, active):
+        logits = inner(reqs, toks, lens, active)
+        for r in reqs:
+            if len(r.output) == 1:
+                got[r.rid] = logits[r.slot, 0].clone()
+        return logits
+    eng.state.decode = decode
+    return got
+
+
+def prefill_logits(eng_, force=None):
+    """Record each request's prefill logits; with ``force`` (prompt
+    bytes -> token), emit that first token instead of the sampled one."""
+    got, inner = {}, eng_._sample_one
+
+    def sample_one(req, logits):
+        got[req.rid] = logits[0].float().clone()
+        tok = inner(req, logits)
+        return tok if force is None else force[req.prompt.tobytes()]
+    eng_._sample_one = sample_one
+    return got
+
+
+def trace_slab_step(eng, prompts, label, extras=None):
+    """Fill every slot, then trace one engine step (a decode step and
+    nothing else) and print it: wall and busy ms, the idle share,
+    device ops and time by kind.  ``extras``: each prompt's extras."""
+    extras = extras or [None] * len(prompts)
+    for p, e in zip(prompts[:eng.n_slots], extras):
+        eng.submit(p, TRACE_GEN, extras=e)
+    while eng.sched.waiting or len(eng.sched.running()) < eng.n_slots:
+        eng.step()
+    t = trace_engine_step(eng, f"{label} decode step")
+    eng.drain()
+    by_kernel, n_port, n_qdq, n_other, wall_ms, launches = (
+        t["by_kernel"], t["n_port"], t["n_qdq"], t["n_other"], t["wall_ms"],
+        t["launches"])
+    busy_ms = sum(by_kernel.values())
+    print(f"[trace] {label} decode step, {eng.n_slots} slots (traced): "
+          f"wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+          f"idle_share={1 - busy_ms / wall_ms:.3f}; device ops: "
+          f"{n_port:.0f} of the port's kernels ({n_qdq:.0f} QDQ for "
+          f"{launches['nvfp4_qdq']} QDQ calls), {n_other:.0f} others",
+          flush=True)
+    print_by_kind(f"{label} decode step", by_kernel)
+    for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
+
+
+def slab_drained(eng, what):
+    if eng.state.leaked() or eng.stats()["used_slots"]:
+        fail(f"engine {what}: a state slot was not released")
+
+# ---------------------------------------------------------------------------
+# the last model families: rwkv6-3b and whisper-tiny on the slab engine,
+# qwen2-vl-2b's M-RoPE (phases 3i, 4, 5h-5j, 6f, 6g)
+# ---------------------------------------------------------------------------
+
+
+def params_to(tree, device):
+    """A parameter tree of dense and packed leaves, copied to ``device``."""
+    from repro_torch.core import nvfp4
+    from repro_torch.models import common
+    return common.tree_map(
+        lambda t: (nvfp4.PackedNVFP4(t.codes.to(device), t.scales.to(device),
+                                     t.tensor_scale.to(device), t.orig_k)
+                   if isinstance(t, nvfp4.PackedNVFP4) else t.to(device)),
+        tree)
+
+
+def family_sites(cfg, decode: bool = False) -> int:
+    """Quantized GEMM sites of one forward under the "all" recipe, each a
+    K1 launch on its input and, packed, a K2 launch: an rwkv6 layer's
+    ts_w1, wr, wk, wv, wg, dec_w1, wo and the channel mix's three; a
+    whisper encoder layer's wqkv, wo, wi, wd and a decoder layer's those,
+    x_wqkv twice (the queries, the encoder output's KV) and x_wo (a
+    decode step runs the decoder alone); a decoder layer's wqkv, wo, wg,
+    wu, wd (``models/``)."""
+    if cfg.family == "rwkv6":
+        return 10 * cfg.n_layers
+    if cfg.family == "encdec":
+        return 7 * cfg.n_layers + (0 if decode else 4 * cfg.n_enc_layers)
+    return 5 * cfg.n_layers
+
+
+def vlm_pos3(n: int, start: int, side: int):
+    """Qwen2-VL's (t, h, w) position ids [n, 3] for ``n`` tokens with a
+    ``side`` x ``side`` patch grid at ``start``: text before it at
+    t = h = w = i, the grid at t = start, h = start + row, w = start +
+    column, text after it from the largest position + 1 on."""
+    import numpy as np
+    pos = np.zeros((n, 3), np.int64)
+    pos[:start] = np.arange(start)[:, None]
+    g = np.arange(side * side)
+    pos[start:start + g.size] = np.stack(
+        [np.full(g.size, start), start + g // side, start + g % side], 1)
+    pos[start + g.size:] = (np.arange(n - start - g.size)
+                            + start + side)[:, None]
+    return pos
+
+
+def vlm_batch(cfg, b: int, n: int, start: int, side: int, gen, device):
+    """``b`` sequences of ``n`` seeded tokens, each with a ``side`` x
+    ``side`` patch grid at ``start``: ``vis_embeds`` drawn from ``gen``
+    (the vision frontend is a stub), ``vis_mask`` over the grid and
+    ``pos3`` in Qwen2-VL's layout.  Test inputs, built here."""
+    import torch
+    mask = torch.zeros((b, n), dtype=torch.bool, device=device)
+    mask[:, start:start + side * side] = True
+    return {"tokens": torch.randint(4, cfg.vocab_size, (b, n), generator=gen,
+                                    device=device),
+            "vis_mask": mask,
+            "vis_embeds": torch.randn((b, n, cfg.d_model), generator=gen,
+                                      device=device),
+            "pos3": torch.from_numpy(vlm_pos3(n, start, side)).to(device)
+            .expand(b, n, 3)}
+
+
+def rel_l2(got, want) -> float:
+    """Relative L2 distance of ``got`` from ``want``."""
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def ulp(x, mant_bits):
+    """One unit in the last place of |x| for ``mant_bits`` mantissa bits
+    (7: bf16, 23: f32), normals only."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(
+        x.abs().clamp_min(2.0 ** -126))) - mant_bits)
+
+
+def phase_3i(dev, gen, rows, err, err_bound):
+    """K1 and K2 at the shapes of rwkv6-3b, whisper-tiny and qwen2-vl-2b
+    against their plain versions: K2 within its bound at each site's M,
+    the largest M's first 8 rows bitwise the M = 8 product's; K1 in row
+    scope at [8, 1, K] bitwise.  The rwkv6 sites at M = 8 and whisper's
+    cross-KV site at M = 12000 join phase 7's timings."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import nvfp4
+    from repro_torch.kernels import nvfp4_matmul as kmm
+    from repro_torch.kernels import ops, ref
+    t0 = time.perf_counter()
+    rw, wh, vl = (configs.get_config(a) for a in (RWKV["arch"], WHISPER["arch"],
+                                                 QWEN_VL["arch"]))
+    n_slots = ENGINE["n_slots"]
+    d, ff = rw.d_model, rw.d_ff
+    cross_m = n_slots * wh.enc_seq
+    # (arch, site, K, N, Ms): the decay LoRA's N = 64 and the token shift's
+    # N = 160 sit below one 128-row weight tile
+    sites = [(rw, "dec_w1", d, 64, (n_slots, 512)),
+             (rw, "ts_w1", d, 160, (n_slots, 512)),
+             (rw, "wr", d, d, (n_slots, 512)),
+             (rw, "cm_wk", d, ff, (n_slots, 512)),
+             (rw, "cm_wv", ff, d, (n_slots, 512)),
+             (wh, "x_wqkv (cross-KV)", wh.d_model, wh.qkv_dim,
+              (n_slots, cross_m)),
+             (wh, "wd", wh.d_ff, wh.d_model, (n_slots, 512)),
+             (vl, "wqkv", vl.d_model, vl.qkv_dim, (n_slots, 512)),
+             (vl, "wd", vl.d_ff, vl.d_model, (n_slots, 512))]
+    for c, wname, k, n, ms in sites:
+        x = (torch.randn((ms[-1], k), generator=gen, device=dev) * 2.0
+             ).to(torch.bfloat16)
+        xq = ops.nvfp4_qdq(x, scope="row")
+        p = ops.pack_weight((torch.randn((k, n), generator=gen, device=dev)
+                             / math.sqrt(k)).to(torch.bfloat16))
+        wdq = nvfp4.unpack(p, torch.bfloat16)
+        for m in ms:
+            y = ops.nvfp4_matmul(xq[:m], p)
+            y32 = ref.nvfp4_matmul_ref(xq[:m], p, torch.float32)
+            absref = xq[:m].float().abs() @ wdq.float().abs().T
+            one_ulp = torch.exp2(torch.floor(torch.log2(
+                y32.abs().clamp_min(1e-30))) - 7)
+            diff = (y.float() - y32).abs()
+            ratio = float((diff / (one_ulp + 2.0 ** -20 * absref)).max())
+            if ratio > 1.0:
+                fail(f"nvfp4_matmul at {c.name} {wname} (K={k}, N={n}) outside "
+                     f"tolerance at M={m}: err/bound {ratio}")
+            err["nvfp4_matmul"] = max(err["nvfp4_matmul"], float(diff.max()))
+            err_bound["nvfp4_matmul"] = max(err_bound["nvfp4_matmul"], ratio)
+            print(f"[kernel] nvfp4_matmul {c.name} {wname} M={m} (K={k}, N={n}): "
+                  f"max err/bound {ratio:.4f}", flush=True)
+            del y, y32, absref, one_ulp
+        if not torch.equal(ops.nvfp4_matmul(xq, p)[:n_slots].view(torch.int16),
+                           ops.nvfp4_matmul(xq[:n_slots], p).view(torch.int16)):
+            fail(f"nvfp4_matmul rows of {c.name} {wname} differ between "
+                 f"M={ms[-1]} and M={n_slots}")
+        timed_m = (n_slots if c is rw else cross_m if wname.startswith("x_")
+                   else None)
+        if timed_m:
+            xt = xq[:timed_m]
+            bts, fl = kmm.bytes_moved(xt, p, torch.bfloat16), kmm.flops(xt, p)
+            rows["nvfp4_matmul"].append(dict(
+                m=timed_m, k=k, n=n, site=f"{c.name} {wname}", phase=c.name,
+                bound_ms=max(bts / HBM_BYTES_S, fl / BF16_FLOPS) * 1e3,
+                bound_by=("bytes" if bts / HBM_BYTES_S >= fl / BF16_FLOPS
+                          else "operations"),
+                max_abs_err=float(diff.max()),
+                fns=((lambda xt=xt, p=p: ops.nvfp4_matmul(xt, p)),
+                     (lambda xt=xt, p=p: ref.nvfp4_matmul_ref(xt, p)),
+                     (lambda xt=xt, w=wdq.T: torch.matmul(xt, w)))))
+        del x, xq, diff
+    for k in (d, ff, wh.d_model, wh.d_ff):
+        x = (torch.randn((n_slots, 1, k), generator=gen, device=dev) * 3.0
+             ).to(torch.bfloat16)
+        if not qdq_equal(ops.nvfp4_qdq(x, scope="row"),
+                         ref.nvfp4_qdq_ref(x, None, "row")):
+            fail(f"nvfp4_qdq row scope not bitwise at [{n_slots}, 1, {k}]")
+    print(f"[kernel] 3i, the slab families' shapes: nvfp4_matmul within its "
+          f"bound at {len(sites)} sites (rwkv6 N = 64 and 160 below one "
+          f"128-row weight tile; whisper's cross-KV at M = {cross_m}), rows "
+          f"bitwise equal across M; nvfp4_qdq row scope bitwise at "
+          f"[{n_slots}, 1, K] for K in ({d}, {ff}, {wh.d_model}, {wh.d_ff}) "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+
+
+def phase_4_families(dev):
+    """Phase 4 for rwkv6, whisper and qwen2-vl at smoke size: the same
+    weights and inputs on the card and on the CPU.  Prefill logits within
+    1e-2 (gated), greedy tokens compared (printed); one QAD step within
+    STEP_TOL and each updated parameter within one bf16 ulp plus 2 lr,
+    with one K5, one K6 and two K1 launches a quantized site (the
+    activation and the weight)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import qad
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, specs
+    from repro_torch.models import common, get_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 7)
+
+    def extras(c, b, s):
+        if c.family == "encdec":
+            return {"enc_frames": torch.randn((b, c.enc_seq, c.d_model),
+                                              generator=gen)}
+        if c.mrope_sections:
+            vb = vlm_batch(c, b, s, 2, 2, gen, "cpu")
+            return {k: vb[k] for k in ("vis_mask", "vis_embeds", "pos3")}
+        return {}
+
+    def greedy(c, params, batch, n):
+        """Greedy tokens: ``serve_batch``, or for M-RoPE (whose decode
+        steps take pos3) prefill and decode_step with each new token at
+        the text positions after the prompt's largest."""
+        if not c.mrope_sections:
+            ex = {k: v for k, v in batch.items() if k != "tokens"}
+            return serve.serve_batch(c, params, batch["tokens"], n,
+                                     extras=ex)[0]
+        model, sq = get_model(c), specs.serve_qconfig(c)
+        b, s = batch["tokens"].shape
+        nxt = int(batch["pos3"].max()) + 1
+        with torch.inference_mode():
+            logits, cache = model.prefill(c, params, batch, sq, s_max=s + n)
+            out = [torch.argmax(logits[:, -1:], -1)]
+            for i in range(n - 1):
+                p3 = torch.full((b, 1, 3), nxt + i, dtype=torch.long,
+                                device=logits.device)
+                logits, cache = model.decode_step(
+                    c, params, cache, {"tokens": out[-1], "pos3": p3}, sq)
+                out.append(torch.argmax(logits[:, -1:], -1))
+        return torch.cat(out, 1)
+
+    for arch in (RWKV["arch"], WHISPER["arch"], QWEN_VL["arch"]):
+        c = configs.get_smoke(arch)
+        model = get_model(c)
+        p_cpu, _ = serve.load_quantized(c, SEED, "packed", "cpu")
+        p_dev = params_to(p_cpu, dev)
+        batch = {"tokens": torch.randint(4, c.vocab_size, (2, 8),
+                                         generator=torch.Generator()
+                                         .manual_seed(SEED)),
+                 **extras(c, 2, 8)}
+        sq = specs.serve_qconfig(c)
+        with torch.inference_mode():
+            l_cpu, _ = model.prefill(c, p_cpu, batch, sq)
+            l_dev, _ = model.prefill(c, p_dev, to_device(batch, dev), sq)
+        # torch.allclose's test, |card - CPU| <= 1e-2 + 1e-2 |CPU|, as a
+        # fraction of its limit
+        l_at = float(((l_dev.float().cpu() - l_cpu.float()).abs()
+                      / (1e-2 + 1e-2 * l_cpu.float().abs())).max())
+        if l_at > 1.0:
+            fail(f"{c.name} smoke prefill logits on the card differ from the "
+                 f"CPU's: at {l_at:.3f} of the tolerance")
+        agree = torch.equal(greedy(c, p_cpu, batch, 6),
+                            greedy(c, p_dev, to_device(batch, dev), 6).cpu())
+
+        tb = make_batch(DataConfig(c.vocab_size, 32, 4, seed=SEED), 0)
+        tb.update(extras(c, 4, 32))
+        opt = AdamW(lr=warmup_cosine(1e-3, 0, 10), clip_norm=1.0)
+        step_fn = qad.make_train_step(model, c, specs.recipe_qconfig(c), opt)
+        st_cpu = qad.init_state(model, c, torch.Generator().manual_seed(SEED),
+                                opt, device="cpu")
+        st_dev = qad.TrainState(
+            step=st_cpu.step.to(dev), student=params_to(st_cpu.student, dev),
+            teacher=params_to(st_cpu.teacher, dev),
+            opt_state=type(st_cpu.opt_state)(*(params_to(t, dev)
+                                                for t in st_cpu.opt_state)))
+        new_cpu, m_cpu = step_fn(st_cpu, tb)
+        ops.reset_launches()
+        new_dev, m_dev = step_fn(st_dev, to_device(tb, dev))
+        torch.cuda.synchronize()
+        want = {"kl_loss": 1, "kl_loss_bwd": 1,
+                "nvfp4_qdq": 2 * family_sites(c)}
+        if any(ops.launches[k] != n for k, n in want.items()):
+            fail(f"{c.name} smoke QAD step on the card: launches "
+                 f"{ops.launches}, expected {want}")
+        srel = {k: abs(float(m_dev[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
+                for k in STEP_TOL}
+        worst = 0.0
+        for a, b in zip(common.tree_leaves(new_dev.student),
+                        common.tree_leaves(new_cpu.student)):
+            a, b = a.float().cpu(), b.float()
+            lim = ulp(torch.maximum(a.abs(), b.abs()), 7) + 2 * 1e-3
+            worst = max(worst, float(((a - b).abs() / lim).max()))
+        print(f"[smoke] {c.name}: card vs CPU prefill logits within 1e-2 "
+              f"(at {l_at:.3f} of the tolerance); "
+              f"greedy tokens {'AGREE' if agree else 'DISAGREE'}; QAD step "
+              f"loss {float(m_dev['loss']):.6g} vs {float(m_cpu['loss']):.6g} "
+              f"(rel {srel['loss']:.2e}), grad_norm rel "
+              f"{srel['grad_norm']:.2e}, updated params at {worst:.3f} of "
+              f"their tolerance, launches {want}", flush=True)
+        for k, tol in STEP_TOL.items():
+            if srel[k] > tol:
+                fail(f"{c.name} smoke QAD step: {k} on the card differs from "
+                     f"the CPU's by {srel[k]}")
+        if worst > 1.0:
+            fail(f"{c.name} smoke QAD step: updated parameters differ beyond "
+                 "1 bf16 ulp + 2 lr")
+    print(f"[smoke] the slab families and M-RoPE: "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def slab_oracle(eng, rids, prompts, extras, gen_n, first, pre, label):
+    """Each request of a slab-engine run against the static path at batch
+    1 on its prompt (``prefill``, then ``decode_step`` fed the engine's
+    first token): the prefill logits bitwise, the first decode step's
+    logits within LOGIT_TOL (printed)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import specs
+    c, params, dev = eng.cfg, eng.params, eng.device
+    model, sq = eng.model, specs.serve_qconfig(eng.cfg)
+    n_eq, rel = 0, []
+    with torch.inference_mode():
+        for rid, p, ex in zip(rids, prompts, extras):
+            batch = {"tokens": torch.from_numpy(p[None].astype(np.int64)).to(dev),
+                     **{k: torch.as_tensor(v, device=dev)[None]
+                        for k, v in (ex or {}).items()}}
+            lp, cache = model.prefill(c, params, batch, sq, s_max=len(p) + gen_n)
+            n_eq += bool(torch.equal(pre[rid], lp[0, -1].float()))
+            tok = torch.argmax(lp[:, -1:], -1)
+            ld, _ = model.decode_step(c, params, cache, {"tokens": tok}, sq)
+            rel.append(rel_l2(first[rid], ld[0, -1]))
+            del cache
+    print(f"[engine {label}] against the static path at batch 1: prefill "
+          f"logits bitwise equal on {n_eq}/{len(pre)} requests; first decode "
+          f"step's logits rel_l2 max {max(rel):.4g} median "
+          f"{float(np.median(rel)):.4g} (tolerance {LOGIT_TOL['nvfp4']})",
+          flush=True)
+    if n_eq != len(pre):
+        fail(f"engine {label}: prefill logits not bitwise the static path's")
+    if max(rel) > LOGIT_TOL["nvfp4"]:
+        fail(f"engine {label}: first decode step's logits differ by {max(rel)}")
+
+
+def slab_engine_run(c, params, qcfg, dev, prompts, extras, gen_n, label,
+                    resident, **engine_kw):
+    """Run A's arrivals over the slab engine: (engine, rids, outputs,
+    launches, prefill logits, first decode logits); every request must
+    finish and every slot be released.  ``resident``: GB held before the
+    weights were loaded, which the serving peak is printed net of."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(c, params, qcfg, device=dev, **engine_kw)
+    first, pre = first_decode_logits(eng), prefill_logits(eng)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rids, out = serve.run_workload(eng, prompts, gen_n, extras)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(out) != len(prompts) or any(len(out[r]) != gen_n for r in rids):
+        fail(f"engine {label}: {len(out)} of {len(prompts)} requests finished")
+    slab_drained(eng, label)
+    st = eng.stats()
+    print(f"[engine {label}] {c.name} full size, packed, slab plan "
+          f"{'+'.join(eng.state_plan)}: {len(prompts)} requests, gen {gen_n}, "
+          f"{eng.n_slots} slots: wall {wall:.2f}s, steps {st['steps']}, decode "
+          f"steps {st['decode_steps']}; ttft_p50_ms={st['ttft_p50_s']*1e3:.1f} "
+          f"ttft_p95_ms={st['ttft_p95_s']*1e3:.1f} "
+          f"decode_step_p50_ms={st['decode_step_p50_s']*1e3:.2f} "
+          f"decode_step_p95_ms={st['decode_step_p95_s']*1e3:.2f} "
+          f"decode_tok_s={st['decode_tok_s']:.1f} e2e_tok_s={st['e2e_tok_s']:.1f}"
+          f" prefill_s={st['prefill_s']:.2f} decode_s={st['decode_s']:.2f}; "
+          f"state {st['state_bytes_per_slot'] / 2**20:.3f} MiB a slot "
+          f"({st['pool_bytes'] / 1e9:.4f} GB for {eng.n_slots}); serving peak "
+          f"{peak - resident:.2f} GB net of the {resident:.2f} GB resident "
+          f"before the load; launches {launches}", flush=True)
+    if (launches["paged_attention"] or launches["nvfp4_matmul_grouped"]
+            or launches["kl_loss"]):
+        fail(f"engine {label} launched a kernel off its path: {launches}")
+    return eng, rids, out, launches, pre, first
+
+
+def load_full(arch, dev):
+    """A full-size config's packed weights from the seed: (cfg, params,
+    qcfg, load s, load peak GB, resident GB before)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    c = configs.get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, qcfg = serve.load_quantized(c, SEED, "packed", dev)
+    torch.cuda.synchronize()
+    return (c, params, qcfg, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 1e9, resident)
+
+
+def phase_5h(dev) -> dict:
+    """rwkv6-3b at full size on the slab engine: run A's arrivals, prompts
+    of 64 k tokens (k = 1..8, each twice), 32 greedy tokens.  Returns the
+    run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import common, rwkv6
+    from repro_torch.serve import Engine
+    t_start = time.perf_counter()
+    c, params, qcfg, load_s, load_peak, resident = load_full(RWKV["arch"], dev)
+    wr = serve.weight_report(params)
+    n_total = sum(math.prod(sp.shape) for sp in
+                  common.tree_leaves(rwkv6.param_specs(c)))
+    embed_b = params["embed"].numel() * params["embed"].element_size()
+    head_b = params["lm_head"].numel() * params["lm_head"].element_size()
+    lora_b = sum(params["layers"][k].numel() * 2 for k in ("ts_w2", "dec_w2"))
+    state_b = common.spec_bytes(rwkv6.slot_state_specs(c, ENGINE["n_slots"], 0))
+    # a decode step reads every weight but the embedding (a lookup) once,
+    # and reads and writes the slots' state
+    step_b = wr["total_bytes"] - embed_b + 2 * state_b
+    print(f"[engine H] {c.name}: {c.n_layers} layers, d_model {c.d_model}, "
+          f"{c.d_model // c.rwkv_head_dim} WKV heads of {c.rwkv_head_dim}, "
+          f"d_ff {c.d_ff}, vocab {c.vocab_size}, {n_total / 1e9:.3f} B params; "
+          f"load + PTQ {load_s:.1f}s, peak {load_peak:.2f} GB ({resident:.2f} "
+          f"resident before); packed {wr['q_params'] / 1e9:.3f} B params in "
+          f"{wr['q_bytes'] / 1e9:.3f} GB, BF16 lm_head {head_b / 1e9:.3f} GB, "
+          f"BF16 LoRA mats {lora_b / 1e9:.4f} GB, {ENGINE['n_slots']} slots' "
+          f"state {state_b / 1e9:.4f} GB read and written; decode bound "
+          f"{step_b / 1e9:.3f} GB a step = {step_b / HBM_BYTES_S * 1e3:.3f} ms "
+          f"at {HBM_BYTES_S / 1e12:.2f} TB/s", flush=True)
+    g = torch.Generator().manual_seed(SEED + 5)
+    lens = [64 * k for k in range(1, 9)] * 2
+    prompts = [torch.randint(4, c.vocab_size, (n,), generator=g).numpy()
+               .astype(np.int32) for n in lens]
+    eng, rids, out, launches, pre, first = slab_engine_run(
+        c, params, qcfg, dev, prompts, None, RWKV["gen"], "H", resident,
+        **ENGINE)
+    per_fwd = family_sites(c)
+    n_fwd = len(prompts) + eng.stats()["decode_steps"]
+    for k in ("nvfp4_qdq", "nvfp4_matmul"):
+        if launches[k] != per_fwd * n_fwd:
+            fail(f"engine H launched {k} {launches[k]} times, expected "
+                 f"{per_fwd} a forward x {n_fwd} forwards")
+    print(f"[engine H] K1 and K2 {per_fwd} launches a forward (10 sites x "
+          f"{c.n_layers} layers) x {n_fwd} forwards", flush=True)
+    slab_oracle(eng, rids, prompts, [None] * len(prompts), RWKV["gen"], first,
+                pre, "H")
+    # one slot at a time: every GEMM sees the rows serve_batch's do
+    n1 = RWKV["one_slot"]
+    eng1 = Engine(c, params, qcfg, device=dev, n_slots=1,
+                  block_size=ENGINE["block_size"],
+                  max_blocks_per_slot=ENGINE["max_blocks_per_slot"])
+    r1, o1 = serve.run_workload(eng1, prompts[:n1], RWKV["gen"])
+    slab_drained(eng1, "H, one slot")
+    for rid, p in zip(r1, prompts[:n1]):
+        want, _ = serve.serve_batch(c, params, torch.from_numpy(
+            p[None].astype(np.int64)).to(dev), RWKV["gen"])
+        if not np.array_equal(want[0].cpu().numpy(), o1[rid]):
+            fail(f"engine H at one slot: request {rid} {o1[rid][:12].tolist()} "
+                 f"against serve_batch's {want[0, :12].tolist()}")
+    agree = np.mean([np.mean(out[r] == o1[q]) for r, q in zip(rids, r1)])
+    print(f"[engine H] one slot at a time: greedy tokens equal to serve_batch "
+          f"on {n1}/{n1} requests; the 8-slot run's tokens equal to them at "
+          f"{agree:.3f} of positions (printed)", flush=True)
+    trace_slab_step(eng, prompts, "rwkv6 engine")
+    del eng, eng1, params
+    print(f"[engine H] {time.perf_counter() - t_start:.1f}s", flush=True)
+    return launches
+
+
+def phase_5i(dev) -> dict:
+    """whisper-tiny at full size on the slab engine: 16 requests, each with
+    its own encoder frames [1500, 384], decoder prompts of 4..192 tokens,
+    64 greedy tokens, 8 slots of 448 self-attention positions.  Returns
+    the run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import common, whisper
+    from repro_torch.serve import Engine
+    t_start = time.perf_counter()
+    c, params, qcfg, load_s, load_peak, resident = load_full(WHISPER["arch"],
+                                                             dev)
+    n_total = sum(math.prod(sp.shape) for sp in
+                  common.tree_leaves(whisper.param_specs(c)))
+    bs = ENGINE["block_size"]
+    kw = dict(n_slots=ENGINE["n_slots"], block_size=bs,
+              max_blocks_per_slot=WHISPER["s_alloc"] // bs)
+    prompts = serve.mixed_prompts(WHISPER["requests"], WHISPER["min_prompt"],
+                                  WHISPER["max_prompt"], c.vocab_size, SEED + 6)
+    frames = serve.enc_frames(c, len(prompts), SEED)
+    extras = [{"enc_frames": f} for f in frames]
+    print(f"[engine I] {c.name}: {c.n_enc_layers} + {c.n_layers} layers, "
+          f"d_model {c.d_model}, {c.n_heads} heads, d_ff {c.d_ff}, tied vocab "
+          f"{c.vocab_size}, enc_seq {c.enc_seq}, {n_total / 1e6:.2f} M params; "
+          f"load + PTQ {load_s:.1f}s, peak {load_peak:.2f} GB ({resident:.2f} "
+          "resident before)", flush=True)
+    eng, rids, out, launches, pre, first = slab_engine_run(
+        c, params, qcfg, dev, prompts, extras, WHISPER["gen"], "I", resident,
+        **kw)
+    n_dec = eng.stats()["decode_steps"]
+    want = family_sites(c) * len(prompts) + family_sites(c, True) * n_dec
+    for k in ("nvfp4_qdq", "nvfp4_matmul"):
+        if launches[k] != want:
+            fail(f"engine I launched {k} {launches[k]} times, expected "
+                 f"{family_sites(c)} a prefill x {len(prompts)} + "
+                 f"{family_sites(c, True)} a decode step x {n_dec}")
+    print(f"[engine I] K1 and K2 {family_sites(c)} launches a prefill (the "
+          f"encoder's 4 x {c.n_enc_layers} and the decoder's 7 x {c.n_layers}) "
+          f"and {family_sites(c, True)} a decode step: {want} each", flush=True)
+    slab_oracle(eng, rids, prompts, extras, WHISPER["gen"], first, pre, "I")
+    try:
+        eng.submit(prompts[0], 4)
+    except ValueError as e:
+        if "extras['enc_frames']" not in str(e):
+            fail(f"engine I refused a request without frames with {e}")
+        print(f"[engine I] a request without enc_frames is refused: {e}",
+              flush=True)
+    else:
+        fail("engine I took a request without enc_frames")
+    # one slot at a time against the static path at the slab's 448
+    # positions (serve_batch's prefill and decode steps; its own s_max,
+    # prompt + gen, would sum the attention over another length)
+    n1 = WHISPER["one_slot"]
+    eng1 = Engine(c, params, qcfg, device=dev, **dict(kw, n_slots=1))
+    r1, o1 = serve.run_workload(eng1, prompts[:n1], WHISPER["gen"], extras[:n1])
+    slab_drained(eng1, "I, one slot")
+    sq = eng1.sq
+    with torch.inference_mode():
+        for rid, p, ex in zip(r1, prompts[:n1], extras[:n1]):
+            batch = {"tokens": torch.from_numpy(p[None].astype(np.int64)).to(dev),
+                     "enc_frames": torch.as_tensor(ex["enc_frames"], device=dev)[None]}
+            lg, cache = whisper.prefill(c, params, batch, sq, WHISPER["s_alloc"])
+            toks = [torch.argmax(lg[:, -1:], -1)]
+            for _ in range(WHISPER["gen"] - 1):
+                lg, cache = whisper.decode_step(c, params, cache,
+                                                {"tokens": toks[-1]}, sq)
+                toks.append(torch.argmax(lg[:, -1:], -1))
+            want_t = torch.cat(toks, 1)[0].cpu().numpy()
+            if not np.array_equal(want_t, o1[rid]):
+                fail(f"engine I at one slot: request {rid} "
+                     f"{o1[rid][:12].tolist()} against the static path's "
+                     f"{want_t[:12].tolist()}")
+    agree = np.mean([np.mean(out[r] == o1[q]) for r, q in zip(rids, r1)])
+    print(f"[engine I] one slot at a time: greedy tokens equal to the static "
+          f"path on {n1}/{n1} requests; the 8-slot run's at {agree:.3f} of "
+          f"positions (printed)", flush=True)
+    trace_slab_step(eng, prompts, "whisper engine", extras)
+    del eng, eng1, params
+    print(f"[engine I] {time.perf_counter() - t_start:.1f}s", flush=True)
+    return launches
+
+
+def phase_5j(dev) -> dict:
+    """qwen2-vl-2b at full size, packed, M-RoPE over a 16 x 16 patch grid:
+    prefill of 480 tokens and 32 decode steps with their pos3 against
+    teacher-forcing ``apply`` over all 512, first with BF16 activations
+    (gated at LOGIT_TOL["bf16_act"]: the positions, the splice and the
+    cache, with K2 on every packed weight), then with NVFP4 activations in
+    per-token scope (printed: over 28 random-weight layers the NVFP4
+    rounding amplifies the decode attention's other summation order to
+    about 0.6 rel L2, measured); the engine's refusal.  Returns the
+    launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.models import decoder
+    from repro_torch.serve import Engine, UnsupportedStateError
+    t_start = time.perf_counter()
+    c, params, qcfg, load_s, load_peak, resident = load_full(QWEN_VL["arch"],
+                                                             dev)
+    b, n, p_len = QWEN_VL["batch"], QWEN_VL["seq"], QWEN_VL["prompt"]
+    batch = vlm_batch(c, b, n, QWEN_VL["grid_at"], QWEN_VL["grid"],
+                      torch.Generator(device=dev).manual_seed(SEED + 8), dev)
+    sq = specs.serve_qconfig(c)
+    print(f"[vlm J] {c.name} full size ({c.n_layers} layers, d_model "
+          f"{c.d_model}, GQA {c.n_heads}/{c.n_kv_heads} of {c.head_dim}, d_ff "
+          f"{c.d_ff}, tied vocab {c.vocab_size}, sections {c.mrope_sections}), "
+          f"packed, load {load_s:.1f}s, peak {load_peak:.2f} GB ({resident:.2f} "
+          f"resident before); {b} x {n} "
+          f"tokens, a {QWEN_VL['grid']} x {QWEN_VL['grid']} grid at "
+          f"{QWEN_VL['grid_at']}", flush=True)
+    ops.reset_launches()
+    worst = {}
+    for mode, q in (("bf16_act", dataclasses.replace(
+            sq, quantize_activations=False)),
+            ("nvfp4", dataclasses.replace(sq, act_scope="token"))):
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = decoder.apply(c, params, batch, q)
+            torch.cuda.synchronize()
+            t_apply = time.perf_counter() - t0
+            lg, cache = decoder.prefill(c, params, {k: v[:, :p_len] for k, v
+                                                    in batch.items()},
+                                        q, s_max=n)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0 - t_apply
+            rel, agree = [rel_l2(lg[:, 0], full[:, p_len - 1])], []
+            t0 = time.perf_counter()
+            for i in range(p_len, n):
+                lg, cache = decoder.decode_step(
+                    c, params, cache, {"tokens": batch["tokens"][:, i:i + 1],
+                                       "pos3": batch["pos3"][:, i:i + 1]}, q)
+                rel.append(max(rel_l2(lg[j, 0], full[j, i]) for j in range(b)))
+                agree.append(float((lg[:, 0].argmax(-1)
+                                    == full[:, i].argmax(-1)).float().mean()))
+            torch.cuda.synchronize()
+            t_dec = (time.perf_counter() - t0) / (n - p_len)
+        worst[mode] = max(rel)
+        print(f"[vlm J] {mode}: apply {t_apply * 1e3:.1f} ms, prefill of "
+              f"{p_len} {t_pre * 1e3:.1f} ms, decode step {t_dec * 1e3:.2f} ms; "
+              f"logits against apply's rel_l2 max {max(rel):.4g} median "
+              f"{sorted(rel)[len(rel) // 2]:.4g} over the prefill and "
+              f"{n - p_len} decode steps, argmax agreement "
+              f"{sum(agree) / len(agree):.3f}"
+              + (f" (tolerance {LOGIT_TOL['bf16_act']})" if mode == "bf16_act"
+                 else " (printed)"), flush=True)
+        del full, cache
+    if worst["bf16_act"] > LOGIT_TOL["bf16_act"]:
+        fail(f"qwen2-vl decode logits differ from apply's by "
+             f"{worst['bf16_act']} with BF16 activations")
+    launches = dict(ops.launches)
+    n_fwd = 2 + (n - p_len)
+    want = {"nvfp4_matmul": 2 * family_sites(c) * n_fwd,
+            "nvfp4_qdq": family_sites(c) * n_fwd}
+    print(f"[vlm J] launches {launches} (expected {want}: {family_sites(c)} "
+          f"a forward x {n_fwd} forwards, K1 in the NVFP4 pass alone)",
+          flush=True)
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"qwen2-vl launched {launches}, expected {want}")
+    try:
+        Engine(c, params, qcfg, device=dev, **ENGINE)
+    except UnsupportedStateError as e:
+        if "vision_prefix" not in str(e):
+            fail(f"the engine refused qwen2-vl-2b for another reason: {e}")
+        print(f"[vlm J] the engine refuses it: [serve] unsupported: {e}",
+              flush=True)
+    else:
+        fail("the engine took qwen2-vl-2b (M-RoPE)")
+    del params
+    print(f"[vlm J] {time.perf_counter() - t_start:.1f}s", flush=True)
+    return launches
+
+
+def qad_report(label, c, n_all, n_eff, tokens, steps_ms, peak, resident,
+               launches, expect, hist, changed):
+    """Print a QAD run and hold its launch counts, metrics and student."""
+    bound_ms = 10 * n_eff * tokens / BF16_FLOPS * 1e3
+    print(f"[{label}] {c.name} ({c.n_layers} layers, {n_all / 1e9:.3f} B "
+          f"params), remat={c.remat}: step_ms "
+          + " ".join(f"{x:.1f}" for x in steps_ms)
+          + f"; bound {bound_ms:.1f} ms (10 N T, N {n_eff / 1e9:.3f} B, T "
+          f"{tokens}); peak_mem_gb={peak:.2f} ({resident:.2f} resident "
+          "before)", flush=True)
+    print(f"[{label}] per-step eval KL " + " ".join(f"{h['kl']:.6g}" for h in hist)
+          + " | CE " + " ".join(f"{h['ce']:.5g}" for h in hist)
+          + " | train loss " + " ".join(f"{h['loss']:.6g}" for h in hist),
+          flush=True)
+    print(f"[{label}] launches {launches} (expected {expect}); student "
+          f"elements changed: {changed}", flush=True)
+    for k, n_want in expect.items():
+        if launches[k] != n_want:
+            fail(f"{label}: launched {k} {launches[k]} times, expected {n_want}")
+    for h in hist:
+        if not all(math.isfinite(h[k]) for k in ("kl", "ce", "loss")):
+            fail(f"{label}: non-finite metrics {h}")
+    if changed == 0:
+        fail(f"{label}: the student's parameters did not change")
+
+
+def phase_6f(dev) -> dict:
+    """QAD on rwkv6-3b at full width, cut to RWKV_TRAIN["layers"] of its
+    32 layers, through ``launch.train.train``.  Returns the launches."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import common, rwkv6
+    t_start = time.perf_counter()
+    full = configs.get_config(RWKV["arch"])
+    cut = dataclasses.replace(full, n_layers=RWKV_TRAIN["layers"])
+    get_config = configs.get_config
+    configs.get_config = lambda name: cut if name == RWKV["arch"] else get_config(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        state, hist = train.train(RWKV["arch"], smoke=False,
+                                  steps=RWKV_TRAIN["steps"], lr=TRAIN["lr"],
+                                  method="qad", batch=RWKV_TRAIN["batch"],
+                                  seq=RWKV_TRAIN["seq"], eval_every=1,
+                                  seed=SEED, device=dev,
+                                  log=lambda msg: print(msg, flush=True))
+    finally:
+        configs.get_config = get_config
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    specs_ = rwkv6.param_specs(cut)
+    n_all = sum(math.prod(sp.shape) for sp in common.tree_leaves(specs_))
+    n_eff = n_all - math.prod(specs_["embed"].shape)
+    steps, evals = RWKV_TRAIN["steps"], 2 * RWKV_TRAIN["steps"]
+    per_fwd = 2 * family_sites(cut)
+    expect = {"nvfp4_qdq": per_fwd * ((1 if cut.remat == "none" else 2) * steps
+                                      + evals),
+              "kl_loss": steps + evals, "kl_loss_bwd": steps,
+              "nvfp4_matmul": 0, "paged_attention": 0}
+    changed = sum(int((a != b).sum()) for a, b in zip(
+        common.tree_leaves(state.student), common.tree_leaves(state.teacher)))
+    qad_report("train-rwkv6", cut, n_all, n_eff,
+               RWKV_TRAIN["batch"] * RWKV_TRAIN["seq"],
+               [h["step_s"] * 1e3 for h in hist],
+               torch.cuda.max_memory_allocated() / 1e9, resident, launches,
+               expect, hist, changed)
+    del state, hist
+    print(f"[train-rwkv6] {time.perf_counter() - t_start:.1f}s", flush=True)
+    return launches
+
+
+def phase_6g(dev) -> dict:
+    """QAD on qwen2-vl-2b at full size through ``core.qad.make_train_step``
+    on VLM batches (5j's layout, one grid a sequence), an eval after each
+    step.  Returns the launches."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import qad
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.models import common, decoder
+    from repro_torch.optim import AdamW, warmup_cosine
+    t_start = time.perf_counter()
+    c = configs.get_config(QWEN_VL["arch"])
+    b, n, steps = VL_TRAIN["batch"], VL_TRAIN["seq"], VL_TRAIN["steps"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    def vl_train_batch():
+        vb = vlm_batch(c, b, n, QWEN_VL["grid_at"], QWEN_VL["grid"], gen, dev)
+        vb["labels"] = torch.randint(4, c.vocab_size, (b, n), generator=gen,
+                                     device=dev)
+        vb["mask"] = torch.ones((b, n), device=dev)
+        return vb
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamW(lr=warmup_cosine(TRAIN["lr"], 0, steps), clip_norm=1.0)
+    with torch.no_grad():
+        state = qad.init_state(decoder, c, torch.Generator(device=dev)
+                               .manual_seed(SEED), opt, device=dev)
+    qc = specs.recipe_qconfig(c)
+    step_fn = qad.make_train_step(decoder, c, qc, opt)
+    eval_fn = qad.make_eval_step(decoder, c, qc)
+    held = vl_train_batch()
+    ops.reset_launches()
+    hist = []
+    for _ in range(steps):
+        batch = vl_train_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ev = eval_fn(state, held)
+        hist.append({"kl": float(ev["kl"]), "ce": float(ev["ce"]),
+                     "loss": float(m["loss"]), "step_s": dt})
+    launches = dict(ops.launches)
+    n_all = sum(math.prod(sp.shape) for sp in
+                common.tree_leaves(decoder.param_specs(c)))
+    per_fwd = 2 * family_sites(c)
+    expect = {"nvfp4_qdq": per_fwd * ((1 if c.remat == "none" else 2) * steps
+                                      + steps),
+              "kl_loss": 2 * steps, "kl_loss_bwd": steps, "nvfp4_matmul": 0,
+              "paged_attention": 0}
+    changed = sum(int((x != y).sum()) for x, y in zip(
+        common.tree_leaves(state.student), common.tree_leaves(state.teacher)))
+    # the tied embedding counts once, as the unembedding's GEMM
+    qad_report("train-vlm", c, n_all, n_all, b * n,
+               [h["step_s"] * 1e3 for h in hist],
+               torch.cuda.max_memory_allocated() / 1e9, resident, launches,
+               expect, hist, changed)
+    del state
+    print(f"[train-vlm] {time.perf_counter() - t_start:.1f}s", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -638,14 +1598,14 @@ def main() -> int:
             y32 = ref.nvfp4_matmul_ref(xq, p, torch.float32)
             wdq = nvfp4.unpack(p, torch.bfloat16)             # [N, K]
             absref = xq.float().abs() @ wdq.float().abs().T
-            ulp = torch.exp2(torch.floor(torch.log2(
+            one_ulp = torch.exp2(torch.floor(torch.log2(
                 y32.abs().clamp_min(1e-30))) - 7)
             diff = (y.float() - y32).abs()
-            if not bool((diff <= ulp + 2.0 ** -20 * absref).all()):
+            if not bool((diff <= one_ulp + 2.0 ** -20 * absref).all()):
                 fail(f"nvfp4_matmul outside tolerance at M={m} K={k} N={n}: "
                      f"max abs err {float(diff.max())}")
             err["nvfp4_matmul"] = max(err["nvfp4_matmul"], float(diff.max()))
-            ratio = float((diff / (ulp + 2.0 ** -20 * absref)).max())
+            ratio = float((diff / (one_ulp + 2.0 ** -20 * absref)).max())
             err_bound["nvfp4_matmul"] = max(err_bound["nvfp4_matmul"], ratio)
             print(f"[kernel] nvfp4_matmul M={m} {wname} (K={k}, N={n}): max "
                   f"err/bound {ratio:.4f}", flush=True)
@@ -716,34 +1676,27 @@ def main() -> int:
     # amax in the same launch; bitwise against the plain version with the
     # amax taken by torch, one device kernel a call, a misaligned view read
     # in place, a NaN and an inf as the plain version has them
-    def q_bound(x):
-        return max(kqdq.bytes_moved(x) / HBM_BYTES_S,
-                   kqdq.OPS_PER_ELEM * x.numel() / F32_FLOPS) * 1e3
-
-    def old_call(x, scope):
-        """The op as it was called before the amax moved into the kernel:
-        ``q_act``'s torch amax (the tensor scope's the wrapper's
-        ``vector_norm``), then the kernel given it."""
-        amax = (torch.linalg.vector_norm(x, ord=float("inf")).float()
-                if scope == "tensor" else kqdq.scope_amax(x, scope))
-        return ops.nvfp4_qdq(x, amax)
-
-    def qdq_equal(got, want):
-        gn, wn = torch.isnan(got), torch.isnan(want)
-        return bool(torch.equal(gn, wn)) and bool(torch.equal(
-            got[~gn].view(torch.int16 if got.dtype == torch.bfloat16
-                          else torch.int32),
-            want[~wn].view(torch.int16 if want.dtype == torch.bfloat16
-                           else torch.int32)))
-
     def device_ops(fn):
+        """The device ops of one call of ``fn``, WARMUP_SPINS spin kernels
+        recorded ahead of it and left out; an empty profile (a dropped
+        record: the profiler adds none) is taken again, up to three in
+        all."""
         fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
+        for _ in range(3):
             torch.cuda.synchronize()
-        return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(WARMUP_SPINS):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and "spin_kernel" not in e.name]
+            if names:
+                return names
+        return names
 
     tcfg_full = configs.get_config(TRAIN["arch"])
     mcfg_full = configs.get_config(MOE_ARCH)
@@ -834,16 +1787,16 @@ def main() -> int:
                 y32 = ref.nvfp4_matmul_ref(xl, tile, torch.float32)
                 tabs = xl.float().abs() @ nvfp4.unpack(
                     tile, torch.bfloat16).float().abs().T
-                ulp = torch.exp2(torch.floor(torch.log2(
+                one_ulp = torch.exp2(torch.floor(torch.log2(
                     y32.abs().clamp_min(1e-30))) - 7)
                 diff = (y.float() - y32).abs()
-                if not bool((diff <= ulp + 2.0 ** -20 * tabs).all()):
+                if not bool((diff <= one_ulp + 2.0 ** -20 * tabs).all()):
                     fail(f"nvfp4_matmul_tp tile {rank} of {wname} ({mode}) "
                          f"outside K2's tolerance at M={m}: max abs err "
                          f"{float(diff.max())}")
                 err["nvfp4_matmul_tp"] = max(err["nvfp4_matmul_tp"],
                                              float(diff.max()))
-                ratio = float((diff / (ulp + 2.0 ** -20 * tabs)).max())
+                ratio = float((diff / (one_ulp + 2.0 ** -20 * tabs)).max())
                 err_bound["nvfp4_matmul_tp"] = max(err_bound["nvfp4_matmul_tp"],
                                                    ratio)
                 print(f"[kernel] nvfp4_matmul_tp M={m} {wname} {mode} tile "
@@ -958,10 +1911,6 @@ def main() -> int:
     # K5 and K6 against their plain versions ------------------------------
     rows["kl_loss"], rows["kl_loss_bwd"] = [], []
     err["kl_loss"] = err["kl_loss_bwd"] = 0.0
-
-    def ulp(x, mant_bits):
-        return torch.exp2(torch.floor(torch.log2(
-            x.abs().clamp_min(2.0 ** -126))) - mant_bits)
 
     def check_kl(tl, sl, g, what):
         kl, zt, zs = kkl.launch_fwd(tl, sl)
@@ -1205,14 +2154,13 @@ def main() -> int:
           f"{BATCH * PROMPT}), rows bitwise equal; nvfp4_qdq row scope "
           f"bitwise at [{n_slots}, 1, K] ({len(rg_sites)} sites)", flush=True)
 
+    # ---- 3i. the shapes of rwkv6-3b, whisper-tiny and qwen2-vl-2b ---------
+    phase_3i(dev, gen, rows, err, err_bound)
+
     # ---- 4. smoke model: card vs CPU on the same weights ------------------
     scfg = configs.get_smoke("acereason-7b")
     sparams, _ = serve.load_quantized(scfg, SEED, "packed", "cpu")
-    cparams = common.tree_map(
-        lambda t: (nvfp4.PackedNVFP4(t.codes.to(dev), t.scales.to(dev),
-                                     t.tensor_scale.to(dev), t.orig_k)
-                   if isinstance(t, nvfp4.PackedNVFP4) else t.to(dev)),
-        sparams)
+    cparams = params_to(sparams, dev)
     sprompt = torch.randint(4, scfg.vocab_size, (2, 8),
                             generator=torch.Generator().manual_seed(SEED))
     model = get_model(scfg)
@@ -1268,6 +2216,8 @@ def main() -> int:
     if worst > 1.0:
         fail("smoke QAD step: updated parameters differ beyond 1 bf16 ulp + 2 lr")
     del st_gpu, new_gpu, st_cpu, new_cpu
+    # the slab families and M-RoPE at smoke size
+    phase_4_families(dev)
 
     # ---- 5. the static serving path: acereason-7b, full width, packed -----
     scfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH)
@@ -1371,10 +2321,6 @@ def main() -> int:
     print("[serve] per layer, packed stack vs qdq stack, nvfp4 (rel. to the "
           "hidden state): " + " ".join(f"{e:.2e}" for e in free_err), flush=True)
 
-    def rel_l2(a, b):
-        a, b = a.float(), b.float()
-        return float((a - b).norm() / b.norm())
-
     rel = {"bf16_act": rel_l2(lpw, lqw), "nvfp4": rel_l2(lp, lq)}
     top1 = float((lp.argmax(-1) == lq.float().argmax(-1)).float().mean())
     print(f"[serve] packed vs qdq first-step logits, BF16 activations: "
@@ -1402,31 +2348,6 @@ def main() -> int:
     from repro_torch.serve import Engine
 
     params, pqcfg = serve.load_quantized(cfg, SEED, "packed", dev)
-
-    def first_decode_logits(eng):
-        """Record each request's logits at its first decode step."""
-        got, inner = {}, eng.state.decode
-
-        def decode(reqs, toks, lens, active):
-            logits = inner(reqs, toks, lens, active)
-            for r in reqs:
-                if len(r.output) == 1:
-                    got[r.rid] = logits[r.slot, 0].clone()
-            return logits
-        eng.state.decode = decode
-        return got
-
-    def prefill_logits(eng_, force=None):
-        """Record each request's prefill logits; with ``force`` (prompt
-        bytes -> token), emit that first token instead of the sampled one."""
-        got, inner = {}, eng_._sample_one
-
-        def sample_one(req, logits):
-            got[req.rid] = logits[0].float().clone()
-            tok = inner(req, logits)
-            return tok if force is None else force[req.prompt.tobytes()]
-        eng_._sample_one = sample_one
-        return got
 
     def drained(eng, what):
         if eng.state.leaked() or eng.pool.used_blocks != eng.pool.cached_blocks:
@@ -1484,20 +2405,14 @@ def main() -> int:
 
     # one traced decode step: 8 running requests, nothing left to prefill
     for p in a_prompts[:ENGINE["n_slots"]]:
-        eng.submit(p, 8)
+        eng.submit(p, TRACE_GEN)
     while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
         eng.step()
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    step_launches = dict(ops.launches)
+    t = trace_engine_step(eng, "engine decode step")
     eng.drain()
-    by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
+    by_kernel, n_port, n_qdq, n_other, wall_ms, step_launches = (
+        t["by_kernel"], t["n_port"], t["n_qdq"], t["n_other"], t["wall_ms"],
+        t["launches"])
     busy_ms = sum(by_kernel.values())
     k7_ms = sum(ms for kname, ms in by_kernel.items()
                 if "paged_attention_kernel" in kname)
@@ -1753,20 +2668,14 @@ def main() -> int:
 
     # one traced decode step: 8 running requests, nothing left to prefill
     for p in m_prompts[:ENGINE["n_slots"]]:
-        eng.submit(p, 8)
+        eng.submit(p, TRACE_GEN)
     while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
         eng.step()
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    step_launches = dict(ops.launches)
+    t = trace_engine_step(eng, "MoE engine decode step")
     eng.drain()
-    by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
+    by_kernel, n_port, n_qdq, n_other, wall_ms, step_launches = (
+        t["by_kernel"], t["n_port"], t["n_qdq"], t["n_other"], t["wall_ms"],
+        t["launches"])
     busy_ms = sum(by_kernel.values())
     k3_ms = sum(ms for kname, ms in by_kernel.items()
                 if "mma_kernel<true" in kname or "wg_kernel<true" in kname)
@@ -1973,7 +2882,8 @@ def main() -> int:
           f"collective_ms={tr['collective_ms']:.3f} ({tr['collectives']} "
           f"collectives, host-staged); device ops: {tr['n_port']:.0f} of the "
           f"port's kernels ({tr['n_qdq']:.0f} QDQ for {tr['qdq_calls']} QDQ "
-          f"calls), {tr['n_other']:.0f} others", flush=True)
+          f"calls; trace {tr['attempt']}), {tr['n_other']:.0f} others",
+          flush=True)
     if tr["n_qdq"] != tr["qdq_calls"]:
         fail(f"engine TP decode step: {tr['n_qdq']} QDQ kernels for "
              f"{tr['qdq_calls']} QDQ calls")
@@ -1997,40 +2907,6 @@ def main() -> int:
         per_rec = 8 if qc.quantizes("recurrent") else 3
         per_attn = 3 + (2 if qc.quantizes("attn") else 0)
         return per_rec, per_attn, n_sb * n_rec + n_rem, n_sb
-
-    def trace_slab_step(eng, prompts, label):
-        """Fill every slot, then trace one engine step (a decode step and
-        nothing else) and print it: wall and busy ms, the idle share,
-        device ops and time by kind."""
-        for p in prompts[:eng.n_slots]:
-            eng.submit(p, 8)
-        while eng.sched.waiting or len(eng.sched.running()) < eng.n_slots:
-            eng.step()
-        torch.cuda.synchronize()
-        ops.reset_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = dict(ops.launches)
-        eng.drain()
-        by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
-        busy_ms = sum(by_kernel.values())
-        print(f"[trace] {label} decode step, {eng.n_slots} slots (traced): "
-              f"wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
-              f"idle_share={1 - busy_ms / wall_ms:.3f}; device ops: "
-              f"{n_port:.0f} of the port's kernels ({n_qdq:.0f} QDQ for "
-              f"{launches['nvfp4_qdq']} QDQ calls), {n_other:.0f} others",
-              flush=True)
-        print_by_kind(f"{label} decode step", by_kernel)
-        for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
-            print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
-
-    def slab_drained(eng, what):
-        if eng.state.leaked() or eng.stats()["used_slots"]:
-            fail(f"engine {what}: a state slot was not released")
 
     # nemotron-nano-9b-sim at full width and depth, packed, the hybrid
     # recipe; run A's traffic on the slab plan (recurrent + dense_kv)
@@ -2226,6 +3102,13 @@ def main() -> int:
         fail(f"engine F: first decode step logits differ from serve_batch's "
              f"by {max(f_rel)}")
     del eng_f, eng_1, f_first, rparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 5h-5j. rwkv6-3b and whisper-tiny on the slab engine, qwen2-vl-2b --
+    h_launches = phase_5h(dev)
+    i_launches = phase_5i(dev)
+    j_launches = phase_5j(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2771,13 +3654,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 6f, 6g. QAD on rwkv6-3b (16 of 32 layers) and qwen2-vl-2b ---------
+    rwkv_train_launches = phase_6f(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vl_train_launches = phase_6g(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # every training path's launches, for the kernels line
     train_paths = {"qad_olmo": train_launches, "remat_steps": remat_launches,
                    "qad_moe": moe_launches, "data_free": df_launches,
                    "numerics_on": run_on["launches"],
                    "numerics_off": run_off["launches"],
                    "numerics_control": run_off2["launches"],
-                   "qad_nemotron": nemo_launches}
+                   "qad_nemotron": nemo_launches,
+                   "qad_rwkv6": rwkv_train_launches,
+                   "qad_qwen2vl": vl_train_launches}
     train_total = {k: sum(p.get(k, 0) for p in train_paths.values())
                    for k in ops.launches}
 
@@ -2793,7 +3686,10 @@ def main() -> int:
                    "engine_tp_rank0": tp_launches[0][name],
                    "engine_g_chunked": g_launches[name],
                    "engine_e_nemotron": e_launches[name],
-                   "engine_f_rgemma": f_launches[name]}
+                   "engine_f_rgemma": f_launches[name],
+                   "engine_h_rwkv6": h_launches[name],
+                   "engine_i_whisper": i_launches[name],
+                   "static_j_qwen2vl": j_launches[name]}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "max_abs_err": err[name],
@@ -2822,7 +3718,10 @@ def main() -> int:
                    "engine_tp_rank0": tp_launches[0]["nvfp4_qdq"],
                    "engine_g_chunked": g_launches["nvfp4_qdq"],
                    "engine_e_nemotron": e_launches["nvfp4_qdq"],
-                   "engine_f_rgemma": f_launches["nvfp4_qdq"]}
+                   "engine_f_rgemma": f_launches["nvfp4_qdq"],
+                   "engine_h_rwkv6": h_launches["nvfp4_qdq"],
+                   "engine_i_whisper": i_launches["nvfp4_qdq"],
+                   "static_j_qwen2vl": j_launches["nvfp4_qdq"]}
         return {"name": "nvfp4_qdq", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/nvfp4_qdq.cu",
                 "replaces": "src/repro/kernels/nvfp4_qdq.py:44",

@@ -20,11 +20,14 @@ the kernels, at smoke size.
 mixed prompt lengths (``--min-prompt``..``--max-prompt``) arrive
 staggered, half up front and one after each engine step, and are
 scheduled into ``--slots`` decode slots over a paged KV pool
-(``--block-size``, ``--n-blocks``), or for the ``rglru_hybrid`` family
-(``--arch nemotron-nano-9b-sim``, ``recurrentgemma-2b``) over per-slot
-state slabs.  ``--prefill-mode chunked`` prefills paged-plan prompts in
-chunks of ``--prefill-chunk`` tokens (approximate: its parity check is
-off unless ``--parity`` asks for it).  Each request's greedy output is
+(``--block-size``, ``--n-blocks``), or for the slab families
+(``--arch nemotron-nano-9b-sim``, ``recurrentgemma-2b``, ``rwkv6-3b``,
+``whisper-tiny``) over per-slot state slabs; whisper's requests each get
+their own seeded encoder frames.  ``--arch qwen2-vl-2b`` (M-RoPE) is
+refused in one line: the engine serves no "vision_prefix".
+``--prefill-mode chunked`` prefills paged-plan prompts in chunks of
+``--prefill-chunk`` tokens (approximate: its parity check is off unless
+``--parity`` asks for it).  Each request's greedy output is
 checked against a single-request ``serve_batch`` (exact prefill): token for
 token on the CPU, the first token on the card (see ``run_engine``).  With
 ``--prefix-cache on`` the whole workload again with the cache off must give
@@ -107,12 +110,15 @@ def load_quantized(cfg, seed: int = 0, weight_format: str = "qdq",
         return common.init_params(pspecs, gen, device, leaf_fn=tile), qcfg
 
 
-def serve_batch(cfg, params, prompts: torch.Tensor, n_gen: int, qcfg=None):
+def serve_batch(cfg, params, prompts: torch.Tensor, n_gen: int, qcfg=None,
+                extras=None):
     """Prefill + greedy decode ``n_gen`` tokens for a [B, P] prompt batch.
 
     ``qcfg`` overrides the recipe's serving config; serving never
     fake-quantizes weights at run time (they are quantized offline).
-    Returns (tokens [B, n_gen], stats).
+    ``extras`` adds batched non-token prefill inputs (``enc_frames``
+    [B, enc_seq, d] for an encoder-decoder config).  Returns (tokens
+    [B, n_gen], stats).
     """
     device = resolve_device(prompts.device)
     model = get_model(cfg)
@@ -122,8 +128,10 @@ def serve_batch(cfg, params, prompts: torch.Tensor, n_gen: int, qcfg=None):
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(cfg, params, {"tokens": prompts}, sq,
-                                      s_max=s_max)
+        batch = {"tokens": prompts}
+        for k, v in (extras or {}).items():
+            batch[k] = torch.as_tensor(v, device=device)
+        logits, cache = model.prefill(cfg, params, batch, sq, s_max=s_max)
         out = [torch.argmax(logits[:, -1:], -1)]
         _sync(device)
         t_prefill = time.perf_counter() - t0
@@ -211,15 +219,26 @@ def tp_shard_report(eng) -> dict:
     }
 
 
-def run_workload(eng, prompts, gen: int):
+def enc_frames(cfg, n: int, seed: int) -> list[np.ndarray]:
+    """``n`` requests' encoder inputs [enc_seq, d] (f32, host side), each
+    drawn from its own seed: the encoder-decoder's stub frames."""
+    return [torch.randn((cfg.enc_seq, cfg.d_model), generator=torch.Generator()
+                        .manual_seed(seed + 10_000 + i)).numpy()
+            for i in range(n)]
+
+
+def run_workload(eng, prompts, gen: int, extras=None):
     """Submit the staggered workload and drain it: half the requests up
     front, the rest one engine step apart (deterministic, so two engines
-    fed the same prompts see the same arrivals).  Returns (rids, outputs)."""
+    fed the same prompts see the same arrivals); ``extras`` holds each
+    request's extras (or None).  Returns (rids, outputs)."""
+    extras = extras or [None] * len(prompts)
     half = len(prompts) // 2
-    rids = [eng.submit(p, gen) for p in prompts[:half]]
-    for p in prompts[half:]:
+    rids = [eng.submit(p, gen, extras=e)
+            for p, e in zip(prompts[:half], extras[:half])]
+    for p, e in zip(prompts[half:], extras[half:]):
         eng.step()
-        rids.append(eng.submit(p, gen))
+        rids.append(eng.submit(p, gen, extras=e))
     return rids, eng.drain(max_steps=10_000)
 
 
@@ -259,7 +278,13 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
             say("[engine] FAIL: packed leaves left replicated under TP")
     prompts = mixed_prompts(args.requests, args.min_prompt, args.max_prompt,
                             cfg.vocab_size, args.seed + 1)
-    rids, outputs = run_workload(eng, prompts, args.gen)
+    # an encoder-conditioned config takes each request's encoder input;
+    # the same frames feed the engine and the parity replay
+    extras = [None] * len(prompts)
+    if "enc_frames" in getattr(eng.state, "required_extras", ()):
+        extras = [{"enc_frames": f} for f in
+                  enc_frames(cfg, len(prompts), args.seed)]
+    rids, outputs = run_workload(eng, prompts, args.gen, extras)
     st = eng.stats()
 
     ok = len(outputs) == args.requests
@@ -291,9 +316,10 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
         # and GEMM backend (the fused tier runs MoE expert stacks through
         # the grouped kernel)
         ref_q = dataclasses.replace(qcfg, packed_backend=eng.sq.packed_backend)
-        for rid, prompt in zip(rids, prompts):
+        for rid, prompt, ex in zip(rids, prompts, extras):
             ref, _ = serve_batch(eng.cfg, params, torch.from_numpy(
-                prompt[None].astype(np.int64)).to(dev), args.gen, qcfg=ref_q)
+                prompt[None].astype(np.int64)).to(dev), args.gen, qcfg=ref_q,
+                extras={k: v[None] for k, v in (ex or {}).items()})
             ref = ref[0].cpu().numpy()
             agree.append(float(np.mean(ref == outputs[rid])))
             if ref[0] != outputs[rid][0] or (strict and agree[-1] < 1.0):
@@ -312,7 +338,8 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
         base_args = argparse.Namespace(**vars(args))
         base_args.prefix_cache = "off"
         base_eng, _ = build_engine(cfg, params, qcfg, base_args, mesh)
-        base_rids, base_out = run_workload(base_eng, prompts, args.gen)
+        base_rids, base_out = run_workload(base_eng, prompts, args.gen,
+                                           extras)
         cache_parity = len(base_out) == len(outputs)
         empty = np.empty(0, np.int32)
         for rid, brid in zip(rids, base_rids):
@@ -457,7 +484,13 @@ def main(argv=None) -> dict:
               f"all dense (qdq stores quantized values as BF16, 2 B/param)")
 
     if args.engine:
-        res = run_engine(cfg, params, qcfg, args)
+        from ..serve import UnsupportedStateError
+        try:
+            res = run_engine(cfg, params, qcfg, args)
+        except UnsupportedStateError as e:
+            # the capability check said no (M-RoPE's vision_prefix): one
+            # line, no traceback
+            raise SystemExit(f"[serve] unsupported: {e}") from None
         res["weights"] = wr
         if not res["ok"]:
             raise SystemExit(1)

@@ -27,8 +27,16 @@ in place too.  A MoE layer (``n_experts``) runs ``layers.moe_ffn`` with
 a shared expert behind a sigmoid gate (Qwen1.5-MoE) or a dense residual
 FFN (Arctic).  The slab engine's per-row decode (``_block_slots``) and
 the paged engine's chunked prefill (``prefill_chunk_paged``) are here
-too.  M-RoPE and FP8 KV (the ``moe_hybrid`` recipe) raise
-``NotImplementedError``: they come with later slices of the port.
+too.  FP8 KV (the ``moe_hybrid`` recipe) raises ``NotImplementedError``:
+it comes with a later slice of the port.
+
+M-RoPE (Qwen2-VL, ``cfg.mrope_sections``): ``apply``, ``prefill`` and
+``decode_step`` take ``batch["pos3"]`` [B, S, 3] (t, h, w position ids;
+[B, 1, 3] at decode) and, when given, ``batch["vis_embeds"]`` [B, S, d]
+spliced over the token embeddings where ``batch["vis_mask"]`` [B, S] is
+set (the vision frontend is a stub in the reference too).  The paged and
+slab forwards take no ``pos3``: the engine refuses the config (its state
+plan holds "vision_prefix").
 """
 from __future__ import annotations
 
@@ -43,9 +51,6 @@ from . import common, layers
 
 
 def _supported(cfg) -> None:
-    if cfg.mrope_sections:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is part of the "
-                                  "slab-family slice of the port")
     if _kv_fp8(cfg):
         raise NotImplementedError(f"{cfg.name}: FP8 KV (the moe_hybrid "
                                   "recipe) is part of the FP8 KV slice of "
@@ -150,6 +155,17 @@ def _local_heads(cfg, p) -> tuple[int, int]:
     return cfg.n_heads // shards, cfg.n_kv_heads // shards
 
 
+def _rope(cfg, x, pos):
+    """RoPE, or M-RoPE over ``pos`` [B, S, 3] for a config with
+    ``mrope_sections``."""
+    if cfg.mrope_sections:
+        if pos.ndim != 3:
+            raise ValueError(f"{cfg.name}: M-RoPE takes pos3 [B, S, 3] "
+                             f"positions, got {tuple(pos.shape)}")
+        return layers.apply_mrope(x, pos, cfg.rope_theta, cfg.mrope_sections)
+    return layers.apply_rope(x, pos, cfg.rope_theta)
+
+
 def _qkv(qcfg, cfg, p, h, pos):
     """The layer's q, k, v [B, S, heads, hd] (this rank's heads), q and k
     rotated to positions ``pos``."""
@@ -158,8 +174,8 @@ def _qkv(qcfg, cfg, p, h, pos):
     qkv = layers.qdense(qcfg, "attn", h, p["wqkv"], p.get("bqkv"),
                         parallelism="column")
     q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
-    q = layers.apply_rope(attn.split_heads(q, nh, hd), pos, cfg.rope_theta)
-    k = layers.apply_rope(attn.split_heads(k, nkv, hd), pos, cfg.rope_theta)
+    q = _rope(cfg, attn.split_heads(q, nh, hd), pos)
+    k = _rope(cfg, attn.split_heads(k, nkv, hd), pos)
     return q, k, attn.split_heads(v, nkv, hd)
 
 
@@ -257,7 +273,19 @@ def embed_tokens(cfg, params, tokens):
     return tp.all_reduce(rows)
 
 
-def _positions(batch, s, offset=0):
+def _embed_inputs(cfg, params, batch):
+    """The token embeddings, with a VLM's precomputed patch embeddings
+    ``vis_embeds`` spliced in where ``vis_mask`` is set."""
+    x = embed_tokens(cfg, params, batch["tokens"])
+    if cfg.mrope_sections and "vis_embeds" in batch:
+        m = batch["vis_mask"][..., None]
+        x = torch.where(m, batch["vis_embeds"].to(x.dtype), x)
+    return x
+
+
+def _positions(cfg, batch, s, offset=0):
+    if cfg.mrope_sections:
+        return batch["pos3"]                            # [B, S, 3]
     tokens = batch["tokens"]
     return (torch.arange(s, device=tokens.device) + offset).expand(
         tokens.shape[0], s)
@@ -279,8 +307,8 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
     chunked loss applies the unembedding itself).  The layers run under
     ``cfg.remat`` when grad is on (``common.scan_layers``)."""
     _supported(cfg)
-    x = embed_tokens(cfg, params, batch["tokens"])
-    pos = _positions(batch, x.shape[1])
+    x = _embed_inputs(cfg, params, batch)
+    pos = _positions(cfg, batch, x.shape[1])
 
     def body(qc):
         def fn(carry, inp):
@@ -338,10 +366,13 @@ def _cache_slices(cache):
 def decode_step(cfg, params, cache, batch, qcfg: QuantConfig):
     """One-token decode: batch["tokens"] [B,1] against the cache, which is
     updated in place and returned with ``pos`` advanced."""
-    x = embed_tokens(cfg, params, batch["tokens"])
+    x = _embed_inputs(cfg, params, batch)
     pos_idx = cache["pos"]
-    pos = torch.full((x.shape[0], 1), pos_idx, dtype=torch.int64,
-                     device=x.device)
+    if cfg.mrope_sections:
+        pos = batch["pos3"]                             # [B, 1, 3]
+    else:
+        pos = torch.full((x.shape[0], 1), pos_idx, dtype=torch.int64,
+                         device=x.device)
 
     def body(qc):
         def fn(carry, inp):
@@ -362,9 +393,9 @@ def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
     kv in an allocation of ``s_max`` positions; a windowed config keeps
     at most ``window``, ring-aligned)."""
     _supported(cfg)
-    x = embed_tokens(cfg, params, batch["tokens"])
+    x = _embed_inputs(cfg, params, batch)
     b, s = batch["tokens"].shape
-    pos = _positions(batch, s)
+    pos = _positions(cfg, batch, s)
     cache = init_cache(cfg, b, max(s_max or s, s), device=x.device,
                        n_shards=ctx.tp_size())
 

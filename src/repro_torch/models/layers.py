@@ -29,9 +29,10 @@ column split needs no more.
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core.nvfp4 import PackedNVFP4
 from ..core.qconfig import QuantConfig
@@ -221,9 +222,75 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
                       xf2 * cos + xf1 * sin], -1).to(x.dtype)
 
 
+def _mrope_slots(sections: tuple, n: int, device) -> torch.Tensor:
+    """The section (0 = t, 1 = h, 2 = w) of each of the ``n`` frequency
+    slots: ``jnp.repeat(arange, sections, total_repeat_length=n)``, which
+    drops what lies past ``n`` and repeats the last section up to ``n``."""
+    ids = torch.repeat_interleave(torch.arange(len(sections), device=device),
+                                  torch.tensor(sections, device=device))
+    if ids.numel() >= n:
+        return ids[:n]
+    return torch.cat([ids, ids[-1:].expand(n - ids.numel())])
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections: tuple) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the hd/2 frequency slots are split into
+    (t, h, w) sections, each rotated by its own position stream.
+
+    x: [B, S, H, hd]; pos3: [B, S, 3] (t/h/w position ids)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # [hd/2]
+    sec = _mrope_slots(tuple(sections), hd // 2, x.device)
+    ang = pos3.to(torch.float32)[..., sec] * freqs          # [B, S, hd/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    xf1 = x[..., : hd // 2].to(torch.float32)
+    xf2 = x[..., hd // 2:].to(torch.float32)
+    return torch.cat([xf1 * cos - xf2 * sin,
+                      xf2 * cos + xf1 * sin], -1).to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal position embedding [seq, d], f32."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    log_c = float(np.log(np.float32(10000.0)))
+    inv = torch.exp(-log_c * torch.arange(d // 2, dtype=torch.float32,
+                                          device=device) / max(d // 2 - 1, 1))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
+
+
+def _in_dtype(v: float, dtype) -> float:
+    """``v`` rounded to ``dtype`` (a Python scalar meets a JAX array in the
+    array's dtype)."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormals to a zero of their sign, as XLA's CPU code treats them
+    (flush to zero, denormals are zero)."""
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, x * 0, x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``, the tanh approximation, as it is written: its
+    constants in x's dtype and every step rounded to it, subnormals
+    flushed, the last product's among them before it rounds to x's dtype
+    (an f32 subnormal that would round up to the smallest bf16 normal is
+    0 in the reference), so it is the reference's on every finite bf16
+    value.  ``F.gelu(..., approximate="tanh")`` rounds once, and parts
+    from the reference on four bf16 values in ten."""
+    x = _flush(x)
+    c = _in_dtype(math.sqrt(2.0 / math.pi), x.dtype)
+    k = _in_dtype(0.044715, x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    # a product of two bf16 values is exact in f32
+    return _flush(x.to(torch.float32) * cdf.to(torch.float32)).to(x.dtype)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -240,9 +307,7 @@ def swiglu_mlp(qcfg, x, wg, wu, wd, kind: str = "mlp"):
 
 
 def gelu_mlp(qcfg, x, wi, wd, bi=None, bd=None, kind: str = "mlp"):
-    # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(qdense(qcfg, kind, x, wi, bi, parallelism="column"),
-               approximate="tanh")
+    h = gelu(qdense(qcfg, kind, x, wi, bi, parallelism="column"))
     return qdense(qcfg, kind, h, wd, bd, parallelism="row")
 
 

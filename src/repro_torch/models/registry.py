@@ -1,21 +1,16 @@
 """Family registry: ``ModelConfig.family`` -> model module, and the
-per-layer serve-state plans (port of ``repro.models.registry``).  The port
-has the ``decoder`` and ``rglru_hybrid`` families; ``rwkv6`` and the
-encoder-decoder family come with later slab-family slices."""
+per-layer serve-state plans (port of ``repro.models.registry``)."""
 from __future__ import annotations
 
-from . import decoder, rglru
+from . import decoder, rglru, rwkv6, whisper
 
-_FAMILIES = {"decoder": decoder, "rglru_hybrid": rglru}
-_LATER = {"rwkv6", "encdec"}
+_FAMILIES = {"decoder": decoder, "rglru_hybrid": rglru, "rwkv6": rwkv6,
+             "encdec": whisper}
 
 
 def get_model(cfg):
     if cfg.family in _FAMILIES:
         return _FAMILIES[cfg.family]
-    if cfg.family in _LATER:
-        raise NotImplementedError(f"model family {cfg.family!r} is part of "
-                                  "the slab-family slice of the port")
     raise ValueError(f"unknown model family: {cfg.family!r}")
 
 

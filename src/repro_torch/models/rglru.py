@@ -38,7 +38,6 @@ there, and its decode then writes past the end (``ROADMAP.md`` C).
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..core.qconfig import QuantConfig
@@ -136,22 +135,6 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _in_dtype(v: float, dtype) -> float:
-    """``v`` rounded to ``dtype`` (a Python scalar meets a JAX array in the
-    array's dtype)."""
-    return float(torch.tensor(v, dtype=dtype))
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu``, the tanh approximation, as it is written: its
-    constants in x's dtype and every step rounded to it (``F.gelu(...,
-    approximate="tanh")`` rounds once, and parts from the reference on
-    four bf16 values in ten)."""
-    c = _in_dtype(np.sqrt(2.0 / np.pi), x.dtype)
-    k = _in_dtype(0.044715, x.dtype)
-    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
-
-
 def _lru_gates(qcfg, p, z):
     """(a, b) of h_t = a_t h_{t-1} + b_t, f32, from the conv output z."""
     r = torch.sigmoid(layers.qdense(qcfg, "recurrent", z, p["w_a"])
@@ -214,7 +197,7 @@ def _rec_block(qcfg, cfg, p, x, mode, state_sl):
     else:
         hh = _lru_scan(a, b)
         h_last = hh[:, -1:]
-    y = hh.to(x.dtype) * _gelu(gate)
+    y = hh.to(x.dtype) * layers.gelu(gate)
     x = x + layers.qdense(qcfg, "recurrent", y, p["wo"])
     h2 = run_norm(cfg, p["ln2"], x)
     x = x + layers.swiglu_mlp(qcfg, h2, p["wg"], p["wu"], p["wd"])

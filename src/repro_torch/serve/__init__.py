@@ -2,15 +2,16 @@
 ``repro.serve``).
 
   * ``state``     — the per-layer state protocol: ``PagedKVState``, the
-                    block-granular KV pool of decoder-family archs (the
-                    slab backends come with the slab-family slice)
+                    block-granular KV pool of decoder-family archs, and
+                    ``SlabState``, per-slot state slabs (recurrent state,
+                    window rings, dense KV, encoder outputs)
   * ``paged_kv``  — the pool's host-side refcounted allocator and the
                     content-hashed ``PrefixCache``
   * ``scheduler`` — request admission / slot assignment / retirement and
                     lowest-progress preemption
   * ``sampling``  — greedy, temperature, top-k with per-request seeds
-  * ``engine``    — the ``submit / step / drain`` facade over the paged
-                    decoder forwards
+  * ``engine``    — the ``submit / step / drain`` facade over the
+                    state backend's forwards
 
 Quickstart::
 

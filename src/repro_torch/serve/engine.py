@@ -8,9 +8,11 @@ backend (``serve.state``):
   * paged KV (decoder family): ``decoder.decode_step_paged`` over
     [n_slots, 1] tokens against the block-granular KV pool, written in
     place;
-  * state slabs (the ``rglru_hybrid`` family): the model's
-    ``decode_step_slots`` over constant-size per-slot state at
-    independent positions, returned as a new state tree.
+  * state slabs (the ``rglru_hybrid``, ``rwkv6`` and ``encdec``
+    families): the model's ``decode_step_slots`` over constant-size
+    per-slot state at independent positions, returned as a new state
+    tree.  An encoder-decoder request brings its encoder input in
+    ``submit(..., extras={"enc_frames": ...})``.
 
 Prefill modes:
 
@@ -216,10 +218,13 @@ class Engine:
     # -- public API --------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int,
-               sampling: SamplingParams | None = None) -> int:
-        """Queue a request; returns its id.  Admission happens in step()."""
+               sampling: SamplingParams | None = None,
+               extras: dict | None = None) -> int:
+        """Queue a request; returns its id.  Admission happens in step().
+        ``extras`` carries non-token prefill inputs without a batch dim
+        (``enc_frames`` [enc_seq, d] for an encoder-decoder config)."""
         req = self.sched.submit(prompt, max_new_tokens, sampling,
-                                step=self.step_count)
+                                step=self.step_count, extras=extras)
         req.submit_t = time.monotonic()
         return req.rid
 
@@ -344,12 +349,21 @@ class Engine:
                 return r
         return None
 
+    def prefill_batch(self, req: Request) -> dict:
+        """The model's prefill batch for one request: its tokens and its
+        extras, each with a batch dim added."""
+        batch = {"tokens": torch.from_numpy(
+            req.prompt[None].astype(np.int64)).to(self.device)}
+        for k, v in (req.extras or {}).items():
+            batch[k] = torch.as_tensor(v, device=self.device)[None]
+        return batch
+
     def _prefill_exact(self, req: Request) -> torch.Tensor:
         p = req.prompt_len
-        toks = torch.from_numpy(req.prompt[None].astype(np.int64)).to(self.device)
         with torch.inference_mode():
             logits, cache = self.model.prefill(self.cfg, self.params,
-                                               {"tokens": toks}, self.sq, None)
+                                               self.prefill_batch(req),
+                                               self.sq, None)
             cache = {k: v for k, v in cache.items() if k != "pos"}
             self.state.write_prefill(req, cache)
         req.n_prefilled = req.n_cached = req.n_written = p

@@ -7,8 +7,8 @@ engine over the cache architectures a config's state plan
     growth, copy-on-write, rollback by page truncation.  Its device state
     lives in the pool's tensors and is written in place.
   * ``SlabState``: every other supported plan, per-slot constant-size
-    state slabs (the RG-LRU family's recurrent state with its window ring
-    or dense KV).  The slot index is the state address; decode is the
+    state slabs (recurrent state with a window ring or a dense KV, the
+    encoder-decoder's dense self-KV and encoder output).  The slot index is the state address; decode is the
     model's batched ``decode_step_slots``.  The state tree is never
     written in place: every write makes new tensors, so a tree the
     backend handed out (``snapshot``) stays as it was, and
@@ -340,12 +340,20 @@ class SlabState:
         # a finite dense KV bounds admission; recurrent slabs and window
         # rings are O(1) per slot whatever the sequence length
         self.dense_bound = s_alloc if "dense_kv" in self.kinds else None
+        # an encoder-conditioned plan needs each request's encoder input
+        self.required_extras = (("enc_frames",)
+                                if "encoder_output" in self.kinds else ())
         self.in_use = [False] * n_slots
         self.peak_used = 0
 
     # -- capacity ----------------------------------------------------------
 
     def admission_check(self, req) -> None:
+        for k in self.required_extras:
+            if not req.extras or k not in req.extras:
+                raise ValueError(
+                    f"{self.cfg.name}: request needs extras[{k!r}] "
+                    "(encoder-conditioned arch)")
         if self.dense_bound is not None and req.max_cached > self.dense_bound:
             raise ValueError(
                 f"request needs {req.max_cached} cached positions > "

@@ -408,8 +408,10 @@ def test_engine_raises_on_unported_plans_and_options(loaded):
     params, qcfg = by_fmt["qdq"]
     with pytest.raises(UnsupportedStateError, match="vision_prefix"):
         Engine(configs.get_smoke("qwen2-vl-2b"), params={}, device="cpu")
-    with pytest.raises(NotImplementedError, match="slab-family"):
-        Engine(configs.get_smoke("rwkv6-3b"), params={}, device="cpu")
+    # rwkv6 serves on its slab plan; the paged pool's options it refuses
+    with pytest.raises(ValueError, match="paged-KV state plan"):
+        Engine(configs.get_smoke("rwkv6-3b"), params={}, prefill_mode="paged",
+               prefix_cache=True, device="cpu")
     with pytest.raises(NotImplementedError, match="FP8 KV slice"):
         Engine(configs.get_smoke("arctic-480b"), params, device="cpu")
     with pytest.raises(TypeError, match="TP"):

@@ -39,7 +39,8 @@ def test_port_sources_import_no_jax():
             PORT / "obs" / "numerics.py", PORT / "obs" / "metrics.py",
             PORT / "obs" / "schema.py", PORT / "obs" / "validate.py",
             PORT / "obs" / "compare.py", PORT / "obs" / "export.py",
-            PORT / "models" / "rglru.py", PORT / "serve" / "state.py"} <= set(files)
+            PORT / "models" / "rglru.py", PORT / "serve" / "state.py",
+            PORT / "models" / "rwkv6.py", PORT / "models" / "whisper.py"} <= set(files)
     bad = {(str(f.relative_to(SRC)), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert not bad, bad
@@ -53,7 +54,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.data.generated, repro_torch.core.ptq, "
             "repro_torch.obs.validate, repro_torch.obs.compare, "
             "repro_torch.obs.export, repro_torch.obs.numerics, "
-            "repro_torch.models.rglru, repro_torch.serve.state; "
+            "repro_torch.models.rglru, repro_torch.serve.state, "
+            "repro_torch.models.rwkv6, repro_torch.models.whisper; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -85,6 +87,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         serve.load_quantized(configs.get_smoke("qwen2-moe-a2.7b"), 0, "packed")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "qwen2-moe-a2.7b", "--engine"])
+    for arch in ("rwkv6-3b", "whisper-tiny", "qwen2-vl-2b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--arch", arch, "--engine"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train("rwkv6-3b", steps=1)
     assert train.build_parser().parse_args([]).device == "cuda"
 
 

@@ -111,7 +111,9 @@ QDQ_SCOPED = [((8, 1, 3584), "row"), ((8, 1, 18944), "row"),
               ((1, 512, 18944), "row"), ((16, 3584), "token"),
               ((4096, 8192), "tensor"), ((8, 512, 2048), "tensor"),
               ((1, 16, 18944), "token"), ((3, 5, 48), "row"),
-              ((8, 1, 4480), "row"), ((8, 1, 15680), "row")]
+              ((8, 1, 4480), "row"), ((8, 1, 15680), "row"),
+              # rwkv6-3b's decode rows (d_model 2560, d_ff 8960)
+              ((8, 1, 2560), "row"), ((8, 1, 8960), "row")]
 
 
 @pytest.mark.parametrize("shape,scope", QDQ_SCOPED, ids=str)
@@ -258,6 +260,45 @@ def test_matmul_kernel_on_stack_slice(gen, site):
         assert _matmul_ok(x[:m], sl)
     assert torch.equal(_bits(ops.nvfp4_matmul(x, sl)[:8]),
                        _bits(ops.nvfp4_matmul(x[:8], sl)))
+
+
+# the shapes of rwkv6-3b, whisper-tiny and qwen2-vl-2b: (name, K, N).
+# rwkv6's two LoRA down-projections sit below one 128-row weight tile (N =
+# 64, the decay's; N = 160, the token shift's five streams of 32)
+SLAB_SITES = [("rwkv6 dec_w1", 2560, 64), ("rwkv6 ts_w1", 2560, 160),
+              ("rwkv6 wr", 2560, 2560), ("rwkv6 cm_wk", 2560, 8960),
+              ("rwkv6 cm_wv", 8960, 2560), ("whisper wi", 384, 1536),
+              ("whisper wd", 1536, 384), ("qwen2-vl wqkv", 1536, 2048),
+              ("qwen2-vl wd", 8960, 1536)]
+
+
+@pytest.mark.parametrize("site", SLAB_SITES, ids=[s[0] for s in SLAB_SITES])
+def test_matmul_kernel_at_the_slab_families_shapes(gen, site):
+    """K2 at decode (M = 8 slots) and prefill (M = 512) within its bound;
+    the M = 512 product's first 8 rows bitwise the M = 8 product's."""
+    _, k, n = site
+    x = ops.nvfp4_qdq((torch.randn((512, k), generator=gen, device="cuda") * 2
+                       ).to(torch.bfloat16))
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    p = ops.pack_weight(w.to(torch.bfloat16))
+    for m in (8, 512):
+        assert _matmul_ok(x[:m], p)
+    assert torch.equal(_bits(ops.nvfp4_matmul(x, p)[:8]),
+                       _bits(ops.nvfp4_matmul(x[:8], p)))
+
+
+def test_matmul_kernel_whisper_cross_kv(gen):
+    """K2 at whisper-tiny's cross-attention KV site as the slab engine's
+    decode step runs it: M = 12000 (8 slots x 1500 encoder frames), K =
+    384, N = 1152 (x_wqkv), within its bound; rows 0..7 bitwise the same
+    rows alone."""
+    x = ops.nvfp4_qdq((torch.randn((12000, 384), generator=gen, device="cuda")
+                       * 2).to(torch.bfloat16))
+    w = torch.randn((384, 1152), generator=gen, device="cuda") / math.sqrt(384)
+    p = ops.pack_weight(w.to(torch.bfloat16))
+    assert _matmul_ok(x, p)
+    assert torch.equal(_bits(ops.nvfp4_matmul(x, p)[:8]),
+                       _bits(ops.nvfp4_matmul(x[:8], p)))
 
 
 # acereason-7b's GEMM sites: (name, K, N)

@@ -538,18 +538,21 @@ def test_slab_snapshot_is_never_written(ref):
 
 
 def test_family_dispatch_and_refusals():
-    """``get_model`` gives the rglru module for ``rglru_hybrid``; a
-    dense-KV slab refuses a request that cannot fit; rwkv6, whisper,
-    M-RoPE, FP8 KV and the family under tensor parallelism are refused."""
+    """``get_model`` gives the rglru module for ``rglru_hybrid`` (and the
+    rwkv6, whisper and decoder modules for the other families, M-RoPE's
+    qwen2-vl included); a dense-KV slab refuses a request that cannot
+    fit; FP8 KV and the family under tensor parallelism are refused."""
+    from repro_torch.models import decoder, rwkv6, whisper
     cfg = configs.get_smoke(NEMO)
     assert get_model(cfg) is rglru
     assert get_model(configs.get_smoke(RG)) is rglru
-    for arch in ("rwkv6-3b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="slab-family"):
-            get_model(configs.get_smoke(arch))
-    for arch, what in (("qwen2-vl-2b", "M-RoPE"), ("arctic-480b", "FP8 KV")):
-        with pytest.raises(NotImplementedError, match=what):
-            get_model(configs.get_smoke(arch)).param_specs(configs.get_smoke(arch))
+    for arch, module in (("rwkv6-3b", rwkv6), ("whisper-tiny", whisper),
+                         ("qwen2-vl-2b", decoder)):
+        c = configs.get_smoke(arch)
+        assert get_model(c) is module and module.param_specs(c)
+    with pytest.raises(NotImplementedError, match="FP8 KV"):
+        get_model(configs.get_smoke("arctic-480b")).param_specs(
+            configs.get_smoke("arctic-480b"))
     params = rglru.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     eng = Engine(cfg, params, n_slots=2, block_size=8, max_blocks_per_slot=2,
                  device="cpu")
