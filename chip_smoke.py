@@ -55,11 +55,24 @@ Phases (every failure exits nonzero):
      2048), (8960, 1536)) at M = 8 and the larger M within K2's bound,
      rows bitwise equal across M, and K1 in row scope at [8, 1, K] for K =
      2560, 8960, 384, 1536 bitwise (phase 3i);
+     ``paged_attention`` at the speculative verify's shape (8 slots, 5
+     queries each at positions across block and part boundaries,
+     acereason-7b's heads) within tolerance and each query's rows bitwise
+     a one-query call's, and on FP8 pages at qwen2-moe-a2.7b's 16/16 heads
+     (decode, 3 queries with the same row gate, a 16-query chunk);
+     ``fp8_quantize`` on the card bitwise the CPU's, E4M3 ties included
+     (phase 3k); whether the BF16 GEMM rows (every config's lm_head, the
+     BF16 attention and MoE router sites) and RMSNorm rows at M = 1, 4, 8,
+     24, 40 equal rows computed one at a time (printed), and the slab
+     decode attention's rows at 4 slots bitwise batch-1 calls (phase 3l);
   4. smoke-size models on the card against the same weights on the CPU:
      serving prefill and greedy tokens, and one QAD training step, for
      acereason-7b / olmo-1b and for rwkv6-3b, whisper-tiny (each sequence
      with encoder frames) and qwen2-vl-2b (a patch grid, pos3), whose QAD
-     step launches one K5, one K6 and two K1 a quantized site;
+     step launches one K5, one K6 and two K1 a quantized site; qwen2-vl-2b
+     (a head of 32) with NVFP4 activations at per-token scales, prefill of
+     40 and 8 decode steps, each step's logits within LOGIT_TOL["nvfp4"]
+     of the CPU's (ROADMAP C.1 (a));
   5. the static serving path: ``acereason-7b`` at full width and 14 of its
      28 layers, packed NVFP4 weights from a seed, ``serve_batch`` with
      batch 4, prompt 64, gen 16, with the launch counters read around it; a traced decode
@@ -111,11 +124,12 @@ Phases (every failure exits nonzero):
      traced decode step printed;
   5f. ``recurrentgemma-2b`` at full size (26 layers, window 2048): 4
      requests of prompts 2100..2600 tokens and 32 greedy tokens, so its
-     ring wraps in prefill and in decode: served one slot at a time,
-     tokens equal to single-request ``serve_batch``'s; over 4 slots,
-     first tokens equal and the first decode step's logits within
-     LOGIT_TOL (cuBLAS sums the BF16 GEMMs' 4 rows in another order than
-     1, and NVFP4 rounding amplifies it); every slot released;
+     ring wraps in prefill and in decode: served one slot at a time and
+     over 4 slots, tokens equal to single-request ``serve_batch``'s, the
+     first decode step's logits within LOGIT_TOL; every slot released;
+     and, printed, the 4-slot streams with the BF16 GEMMs one row at a
+     time and the attention's products batched as before (ROADMAP C.1
+     (b));
   5g. (inside 5b, on its weights) chunked prefill: run A's traffic with
      ``prefill_mode="chunked"`` and chunks of 256: every request finishes,
      the pool drains, K1, K2 and K7 launch counts, each request's prefill
@@ -129,7 +143,7 @@ Phases (every failure exits nonzero):
      vocabulary, 32 greedy tokens: every request finishes and every slot
      is released, K1 and K2 launch 320 times a forward, each request's
      prefill logits bitwise the static path's and its first decode step
-     within LOGIT_TOL, 4 requests one slot at a time equal to
+     within LOGIT_TOL, 2 requests one slot at a time equal to
      ``serve_batch``'s tokens; load and serving peak, state a slot, the
      decode step's byte bound and a traced decode step printed;
   5i. ``whisper-tiny`` at full size (4 + 4 layers, 1500 encoder frames) on
@@ -145,8 +159,27 @@ Phases (every failure exits nonzero):
      of 480 tokens and 32 ``decode_step``s with their pos3 against
      teacher-forcing ``apply`` over all 512, with BF16 activations within
      LOGIT_TOL["bf16_act"] and with NVFP4 activations (per-token scales)
-     printed; K1 and K2 launch counts; the engine refuses it
-     (``vision_prefix``);
+     printed (the reference's decode parts from its teacher forcing as
+     far; phase 4 gates the NVFP4 decode against the CPU); K1 and K2
+     launch counts; the engine refuses it (``vision_prefix``);
+  5k. FP8 KV: qwen2-moe-a2.7b at full size with ``quant_recipe=
+     "moe_hybrid"`` (attention BF16, an FP8 pool, experts packed), run M's
+     traffic through the fused tier: every request finishes, the pool
+     drains and holds the layout's bytes (E4M3 pages and f32 scales), K3
+     and K7 launch counts, each request's first token equal to the static
+     path's at batch 1 (FP8 dense cache) and its first decode step within
+     LOGIT_TOL, a traced decode step with one K7 kernel a layer; the decode
+     step's byte bound; then the speculative engine at k = 2 (self-qdq) on
+     the same requests: streams equal to the plain run's token for token
+     (gated where phase 3l found the BF16 GEMM rows invariant across M = 8
+     and 24), first tokens, the first verify's logits within LOGIT_TOL;
+  5l. speculative decoding (``repro_torch.spec.SpecEngine``): acereason-7b
+     on run A's loads and traffic with a self-qdq draft at k = 4,
+     self-truncate at 14 layers and a 2-layer two-model draft (seed 99),
+     each run's streams equal to run A's token for token, the pool drained,
+     accepted + rolled back = drafted, acceptance and tokens a round
+     printed; rwkv6-3b (inside 5h) with a self-qdq draft at k = 3 on 8
+     requests, 16 tokens, its streams equal to run H's;
   6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
      (16 layers, d_model 2048, vocab 50304) under its config's
      rematerialization (``remat="full"``: the student's QDQ runs twice a
@@ -172,7 +205,7 @@ Phases (every failure exits nonzero):
      across all three, the snapshot and its ``.prom`` valid
      (``obs.validate``), per-layer SQNR and hidden divergence printed;
      then ``core.ptq.calibrate_activations`` (max, percentile, mse) over
-     the teacher's 16 hidden taps on 2 batches of 2 x 512;
+     the teacher's 16 hidden taps on a batch of 2 x 512;
   6e. QAD on ``nemotron-nano-9b-sim`` at full width cut to one
      super-block (n_layers 5, attn_period 5: 4 RG-LRU layers and 1
      attention layer, 2.67 B params), remat "full", 3 steps of 4 x 512
@@ -195,7 +228,8 @@ Phases (every failure exits nonzero):
      call it (each site alone and one layer's five sites back to back,
      beside the former call with the torch amax), K7 at decode, in a paged
      chunk and at 4096 keys, K2 at rwkv6-3b's sites at M = 8 and at
-     whisper-tiny's cross-KV at M = 12000.  Every traced step counts its device ops: the
+     whisper-tiny's cross-KV at M = 12000, K7 at the verify shape and on
+     FP8 pages at qwen2-moe-a2.7b's heads.  Every traced step counts its device ops: the
      port's kernels (a QDQ kernel for each QDQ call) and the others;
   8. a ``kernels`` JSON line, the card line, and the final JSON line.
 
@@ -306,12 +340,13 @@ MOE_TRAIN = dict(layers=4, steps=3, batch=4, seq=512)
 NEMO_TRAIN = dict(layers=5, steps=3, batch=4, seq=512)
 # the last model families: rwkv6-3b on the slab engine with run A's
 # arrivals (prompts of 64 k tokens: the chunked WKV takes at most 64 tokens
-# or a multiple of 64), 4 requests again one slot at a time; whisper-tiny
+# or a multiple of 64), 2 requests again one slot at a time; whisper-tiny
 # with each request's encoder frames, 8 slots of its 448-token text
 # context; qwen2-vl-2b's M-RoPE over a 16 x 16 patch grid (phases 5h-5j);
 # their QAD (rwkv6 at 16 of its 32 layers: the full depth's training state
 # would come to about 70 GB; phases 6f, 6g)
-RWKV = dict(arch="rwkv6-3b", gen=32, one_slot=4)
+RWKV = dict(arch="rwkv6-3b", gen=32, one_slot=2, spec_k=3, spec_requests=8,
+            spec_gen=16)
 WHISPER = dict(arch="whisper-tiny", requests=16, min_prompt=4, max_prompt=192,
                gen=64, s_alloc=448, one_slot=4)
 QWEN_VL = dict(arch="qwen2-vl-2b", batch=2, seq=512, grid_at=16, grid=16,
@@ -320,13 +355,18 @@ RWKV_TRAIN = dict(layers=16, steps=3, batch=4, seq=512)
 VL_TRAIN = dict(steps=3, batch=4, seq=512)
 DATA_FREE = dict(batch=8, n_new=256, steps=2)
 NUMERICS = dict(steps=2)
-CALIB = dict(batches=2, batch=2, seq=512)
+# calibration runs one batch (its MSE search took 52 s over two, 46 over
+# one): with the FP8 KV and speculative phases the script passed 700 s
+CALIB = dict(batches=1, batch=2, seq=512)
 # one smoke QAD step on the card against the CPU, same weights and batch:
 # the forwards differ by bf16 GEMM summation order, which NVFP4 rounding
 # amplifies; loss and gradient norm within these relative tolerances, each
 # updated parameter within one bf16 ulp (of the larger of the two) plus
 # 2 lr (step 1 of Adam moves each weight by lr g / (|g| + eps), at most lr)
 STEP_TOL = {"loss": 2e-2, "grad_norm": 5e-2}
+# speculative decoding on acereason-7b with run A's traffic (phase 5l): the
+# draft length, the self-truncate draft's depth and the two-model draft's
+SPEC = dict(k=4, truncate_layers=14, two_model_layers=2)
 
 
 # spin kernels a training step's trace records ahead of the step
@@ -428,8 +468,12 @@ def profile_step(step) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
+    from torch.autograd import DeviceType
+    n_k7 = sum(e.device_type == DeviceType.CUDA
+               and "paged_attention_kernel" in e.name for e in prof.events())
     return dict(by_kernel=by_kernel, n_port=n_port, n_qdq=n_qdq,
-                n_other=n_other, wall_ms=wall_ms, launches=dict(ops.launches))
+                n_other=n_other, wall_ms=wall_ms, launches=dict(ops.launches),
+                n_k7=n_k7)
 
 
 def trace_engine_step(eng, label) -> dict:
@@ -883,6 +927,627 @@ def phase_3i(dev, gen, rows, err, err_bound):
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# FP8 KV and speculative decoding (phases 3k, 3l, 5k, 5l)
+# ---------------------------------------------------------------------------
+
+
+def fp8_tie_rows(n_amax: int = 64):
+    """Rows [amax, x] (bf16 values, f32) on which x / scale and
+    x * (1 / scale) round to different E4M3 values: the rounding ties and
+    near-ties a division form must get right.  Test inputs, built here."""
+    import numpy as np
+    import torch
+    allb = torch.arange(0, 0x7F80, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16).float()
+    rng = np.random.default_rng(SEED)
+    pos = allb[allb > 1e-3]
+    out = []
+    inv = float(np.float32(1.0) / np.float32(448.0))
+    for a in pos[torch.from_numpy(rng.choice(len(pos), n_amax))]:
+        s = a * inv
+        xs = allb[allb <= a]
+        d = (xs / s).to(torch.float8_e4m3fn).view(torch.uint8)
+        r = (xs * (1.0 / s)).to(torch.float8_e4m3fn).view(torch.uint8)
+        for x in xs[d != r][:4]:
+            out.append([float(a), float(x)])
+    return torch.tensor(out, dtype=torch.float32).to(torch.bfloat16)
+
+
+def phase_3k(dev, gen, rows, err):
+    """K7 at the speculative verify's shape (8 slots, S_q = 5, acereason-7b's
+    28/4 heads of 128, per-query positions across block and part
+    boundaries): within K7_ATOL of its plain version, and each query's
+    rows bitwise equal to a one-query call at the same position (greedy
+    speculative parity on the paged path rests on it); K7 on FP8 pages at
+    qwen2-moe-a2.7b's 16/16 heads of 128 (the moe_hybrid recipe's pool),
+    at decode, at S_q = 3 (verify at k = 2, rows bitwise as above) and at
+    a 16-query chunk; ``core.nvfp4.fp8_quantize`` on the card bitwise the
+    CPU's, E4M3 ties included.  The verify and FP8 decode calls join
+    phase 7's timings."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import nvfp4
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as kpa
+    from repro_torch.models import attention as attn
+    t0 = time.perf_counter()
+    ace, moe = configs.get_config("acereason-7b"), configs.get_config(MOE_ARCH)
+    ns, blk, mbs, n_blk = (ENGINE["n_slots"], ENGINE["block_size"],
+                           ENGINE["max_blocks_per_slot"], ENGINE["n_blocks"])
+
+    def case(c, b, pos, fp8):
+        """Random pages (bf16, or FP8 through the engine's ``_quant_kv``),
+        tables of distinct blocks, queries [b, S, H, hd]."""
+        shape = (n_blk, blk, c.n_kv_heads, c.head_dim)
+        k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        if fp8:
+            (kq, ks), (vq, vs) = attn._quant_kv(k), attn._quant_kv(v)
+            pool = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            pool = {"k": k, "v": v}
+        bt = torch.randperm(n_blk, generator=gen, device=dev)[: b * mbs]
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+        s_q = 1 if pos.ndim == 1 else pos.shape[1]
+        q = torch.randn((b, s_q, c.n_heads, c.head_dim), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        return q, pool, bt.reshape(b, mbs).to(torch.int32), pos
+
+    def check(what, q, pool, bt, pos):
+        got = ops.paged_attention(q, pool, bt, pos)
+        want = ref.paged_attention_ref(q, pool, bt, pos).float()
+        d = (got.float() - want).abs()
+        if not bool((d <= ulp(torch.maximum(got.float().abs(), want.abs()), 7)
+                     + K7_ATOL).all()):
+            fail(f"paged_attention outside tolerance ({what}): max abs err "
+                 f"{float(d.max())}")
+        err["paged_attention"] = max(err["paged_attention"], float(d.max()))
+        return got
+
+    def rows_bitwise(what, q, pool, bt, pos, got):
+        for i in range(q.shape[1]):
+            one = ops.paged_attention(q[:, i:i + 1], pool, bt, pos[:, i])
+            if not torch.equal(got[:, i].view(torch.int16),
+                               one[:, 0].view(torch.int16)):
+                bad = (got[:, i] != one[:, 0]).reshape(got.shape[0], -1).any(1)
+                fail(f"paged_attention {what}: query {i}'s rows differ from a "
+                     f"one-query call at its position (slots "
+                     f"{bad.nonzero().flatten().tolist()}, pos "
+                     f"{pos[:, i].tolist()})")
+
+    # lens so that the k + 1 positions straddle block boundaries (16) and
+    # the parts' boundaries (96 keys a part at 544 keys, 6 parts)
+    lens = [12, 93, 189, 285, 380, 475, 531, 539]
+    for c, k1, fp8, label in ((ace, 5, False, "verify"),
+                              (moe, 3, True, "verify_fp8")):
+        pos = torch.tensor(lens)[:, None] + torch.arange(1, k1 + 1)[None, :]
+        cs = case(c, ns, pos, fp8)
+        got = check(f"{label}, S_q = {k1}", *cs)
+        rows_bitwise(f"{label}, S_q = {k1}", *cs, got)
+        if label == "verify":
+            q, pool, bt, pos_ = cs
+            kb = kpa.bytes_moved(q, pool["k"], bt, pos_, fp8=False)
+            kf = kpa.flops(q, pool["k"], bt, pos_)
+            rows["paged_attention"].append(dict(
+                site="verify", shape=f"q {list(q.shape)} pages "
+                f"{list(pool['k'].shape)} tables {list(bt.shape)}",
+                library_ms=None,
+                bound_ms=max(kb / HBM_BYTES_S, kf / BF16_FLOPS) * 1e3,
+                bound_by=("bytes" if kb / HBM_BYTES_S >= kf / BF16_FLOPS
+                          else "operations"),
+                fns=((lambda c_=cs: ops.paged_attention(*c_)),
+                     (lambda c_=cs: ref.paged_attention_ref(*c_)), None)))
+    dec_pos = torch.linspace(1, mbs * blk, ns).round().int()
+    cs = case(moe, ns, dec_pos, True)
+    check("FP8 pages at 16/16 x 128, decode", *cs)
+    q, pool, bt, pos_ = cs
+    kb = kpa.bytes_moved(q, pool["k"], bt, pos_, fp8=True)
+    kf = kpa.flops(q, pool["k"], bt, pos_)
+    rows["paged_attention"].append(dict(
+        site="decode_fp8", shape=f"q {list(q.shape)} e4m3 pages "
+        f"{list(pool['k'].shape)} tables {list(bt.shape)}", library_ms=None,
+        bound_ms=max(kb / HBM_BYTES_S, kf / BF16_FLOPS) * 1e3,
+        bound_by="bytes" if kb / HBM_BYTES_S >= kf / BF16_FLOPS else "operations",
+        fns=((lambda c_=cs: ops.paged_attention(*c_)),
+             (lambda c_=cs: ref.paged_attention_ref(*c_)), None)))
+    check("FP8 pages at 16/16 x 128, a 16-query chunk",
+          *case(moe, 1, (256 + torch.arange(1, blk + 1)).reshape(1, blk), True))
+    # fp8_quantize: the card's bytes and scales against the CPU's
+    x = torch.cat([
+        (torch.randn((64, 128), generator=torch.Generator().manual_seed(SEED))
+         * 3.0).to(torch.bfloat16),
+        torch.zeros((1, 128), dtype=torch.bfloat16)], 0)
+    ties = fp8_tie_rows()
+    for xx in (x, ties):
+        a, b = nvfp4.fp8_quantize(xx), nvfp4.fp8_quantize(xx.to(dev))
+        if not (torch.equal(a.values.view(torch.uint8),
+                            b.values.cpu().view(torch.uint8))
+                and torch.equal(a.scale, b.scale.cpu())):
+            fail(f"fp8_quantize on the card differs from the CPU's "
+                 f"({tuple(xx.shape)})")
+    print(f"[kernel] 3k, paged_attention at the verify shape (8 slots, S_q = 5, "
+          f"{ace.n_heads}/{ace.n_kv_heads} x {ace.head_dim}): within "
+          f"tolerance, every query's rows bitwise a one-query call's; FP8 pages "
+          f"at {moe.n_heads}/{moe.n_kv_heads} x {moe.head_dim}: decode, S_q = 3 "
+          f"(rows bitwise as well), a 16-query chunk within tolerance; "
+          f"fp8_quantize bitwise the CPU's on 65 rows and {len(ties)} E4M3 "
+          f"near-tie rows ({time.perf_counter() - t0:.1f}s)", flush=True)
+
+
+# (arch, site, K, N) of the BF16 GEMMs a decode step runs (``layers.
+# _matmul``): every config's lm_head (tied: the embedding), and the hybrid
+# and moe_hybrid recipes' BF16 attention projections
+def bf16_sites():
+    from repro_torch import configs
+    out = []
+    for arch in ("acereason-7b", MOE_ARCH, NEMO_ARCH, RGEMMA["arch"],
+                 RWKV["arch"], WHISPER["arch"], QWEN_VL["arch"]):
+        c = configs.get_config(arch)
+        out.append((arch, "lm_head", c.d_model, c.vocab_size))
+        if arch in (MOE_ARCH, NEMO_ARCH, RGEMMA["arch"]):
+            out.append((arch, "wqkv", c.d_model, c.qkv_dim))
+            out.append((arch, "wo", c.n_heads * c.head_dim, c.d_model))
+        if arch == MOE_ARCH:
+            out.append((arch, "router", c.d_model, c.n_experts))
+            out.append((arch, "sh_gate", c.d_model, 1))
+    return out
+
+
+def phase_3l(dev, gen) -> dict:
+    """Whether a row's result depends on how many rows share the call, on
+    the card: each dense-GEMM site (``layers._matmul``, whose rows are
+    padded to a multiple of ``layers.MIN_ROWS``) and each norm width
+    (``layers.row_mean``) at M = 1, 4, 8, 24 and 40 (one slot,
+    recurrentgemma's 4 slots, 8 slots, 8 slots x (k + 1) at k = 2 and 4)
+    against the same rows computed one at a time, bitwise, over 3 draws:
+    gated; the plain ``torch.matmul`` and ``torch.mean`` beside them,
+    printed.  Returns {(arch, site): {M: equal}} of the port's calls."""
+    import torch
+
+    from repro_torch.models import layers
+    t0 = time.perf_counter()
+    ms = (1, 4, 8, 24, 40)
+
+    def invariant(fn, x):
+        one = torch.cat([fn(x[i:i + 1]) for i in range(x.shape[0])])
+        return {m: bool(torch.equal(fn(x[:m]), one[:m])) for m in ms}
+
+    def draws(k, fn_of_w, n_draws=3):
+        out = {m: True for m in ms}
+        for _ in range(n_draws):
+            x = (torch.randn((40, k), generator=gen, device=dev) * 2.0
+                 ).to(torch.bfloat16)
+            for m, e in invariant(fn_of_w, x).items():
+                out[m] = out[m] and e
+        return out
+
+    res, raw = {}, {}
+    for arch, site, k, n in bf16_sites():
+        w = (torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+             ).to(torch.bfloat16)
+        res[(arch, site)] = draws(k, lambda x: layers._matmul(x, w))
+        raw[(arch, site)] = draws(k, lambda x: torch.matmul(x, w))
+        del w
+    for d in sorted({k for _, _, k, _ in bf16_sites()}):
+        res[("row_mean", f"d={d}")] = draws(
+            d, lambda x: layers.row_mean(x.float() ** 2))
+        raw[("row_mean", f"d={d}")] = draws(
+            d, lambda x: torch.mean(x.float() ** 2, -1, keepdim=True))
+    # the slab decode's attention at recurrentgemma-2b's shapes (4 slots
+    # against a ring of its window): its products one row a call
+    # (``attention._per_row``), and the batched einsum they replaced
+    from repro_torch import configs
+    from repro_torch.models import attention as mattn
+    rc = configs.get_config(RGEMMA["arch"])
+    shape = (4, rc.window, rc.n_kv_heads, rc.head_dim)
+    cache = {k: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+             for k in ("k", "v")}
+    q = torch.randn((4, 1, rc.n_heads, rc.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    pos = torch.tensor([2100, 2300, 2500, 2600], device=dev)
+    one = torch.cat([mattn.decode_attend(
+        q[i:i + 1], {k: v[i:i + 1] for k, v in cache.items()}, pos[i:i + 1],
+        window=rc.window) for i in range(4)])
+    att = bool(torch.equal(mattn.decode_attend(q, cache, pos, window=rc.window),
+                           one))
+    kf = mattn.repeat_kv(cache["k"], rc.n_heads // rc.n_kv_heads).float()
+    s4 = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf)
+    s1 = torch.cat([torch.einsum("bqhd,bkhd->bhqk", q[i:i + 1].float(),
+                                 kf[i:i + 1]) for i in range(4)])
+    res[("decode_attend", RGEMMA["arch"])] = {4: att}
+    raw[("decode_attend", RGEMMA["arch"])] = {4: bool(torch.equal(s4, s1))}
+    for key, eq in res.items():
+        print(f"[rows] {key[0]} {key[1]}: rows at M = "
+              + ", ".join(f"{m} {'==' if e else '!='}" for m, e in eq.items())
+              + " the rows computed one at a time (the port's call); plain "
+              + ("torch.matmul" if key[0] not in ("row_mean", "decode_attend")
+                 else "torch.mean" if key[0] == "row_mean"
+                 else "batched einsum")
+              + ": " + ", ".join(f"{m} {'==' if e else '!='}"
+                                 for m, e in raw[key].items()), flush=True)
+    bad = [key for key, eq in res.items() if not all(eq.values())]
+    if bad:
+        fail(f"rows depend on the number of rows that share the call: {bad}")
+    print(f"[rows] dense GEMM, norm and slab attention rows do not depend on M "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    return res
+
+
+def spec_run(label, eng, prompts, gen, want):
+    """Drive ``eng`` (a ``SpecEngine``) over run A's arrivals: every request
+    finishes, the pool (and its draft mirror, which shares its block ids)
+    drains, drafted = accepted + rolled back, and each greedy stream
+    equals ``want`` (the plain engine's on the same requests) token for
+    token when ``want`` is given.  Returns (stats, launches, outputs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rids, out = serve.run_workload(eng, prompts, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    st = eng.stats()
+    outs = [out.get(r, np.empty(0, np.int32)) for r in rids]
+    if len(out) != len(prompts) or any(len(o) != gen for o in outs):
+        fail(f"engine {label}: {len(out)} of {len(prompts)} requests finished")
+    if eng.state.leaked() or (eng.pool is not None
+                              and eng.pool.used_blocks != eng.pool.cached_blocks):
+        fail(f"engine {label}: the pool or a state slot did not drain")
+    if st["drafted_tokens"] != st["accepted_tokens"] + st["rolled_back_tokens"]:
+        fail(f"engine {label}: drafted {st['drafted_tokens']} != accepted "
+             f"{st['accepted_tokens']} + rolled back {st['rolled_back_tokens']}")
+    eq = None
+    if want is not None:
+        eq = [bool(np.array_equal(o, w)) for o, w in zip(outs, want)]
+    acc = st["acceptance_rate"]
+    print(f"[engine {label}] speculative k={eng.spec_k} draft "
+          f"{eng.draft_mode}: wall {wall:.2f}s, verify steps "
+          f"{st['verify_steps']}, acceptance "
+          f"{acc if acc is None else round(acc, 4)}, accepted/step "
+          f"{st['accepted_per_step']:.3f}, drafted {st['drafted_tokens']}, "
+          f"rolled back {st['rolled_back_tokens']}; ttft_p50_ms="
+          f"{st['ttft_p50_s']*1e3:.1f} decode_step_p50_ms="
+          f"{st['decode_step_p50_s']*1e3:.2f} decode_tok_s="
+          f"{st['decode_tok_s']:.1f} e2e_tok_s={st['e2e_tok_s']:.1f}; draft "
+          f"state {st['draft_pool_bytes'] / 1e9:.3f} GB"
+          + ("" if eq is None else f"; streams equal to the plain engine's "
+             f"on {sum(eq)}/{len(eq)} requests")
+          + f"; launches {launches}", flush=True)
+    return st, launches, outs, eq, rids
+
+
+def phase_5l_ace(dev, cfg, params, qcfg, prompts, want, st_a) -> dict:
+    """Speculative decoding on acereason-7b (run A's loads, traffic and
+    streams): a self-qdq draft at k = 4, self-truncate at 14 layers, and a
+    two-model draft of 2 layers (a fresh QDQ model from seed 99); each
+    run's greedy streams gated token for token against run A's (the plain
+    engine on the same requests).  Returns each run's launches."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.spec import SpecEngine
+    t0 = time.perf_counter()
+    out = {}
+    dcfg = dataclasses.replace(cfg, n_layers=SPEC["two_model_layers"],
+                               name=f"{cfg.name}-2m")
+    dparams, dqcfg = serve.load_quantized(dcfg, 99, "qdq", dev)
+    for name, kw in (("self-qdq", dict(draft="self-qdq")),
+                     ("self-truncate", dict(draft="self-truncate",
+                                            draft_layers=SPEC["truncate_layers"])),
+                     ("two-model", dict(draft_model=(dcfg, dparams, dqcfg)))):
+        eng = SpecEngine(cfg, params, qcfg, draft_k=SPEC["k"], device=dev,
+                         **kw, **ENGINE)
+        st, launches, _, eq, _ = spec_run(f"L {name}", eng, prompts,
+                                          RUN_A["gen"], want)
+        if not all(eq):
+            fail(f"engine L {name}: greedy streams differ from the plain "
+                 f"engine's on {eq.count(False)} requests")
+        if launches["paged_attention"] == 0:
+            fail(f"engine L {name} never launched paged_attention")
+        out[name] = launches
+        del eng
+    print(f"[engine L] acereason-7b speculative: every draft's streams equal "
+          f"run A's token for token (run A: decode_step_p50_ms="
+          f"{st_a['decode_step_p50_s']*1e3:.2f} decode_tok_s="
+          f"{st_a['decode_tok_s']:.1f}); {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    del dparams
+    return out
+
+
+def phase_5k(dev, row_inv) -> dict:
+    """FP8 KV, the moe_hybrid recipe on qwen2-moe-a2.7b at full size
+    (``dataclasses.replace`` here: attention BF16, experts packed, an FP8
+    pool), run M's traffic through the fused tier; then speculative
+    decoding on it at k = 2 (self-qdq).  Returns each run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+    from repro_torch.spec import SpecEngine
+    t_start = time.perf_counter()
+    c = dataclasses.replace(configs.get_config(MOE_ARCH),
+                            quant_recipe="moe_hybrid")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, qcfg = serve.load_quantized(c, SEED, "packed", dev)
+    torch.cuda.synchronize()
+    load_s, load_peak = (time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated() / 1e9)
+    wr = serve.weight_report(params)
+    embed_b = params["embed"].numel() * params["embed"].element_size()
+    lp = params["layers"]
+    attn_b = sum(lp[k].numel() * lp[k].element_size() for k in ("wqkv", "wo"))
+    n_attn = sum(lp[k].numel() for k in ("wqkv", "wo"))
+    # the pool's layout: E4M3 K and V pages and one f32 scale a (slot, head)
+    slots_total = ENGINE["n_blocks"] * ENGINE["block_size"]
+    page_b = 2 * c.n_layers * slots_total * c.n_kv_heads * c.head_dim
+    scale_b = 2 * c.n_layers * slots_total * c.n_kv_heads * 4
+    # a decode step reads every weight but the embedding (a lookup) once,
+    # and the slots' valid KV (run A's mean context of about 300 tokens)
+    mean_ctx = (RUN_A["min_prompt"] + RUN_A["max_prompt"]) / 2 + RUN_A["gen"] / 2
+    kv_b = ENGINE["n_slots"] * mean_ctx * (page_b + scale_b) / slots_total
+    step_b = wr["total_bytes"] - embed_b + kv_b
+    print(f"[engine K] {c.name} full size, quant_recipe=moe_hybrid (attention "
+          f"BF16, FP8 KV, experts packed): load + PTQ {load_s:.1f}s, peak "
+          f"{load_peak:.2f} GB ({resident:.2f} resident before); weights "
+          f"{wr['total_bytes'] / 1e9:.3f} GB, packed {wr['q_params'] / 1e9:.3f} "
+          f"B params in {wr['q_bytes'] / 1e9:.3f} GB, BF16 attention "
+          f"{n_attn / 1e6:.1f} M params in {attn_b / 1e9:.3f} GB (packed: "
+          f"{n_attn * 0.5625 / 1e9:.3f}); decode bound {step_b / 1e9:.3f} GB a "
+          f"step ({kv_b / 1e9:.4f} of it FP8 KV at {mean_ctx:.0f} tokens a slot) "
+          f"= {step_b / HBM_BYTES_S * 1e3:.3f} ms at "
+          f"{HBM_BYTES_S / 1e12:.2f} TB/s", flush=True)
+    prompts = serve.mixed_prompts(RUN_A["requests"], RUN_A["min_prompt"],
+                                  RUN_A["max_prompt"], c.vocab_size, SEED + 2)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(c, params, qcfg, device=dev, fused_kernels="on", **ENGINE)
+    first = first_decode_logits(eng)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rids, out = serve.run_workload(eng, prompts, RUN_A["gen"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats()
+    pool_b = eng.pool.nbytes()
+    print(f"[engine K] {RUN_A['requests']} requests, run M's traffic, fused "
+          f"on ({st['packed_backend']}), FP8 pool {ENGINE['n_blocks']}x"
+          f"{ENGINE['block_size']}: wall {wall:.2f}s, steps {st['steps']}, "
+          f"decode steps {st['decode_steps']}; ttft_p50_ms="
+          f"{st['ttft_p50_s']*1e3:.1f} ttft_p95_ms={st['ttft_p95_s']*1e3:.1f} "
+          f"decode_step_p50_ms={st['decode_step_p50_s']*1e3:.2f} "
+          f"decode_step_p95_ms={st['decode_step_p95_s']*1e3:.2f} "
+          f"decode_tok_s={st['decode_tok_s']:.1f} e2e_tok_s={st['e2e_tok_s']:.1f} "
+          f"peak_mem_gb={peak:.2f}; pool {pool_b / 1e6:.1f} MB (E4M3 pages "
+          f"{page_b / 1e6:.1f} + f32 scales {scale_b / 1e6:.1f}; BF16 pages "
+          f"would be {2 * page_b / 1e6:.1f}, ratio {pool_b / (2 * page_b):.3f}); "
+          f"launches {launches}", flush=True)
+    if len(out) != len(prompts) or any(len(out[r]) != RUN_A["gen"] for r in rids):
+        fail(f"engine K: {len(out)} of {len(prompts)} requests finished")
+    if eng.state.leaked() or eng.pool.used_blocks != eng.pool.cached_blocks:
+        fail("engine K: the FP8 pool did not drain")
+    if not st["fp8"] or eng.pool.data["k"].dtype != torch.float8_e4m3fn:
+        fail("engine K: the pool is not FP8")
+    if pool_b != page_b + scale_b:
+        fail(f"engine K: the pool holds {pool_b} bytes, the layout "
+             f"{page_b + scale_b}")
+    n_fwd = len(prompts) + st["decode_steps"]
+    if launches["paged_attention"] != c.n_layers * st["decode_steps"]:
+        fail(f"engine K launched paged_attention {launches['paged_attention']} "
+             f"times, expected {c.n_layers} x {st['decode_steps']} decode steps")
+    if launches["nvfp4_matmul_grouped"] != 3 * c.n_layers * n_fwd:
+        fail(f"engine K launched nvfp4_matmul_grouped "
+             f"{launches['nvfp4_matmul_grouped']} times, expected 3 x "
+             f"{c.n_layers} x {n_fwd} forwards")
+    # each request against the static path at batch 1 (FP8 dense cache):
+    # the first token, and the first decode step's logits fed it
+    ref_q = dataclasses.replace(qcfg, packed_backend=eng.sq.packed_backend,
+                                quantize_weights=False)
+    first_ok, rel = 0, []
+    with torch.inference_mode():
+        for rid, p in zip(rids, prompts):
+            toks = torch.from_numpy(p[None].astype(np.int64)).to(dev)
+            lp, cache = eng.model.prefill(eng.cfg, params, {"tokens": toks},
+                                          ref_q, s_max=len(p) + 2)
+            if cache["k"].dtype != torch.float8_e4m3fn:
+                fail("serve_batch's dense cache is not FP8 under moe_hybrid")
+            tok = torch.argmax(lp[:, -1:], -1)
+            first_ok += int(tok[0, 0]) == int(out[rid][0])
+            ld, _ = eng.model.decode_step(eng.cfg, params, cache,
+                                          {"tokens": torch.full_like(
+                                              tok, int(out[rid][0]))}, ref_q)
+            rel.append(rel_l2(first[rid], ld[0, -1]))
+            del cache
+    print(f"[engine K] against the static path at batch 1 (FP8 dense cache): "
+          f"first tokens equal on {first_ok}/{len(rids)}; first decode step's "
+          f"logits rel_l2 max {max(rel):.4g} median {float(np.median(rel)):.4g} "
+          f"(tolerance {LOGIT_TOL['nvfp4']})", flush=True)
+    if first_ok != len(rids):
+        fail("engine K: a first token differs from the static path's")
+    if max(rel) > LOGIT_TOL["nvfp4"]:
+        fail(f"engine K: first decode step's logits differ by {max(rel)}")
+    # a traced decode step: one K7 kernel (FP8 pages) for each layer
+    for p in prompts[:ENGINE["n_slots"]]:
+        eng.submit(p, TRACE_GEN)
+    while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
+        eng.step()
+    t = trace_engine_step(eng, "FP8 MoE engine decode step")
+    eng.drain()
+    busy = sum(t["by_kernel"].values())
+    k7_ms = sum(ms for k, ms in t["by_kernel"].items()
+                if "paged_attention_kernel" in k)
+    print(f"[trace] FP8 MoE engine decode step, 8 slots (traced): wall_ms="
+          f"{t['wall_ms']:.3f} device_busy_ms={busy:.3f} idle_share="
+          f"{1 - busy / t['wall_ms']:.3f} paged_attention_ms={k7_ms:.3f} "
+          f"({t['n_k7']} kernels for {t['launches']['paged_attention']} "
+          f"launches); device ops: {t['n_port']:.0f} of the port's kernels "
+          f"({t['n_qdq']:.0f} QDQ for {t['launches']['nvfp4_qdq']} QDQ calls), "
+          f"{t['n_other']:.0f} others", flush=True)
+    if t["n_k7"] != c.n_layers or t["launches"]["paged_attention"] != c.n_layers:
+        fail(f"engine K decode step: {t['n_k7']} paged_attention kernels, "
+             f"expected one for each of {c.n_layers} layers")
+    print_by_kind("FP8 MoE engine decode step", t["by_kernel"])
+    want = [out[r] for r in rids]
+    del eng
+    gc.collect()
+
+    # speculative decoding on the FP8 MoE engine: self-qdq at k = 2.  Its
+    # verify runs the BF16 GEMMs (attention, router, lm_head) at M = 8 x 3
+    # where the plain decode runs them at M = 8: the token gate holds when
+    # phase 3l found those rows invariant across M
+    invariant = all(row_inv[(MOE_ARCH, site)][m] for site in
+                    ("lm_head", "wqkv", "wo", "router", "sh_gate")
+                    for m in (ENGINE["n_slots"], ENGINE["n_slots"] * 3))
+    seng = SpecEngine(c, params, qcfg, draft_k=2, draft="self-qdq", device=dev,
+                      fused_kernels="on", **ENGINE)
+    vfirst, inner = {}, seng._accept
+
+    def accept(logits, draft_toks, draft_probs, st_):
+        for r in seng.sched.running():
+            if len(r.output) == 1:
+                vfirst[r.rid] = logits[r.slot, 0].clone()
+        return inner(logits, draft_toks, draft_probs, st_)
+    seng._accept = accept
+    sst, slaunches, souts, eq, srids = spec_run("K spec", seng, prompts,
+                                                RUN_A["gen"], want)
+    if not sst["fp8"] or seng.proposer.data["k"].dtype != torch.float8_e4m3fn:
+        fail("engine K spec: the pool or the draft pool is not FP8")
+    first_eq = sum(int(o[0]) == int(w[0]) for o, w in zip(souts, want))
+    vrel = [rel_l2(vfirst[a], first[b]) for a, b in zip(srids, rids)]
+    agree = float(np.mean([np.mean(o == w) for o, w in zip(souts, want)]))
+    print(f"[engine K spec] BF16 GEMM rows invariant across M = "
+          f"{ENGINE['n_slots']} and {ENGINE['n_slots'] * 3} (phase 3l): "
+          f"{invariant}; streams equal {sum(eq)}/{len(eq)} (gated: "
+          f"{invariant}), first tokens {first_eq}/{len(eq)}, {agree:.3f} of "
+          f"positions; first verify's logits against the plain engine's "
+          f"first decode step rel_l2 max {max(vrel):.4g} (tolerance "
+          f"{LOGIT_TOL['nvfp4']})", flush=True)
+    if invariant and not all(eq):
+        fail(f"engine K spec: greedy streams differ from the plain engine's "
+             f"on {eq.count(False)} requests")
+    if first_eq != len(eq):
+        fail("engine K spec: a first token differs from the plain engine's")
+    if max(vrel) > LOGIT_TOL["nvfp4"]:
+        fail(f"engine K spec: first verify logits differ by {max(vrel)}")
+    del seng, params, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[engine K] {time.perf_counter() - t_start:.1f}s", flush=True)
+    return {"fp8": launches, "spec": slaunches}
+
+
+def gemm_rows_batched_attention():
+    """A context for ROADMAP C.1 (b)'s check: the BF16 GEMMs
+    (``layers._matmul``: attention and the tied lm_head) one row at a time,
+    M = 1 each as a batch-1 ``serve_batch`` runs them, and the slab
+    decode's attention products batched over the slots in one einsum, as
+    they were before ``attention._per_row``."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import layers as mlayers
+
+    @contextlib.contextmanager
+    def ctx():
+        mm, per_row = mlayers._matmul, mattn._per_row
+
+        def matmul_rows(x, w):
+            x2 = x.reshape(-1, x.shape[-1])
+            y = torch.cat([mm(x2[i:i + 1], w) for i in range(x2.shape[0])])
+            return y.reshape(*x.shape[:-1], y.shape[-1])
+        mlayers._matmul = matmul_rows
+        mattn._per_row = torch.einsum
+        try:
+            yield
+        finally:
+            mlayers._matmul, mattn._per_row = mm, per_row
+    return ctx()
+
+
+def phase_5f_rows(dev, c, params, qcfg, prompts, mb, want) -> tuple:
+    """ROADMAP C.1 (b): run F's 4-slot streams with the BF16 GEMMs one row
+    at a time and the slab attention's products batched as they were,
+    against ``serve_batch``'s streams ``want``.  Printed (the main run's
+    token gate holds the fix); returns (requests equal, share of
+    positions equal)."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+    eng = Engine(c, params, qcfg, device=dev, n_slots=len(prompts),
+                 block_size=ENGINE["block_size"], max_blocks_per_slot=mb)
+    with gemm_rows_batched_attention():
+        rids, got = serve.run_workload(eng, prompts, RGEMMA["gen"])
+    slab_drained(eng, "F, the former attention")
+    eq = sum(np.array_equal(got[r], w) for r, w in zip(rids, want))
+    share = float(np.mean([np.mean(got[r] == w) for r, w in zip(rids, want)]))
+    print(f"[engine F] {len(prompts)} slots with the BF16 GEMMs one row at a "
+          f"time and the attention's products batched (its former form): "
+          f"streams equal to serve_batch's on {eq}/{len(prompts)} requests, "
+          f"{share:.3f} of positions (printed: C.1 (b)'s check)", flush=True)
+    return eq, share
+
+
+def vlm_nvfp4_card_vs_cpu(dev) -> float:
+    """ROADMAP C.1 (a): qwen2-vl-2b's decode with NVFP4 activations (per-
+    token scales) parts from teacher forcing as far in the reference as in
+    the port (``tests/test_torch_mrope.py``), so its parity is held here:
+    the smoke config with a head of 32 (every M-RoPE section read), packed
+    weights from the seed, 2 sequences of 48 tokens with a 4 x 4 grid,
+    prefill of 40 and 8 ``decode_step``s, the card's logits at each step
+    within LOGIT_TOL["nvfp4"] relative L2 of the CPU's.  Returns the
+    largest."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve, specs
+    from repro_torch.models import decoder
+    c = dataclasses.replace(configs.get_smoke(QWEN_VL["arch"]), d_head=32)
+    p_cpu, _ = serve.load_quantized(c, SEED, "packed", "cpu")
+    p_dev = params_to(p_cpu, dev)
+    batch = vlm_batch(c, 2, 48, 3, 4, torch.Generator().manual_seed(SEED + 9),
+                      "cpu")
+    tq = dataclasses.replace(specs.serve_qconfig(c), act_scope="token")
+    steps = {}
+    for where, params, b in (("cpu", p_cpu, batch),
+                             ("card", p_dev, to_device(batch, dev))):
+        with torch.inference_mode():
+            lg, cache = decoder.prefill(c, params, {k: v[:, :40] for k, v in
+                                                    b.items()}, tq, s_max=48)
+            out = [lg[:, 0].float().cpu()]
+            for i in range(40, 48):
+                lg, cache = decoder.decode_step(
+                    c, params, cache, {"tokens": b["tokens"][:, i:i + 1],
+                                       "pos3": b["pos3"][:, i:i + 1]}, tq)
+                out.append(lg[:, 0].float().cpu())
+        steps[where] = out
+    rel = [rel_l2(a, b) for a, b in zip(steps["card"], steps["cpu"])]
+    print(f"[smoke] {c.name} (head 32), NVFP4 activations at per-token "
+          f"scales: card vs CPU prefill + 8 decode steps rel_l2 "
+          + " ".join(f"{x:.3g}" for x in rel)
+          + f" (tolerance {LOGIT_TOL['nvfp4']})", flush=True)
+    if max(rel) > LOGIT_TOL["nvfp4"]:
+        fail(f"{c.name}: NVFP4 decode on the card parts from the CPU's by "
+             f"{max(rel)}")
+    return max(rel)
+
+
 def phase_4_families(dev):
     """Phase 4 for rwkv6, whisper and qwen2-vl at smoke size: the same
     weights and inputs on the card and on the CPU.  Prefill logits within
@@ -984,6 +1649,8 @@ def phase_4_families(dev):
             a, b = a.float().cpu(), b.float()
             lim = ulp(torch.maximum(a.abs(), b.abs()), 7) + 2 * 1e-3
             worst = max(worst, float(((a - b).abs() / lim).max()))
+        if c.mrope_sections:
+            vlm_nvfp4_card_vs_cpu(dev)
         print(f"[smoke] {c.name}: card vs CPU prefill logits within 1e-2 "
               f"(at {l_at:.3f} of the tolerance); "
               f"greedy tokens {'AGREE' if agree else 'DISAGREE'}; QAD step "
@@ -1166,9 +1833,21 @@ def phase_5h(dev) -> dict:
           f"on {n1}/{n1} requests; the 8-slot run's tokens equal to them at "
           f"{agree:.3f} of positions (printed)", flush=True)
     trace_slab_step(eng, prompts, "rwkv6 engine")
-    del eng, eng1, params
+    # 5l on the slab engine: the stepped verify's snapshot / restore over
+    # cumulative state, its streams against run H's (the plain engine's
+    # rows do not depend on the other slots: M = 8 in every step)
+    from repro_torch.spec import SpecEngine
+    n_s, g_s = RWKV["spec_requests"], RWKV["spec_gen"]
+    seng = SpecEngine(c, params, qcfg, draft_k=RWKV["spec_k"], draft="self-qdq",
+                      device=dev, **ENGINE)
+    _, spec_launches, _, eq, _ = spec_run(
+        "H spec", seng, prompts[:n_s], g_s, [out[r][:g_s] for r in rids[:n_s]])
+    if not all(eq):
+        fail(f"engine H spec: greedy streams differ from the plain slab "
+             f"engine's on {eq.count(False)} requests")
+    del eng, eng1, seng, params
     print(f"[engine H] {time.perf_counter() - t_start:.1f}s", flush=True)
-    return launches
+    return launches, spec_launches
 
 
 def phase_5i(dev) -> dict:
@@ -1320,7 +1999,9 @@ def phase_5j(dev) -> dict:
               f"{n - p_len} decode steps, argmax agreement "
               f"{sum(agree) / len(agree):.3f}"
               + (f" (tolerance {LOGIT_TOL['bf16_act']})" if mode == "bf16_act"
-                 else " (printed)"), flush=True)
+                 else " (printed: the reference's own decode parts from its "
+                 "teacher forcing as far; its parity is phase 4's card-vs-CPU "
+                 "gate)"), flush=True)
         del full, cache
     if worst["bf16_act"] > LOGIT_TOL["bf16_act"]:
         fail(f"qwen2-vl decode logits differ from apply's by "
@@ -2076,6 +2757,10 @@ def main() -> int:
           f"kernel a decode call", flush=True)
     del q, qn, pool, bt, pos, got, case
 
+    # ---- 3k, 3l. K7 at the verify shape and on FP8 pages; row invariance --
+    phase_3k(dev, gen, rows, err)
+    row_inv = phase_3l(dev, gen)
+
     # ---- 3h. the rglru_hybrid family's shapes (phases 5e-5f, 6e) ---------
     # K2 on one [layer, inner] slice of a weight stacked over two leading
     # axes and packed as PTQ packs blocks/rec (a tensor scale per slice),
@@ -2581,7 +3266,13 @@ def main() -> int:
     if one_rel > LOGIT_TOL["nvfp4"]:
         fail(f"engine G: a one-chunk prompt's logits differ from exact "
              f"prefill's by {one_rel}")
-    del eng_g, g_pre, a_pre_all, scratch, pool1, ch, ex, params
+    del eng_g, g_pre, a_pre_all, scratch, pool1, ch, ex
+    gc.collect()
+
+    # ---- 5l. speculative decoding on run A's loads and traffic ------------
+    l_launches = phase_5l_ace(dev, cfg, params, pqcfg, a_prompts,
+                              [a_out[r] for r in a_rids], engine_a["st"])
+    del params
     # the engines whose decode the recorders wrap sit in reference cycles
     # (engine -> state -> wrapper -> state): collect them, or their weights
     # stay alive into the next phase's peak-memory reading
@@ -2789,6 +3480,9 @@ def main() -> int:
     del eng_mb, eng_mc, mparams
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 5k. FP8 KV: qwen2-moe-a2.7b under moe_hybrid; speculative on it --
+    k_launches = phase_5k(dev, row_inv)
 
     # ---- 5d. tensor-parallel serving: acereason-7b at tp = 2 -------------
     # two ranks, two processes in a gloo group, share the card; the
@@ -3058,30 +3752,31 @@ def main() -> int:
             len(f_out[r]) != RGEMMA["gen"] for r in f_rids):
         fail(f"engine F: {len(f_out)} of {RGEMMA['requests']} requests finished")
     slab_drained(eng_f, "F")
-    # the same requests one slot at a time: every GEMM then sees the rows
-    # serve_batch's do (M = 1 at decode), so the greedy streams must be
-    # equal token for token; with 4 slots the BF16 GEMMs (attention and
-    # the tied lm_head, which the hybrid recipe keeps in BF16) run cuBLAS
-    # at M = 4, whose summation order differs from M = 1's, and NVFP4
-    # rounding amplifies those last bits: first tokens and the first
-    # decode step's logits are gated there, the streams printed
+    # the same requests one slot at a time and at 4 slots: the greedy
+    # streams must equal serve_batch's token for token in both.  (At 4
+    # slots they parted after the first token until the slab decode's
+    # attention ran its f32 products one slot a call: cuBLAS's batched
+    # kernel summed a slot's scores in an order that depended on the batch;
+    # the BF16 GEMMs' rows do not depend on M at these shapes, phase 3l.)
     eng_1 = Engine(rcfg, rparams, rqcfg, device=dev, n_slots=1, block_size=bs,
                    max_blocks_per_slot=f_mb)
     one_rids, one_out = serve.run_workload(eng_1, f_prompts, RGEMMA["gen"])
     slab_drained(eng_1, "F, one slot")
     nsq = specs.serve_qconfig(rcfg)
-    f_agree, f_rel = [], []
+    f_agree, f_rel, f_want = [], [], []
     for rid, orid, p in zip(f_rids, one_rids, f_prompts):
         toks = torch.from_numpy(p[None].astype("int64")).to(dev)
         want, _ = serve.serve_batch(rcfg, rparams, toks, RGEMMA["gen"])
         want = want[0].cpu().numpy()
+        f_want.append(want)
         if not np.array_equal(want, one_out[orid]):
             fail(f"engine F at one slot: request {orid} {one_out[orid][:12].tolist()} "
                  f"against serve_batch's {want[:12].tolist()}")
         f_agree.append(float(np.mean(want == f_out[rid])))
-        if want[0] != f_out[rid][0]:
-            fail(f"engine F: request {rid}'s first token differs from "
-                 "serve_batch's")
+        if not np.array_equal(want, f_out[rid]):
+            fail(f"engine F at {RGEMMA['requests']} slots: request {rid} "
+                 f"{f_out[rid][:12].tolist()} against serve_batch's "
+                 f"{want[:12].tolist()}")
         with torch.inference_mode():
             _, cache = rglru.prefill(rcfg, rparams, {"tokens": toks}, nsq,
                                      s_max=len(p) + RGEMMA["gen"])
@@ -3090,23 +3785,23 @@ def main() -> int:
         f_rel.append(float((f_first[rid].float() - ld[0, -1].float()).norm()
                            / ld[0, -1].float().norm()))
         del cache
-    print(f"[engine F] one slot at a time: greedy tokens equal to single-"
-          f"request serve_batch on {len(one_rids)}/{len(one_rids)} requests "
-          f"(the ring wrapped in prefill and decode); {RGEMMA['requests']} "
-          f"slots: first tokens equal, first decode step's logits rel_l2 "
+    print(f"[engine F] greedy tokens equal to single-request serve_batch "
+          f"one slot at a time on {len(one_rids)}/{len(one_rids)} requests and "
+          f"at {RGEMMA['requests']} slots on {len(f_rids)}/{len(f_rids)} "
+          f"({float(np.mean(f_agree)):.3f} of positions; the ring wrapped in "
+          f"prefill and decode); first decode step's logits rel_l2 "
           + " ".join(f"{x:.4g}" for x in f_rel)
-          + f" (tolerance {LOGIT_TOL['nvfp4']}), tokens equal at "
-          f"{float(np.mean(f_agree)):.3f} of positions (printed, not gated)",
-          flush=True)
+          + f" (tolerance {LOGIT_TOL['nvfp4']})", flush=True)
     if max(f_rel) > LOGIT_TOL["nvfp4"]:
         fail(f"engine F: first decode step logits differ from serve_batch's "
              f"by {max(f_rel)}")
+    phase_5f_rows(dev, rcfg, rparams, rqcfg, f_prompts, f_mb, f_want)
     del eng_f, eng_1, f_first, rparams
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 5h-5j. rwkv6-3b and whisper-tiny on the slab engine, qwen2-vl-2b --
-    h_launches = phase_5h(dev)
+    h_launches, h_spec_launches = phase_5h(dev)
     i_launches = phase_5i(dev)
     j_launches = phase_5j(dev)
     gc.collect()
@@ -3542,7 +4237,7 @@ def main() -> int:
         + " ".join(f"{x:.3g}" for x in mse_by_layer), flush=True)
     del on, off, snap, prom
 
-    # calibration: the teacher's 16 hidden taps over 2 batches of 2 x 512
+    # calibration: the teacher's 16 hidden taps over CALIB["batches"] of 2 x 512
     cparams = tmodel.init_params(tcfg, torch.Generator(device=dev)
                                  .manual_seed(SEED), dev)
     tap_qc = dataclasses.replace(BF16, numerics=True)
@@ -3675,6 +4370,13 @@ def main() -> int:
                    for k in ops.launches}
 
     # ---- 8. the kernels line, the card, the result ------------------------
+    def spec_paths(name):
+        """A kernel's launches on this slice's paths (phases 5k, 5l)."""
+        return {"engine_k_fp8": k_launches["fp8"][name],
+                "engine_k_spec": k_launches["spec"][name],
+                "engine_h_spec": h_spec_launches[name],
+                **{f"engine_l_spec_{d}": n[name] for d, n in l_launches.items()}}
+
     def serve_entry(name, source, replaces):
         dec = [r for r in rows[name] if r["m"] == BATCH]
         lib = [r["library_ms"] for r in dec]
@@ -3689,7 +4391,8 @@ def main() -> int:
                    "engine_f_rgemma": f_launches[name],
                    "engine_h_rwkv6": h_launches[name],
                    "engine_i_whisper": i_launches[name],
-                   "static_j_qwen2vl": j_launches[name]}
+                   "static_j_qwen2vl": j_launches[name],
+                   **spec_paths(name)}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "max_abs_err": err[name],
@@ -3721,7 +4424,8 @@ def main() -> int:
                    "engine_f_rgemma": f_launches["nvfp4_qdq"],
                    "engine_h_rwkv6": h_launches["nvfp4_qdq"],
                    "engine_i_whisper": i_launches["nvfp4_qdq"],
-                   "static_j_qwen2vl": j_launches["nvfp4_qdq"]}
+                   "static_j_qwen2vl": j_launches["nvfp4_qdq"],
+                   **spec_paths("nvfp4_qdq")}
         return {"name": "nvfp4_qdq", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/nvfp4_qdq.cu",
                 "replaces": "src/repro/kernels/nvfp4_qdq.py:44",
@@ -3771,7 +4475,8 @@ def main() -> int:
                    "engine_b": b_launches["paged_attention"],
                    "engine_g_chunked": g_launches["paged_attention"],
                    "engine_m": m_launches["paged_attention"],
-                   "engine_mb": mb_launches["paged_attention"]}
+                   "engine_mb": mb_launches["paged_attention"],
+                   **spec_paths("paged_attention")}
         return {"name": "paged_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
                 "replaces": "src/repro/kernels/paged_attention.py:93",
@@ -3784,6 +4489,9 @@ def main() -> int:
                                   ("shape", "ms", "plain_ms", "bound_ms")},
                 "decode_4k": {k: at["decode_4k"][k] for k in
                               ("shape", "ms", "plain_ms", "bound_ms")},
+                **{site: {k: at[site][k] for k in
+                          ("shape", "ms", "plain_ms", "bound_ms")}
+                   for site in ("verify", "decode_fp8")},
                 "traced_decode_step_ms": {"engine_a": engine_a_trace["k7_ms"],
                                           "engine_m": engine_m["k7_ms"]},
                 "launches_by_path": by_path}
@@ -3796,7 +4504,8 @@ def main() -> int:
         def layer_sum(key, sel):
             return sum(per_layer[r["site"]] * r[key] for r in sel)
         by_path = {"engine_m": m_launches["nvfp4_matmul_grouped"],
-                   "engine_mb": mb_launches["nvfp4_matmul_grouped"]}
+                   "engine_mb": mb_launches["nvfp4_matmul_grouped"],
+                   **spec_paths("nvfp4_matmul_grouped")}
         return {"name": "nvfp4_matmul_grouped", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/nvfp4_matmul_grouped.cu",
                 "replaces": "src/repro/kernels/nvfp4_matmul.py:233",

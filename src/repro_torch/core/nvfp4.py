@@ -324,3 +324,36 @@ def tp_tile(p: PackedNVFP4, mode: str, rank: int, n_shards: int,
                            scales[..., rank * kb:(rank + 1) * kb].contiguous(),
                            p.tensor_scale.clone(), p.k // n_shards)
     raise ValueError(f"unknown tensor-parallel mode {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# FP8 KV-cache quantization (reference lines 323-341; paper §3.4: Nemotron 3
+# Nano quantizes its KV to FP8).
+# ---------------------------------------------------------------------------
+
+# f32-rounded 1/448: the jitted reference multiplies the amax by it (XLA
+# turns ``amax / 448`` into that product, as it does ``/ 6`` above); the
+# values' division by the scale stays a true division
+INV_E4M3_MAX = float(np.float32(1.0) / np.float32(E4M3_MAX))
+
+
+@dataclasses.dataclass
+class FP8Tensor:
+    values: torch.Tensor     # float8_e4m3fn
+    scale: torch.Tensor      # f32, broadcastable to values
+
+
+def fp8_quantize(x: torch.Tensor, dim: int = -1) -> FP8Tensor:
+    """Symmetric FP8 quantization with one f32 scale per slice along
+    ``dim``: scale = max(amax, 1e-30) * f32(1/448), values = E4M3(x /
+    scale), rounded to nearest even.  |x / scale| is at most the slice's
+    amax over its scale, within an ulp of 448 and far below the cast's
+    overflow at 464, so no value saturates; bitwise the jitted reference."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=dim, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-30) * INV_E4M3_MAX
+    return FP8Tensor(values=(xf / scale).to(FP8_E4M3), scale=scale)
+
+
+def fp8_dequantize(t: FP8Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    return (t.values.to(torch.float32) * t.scale).to(dtype)

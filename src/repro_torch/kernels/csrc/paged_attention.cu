@@ -25,11 +25,20 @@
 //
 //   grid (n_split, B * Hkv, row blocks), cluster (n_split, 1, 1).  A
 //   cluster owns one (request, KV head, block of up to 16 query rows; row
-//   g = rep * S + i holds query i of head kvh * n_rep + rep).  Its keys
-//   [j_lo, j_hi), from the window's start to the largest pos of its rows,
-//   are cut at multiples of 16 into n_split contiguous parts, one per
-//   block; a block whose part is empty contributes m = -inf, l = 0 and a
-//   zero partial.
+//   g = rep * S + i holds query i of head kvh * n_rep + rep).  Each row's
+//   own keys [j_lo, j_hi), from its window's start to its pos, are cut at
+//   multiples of 16 into n_split contiguous parts, part r to block r; a
+//   block stages the union of its rows' parts, and a row whose part is
+//   empty gets m = -inf, l = 0 and a zero partial from that block.
+//
+// A row's parts, and so the order of every sum it takes, depend only on
+// its own pos: a query's output is bitwise the one a one-query call at the
+// same pos gives, whatever other queries share its cluster (the
+// speculative verify's k + 1 queries against the plain decode's one).
+// For that, the sum of exp is kept per thread (keys j = lane mod 16, in
+// key order) across the chunks of a long part and reduced once, and the
+// p V tiles start at multiples of 16: tiles outside a row's part add its
+// exact zeros.
 //
 // and the softmax is taken in three exchanges through distributed shared
 // memory, with no rescaling:
@@ -188,7 +197,9 @@ paged_attention_kernel(Args a) {
   float* m_s = l_loc + kRows;                        // [16] the cluster's
   float* l_s = m_s + kRows;
   int* rpos = reinterpret_cast<int*>(l_s + kRows);   // [16] valid-key counts
-  int* tbl = rpos + kRows;                           // [MB] the table row
+  int* plo_s = rpos + kRows;                         // [16] rows' parts
+  int* phi_s = plo_s + kRows;
+  int* tbl = phi_s + kRows;                          // [MB] the table row
 
   // positions, the table row and q in one round trip
   if (tid < kRows) {
@@ -224,31 +235,43 @@ paged_attention_kernel(Args a) {
   }
   __syncthreads();
 
-  // this cluster's key range, and this block's part of it
-  int lo = INT_MAX, hi = 0;
-  for (int r = 0; r < rows; ++r) {
-    lo = min(lo, rpos[r]);
-    hi = max(hi, rpos[r]);
+  // each row's part of its own keys: [plo, phi) for this block
+  if (tid < kRows) {
+    int lo = 0, hi = 0;
+    if (tid < rows) {
+      const int p = rpos[tid];
+      const int j_lo = a.window ? max(p - a.window, 0) : 0;
+      const int j_hi = min(p, a.mb * a.bs);
+      const int base = j_lo - j_lo % 16;
+      const int span = max(j_hi - base, 0);
+      const int cs = ((span + n_split - 1) / n_split + 15) / 16 * 16;
+      lo = max(j_lo, base + rank * cs);
+      hi = min(j_hi, base + (rank + 1) * cs);
+    }
+    plo_s[tid] = lo;
+    phi_s[tid] = max(hi, lo);
   }
-  const int j_lo = a.window ? max(lo - a.window, 0) : 0;
-  const int j_hi = min(hi, a.mb * a.bs);
-  const int base = j_lo - j_lo % 16;
-  const int span = max(j_hi - base, 0);
-  const int cs = ((span + n_split - 1) / n_split + 15) / 16 * 16;
-  const int t0 = base + rank * cs;                  // first key of its tiles
-  const int plo = max(j_lo, t0), phi = min(j_hi, t0 + cs);
-  const int chunks = phi > plo ? (phi - t0 + kc - 1) / kc : 0;
+  __syncthreads();
+  // the block stages the union of its rows' parts, from a multiple of 16
+  int ulo = INT_MAX, uhi = 0;
+  for (int r = 0; r < rows; ++r)
+    if (phi_s[r] > plo_s[r]) {
+      ulo = min(ulo, plo_s[r]);
+      uhi = max(uhi, phi_s[r]);
+    }
+  const int t0 = uhi > 0 ? ulo - ulo % 16 : 0;     // first key of its tiles
+  const int chunks = uhi > 0 ? (uhi - t0 + kc - 1) / kc : 0;
   const bool resident = chunks == 1;
 
   // stage keys [c0, c0 + kc) of one KV head into dst (bf16 rows); keys
-  // outside this block's part are zeros and are never read
+  // outside the union of the rows' parts are zeros
   auto stage = [&](const void* pages, const float* scales, bf16* dst, int c0) {
     const int pieces = hd / 8;
     for (int e = tid; e < kc * pieces; e += kThreads) {
       const int j = e / pieces, part = e % pieces;
       const int key = c0 + j;
       bf16* d = dst + j * ldq + part * 8;
-      if (key < plo || key >= phi) {
+      if (key < ulo || key >= uhi) {
         *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
         continue;
       }
@@ -285,9 +308,8 @@ paged_attention_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = g + (i >= 2 ? 8 : 0), col = nt * 8 + 2 * c + (i & 1);
-        const int key = c0 + col, p = rpos[r];
-        const bool ok = key >= plo && key < phi && key < p &&
-                        (a.window == 0 || key >= p - a.window);
+        const int key = c0 + col;
+        const bool ok = key >= plo_s[r] && key < phi_s[r];
         sc[r * kc + col] = ok ? d[i] * a.scale : -INFINITY;
       }
     }
@@ -302,16 +324,21 @@ paged_attention_kernel(Args a) {
     for (int o = 8; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
     if (l16 == 0) m_loc[rr] = fmaxf(m_loc[rr], m);
   };
+  // the sum of exp: a running sum per thread (its keys j = l16 mod 16 in
+  // key order, whatever the chunks), reduced across the 16 once
+  float lsum = 0.0f;
   auto row_sum = [&]() {
     const float m = m_s[rr];
-    float sum = 0.0f;
     for (int j = l16; j < kc; j += 16) {
       const float s = sc[rr * kc + j];
-      if (s != -INFINITY) sum += expf(s - m);
+      if (s != -INFINITY) lsum += expf(s - m);
     }
+  };
+  auto row_sum_done = [&]() {
+    float sum = lsum;
 #pragma unroll
     for (int o = 8; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (l16 == 0) l_loc[rr] += sum;
+    if (l16 == 0) l_loc[rr] = sum;
   };
   auto probs = [&]() {
     const float m = m_s[rr], l = l_s[rr];
@@ -395,6 +422,7 @@ paged_attention_kernel(Args a) {
       __syncthreads();
     }
   }
+  row_sum_done();
   __syncthreads();
   broadcast(l_loc, l_all);
   cluster.sync();
@@ -464,7 +492,7 @@ size_t smem_bytes(int hd, int kc, int mb) {
   return 2 * (kRows * ldq + (size_t)kc * ldq + kRows * (size_t)(kc + 8)) +
          4 * (kRows * (size_t)kc + kRows * (size_t)hd + kMaxSplit +
               2 * kMaxSplit * kRows + 4 * kRows) +
-         4 * (kRows + (size_t)mb);
+         4 * (3 * kRows + (size_t)mb);
 }
 
 template <bool kFp8>

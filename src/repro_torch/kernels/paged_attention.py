@@ -8,13 +8,17 @@ dequantization and grouped-query attention for one-token decode
 one launch, without a dense [B, MB * bs, Hkv, hd] copy of the pages.
 
 The kernel (``csrc/paged_attention.cu``) gives a thread-block cluster to
-each (request, KV head, up to 16 query rows) and splits its keys over the
-cluster's blocks (``split_plan``, ``key_ranges``); the softmax is taken in
-three exchanges through distributed shared memory (row max, sum of exp,
-p V partials, each summed in split order), with no rescaling, and q K^T and
-p V run on the tensor cores.  It keeps every rounding point of the plain
-version and differs from it only in the order of f32 sums, so it is held
-to a tolerance, not bitwise.  It reads only the pages that hold valid keys.
+each (request, KV head, up to 16 query rows) and splits each row's keys
+over the cluster's blocks (``split_plan``, ``key_ranges``); the softmax is
+taken in three exchanges through distributed shared memory (row max, sum
+of exp, p V partials, each summed in split order), with no rescaling, and
+q K^T and p V run on the tensor cores.  It keeps every rounding point of
+the plain version and differs from it only in the order of f32 sums, so it
+is held to a tolerance, not bitwise.  A row's split, and so its sums'
+order, depends only on its own pos: each query's output is bitwise the one
+a one-query call at its pos gives (the speculative verify's k + 1 queries
+against the plain decode's one).  It reads only the pages that hold valid
+keys.
 
 Bound on the H100: bytes, the valid K and V pages (2 KB per token and
 layer for acereason-7b).
@@ -88,9 +92,18 @@ def plain(q: torch.Tensor, pool_sl: dict, block_tables: torch.Tensor,
     q [B, S, H, hd]; pool_sl {"k", "v" [n_blocks, bs, Hkv, hd], optional
     "k_scale", "v_scale" [n_blocks, bs, Hkv]}; block_tables [B, MB];
     pos [B] or [B, S] valid-key counts.  Returns [B, S, H, hd] in q's dtype.
+    Several queries a row are attended one at a time, each as a one-query
+    call: a BLAS product over one query row (a matrix-vector product) sums
+    in another order than over several, and the verify step's query i
+    must be bitwise the decode step's.
     """
-    k, v = gather(pool_sl, block_tables, q.dtype)
     b, s, h, hd = q.shape
+    if s > 1:
+        pos2 = _pos2(pos, b, s)
+        return torch.cat([plain(q[:, i:i + 1], pool_sl, block_tables,
+                                pos2[:, i], window=window)
+                          for i in range(s)], 1)
+    k, v = gather(pool_sl, block_tables, q.dtype)
     n, hkv = k.shape[1], k.shape[2]
     f32 = torch.float32
     qg = q.reshape(b, s, hkv, h // hkv, hd).to(f32)  # head = kvh * n_rep + rep
@@ -166,18 +179,22 @@ def smem_bytes(hd: int, chunk: int, mb: int) -> int:
     ldq = hd + 8
     return (2 * (ROWS * ldq + chunk * ldq + ROWS * (chunk + 8))
             + 4 * (ROWS * chunk + ROWS * hd + MAX_SPLIT + 2 * MAX_SPLIT * ROWS
-                   + 4 * ROWS) + 4 * (ROWS + mb))
+                   + 4 * ROWS) + 4 * (3 * ROWS + mb))
 
 
 def split_plan(s: int, n_rep: int, mb: int, bs: int, hd: int,
                window: int = 0) -> Plan:
     """The launch's plan from the shapes alone: pos stays on the device (a
-    host copy would cost a synchronisation per launch), so the split count
-    comes from the longest key range the table and the window admit, with
-    about KEYS_PER_BLOCK keys a block."""
+    host copy would cost a synchronisation per launch).  The split count
+    comes from the longest key range one query can have (the table, or
+    the window), with about KEYS_PER_BLOCK keys a block: it does not depend
+    on S, so a query is split alike in a one-query call.  The chunk covers
+    a block's part for every row of a cluster (their pos differ by up to
+    S - 1), or the block loops over chunks."""
     cap = mb * bs
+    own = min(cap, window) if window else cap
+    n_split = max(1, min(MAX_SPLIT, -(-own // KEYS_PER_BLOCK)))
     longest = min(cap, window + s - 1) if window else cap
-    n_split = max(1, min(MAX_SPLIT, -(-longest // KEYS_PER_BLOCK)))
     # a part starts at a multiple of TILE, so a range gains up to TILE - 1
     chunk = max(TILE, min(MAX_CHUNK, _part_len(longest + TILE - 1, n_split)))
     while smem_bytes(hd, chunk, mb) > MAX_SMEM and chunk > TILE:
@@ -186,30 +203,39 @@ def split_plan(s: int, n_rep: int, mb: int, bs: int, hd: int,
                 smem_bytes(hd, chunk, mb))
 
 
+def row_parts(p: int, mb: int, bs: int, window: int,
+              n_split: int) -> list[tuple[int, int]]:
+    """The keys [lo, hi) each of the n_split blocks takes for one query
+    row with ``p`` valid keys, as the kernel computes them: the row's keys
+    run from its window's start to p, capped at the table; from that start
+    rounded down to a multiple of TILE they are cut into n_split parts of
+    ``_part_len`` keys.  A function of p alone."""
+    j_lo = max(p - window, 0) if window else 0
+    j_hi = min(p, mb * bs)
+    base = j_lo - j_lo % TILE
+    cs = _part_len(max(j_hi - base, 0), n_split)
+    out = []
+    for r in range(n_split):
+        lo = max(j_lo, base + r * cs)
+        out.append((lo, max(min(j_hi, base + (r + 1) * cs), lo)))
+    return out
+
+
 def key_ranges(pos: torch.Tensor, s: int, n_rep: int, mb: int, bs: int,
                window: int, n_split: int) -> torch.Tensor:
-    """[B, row_blocks, n_split, 2] int64: the keys [lo, hi) each block
-    reads, as the kernel computes them.  A cluster's keys run from the
-    window's start to the largest pos of its rows, capped at the table;
-    from that start rounded down to a multiple of TILE they are cut into
-    n_split parts of ``_part_len`` keys."""
+    """[B, row_blocks, ROWS, n_split, 2] int64: the keys [lo, hi) block r
+    of a cluster takes for each of its rows (``row_parts``; rows past the
+    last are empty).  Row g of cluster rb holds query (rb * ROWS + g) % S."""
     pos2 = _pos2(pos, pos.shape[0], s).to(torch.int64).cpu()
     b = pos2.shape[0]
     r_all = n_rep * s
-    out = torch.zeros((b, -(-r_all // ROWS), n_split, 2), dtype=torch.int64)
-    for rb in range(out.shape[1]):
-        queries = torch.arange(rb * ROWS, min(r_all, (rb + 1) * ROWS)) % s
-        p = pos2[:, queries]
-        lo = (torch.clamp(p.amin(1) - window, min=0) if window
-              else torch.zeros(b, dtype=torch.int64))
-        hi = torch.clamp(p.amax(1), max=mb * bs)
-        base = lo - lo % TILE
-        for i in range(b):
-            cs = _part_len(max(int(hi[i] - base[i]), 0), n_split)
-            for r in range(n_split):
-                t0 = int(base[i]) + r * cs
-                out[i, rb, r, 0] = max(int(lo[i]), t0)
-                out[i, rb, r, 1] = max(min(int(hi[i]), t0 + cs), int(out[i, rb, r, 0]))
+    out = torch.zeros((b, -(-r_all // ROWS), ROWS, n_split, 2),
+                      dtype=torch.int64)
+    for bi in range(b):
+        for g_all in range(r_all):
+            p = int(pos2[bi, g_all % s])
+            out[bi, g_all // ROWS, g_all % ROWS] = torch.tensor(
+                row_parts(p, mb, bs, window, n_split))
     return out
 
 

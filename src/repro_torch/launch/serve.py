@@ -37,6 +37,20 @@ nothing leaked.  The CLI exits 1 if any check fails:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch qwen1.5-0.5b --weight-format packed --engine --requests 8 --gen 6
 
+``--arch arctic-480b`` (the ``moe_hybrid`` recipe) serves from an FP8 KV
+pool (E4M3 pages with f32 scales; ``kv=fp8`` on the engine line).
+``--speculative K`` serves through ``repro_torch.spec.SpecEngine``: the
+``--draft`` proposer (``self-qdq``, ``self-truncate`` at
+``--draft-layers``, or ``two-model``: a fresh ``--draft-layers``-deep
+model from seed 99, the stand-in for a small distilled student) drafts K
+tokens a slot and one verify scores them; ``--adaptive-k`` picks each
+slot's k from its measured acceptance.  Its greedy streams are checked
+token for token against the plain engine's on the same workload, and a
+``[engine] speculative: acceptance=...`` line follows:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch qwen1.5-0.5b --weight-format packed --engine --speculative 3
+
 ``--tp N`` serves the engine tensor-parallel over N ranks, one process
 each (``launch.mesh.spawn``, a gloo group), on ``--device``: every rank
 cuts its tiles of the weights and of the KV pool, the packed GEMMs run
@@ -173,7 +187,8 @@ def mixed_prompts(n: int, min_len: int, max_len: int, vocab: int,
 def build_engine(cfg, params, qcfg, args, mesh=None):
     """(Engine, n_blocks) from CLI-style ``args``: the pool holds
     ``--n-blocks`` blocks, or ``--slots`` worst-case requests; ``mesh``,
-    this rank's ``TP``, serves tensor-parallel."""
+    this rank's ``TP``, serves tensor-parallel; ``--speculative K`` builds
+    a ``SpecEngine``."""
     from ..serve import Engine
 
     bs = args.block_size
@@ -186,13 +201,29 @@ def build_engine(cfg, params, qcfg, args, mesh=None):
         # paged prefill; promote, and record the effective mode
         args.prefill_mode = "paged"
     args.kv_alloc = kv_alloc
-    eng = Engine(cfg, params, qcfg, n_slots=args.slots, block_size=bs,
-                 n_blocks=n_blocks, max_blocks_per_slot=mb,
-                 prefill_mode=args.prefill_mode,
-                 prefill_chunk=args.prefill_chunk,
-                 fused_kernels=args.fused_kernels, prefix_cache=prefix_cache,
-                 kv_alloc=kv_alloc, headroom=args.headroom,
-                 device=params_device(params), mesh=mesh)
+    kw = dict(n_slots=args.slots, block_size=bs, n_blocks=n_blocks,
+              max_blocks_per_slot=mb, prefill_mode=args.prefill_mode,
+              prefill_chunk=args.prefill_chunk,
+              fused_kernels=args.fused_kernels, prefix_cache=prefix_cache,
+              kv_alloc=kv_alloc, headroom=args.headroom,
+              device=params_device(params), mesh=mesh)
+    spec_k = getattr(args, "speculative", 0)
+    if not spec_k:
+        return Engine(cfg, params, qcfg, **kw), n_blocks
+    from ..spec import SpecEngine
+
+    draft_model = None
+    if args.draft == "two-model":
+        # the stand-in for a small distilled student: a fresh QDQ model at
+        # --draft-layers depth from seed 99 (near-chance acceptance with
+        # random weights; the output must still be the plain engine's)
+        dl = args.draft_layers or max(1, cfg.n_layers // 2)
+        dcfg = dataclasses.replace(cfg, n_layers=dl, name=f"{cfg.name}-2m")
+        dparams, dqcfg = load_quantized(dcfg, 99, "qdq", params_device(params))
+        draft_model = (dcfg, dparams, dqcfg)
+    eng = SpecEngine(cfg, params, qcfg, draft_k=spec_k, draft=args.draft,
+                     draft_layers=args.draft_layers, draft_model=draft_model,
+                     adaptive_k=args.adaptive_k, **kw)
     return eng, n_blocks
 
 
@@ -308,6 +339,28 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
     check = (args.parity if args.parity is not None
              else args.prefill_mode == "exact")
     parity = None
+    spec_k = getattr(args, "speculative", 0)
+    if spec_k and args.parity is not False:
+        # the speculative engine's oracle: the plain engine's greedy
+        # streams on the same workload, token for token on every device
+        plain_args = argparse.Namespace(**vars(args))
+        plain_args.speculative = 0
+        plain_eng, _ = build_engine(cfg, params, qcfg, plain_args, mesh)
+        plain_rids, plain_out = run_workload(plain_eng, prompts, args.gen,
+                                             extras)
+        empty = np.empty(0, np.int32)
+        agree = []
+        for rid, prid in zip(rids, plain_rids):
+            mine, ref = outputs.get(rid, empty), plain_out.get(prid, empty)
+            agree.append(np.array_equal(mine, ref))
+            if not agree[-1]:
+                say(f"[engine] FAIL: request {rid} diverges from the plain "
+                    f"engine: {mine[:8].tolist()} vs {ref[:8].tolist()}")
+        parity = all(agree) and len(plain_out) == len(outputs)
+        say(f"[engine] speculative streams equal to the plain engine's: "
+            f"{sum(agree)}/{len(agree)} requests")
+        ok = ok and parity
+        check = False
     if check:
         dev = params_device(params)
         strict = dev.type == "cpu"
@@ -363,8 +416,10 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
         f"slots={args.slots} {pool_desc} "
         f"prefill={args.prefill_mode} kv-alloc={args.kv_alloc} "
         f"fused-kernels={'on' if st['fused_kernels'] else 'off'}"
+        + (" kv=fp8" if st.get("fp8") else "")
         + (f" moe-dispatch={st['moe_dispatch']}/{st['packed_backend']}"
-           if st["moe_dispatch"] else ""))
+           if st["moe_dispatch"] else "")
+        + (f" speculative=k{spec_k}/{args.draft}" if spec_k else ""))
     say(f"[engine] decode={st['decode_tok_s']:.1f} tok/s "
         f"e2e={st['e2e_tok_s']:.1f} tok/s "
         f"peak-pool-util={st['peak_utilization']:.2f} "
@@ -375,6 +430,16 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
         f"tok_lat_p95={_ms(st['decode_lat_p95_s'])} "
         f"parity={'AGREE' if parity else ('skipped' if parity is None else 'DISAGREE')} "
         f"{'pool' if eng.pool is not None else 'state'}-drained={not leaked}")
+    if spec_k:
+        adaptive = (f" chosen-k={st['chosen_k_hist']}"
+                    if st.get("adaptive_k") else "")
+        acc, aps = st["acceptance_rate"], st["accepted_per_step"]
+        say(f"[engine] speculative: "
+            f"acceptance={f'{acc:.3f}' if acc is not None else 'n/a'} "
+            f"accepted/step={f'{aps:.2f}' if aps is not None else 'n/a'} "
+            f"drafted={st['drafted_tokens']} "
+            f"rolled-back={st['rolled_back_tokens']} "
+            f"verify-steps={st['verify_steps']}{adaptive}")
     cache_st = None
     if args.prefix_cache == "on":
         cache_st = st.get("prefix_cache") or {}
@@ -446,6 +511,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged attention through the paged_attention "
                     "kernel (on, or auto) or the gather-then-attend "
                     "two-step (off)")
+    # --- speculative decoding (repro_torch.spec, engine mode only) ---
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="draft length k per verify step (0 = off); greedy "
+                    "output must equal the plain engine's token for token")
+    ap.add_argument("--draft", choices=("self-qdq", "self-truncate",
+                                        "two-model"), default="self-qdq",
+                    help="draft proposer: the target's own forward, its "
+                    "first --draft-layers layers, or a separate small "
+                    "model (seed 99)")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="draft depth for self-truncate / two-model "
+                    "(0 = half the target's layers)")
+    ap.add_argument("--adaptive-k", action="store_true",
+                    help="draft-cost-aware per-slot draft length: adapt k "
+                    "from the measured acceptance rate and draft/verify "
+                    "wall clock (requires --speculative)")
     # --- tensor parallelism (engine mode) ---
     ap.add_argument("--tp", type=int, default=1, metavar="N",
                     help="tensor-parallel degree: N ranks, one process "
@@ -459,6 +540,12 @@ def main(argv=None) -> dict:
     if (args.prefix_cache == "on" or args.kv_alloc) and not args.engine:
         raise SystemExit("--prefix-cache/--kv-alloc require --engine (they "
                          "configure the paged serving pool)")
+    if args.speculative and not args.engine:
+        raise SystemExit("--speculative requires --engine (speculative "
+                         "decoding is an engine path)")
+    if args.adaptive_k and not args.speculative:
+        raise SystemExit("--adaptive-k requires --speculative K (it adapts "
+                         "the draft length)")
     device = resolve_device(args.device)
     if args.tp > 1:
         if not args.engine:

@@ -12,9 +12,15 @@ is updated IN PLACE by ``cache_update_layer`` (the reference returns a new
 array); a sliding-window cache is a ring of ``window`` positions, slot
 ``p % window`` holding position ``p``.  The slab engine's per-row write,
 ``cache_update_slots``, makes new tensors instead: a slab tree may be held
-as a snapshot.  FP8 caches are part of the FP8 KV slice of the port.  The
-paged pool is updated in place too; its FP8 pages can be read (the K7
-kernel and its plain version dequantize them) but not yet written.
+as a snapshot.  The paged pool is updated in place too.
+
+FP8 KV (the ``moe_hybrid`` recipe): a cache or pool layer then holds E4M3
+``k``/``v`` and f32 ``k_scale``/``v_scale`` [..., Hkv], one scale per
+(position, head) row, written through ``_quant_kv`` (``core.nvfp4.
+fp8_quantize``, bitwise the jitted reference) and read through
+``_dequant_kv``.  Writes into E4M3 tensors go through their uint8 views:
+the bytes move unchanged, and indexed copies and selects take them on
+every device.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import nvfp4
 from ..kernels import ops
 from ..kernels import paged_attention as kpa
 
@@ -114,15 +121,41 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
 # ---------------------------------------------------------------------------
 
 
+def _quant_kv(x):
+    """[B, S, H, hd] -> (e4m3 values, [B, S, H] f32 scales), one scale per
+    (position, head) row."""
+    t = nvfp4.fp8_quantize(x, dim=-1)
+    return t.values, t.scale[..., 0]
+
+
+def _dequant_kv(vals, scale, dtype=torch.bfloat16):
+    return nvfp4.fp8_dequantize(nvfp4.FP8Tensor(vals, scale[..., None]), dtype)
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """An E4M3 tensor's uint8 view (the same storage); others as they are."""
+    return t.view(torch.uint8) if t.dtype == nvfp4.FP8_E4M3 else t
+
+
+def _stored(layer_cache: dict, k_new, v_new) -> dict:
+    """What a write stores for new kv [B, S, Hkv, hd]: {"k", "v"} in the
+    cache's dtype, and for an FP8 cache the quantized values with their
+    "k_scale", "v_scale" [B, S, Hkv]."""
+    if layer_cache.get("k_scale") is None:
+        dt = layer_cache["k"].dtype
+        return {"k": k_new.to(dt), "v": v_new.to(dt)}
+    kq, ks = _quant_kv(k_new)
+    vq, vs = _quant_kv(v_new)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
 def cache_update_layer(layer_cache: dict, k_new, v_new, pos: int) -> dict:
     """Write new kv at positions [pos, pos + S) of one layer's cache slice
-    {k, v} [B, S_max, Hkv, hd], IN PLACE; returns the same dict."""
-    if layer_cache.get("k_scale") is not None:
-        raise NotImplementedError("FP8 KV caches are part of the FP8 KV "
-                                  "slice of the port")
-    s = k_new.shape[1]
-    layer_cache["k"][:, pos:pos + s] = k_new.to(layer_cache["k"].dtype)
-    layer_cache["v"][:, pos:pos + s] = v_new.to(layer_cache["v"].dtype)
+    {k, v[, k_scale, v_scale]} [B, S_max, Hkv, hd], IN PLACE; returns the
+    same dict."""
+    for name, new in _stored(layer_cache, k_new, v_new).items():
+        s = new.shape[1]
+        _bytes(layer_cache[name])[:, pos:pos + s] = _bytes(new)
     return layer_cache
 
 
@@ -147,27 +180,26 @@ def cache_update_slots(layer_cache: dict, k_new, v_new, positions,
                        active) -> dict:
     """Per-row decode write into a dense [B, S_alloc, Hkv, hd] cache layer:
     row b's k_new/v_new [B, 1, Hkv, hd] at slot ``positions[b]`` (ring
-    callers pass ``pos % S_alloc``); inactive rows keep their values.
-    Returns a new dict of NEW tensors (an exact select, as the reference's
+    callers pass ``pos % S_alloc``); inactive rows keep their values (the
+    reference drops their writes).  An FP8 layer stores ``_quant_kv``'s
+    values and scales, the bits ``cache_update_layer`` stores.  Returns a
+    new dict of NEW tensors (an exact select, as the reference's
     out-of-place scatter): the given cache is not written."""
-    if layer_cache.get("k_scale") is not None:
-        raise NotImplementedError("FP8 KV caches are part of the FP8 KV "
-                                  "slice of the port")
     s_alloc = layer_cache["k"].shape[1]
     slot = torch.arange(s_alloc, device=positions.device)
     hit = (slot[None, :] == positions[:, None]) & active[:, None]
-    hit = hit[:, :, None, None]                           # [B, S_alloc, 1, 1]
     out = dict(layer_cache)
-    for name, new in (("k", k_new), ("v", v_new)):
+    for name, new in _stored(layer_cache, k_new, v_new).items():
         old = layer_cache[name]
-        out[name] = torch.where(hit, new.to(old.dtype), old)
+        sel = hit.reshape(*hit.shape, *([1] * (old.ndim - 2)))
+        out[name] = torch.where(sel, _bytes(new), _bytes(old)).view(old.dtype)
     return out
 
 
 def cache_read_layer(layer_cache: dict, dtype=torch.bfloat16):
     if layer_cache.get("k_scale") is not None:
-        raise NotImplementedError("FP8 KV caches are part of the FP8 KV "
-                                  "slice of the port")
+        return (_dequant_kv(layer_cache["k"], layer_cache["k_scale"], dtype),
+                _dequant_kv(layer_cache["v"], layer_cache["v_scale"], dtype))
     return layer_cache["k"].to(dtype), layer_cache["v"].to(dtype)
 
 
@@ -179,15 +211,17 @@ def decode_attend(q, layer_cache: dict, pos, *, window: int = 0) -> torch.Tensor
     windowed cache is a ring: slot i holds the most recent position
     p(i) = i + S_max * floor((pos - 1 - i) / S_max), valid when
     pos - window <= p(i) < pos.  The mask is integer arithmetic, so the
-    per-row form equals the scalar form row by row.
+    per-row form equals the scalar form row by row.  The two products run
+    one batch row at a time (``_per_row``), so a row's output does not
+    depend on how many rows share the call.
     """
     k, v = cache_read_layer(layer_cache, q.dtype)
     b, s_max, hkv, hd = k.shape
     h = q.shape[2]
     k, v = repeat_kv(k, h // hkv), repeat_kv(v, h // hkv)
     dev = q.device
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                     k.to(torch.float32)) * _scale(hd)
+    s = _per_row("bqhd,bkhd->bhqk", q.to(torch.float32),
+                 k.to(torch.float32)) * _scale(hd)
     slot = torch.arange(s_max, device=dev)[None, :]        # [1, S_max]
     rpos = pos[:, None] if torch.is_tensor(pos) else pos    # [B, 1] or int
     if window:
@@ -200,9 +234,22 @@ def decode_attend(q, layer_cache: dict, pos, *, window: int = 0) -> torch.Tensor
         valid = slot < rpos
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, -1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).to(torch.float32),
-                       v.to(torch.float32))
+    out = _per_row("bhqk,bkhd->bqhd", p.to(q.dtype).to(torch.float32),
+                   v.to(torch.float32))
     return out.to(q.dtype)
+
+
+def _per_row(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, a, b)`` for operands with a leading batch axis, one
+    batch row a call.  cuBLAS picks its batched kernel by the batch count,
+    so a row's sums would depend on how many rows share the call: on an
+    H100 the slab engine's decode at 4 slots parted from batch-1
+    ``serve_batch`` through this product alone (``chip_smoke.py`` phase 5f,
+    ROADMAP C.1 (b)).  One row a call gives every row the batch-1 result."""
+    if a.shape[0] == 1:
+        return torch.einsum(eq, a, b)
+    return torch.cat([torch.einsum(eq, a[i:i + 1], b[i:i + 1])
+                      for i in range(a.shape[0])])
 
 
 # ---------------------------------------------------------------------------
@@ -236,16 +283,14 @@ def paged_write_plan(block_tables, positions, active, bs: int):
 
 def paged_scatter(pool_sl: dict, k_new, v_new, plan) -> dict:
     """Write k_new/v_new [B, S, Hkv, hd] into a pool layer IN PLACE along a
-    ``paged_write_plan``; returns the same dict."""
-    if pool_sl.get("k_scale") is not None:
-        raise NotImplementedError("FP8 pool writes (_quant_kv) are part of "
-                                  "the FP8 KV slice of the port")
+    ``paged_write_plan``; an FP8 pool stores ``_quant_kv``'s values and
+    scales, the bits the dense cache stores.  Returns the same dict."""
     src, dst = plan
-    for name, new in (("k", k_new), ("v", v_new)):
-        page = pool_sl[name]
-        flat = page.view(-1, *page.shape[2:])          # [n_blocks * bs, Hkv, hd]
-        rows = new.reshape(-1, *new.shape[2:])[src]
-        flat.index_copy_(0, dst, rows.to(page.dtype))
+    for name, new in _stored(pool_sl, k_new, v_new).items():
+        page = _bytes(pool_sl[name])
+        flat = page.view(-1, *page.shape[2:])       # [n_blocks * bs, ...]
+        rows = _bytes(new).reshape(-1, *new.shape[2:])[src]
+        flat.index_copy_(0, dst, rows)
     return pool_sl
 
 
@@ -256,7 +301,7 @@ def paged_update_layer(pool_sl: dict, k_new, v_new, block_tables, positions,
 
     k_new/v_new [B, S, Hkv, hd]; positions [B] (S == 1) or [B, S] absolute
     write positions; active [B] or [B, S]: inactive entries are dropped,
-    never touching live blocks.  FP8 pools raise (FP8 KV slice).
+    never touching live blocks.
     """
     plan = paged_write_plan(block_tables, positions, active,
                             pool_sl["k"].shape[1])
@@ -280,8 +325,16 @@ def paged_attend(q, pool_sl: dict, block_tables, pos, *, window: int = 0):
     keys reach the softmax as exp(-1e30 - max) = 0, so a query's output
     does not depend on how many blocks its table addresses.  ``window``
     masks by absolute position.  The arithmetic is ``decode_attend``'s,
-    with a per-(row, query) mask.
+    with a per-(row, query) mask; several queries a row are attended one
+    at a time (``kernels.paged_attention.plain`` says why), so query i is
+    bitwise a one-token decode's.
     """
+    if q.shape[1] > 1:
+        qpos = torch.broadcast_to(pos[:, None] if pos.ndim == 1 else pos,
+                                  q.shape[:2])
+        return torch.cat([paged_attend(q[:, i:i + 1], pool_sl, block_tables,
+                                       qpos[:, i], window=window)
+                          for i in range(q.shape[1])], 1)
     k, v = paged_gather_layer(pool_sl, block_tables, q.dtype)
     b, s_alloc, hkv, hd = k.shape
     h = q.shape[2]

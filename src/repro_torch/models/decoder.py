@@ -27,8 +27,12 @@ in place too.  A MoE layer (``n_experts``) runs ``layers.moe_ffn`` with
 a shared expert behind a sigmoid gate (Qwen1.5-MoE) or a dense residual
 FFN (Arctic).  The slab engine's per-row decode (``_block_slots``) and
 the paged engine's chunked prefill (``prefill_chunk_paged``) are here
-too.  FP8 KV (the ``moe_hybrid`` recipe) raises ``NotImplementedError``:
-it comes with a later slice of the port.
+too.  FP8 KV (the ``moe_hybrid`` recipe, ``_kv_fp8``): the dense cache
+and the pool hold E4M3 K and V with f32 scales per (position, head);
+``prefill`` attends its prompt's BF16 KV and stores it quantized, the
+decode and paged forwards quantize each new row as they write it, and the
+chunked prefill attends its BF16 scratch and quantizes only the pool's
+copy, as the reference does.
 
 M-RoPE (Qwen2-VL, ``cfg.mrope_sections``): ``apply``, ``prefill`` and
 ``decode_step`` take ``batch["pos3"]`` [B, S, 3] (t, h, w position ids;
@@ -48,13 +52,6 @@ from ..core.nvfp4 import PackedNVFP4
 from ..obs import numerics as obs_numerics
 from . import attention as attn
 from . import common, layers
-
-
-def _supported(cfg) -> None:
-    if _kv_fp8(cfg):
-        raise NotImplementedError(f"{cfg.name}: FP8 KV (the moe_hybrid "
-                                  "recipe) is part of the FP8 KV slice of "
-                                  "the port")
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +74,6 @@ def run_norm(cfg, p, x):
 
 
 def _layer_specs(cfg):
-    _supported(cfg)
     P = common.ParamSpec
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     h = cfg.n_heads
@@ -306,7 +302,6 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
     ``output="hidden"`` the final-normed [B,S,d] hidden states (the
     chunked loss applies the unembedding itself).  The layers run under
     ``cfg.remat`` when grad is on (``common.scan_layers``)."""
-    _supported(cfg)
     x = _embed_inputs(cfg, params, batch)
     pos = _positions(cfg, batch, x.shape[1])
 
@@ -333,21 +328,36 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
 
 def cache_specs(cfg, batch_size, s_max, n_shards: int = 1):
     """Specs of the dense cache (a windowed one holds at most ``window``
-    positions); ``n_shards`` ranks split the KV heads."""
-    _supported(cfg)
-    P = common.ParamSpec
+    positions); ``n_shards`` ranks split the KV heads.  An FP8 cache
+    (``moe_hybrid``) holds E4M3 K and V and f32 ``k_scale``/``v_scale``
+    [L, B, s_alloc, Hkv]."""
     s_alloc = min(s_max, cfg.window) if cfg.window else s_max
     shape = (cfg.n_layers, batch_size, s_alloc, cfg.n_kv_heads // n_shards,
              cfg.head_dim)
-    axes = ("layers", "batch", "seq", "kv", "headdim")
-    return {"k": P(shape, axes, init="zeros"), "v": P(shape, axes, init="zeros")}
+    return _kv_specs(cfg, shape, ("layers", "batch", "seq", "kv", "headdim"))
+
+
+def _kv_specs(cfg, shape, axes):
+    """Zero K and V of ``shape``: bf16, or under FP8 KV E4M3 with f32
+    ``k_scale``/``v_scale`` over all but the head dim."""
+    P = common.ParamSpec
+    fp8 = _kv_fp8(cfg)
+    kdt = torch.float8_e4m3fn if fp8 else torch.bfloat16
+    c = {"k": P(shape, axes, dtype=kdt, init="zeros"),
+         "v": P(shape, axes, dtype=kdt, init="zeros")}
+    if fp8:
+        for name in ("k_scale", "v_scale"):
+            c[name] = P(shape[:-1], axes[:-1], dtype=torch.float32,
+                        init="zeros")
+    return c
 
 
 def init_cache(cfg, batch_size, s_max, device="cuda",
                n_shards: int = 1) -> dict:
-    """Zero cache {"k", "v"} [L, B, s_alloc, Hkv, hd] bf16 and ``pos`` 0
-    (Hkv / ``n_shards`` KV heads on each of ``n_shards`` ranks; s_alloc
-    is ``s_max``, or at most ``window`` for a windowed config)."""
+    """Zero cache {"k", "v"} [L, B, s_alloc, Hkv, hd] (bf16, or E4M3 with
+    f32 scales under FP8 KV) and ``pos`` 0 (Hkv / ``n_shards`` KV heads on
+    each of ``n_shards`` ranks; s_alloc is ``s_max``, or at most
+    ``window`` for a windowed config)."""
     cache = {name: torch.zeros(spec.shape, dtype=spec.dtype, device=device)
              for name, spec in cache_specs(cfg, batch_size, s_max,
                                            n_shards).items()}
@@ -360,7 +370,7 @@ def _kv_fp8(cfg):
 
 
 def _cache_slices(cache):
-    return {"k": cache["k"], "v": cache["v"]}
+    return {k: v for k, v in cache.items() if k != "pos"}
 
 
 def decode_step(cfg, params, cache, batch, qcfg: QuantConfig):
@@ -392,7 +402,6 @@ def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
     """Prompt pass: (last-token logits [B,1,V], cache holding the prompt's
     kv in an allocation of ``s_max`` positions; a windowed config keeps
     at most ``window``, ring-aligned)."""
-    _supported(cfg)
     x = _embed_inputs(cfg, params, batch)
     b, s = batch["tokens"].shape
     pos = _positions(cfg, batch, s)
@@ -422,23 +431,13 @@ def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
 def paged_pool_specs(cfg, n_blocks: int, block_size: int, n_shards: int = 1):
     """Specs of the block-granular KV pool shared by all requests:
     [L, n_blocks, block_size, Hkv, hd] per K and V, plus f32 scales beside
-    FP8 pages (the ``moe_hybrid`` recipe, whose writes come with the FP8
-    KV slice).  Under tensor parallelism each of ``n_shards`` ranks holds
+    FP8 pages (the ``moe_hybrid`` recipe), as the dense cache.  Under
+    tensor parallelism each of ``n_shards`` ranks holds
     Hkv / ``n_shards`` KV heads."""
-    P = common.ParamSpec
-    fp8 = _kv_fp8(cfg)
-    kdt = torch.float8_e4m3fn if fp8 else torch.bfloat16
     shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads // n_shards,
              cfg.head_dim)
-    axes = ("layers", "blocks", "blockslot", "kv", "headdim")
-    c = {"k": P(shape, axes, dtype=kdt, init="zeros"),
-         "v": P(shape, axes, dtype=kdt, init="zeros")}
-    if fp8:
-        c["k_scale"] = P(shape[:-1], axes[:-1], dtype=torch.float32,
-                         init="zeros")
-        c["v_scale"] = P(shape[:-1], axes[:-1], dtype=torch.float32,
-                         init="zeros")
-    return c
+    return _kv_specs(cfg, shape,
+                     ("layers", "blocks", "blockslot", "kv", "headdim"))
 
 
 def init_paged_pool(cfg, n_blocks: int, block_size: int, device="cuda",
@@ -457,7 +456,8 @@ def write_prompt_to_pool(pool: dict, cache: dict, block_ids) -> dict:
     ids = torch.as_tensor(block_ids, dtype=torch.long,
                           device=pool["k"].device)
     for name in [k for k in pool if k in cache]:
-        c = cache[name]                                 # [L, 1, P, ...]
+        # FP8 pages move as bytes (zero bytes are E4M3 zeros)
+        c = attn._bytes(cache[name].to(pool[name].dtype))   # [L, 1, P, ...]
         l, _, p_len = c.shape[:3]
         pad = (-p_len) % bs
         blocks = c[:, 0]
@@ -465,7 +465,7 @@ def write_prompt_to_pool(pool: dict, cache: dict, block_ids) -> dict:
             blocks = torch.cat([blocks, blocks.new_zeros(
                 (l, pad, *blocks.shape[2:]))], 1)
         blocks = blocks.reshape(l, (p_len + pad) // bs, bs, *c.shape[3:])
-        pool[name][:, ids] = blocks.to(pool[name].dtype)
+        attn._bytes(pool[name])[:, ids] = blocks
     return pool
 
 
@@ -491,7 +491,6 @@ def _paged_forward(cfg, params, pool, block_tables, positions, tok_active,
                    batch, qcfg, fused):
     """The layer stack over the pool for tokens at ``positions`` ([B] or
     [B, S]); the pool is written in place.  Returns logits [B, S, V]."""
-    _supported(cfg)
     x = embed_tokens(cfg, params, batch["tokens"])
     pos = positions[:, None] if positions.ndim == 1 else positions
     plan = attn.paged_write_plan(block_tables, positions, tok_active,
@@ -601,7 +600,6 @@ def prefill_chunk_paged(cfg, params, scratch, pool, block_table, start: int,
     the last real position [1, 1, V].  Activation amaxes cover the chunk
     (padding included), so the logits approximate whole-prompt prefill's;
     a chunk that is the whole prompt derives the same amaxes."""
-    _supported(cfg)
     x = embed_tokens(cfg, params, batch["tokens"])
     c = x.shape[1]
     offs = torch.arange(c, device=x.device)

@@ -45,10 +45,34 @@ _DENSE_EQ = "...k,ko->...o"
 _MOE_EQ = "...eck,eko->...eco"
 
 
+# On the card cuBLAS picks a GEMM's kernel, and with it the order in which
+# an output row is summed, from the number of rows M.  A dense product's
+# rows are padded to a multiple of MIN_ROWS there, so every product of up
+# to 64 rows gives a row the same bits: the speculative verify's k + 1
+# tokens a slot those of the decode step's one, a slot those of a batch-1
+# request (``chip_smoke.py`` phase 3l: without it the MoE router's rows
+# parted between M = 8 and 24).  On the CPU the products stay as they are,
+# the reference's parity tests' products.
+MIN_ROWS = 64
+
+
+def pad_rows(x2: torch.Tensor) -> torch.Tensor:
+    """A [M, ...] tensor's rows padded with zeros to a multiple of MIN_ROWS
+    on the card; on the CPU the tensor itself."""
+    n = x2.shape[0]
+    if not x2.is_cuda or n % MIN_ROWS == 0:
+        return x2
+    return torch.nn.functional.pad(x2, (0, 0) * (x2.dim() - 1)
+                                   + (0, MIN_ROWS - n % MIN_ROWS))
+
+
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the promoted dtype (what ``jnp.einsum`` returns)."""
+    """``x @ w`` in the promoted dtype (what ``jnp.einsum`` returns), its
+    rows independent of how many share the call (``MIN_ROWS``)."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dt) @ w.to(dt)
+    x2 = x.reshape(-1, x.shape[-1])
+    y = pad_rows(x2).to(dt) @ w.to(dt)
+    return y[:x2.shape[0]].reshape(*x.shape[:-1], y.shape[-1])
 
 
 def _to_groups(x: torch.Tensor) -> torch.Tensor:
@@ -168,10 +192,20 @@ def qdense(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,
 # ---------------------------------------------------------------------------
 
 
+def row_mean(v: torch.Tensor) -> torch.Tensor:
+    """``torch.mean(v, -1, keepdim=True)``, each row summed in an order that
+    does not depend on how many rows share the call: on the card torch
+    picks a reduction's launch shape from the number of rows, so they are
+    padded as a GEMM's are (``pad_rows``)."""
+    flat = v.reshape(-1, v.shape[-1])
+    m = torch.mean(pad_rows(flat), -1, keepdim=True)
+    return m[:flat.shape[0]].reshape(*v.shape[:-1], 1)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor | None,
             eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
-    y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    y = xf * torch.rsqrt(row_mean(xf * xf) + eps)
     if w is not None:
         y = y * w.to(torch.float32)
     return y.to(x.dtype)
@@ -180,8 +214,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor | None,
 def layernorm(x: torch.Tensor, w: torch.Tensor | None, b: torch.Tensor | None,
               eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
-    mu = torch.mean(xf, -1, keepdim=True)
-    var = torch.mean(torch.square(xf - mu), -1, keepdim=True)
+    mu = row_mean(xf)
+    var = row_mean(torch.square(xf - mu))
     y = (xf - mu) * torch.rsqrt(var + eps)
     if w is not None:
         y = y * w.to(torch.float32)

@@ -54,6 +54,11 @@ rank; ``drain`` checks that.  As in the reference, "auto" turns the fused
 tier off under a mesh and ``fused_kernels="on"`` with one raises.  MoE,
 FP8-KV and slab-state configs under TP raise ``NotImplementedError``.
 
+FP8 KV (the ``moe_hybrid`` recipe) serves on one device: the pool (or the
+exact prefill's dense cache) holds E4M3 K and V with f32 scales, and K7
+reads the FP8 pages.  ``_after_prefill`` and ``_do_decode`` are the hooks
+the speculative engine (``repro_torch.spec.SpecEngine``) replaces.
+
 Not ported yet, and refused with ``NotImplementedError``: ``obs`` and
 ``shadow_teacher`` (observability slice).
 """
@@ -137,7 +142,6 @@ class Engine:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.cfg = cfg
         self.model = get_model(cfg)
-        decoder._supported(cfg)
         if params_device(params) != self.device:
             raise ValueError(f"params live on {params_device(params)}, the "
                              f"engine on {self.device}")
@@ -331,6 +335,7 @@ class Engine:
                 # make this context's full blocks shareable (also re-hits
                 # this request's own blocks after a future preemption)
                 self.state.register_prefix(req, req.resume_tokens())
+            self._after_prefill(req)
             if resumed:
                 # the resume prefill only rebuilds KV over tokens already
                 # emitted; its logits re-predict output[-1], which decode
@@ -339,6 +344,11 @@ class Engine:
             else:
                 self._emit(req, self._sample_one(req, logits), finished)
         self.prefill_s += time.monotonic() - t0
+
+    def _after_prefill(self, req: Request) -> None:
+        """Hook: a request's context is fully prefilled (state written),
+        its first token not yet sampled.  The speculative engine prefills
+        the draft model's mirrored state here."""
 
     def _in_flight_prefill(self) -> Request | None:
         """An admitted request whose prefill hasn't completed (chunked or
@@ -441,12 +451,15 @@ class Engine:
         self.sched.preempt(victim)
         self.preempts += 1
 
-    def _ensure_decode_capacity(self, reqs: list[Request]) -> list[Request]:
+    def _ensure_decode_capacity(self, reqs: list[Request],
+                                extra: int = 0) -> list[Request]:
         """On-demand mode: grow every running request's block table to
         cover its next KV write, evicting unreferenced cache blocks first
         and preempting the lowest-progress running request when the pool
         is full.  The requester can be its own victim, so one request
-        always makes progress.  Returns the requests still in the round.
+        always makes progress.  ``extra`` asks for room for that many more
+        positions (the speculative draft depth), best effort: it never
+        preempts.  Returns the requests still in the round.
         """
         if self.kv_alloc != "ondemand":
             return reqs
@@ -459,6 +472,9 @@ class Engine:
                 self._preempt_one(victim)
                 if victim in live:
                     live.remove(victim)
+        if extra:
+            for r in live:
+                self.state.grow_to(r, r.n_cached + 1 + extra)
         return live
 
     # -- decode ------------------------------------------------------------
@@ -492,9 +508,7 @@ class Engine:
             sampled = sample_tokens_seeded(logits[:, 0, :], temps, topks,
                                            seeds, idxs).tolist()
         dt = time.monotonic() - t0
-        self.decode_s += dt
-        self.decode_step_s.append(dt)
-        self.decode_steps += 1
+        self._note_decode_step(dt)
         self.decode_tokens += len(reqs)
         self.token_lat_s.extend([dt] * len(reqs))
         for r in reqs:
@@ -503,6 +517,13 @@ class Engine:
             self._emit(r, int(sampled[r.slot]), finished)
 
     # -- shared ------------------------------------------------------------
+
+    def _note_decode_step(self, dt: float) -> None:
+        """Account one batched decode (or draft + verify) step's wall
+        time; the speculative engine shares it."""
+        self.decode_s += dt
+        self.decode_step_s.append(dt)
+        self.decode_steps += 1
 
     def _sample_one(self, req: Request, logits: torch.Tensor) -> int:
         req.state = RUNNING
@@ -534,6 +555,10 @@ def _check_tp(cfg, size: int) -> None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
                                   "under tensor parallelism is part of a "
                                   "later slice of the port")
+    if decoder._kv_fp8(cfg):
+        raise NotImplementedError(f"{cfg.name}: FP8 KV under tensor "
+                                  "parallelism is part of a later slice of "
+                                  "the port (what tensor parallelism left)")
     if cfg.n_experts:
         raise NotImplementedError(f"{cfg.name}: MoE under tensor "
                                   "parallelism is part of a later slice of "

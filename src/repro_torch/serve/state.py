@@ -290,6 +290,15 @@ class PagedKVState:
             fused=self.eng.fused)
         return logits
 
+    # -- speculative -------------------------------------------------------
+
+    def draft_cap(self, req) -> int:
+        """Proposals may touch positions up to the block reservation - 1."""
+        return len(req.block_ids) * self.pool.block_size - req.n_cached - 1
+
+    # snapshot / restore is never needed here: rejected positions are dead
+    # behind the length mask and the next round's writes overwrite them
+
     # -- telemetry ---------------------------------------------------------
 
     def leaked(self) -> bool:

@@ -14,8 +14,8 @@ Parity levels:
   and ``QuantConfig.q_act`` against its former form (the amax a torch
   reduction handed to the op);
 * **plan**: the key ranges ``paged_attention.key_ranges`` gives the
-  blocks of each cluster tile the cluster's keys exactly once and never
-  reach a page past every query's pos;
+  blocks of a cluster tile each query row's keys exactly once, never
+  reach a page past its pos, and equal a one-query call's at that pos;
 * **tolerance**: a torch model of the kernel's three exchanges (row max,
   sum of exp, p V partials, each combined in split order) within K7's
   tolerance (one bf16 ulp of the larger value plus 1e-3, as on the card)
@@ -285,12 +285,15 @@ def _plan_pos(b, s, mb, bs, seed):
 
 @pytest.mark.parametrize("case", PLAN_CASES, ids=str)
 def test_split_plan_tiles_each_key_range_once(case):
-    """Each cluster's blocks take contiguous key ranges that tile its keys
-    [window start, largest pos) exactly once, start at multiples of 16
-    (but the first), and read no page past every query's pos."""
+    """Each query row's blocks take contiguous key ranges that tile its
+    keys [window start, pos) exactly once, start at multiples of 16 (but
+    the first), and read no page past its pos; a row's ranges are those a
+    one-query call at the same pos gives (its split depends on its own pos
+    alone), and the plan's split count does not depend on S."""
     b, s, n_rep, mb, bs, window = case
     plan = kpa.split_plan(s, n_rep, mb, bs, 128, window)
     assert 1 <= plan.n_split <= kpa.MAX_SPLIT
+    assert plan.n_split == kpa.split_plan(1, n_rep, mb, bs, 128, window).n_split
     assert plan.row_blocks == -(-(n_rep * s) // kpa.ROWS)
     assert plan.chunk % 16 == 0 and plan.smem <= kpa.MAX_SMEM
     for seed in range(3):
@@ -299,13 +302,13 @@ def test_split_plan_tiles_each_key_range_once(case):
             ranges = kpa.key_ranges(pos, s, n_rep, mb, bs, window, n_split)
             pos2 = pos[:, None].expand(b, s) if pos.ndim == 1 else pos
             for bi in range(b):
-                for rb in range(plan.row_blocks):
-                    queries = torch.arange(rb * 16, min(n_rep * s, rb * 16 + 16)) % s
-                    p = pos2[bi, queries].long()
-                    lo = max(int(p.min()) - window, 0) if window else 0
-                    hi = min(int(p.max()), mb * bs)
+                for g_all in range(n_rep * s):
+                    p = int(pos2[bi, g_all % s])
+                    lo = max(p - window, 0) if window else 0
+                    hi = min(p, mb * bs)
                     keys = []
-                    for r, (klo, khi) in enumerate(ranges[bi, rb].tolist()):
+                    row = ranges[bi, g_all // 16, g_all % 16]
+                    for r, (klo, khi) in enumerate(row.tolist()):
                         assert klo <= khi
                         if klo < khi:
                             assert r == 0 or klo % 16 == 0 or klo == lo
@@ -313,6 +316,9 @@ def test_split_plan_tiles_each_key_range_once(case):
                             assert (khi - 1) // bs <= (hi - 1) // bs
                         keys += range(klo, khi)
                     assert keys == list(range(lo, hi))
+                    one = kpa.key_ranges(torch.tensor([p]), 1, 1, mb, bs,
+                                         window, n_split)[0, 0, 0]
+                    assert torch.equal(row, one)
 
 
 def _ulp_tol(got, want):
@@ -321,10 +327,11 @@ def _ulp_tol(got, want):
 
 
 def _emulate(q, pool, bt, pos, window, n_split=None):
-    """The kernel's arithmetic in torch: per cluster and block, the f32
-    scores of its key range; the row max over the blocks; each block's sum
-    of exp with it, the sums added in split order; p rounded to bf16 and
-    each block's p V partial, the partials added in split order."""
+    """The kernel's arithmetic in torch: per query row and block, the f32
+    scores of the row's part of its keys; the row max over the blocks;
+    each block's sum of exp with it, the sums added in split order; p
+    rounded to bf16 and each block's p V partial, the partials added in
+    split order."""
     b, s, h, hd = q.shape
     bs, hkv = pool["k"].shape[1], pool["k"].shape[2]
     mb = bt.shape[1]
@@ -339,29 +346,27 @@ def _emulate(q, pool, bt, pos, window, n_split=None):
     for bi in range(b):
         for kvh in range(hkv):
             for rb in range(plan.row_blocks):
-                g = torch.arange(rb * 16, min(n_rep * s, rb * 16 + 16))
-                heads, qi = kvh * n_rep + g // s, g % s
-                qr = q[bi, qi, heads].float()                    # [R, hd]
-                p = pos2[bi, qi][:, None]
-                parts = []
-                for klo, khi in ranges[bi, rb].tolist():
-                    keys = torch.arange(klo, khi)
-                    sc = (qr @ kd[bi, keys, kvh].float().T) * scale
-                    ok = (keys[None] < p) & ((keys[None] >= p - window)
-                                             if window else True)
-                    parts.append((torch.where(ok, sc, -torch.inf), ok, keys))
-                m = torch.full((len(g),), -torch.inf)
-                for sc, _, _ in parts:                            # exchange 1
-                    if sc.shape[1]:
-                        m = torch.maximum(m, sc.amax(1))
-                l = torch.zeros(len(g))
-                for sc, ok, _ in parts:                           # exchange 2
-                    l = l + torch.where(ok, torch.exp(sc - m[:, None]), 0.0).sum(1)
-                o = torch.zeros((len(g), hd))
-                for sc, ok, keys in parts:                        # exchange 3
-                    pr = torch.where(ok, torch.exp(sc - m[:, None]) / l[:, None], 0.0)
-                    o = o + pr.to(torch.bfloat16).float() @ vd[bi, keys, kvh].float()
-                out[bi, qi, heads] = o
+                for gl, g in enumerate(range(rb * 16,
+                                             min(n_rep * s, rb * 16 + 16))):
+                    head, qi = kvh * n_rep + g // s, g % s
+                    qr = q[bi, qi, head].float()[None]            # [1, hd]
+                    parts = []
+                    for klo, khi in ranges[bi, rb, gl].tolist():
+                        keys = torch.arange(klo, khi)
+                        sc = (qr @ kd[bi, keys, kvh].float().T) * scale
+                        parts.append((sc, keys))
+                    m = torch.full((1,), -torch.inf)
+                    for sc, _ in parts:                           # exchange 1
+                        if sc.shape[1]:
+                            m = torch.maximum(m, sc.amax(1))
+                    l = torch.zeros(1)
+                    for sc, _ in parts:                           # exchange 2
+                        l = l + torch.exp(sc - m[:, None]).sum(1)
+                    o = torch.zeros((1, hd))
+                    for sc, keys in parts:                        # exchange 3
+                        pr = torch.exp(sc - m[:, None]) / l[:, None]
+                        o = o + pr.to(torch.bfloat16).float() @ vd[bi, keys, kvh].float()
+                    out[bi, qi, head] = o[0]
     return out.to(torch.bfloat16)
 
 

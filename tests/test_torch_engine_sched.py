@@ -412,8 +412,16 @@ def test_engine_raises_on_unported_plans_and_options(loaded):
     with pytest.raises(ValueError, match="paged-KV state plan"):
         Engine(configs.get_smoke("rwkv6-3b"), params={}, prefill_mode="paged",
                prefix_cache=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="FP8 KV slice"):
-        Engine(configs.get_smoke("arctic-480b"), params, device="cpu")
+    # FP8 KV serves on one device; under tensor parallelism it is refused,
+    # as is speculative decoding
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.spec import SpecEngine
+    with pytest.raises(NotImplementedError,
+                       match="FP8 KV under tensor parallelism"):
+        engine_mod._check_tp(configs.get_smoke("arctic-480b"), 2)
+    with pytest.raises(NotImplementedError,
+                       match="speculative decoding under tensor parallelism"):
+        SpecEngine(cfg, params, qcfg, mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="TP"):
         _engine(cfg, params, qcfg, mesh=object())
     for kw, slice_name in ((dict(obs=object()), "observability"),
@@ -444,16 +452,27 @@ def test_engine_defaults_to_cuda_and_raises_without_it(loaded):
 
 
 def test_fp8_pool_writes_raise():
+    """An FP8 pool (the moe_hybrid recipe) takes E4M3 pages and f32 scales
+    from ``_quant_kv``, written in place, inactive rows dropped; the write
+    raises for an FP8 layer that lacks a scale plane."""
     cfg = dataclasses.replace(configs.get_smoke(ARCH), quant_recipe="moe_hybrid")
     pool = decoder.init_paged_pool(cfg, 4, 8, "cpu")
     assert pool["k"].dtype == torch.float8_e4m3fn
     assert pool["k_scale"].shape == pool["k"].shape[:-1]
     sl = {k: v[0] for k, v in pool.items()}
-    kv = torch.zeros(1, 1, cfg.n_kv_heads, cfg.head_dim)
-    with pytest.raises(NotImplementedError, match="FP8 KV slice"):
-        attn.paged_update_layer(sl, kv, kv, torch.zeros(1, 1, dtype=torch.int32),
-                                torch.zeros(1, dtype=torch.int32),
-                                torch.ones(1, dtype=torch.bool))
+    kv = torch.randn(2, 1, cfg.n_kv_heads, cfg.head_dim).to(torch.bfloat16)
+    attn.paged_update_layer(sl, kv, 2 * kv, torch.tensor([[1], [2]], dtype=torch.int32),
+                            torch.tensor([3, 5], dtype=torch.int32),
+                            torch.tensor([True, False]))
+    kq, ks = attn._quant_kv(kv)
+    assert torch.equal(sl["k"][1, 3].view(torch.uint8), kq[0, 0].view(torch.uint8))
+    assert torch.equal(sl["k_scale"][1, 3], ks[0, 0])
+    assert not sl["k"][2].view(torch.uint8).any() and not sl["v_scale"][2].any()
+    bad = {k: v for k, v in sl.items() if k != "v_scale"}
+    with pytest.raises(KeyError):
+        attn.paged_update_layer(bad, kv, kv, torch.zeros(2, 1, dtype=torch.int32),
+                                torch.zeros(2, dtype=torch.int32),
+                                torch.ones(2, dtype=torch.bool))
 
 
 # ---------------------------------------------------------------------------

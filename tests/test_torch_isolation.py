@@ -40,7 +40,9 @@ def test_port_sources_import_no_jax():
             PORT / "obs" / "schema.py", PORT / "obs" / "validate.py",
             PORT / "obs" / "compare.py", PORT / "obs" / "export.py",
             PORT / "models" / "rglru.py", PORT / "serve" / "state.py",
-            PORT / "models" / "rwkv6.py", PORT / "models" / "whisper.py"} <= set(files)
+            PORT / "models" / "rwkv6.py", PORT / "models" / "whisper.py",
+            PORT / "spec" / "__init__.py", PORT / "spec" / "proposer.py",
+            PORT / "spec" / "engine.py"} <= set(files)
     bad = {(str(f.relative_to(SRC)), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert not bad, bad
@@ -55,7 +57,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.obs.validate, repro_torch.obs.compare, "
             "repro_torch.obs.export, repro_torch.obs.numerics, "
             "repro_torch.models.rglru, repro_torch.serve.state, "
-            "repro_torch.models.rwkv6, repro_torch.models.whisper; "
+            "repro_torch.models.rwkv6, repro_torch.models.whisper, "
+            "repro_torch.spec, repro_torch.spec.proposer, "
+            "repro_torch.spec.engine; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -90,6 +94,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     for arch in ("rwkv6-3b", "whisper-tiny", "qwen2-vl-2b"):
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--arch", arch, "--engine"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "arctic-480b", "--engine", "--speculative", "3"])
+    from repro_torch.spec import SpecEngine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpecEngine(cfg, {"embed": torch.zeros(1)})
     with pytest.raises(RuntimeError, match="CUDA"):
         train.train("rwkv6-3b", steps=1)
     assert train.build_parser().parse_args([]).device == "cuda"

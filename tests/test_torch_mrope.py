@@ -26,6 +26,11 @@ Parity levels, as each test names them:
     9 tokens and 3 ``decode_step``s with their ``pos3`` over packed
     weights (the reference's Pallas kernel), rtol = atol = 5e-2
     (``test_torch_rglru.py``'s level);
+  * **tolerance**: NVFP4 activations at per-token scales over packed
+    weights, a 48-token batch with a 4 x 4 grid: prefill of 40 and 8
+    ``decode_step``s within 5e-2 relative L2 of the reference's, step by
+    step; their gap to teacher-forcing ``apply`` (0.13-0.23 relative L2
+    at this size) is the reference's own gap to within 0.02;
   * **tolerance**: one QAD step on VLM batches, at
     ``test_torch_rglru.py``'s levels;
   * the CLI's ``--engine`` refusal is one line naming ``vision_prefix``.
@@ -52,6 +57,9 @@ from test_torch_train import _batch_np
 ARCH = "qwen2-vl-2b"
 TOL = 5e-2
 SEQ, PROMPT = 12, 9
+# the decode-against-teacher-forcing case: a 4 x 4 grid in 48 tokens,
+# prefill of 40, then 8 decode steps
+TF_SEQ, TF_PROMPT = 48, 40
 ROPE_CASES = ((32, (8, 4, 4)), (128, (16, 24, 24)), (16, (8, 4, 4)))
 
 
@@ -100,6 +108,20 @@ def _batch(cfg, n=SEQ, b=2):
         mask[i, start:start + 6] = True
         pos3[i] = vlm_positions(n, start, 2, 3)
     vis = rng.standard_normal((b, n, cfg.d_model)).astype(np.float32)
+    return {"tokens": toks, "vis_mask": mask, "vis_embeds": vis, "pos3": pos3}
+
+
+def _tf_batch(cfg, b=2):
+    """``b`` sequences of TF_SEQ tokens, a 4 x 4 grid each (at 3 and 8)."""
+    rng = _rng(TF_SEQ)
+    toks = rng.integers(4, cfg.vocab_size, (b, TF_SEQ)).astype(np.int32)
+    mask = np.zeros((b, TF_SEQ), bool)
+    pos3 = np.zeros((b, TF_SEQ, 3), np.int32)
+    for i in range(b):
+        start = 3 + 5 * i
+        mask[i, start:start + 16] = True
+        pos3[i] = vlm_positions(TF_SEQ, start, 4, 4)
+    vis = rng.standard_normal((b, TF_SEQ, cfg.d_model)).astype(np.float32)
     return {"tokens": toks, "vis_mask": mask, "vis_embeds": vis, "pos3": pos3}
 
 
@@ -155,6 +177,20 @@ def _reference(out_path: str) -> None:
         lg, cache = step(params, cache, {"tokens": batch["tokens"][:, i:i + 1],
                                          "pos3": batch["pos3"][:, i:i + 1]})
         res[f"decode/{i}"] = f32(lg)
+
+    # NVFP4 activations at per-token scales: apply against prefill + decode
+    tq = dataclasses.replace(sq, act_scope="token")
+    tb = {k: jnp.asarray(v) for k, v in _tf_batch(cfg).items()}
+    res["tf/apply"] = f32(jax.jit(
+        lambda p, b: jdecoder.apply(cfg, p, b, tq))(params, tb))
+    lg, cache = jax.jit(lambda p, b: jdecoder.prefill(cfg, p, b, tq,
+                                                      s_max=TF_SEQ))(
+        params, {k: v[:, :TF_PROMPT] for k, v in tb.items()})
+    step = jax.jit(lambda p, c, b: jdecoder.decode_step(cfg, p, c, b, tq))
+    for i in range(TF_PROMPT, TF_SEQ):
+        lg, cache = step(params, cache, {"tokens": tb["tokens"][:, i:i + 1],
+                                         "pos3": tb["pos3"][:, i:i + 1]})
+        res[f"tf/decode/{i}"] = f32(lg)
 
     toks, labels, mask = _batch_np(cfg.vocab_size)
     vb = _batch(cfg, toks.shape[1])
@@ -275,6 +311,41 @@ def test_prefill_and_decode_with_pos3_match(ref):
                                      "pos3": b["pos3"][:, i:i + 1]}, sq)
             _close(lg, ref[f"decode/{i}"])
     assert cache["pos"] == SEQ
+
+
+def _rel(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def test_nvfp4_decode_gap_to_teacher_forcing_is_the_references(ref):
+    """ROADMAP C.1 (a): NVFP4 activations at per-token scales over packed
+    weights.  The port's prefill + decode logits equal the reference's
+    step by step (tolerance 5e-2 relative L2; measured 0 on the CPU), and
+    the gap of each package's decode to its own teacher-forcing ``apply``
+    is the same (within 0.02): the decode attention's other order of sums
+    (one query against the cache, p normalised before its bf16 rounding)
+    moves a few activations across an E2M1 rounding point, in both."""
+    cfg, dense = _dense(ref)
+    qc = dataclasses.replace(specs.recipe_qconfig(cfg), weight_format="packed")
+    params = ptq.quantize_weights(dense, decoder.param_specs(cfg), qc)
+    tq = dataclasses.replace(qc, quantize_weights=False, act_scope="token")
+    b = _torch_batch(_tf_batch(cfg))
+    with torch.inference_mode():
+        tf = decoder.apply(cfg, params, b, tq).float().numpy()
+        _, cache = decoder.prefill(
+            cfg, params, {k: v[:, :TF_PROMPT] for k, v in b.items()}, tq,
+            s_max=TF_SEQ)
+        gaps = []
+        for i in range(TF_PROMPT, TF_SEQ):
+            lg, cache = decoder.decode_step(
+                cfg, params, cache, {"tokens": b["tokens"][:, i:i + 1],
+                                     "pos3": b["pos3"][:, i:i + 1]}, tq)
+            got, want = lg.float().numpy()[:, 0], ref[f"tf/decode/{i}"][:, 0]
+            assert _rel(got, want) <= TOL, i
+            gaps.append((_rel(got, tf[:, i]), _rel(want, ref["tf/apply"][:, i])))
+    gaps = np.asarray(gaps)
+    assert np.abs(gaps[:, 0] - gaps[:, 1]).max() <= 0.02, gaps
+    assert gaps.max() < 0.5, gaps        # LOGIT_TOL["nvfp4"] in chip_smoke
 
 
 def test_paged_forwards_refuse_pos3_less_positions():

@@ -541,7 +541,8 @@ def test_family_dispatch_and_refusals():
     """``get_model`` gives the rglru module for ``rglru_hybrid`` (and the
     rwkv6, whisper and decoder modules for the other families, M-RoPE's
     qwen2-vl included); a dense-KV slab refuses a request that cannot
-    fit; FP8 KV and the family under tensor parallelism are refused."""
+    fit; FP8 KV (served since the FP8 KV slice) and the family under
+    tensor parallelism are refused."""
     from repro_torch.models import decoder, rwkv6, whisper
     cfg = configs.get_smoke(NEMO)
     assert get_model(cfg) is rglru
@@ -550,9 +551,8 @@ def test_family_dispatch_and_refusals():
                          ("qwen2-vl-2b", decoder)):
         c = configs.get_smoke(arch)
         assert get_model(c) is module and module.param_specs(c)
-    with pytest.raises(NotImplementedError, match="FP8 KV"):
-        get_model(configs.get_smoke("arctic-480b")).param_specs(
-            configs.get_smoke("arctic-480b"))
+    arctic = configs.get_smoke("arctic-480b")
+    assert get_model(arctic).param_specs(arctic)
     params = rglru.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     eng = Engine(cfg, params, n_slots=2, block_size=8, max_blocks_per_slot=2,
                  device="cpu")
@@ -561,6 +561,9 @@ def test_family_dispatch_and_refusals():
     from repro_torch.serve import engine as engine_mod
     with pytest.raises(NotImplementedError, match="rglru_hybrid"):
         engine_mod._check_tp(cfg, 2)
+    with pytest.raises(NotImplementedError,
+                       match="FP8 KV under tensor parallelism"):
+        engine_mod._check_tp(arctic, 2)
 
 
 # ---------------------------------------------------------------------------
