@@ -180,6 +180,30 @@ Phases (every failure exits nonzero):
      accepted + rolled back = drafted, acceptance and tokens a round
      printed; rwkv6-3b (inside 5h) with a self-qdq draft at k = 3 on 8
      requests, 16 tokens, its streams equal to run H's;
+  5m. serving telemetry (``repro_torch.obs``) on 5l's loads: (a) run A's
+     traffic through three engines, telemetry off, metrics, metrics and
+     trace, one warm-up each, then stepped in lockstep (their order
+     rotated every round): streams bitwise
+     equal across the three, the trace and snapshot valid
+     (``obs.validate``: balanced lanes, each request's lane opening
+     ``request`` and ``queue`` and closing ``request``; the Prometheus
+     text), each ``kernel_dispatch_total{kernel}`` equal to the launches
+     counted around that engine's own steps and ``qeinsum_dispatch_total
+     {pallas_2d}`` to its K2 launches; the per-token decode-latency floor
+     and p50 of each mode and the overhead on each printed, not gated; (b) the speculative engine (self-qdq, k = 2) at 14 of the 28
+     layers, 8 requests, 16 tokens, traced: streams equal to the plain
+     engine's at that depth, the draft, accepted and rolled-back
+     counters equal to ``stats()``, the verify histogram's count the
+     verify steps; (c) run B's load traced: streams equal run B's, the
+     cache counters the pool's; (d) the shadow teacher (the BF16 seed-0
+     tree on the card beside the student) on 8 of run A's requests, 16
+     tokens, rate 0.25: streams equal the run without it, sampled
+     records, a finite live KL >= 0, top-1 in [0, 1], per-layer SQNR,
+     the snapshot valid, clean against clean passing the drift gate;
+     then on ``inject_quant_noise(params, 0.3)``: the gate trips on amax
+     or KL; seconds a shadow step, live KL, top-1, SQNR printed; (e)
+     whisper-tiny at full size, run I's first 8 requests, traced with the
+     shadow: the trace valid, streams equal telemetry off;
   6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
      (16 layers, d_model 2048, vocab 50304) under its config's
      rematerialization (``remat="full"``: the student's QDQ runs twice a
@@ -367,10 +391,25 @@ STEP_TOL = {"loss": 2e-2, "grad_norm": 5e-2}
 # speculative decoding on acereason-7b with run A's traffic (phase 5l): the
 # draft length, the self-truncate draft's depth and the two-model draft's
 SPEC = dict(k=4, truncate_layers=14, two_model_layers=2)
+# serving telemetry (phase 5m): the speculative run's draft length, depth,
+# requests and tokens; the shadow teacher's requests, tokens, rate and the
+# noise canary's scale; whisper-tiny's requests
+OBS = dict(spec_k=2, spec_depth=14, spec_requests=8, spec_gen=16,
+           shadow_requests=8, shadow_gen=16, shadow_rate=0.25, noise=0.3,
+           whisper_requests=8)
+# the drift gate's thresholds (tests/test_numerics_obs.py::THRESHOLDS)
+SHADOW_GATE = {"max_sqnr_drop_db": 1.0, "max_kl_increase": 0.05,
+               "max_cos_drop": 0.02, "max_amax_rel": 0.1}
 
 
-# spin kernels a training step's trace records ahead of the step
+# spin kernels a training step's trace records ahead of the step, and how
+# many more each retrace records: a profile's dropped records have stuck to
+# the same records through one process's retraces (318 QDQ records of 320
+# in all three, the last whole run of the script), as a drop at a fixed
+# offset of the profiler's record buffers would, so each retrace moves the
+# step's records against those offsets
 WARMUP_SPINS = 32
+RETRACE_SPINS = 19
 # tokens each request of a traced engine decode step is given: the slots
 # stay full for three traced steps after they fill
 TRACE_GEN = 16
@@ -403,20 +442,23 @@ def trace_step(label, step, qdq_gate: bool = True) -> None:
     QDQ kernel for each QDQ launch) and its time by kind of kernel.  The
     profiler first records WARMUP_SPINS spin kernels, which ``trace_ops``
     leaves out, so that it is running when the step starts (profiles have
-    missed a few of a step's kernel records).  A profile that holds another number of QDQ kernels than
-    the step launched is printed and the step traced again, up to three
-    times in all; a third mismatch fails under ``qdq_gate``, and is
-    printed otherwise."""
+    missed a few of a step's kernel records).  A profile that holds another
+    number of QDQ kernels than the step launched is printed and the step
+    traced again, RETRACE_SPINS more spins ahead of it, up to three times
+    in all; a third mismatch fails under ``qdq_gate``, and is printed
+    otherwise."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
     for attempt in (1, 2, 3):
         torch.cuda.synchronize()
         ops.reset_launches()
+        spins = WARMUP_SPINS + RETRACE_SPINS * (attempt - 1)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(WARMUP_SPINS):
+            for _ in range(spins):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -427,9 +469,11 @@ def trace_step(label, step, qdq_gate: bool = True) -> None:
         by_kernel, n_port, n_qdq, n_other = trace_ops(prof)
         if n_qdq == launches["nvfp4_qdq"]:
             break
+        n_spin = sum(e.device_type == DeviceType.CUDA
+                     and "spin_kernel" in e.name for e in prof.events())
         print(f"[trace] {label}: the profile holds {n_qdq:.0f} QDQ kernels "
-              f"for {launches['nvfp4_qdq']} QDQ launches (trace {attempt})",
-              flush=True)
+              f"for {launches['nvfp4_qdq']} QDQ launches (trace {attempt}; "
+              f"{n_spin} of {spins} spin kernels recorded)", flush=True)
     else:
         if qdq_gate:
             fail(f"{label}: {n_qdq} QDQ kernels for {launches['nvfp4_qdq']} "
@@ -448,8 +492,8 @@ def trace_step(label, step, qdq_gate: bool = True) -> None:
         print(f"[trace]   {ms:8.2f} ms  {kname[:110]}")
 
 
-def profile_step(step) -> dict:
-    """One call of ``step`` under the profiler, WARMUP_SPINS spin kernels
+def profile_step(step, spins: int = WARMUP_SPINS) -> dict:
+    """One call of ``step`` under the profiler, ``spins`` spin kernels
     recorded ahead of it (``trace_ops`` leaves them out): its device ops
     (``trace_ops``'s four values), its wall ms and its launches."""
     import torch
@@ -460,7 +504,7 @@ def profile_step(step) -> dict:
     ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(WARMUP_SPINS):
+        for _ in range(spins):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -481,10 +525,12 @@ def trace_engine_step(eng, label) -> dict:
     caller fills them, with tokens to spare for two more steps).  The
     profiler drops a kernel's record now and then but never adds one: a
     profile that holds fewer QDQ kernels than the step launched is
-    printed and the next step traced, up to three in all, while every
-    slot still decodes.  The caller gates the count of the last one."""
+    printed and the next step traced, RETRACE_SPINS more spins ahead of
+    it, up to three in all, while every slot still decodes.  The caller
+    gates the count of the last one."""
     for attempt in (1, 2, 3):
-        t = profile_step(eng.step)
+        t = profile_step(eng.step,
+                         WARMUP_SPINS + RETRACE_SPINS * (attempt - 1))
         if (t["n_qdq"] >= t["launches"]["nvfp4_qdq"] or attempt == 3
                 or len(eng.sched.running()) < eng.n_slots):
             return t
@@ -1258,6 +1304,324 @@ def phase_5l_ace(dev, cfg, params, qcfg, prompts, want, st_a) -> dict:
           f"{st_a['decode_tok_s']:.1f}); {time.perf_counter() - t0:.1f}s",
           flush=True)
     del dparams
+    return out
+
+
+def obs_artifacts_ok(eng, label, expect_spec=False, expect_cache=False):
+    """An instrumented engine's snapshot, its Prometheus text and (with a
+    tracer) its trace through ``obs.validate``; every request lane opens
+    ``request`` then ``queue`` and closes ``request``.  Returns the
+    snapshot."""
+    from repro_torch.obs import export, validate
+    snap = export.metrics_snapshot(eng)
+    errs = validate.check_metrics(snap, expect_spec, expect_cache)
+    errs += validate.check_prometheus(export.to_prometheus(snap,
+                                                           eng.obs.metrics))
+    if eng.obs.trace.enabled:
+        doc = eng.obs.trace.to_chrome()
+        errs += validate.check_trace(doc, expect_spec, expect_cache)
+        lanes = {}
+        for e in doc["traceEvents"]:
+            if e["ph"] in "BEi" and e["tid"]:
+                lanes.setdefault(e["tid"], []).append((e["ph"], e["name"]))
+        errs += [f"lane {tid}: {ev[:2]} ... {ev[-1]}"
+                 for tid, ev in sorted(lanes.items())
+                 if ev[:2] != [("B", "request"), ("B", "queue")]
+                 or ev[-1] != ("E", "request")]
+    if errs:
+        fail(f"engine {label}: telemetry artifacts invalid: {errs[:5]}")
+    return snap
+
+
+def dispatch_equals_launches(eng, launches, label) -> dict:
+    """Gate: each ``kernel_dispatch_total{kernel}`` equals the launches
+    ``ops`` counted over the engine's own steps, and
+    ``qeinsum_dispatch_total{pallas_2d}`` its K2 launches.  Returns the
+    kernel dispatch counts."""
+    snap = eng.obs.metrics.snapshot()
+    kern = {c["labels"]["kernel"]: int(c["value"])
+            for c in snap["kernel_dispatch_total"]["labels"]}
+    gemm = {c["labels"]["backend"]: int(c["value"])
+            for c in snap["qeinsum_dispatch_total"]["labels"]}
+    want = {k: v for k, v in launches.items() if v}
+    if kern != want or gemm.get("pallas_2d", 0) != want.get("nvfp4_matmul", 0):
+        fail(f"engine {label}: dispatch counters {kern} (qeinsum {gemm}) "
+             f"against launches {want}")
+    return kern
+
+
+def phase_5m(dev, cfg, params, qcfg, a_prompts, b_prompts, b_out) -> dict:
+    """Serving telemetry on acereason-7b's loaded tree (full width, 28
+    layers, packed): (a) run A's traffic through three engines, telemetry
+    off, metrics, metrics and trace, stepped in lockstep after one warm-up
+    each; (b) the speculative engine (self-qdq, k = 2) at 14 layers with
+    metrics and trace; (c) run B's shared-prefix load traced; (d) the
+    shadow teacher (the BF16 seed-0 tree beside the student) on 8 of run
+    A's requests, then on the noisy weights; (e) whisper-tiny at full size
+    on run I's first 8 requests, traced, with the shadow.  ``b_prompts``
+    and ``b_out`` are run B's prompts and streams.  Returns each run's
+    launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import common
+    from repro_torch.obs import Observability
+    from repro_torch.obs import compare
+    from repro_torch.serve import Engine
+    from repro_torch.spec import SpecEngine
+    t_start = time.perf_counter()
+    out = {}
+
+    def stepped(eng, counts):
+        """One engine step, its kernel launches added to ``counts``."""
+        before = dict(ops.launches)
+        eng.step()
+        for k, v in ops.launches.items():
+            counts[k] = counts.get(k, 0) + v - before[k]
+
+    # (a) off, metrics, trace in lockstep: the staggered arrivals of
+    # run_workload, one step of each engine at a time, the engines' order
+    # rotated every round so that no mode always steps first
+    modes = {"off": None, "metrics": Observability(metrics=True),
+             "trace": Observability(metrics=True, trace=True)}
+    rounds = []
+
+    def rotated():
+        names = list(modes)
+        k = len(rounds) % len(names)
+        rounds.append(k)
+        return names[k:] + names[:k]
+    engines = {m: Engine(cfg, params, qcfg, device=dev, obs=o, **ENGINE)
+               for m, o in modes.items()}
+    counts = {m: {} for m in modes}
+    for m, eng in engines.items():               # warm-up, untimed
+        for p in a_prompts[:2]:
+            eng.submit(p, 2)
+        while eng.sched.has_work():
+            stepped(eng, counts[m])
+        eng.token_lat_s.clear()
+    rids = {m: [] for m in modes}
+    half = len(a_prompts) // 2
+    for m, eng in engines.items():
+        rids[m] += [eng.submit(p, RUN_A["gen"]) for p in a_prompts[:half]]
+    for p in a_prompts[half:]:
+        for m in rotated():
+            stepped(engines[m], counts[m])
+            rids[m].append(engines[m].submit(p, RUN_A["gen"]))
+    while any(e.sched.has_work() for e in engines.values()):
+        for m in rotated():
+            if engines[m].sched.has_work():
+                stepped(engines[m], counts[m])
+    torch.cuda.synchronize()
+    streams = {m: [engines[m].sched.finished[r].output for r in rids[m]]
+               for m in modes}
+    for m in ("metrics", "trace"):
+        if streams[m] != streams["off"]:
+            n = sum(a != b for a, b in zip(streams[m], streams["off"]))
+            fail(f"engine 5m-a: {m} streams differ from telemetry off on "
+                 f"{n} requests")
+    floor, p50 = {}, {}
+    for m, eng in engines.items():
+        if eng.state.leaked():
+            fail(f"engine 5m-a {m}: the pool did not drain")
+        lat = eng.token_lat_s
+        floor[m], p50[m] = min(lat), float(np.percentile(lat, 50))
+        print(f"[engine 5m-a] {m}: per-token decode latency floor "
+              f"{floor[m]*1e3:.3f} ms, p50 {p50[m]*1e3:.3f} ms over "
+              f"{len(lat)} tokens; launches {counts[m]}", flush=True)
+        out[f"a_{m}"] = counts[m]
+        if eng.obs.enabled:
+            obs_artifacts_ok(eng, f"5m-a {m}")
+            dispatch_equals_launches(eng, counts[m], f"5m-a {m}")
+    print(f"[engine 5m-a] overhead on the floor (printed, not gated): metrics "
+          f"{100 * (floor['metrics'] / floor['off'] - 1):+.2f}%, trace "
+          f"{100 * (floor['trace'] / floor['off'] - 1):+.2f}%; on the p50: "
+          f"metrics {100 * (p50['metrics'] / p50['off'] - 1):+.2f}%, trace "
+          f"{100 * (p50['trace'] / p50['off'] - 1):+.2f}%; {len(rounds)} "
+          f"rounds, the order rotated; streams bitwise equal across the "
+          f"three; trace events {len(engines['trace'].obs.trace.events)}",
+          flush=True)
+    del engines
+
+    # (b) speculative, 14 layers: the plain engine's streams are the oracle
+    c14 = dataclasses.replace(cfg, n_layers=OBS["spec_depth"])
+    p14 = dict(params, layers=common.tree_map(
+        lambda a: a[:OBS["spec_depth"]], params["layers"]))
+    sp = a_prompts[:OBS["spec_requests"]]
+    ops.reset_launches()
+    r0, o0 = serve.run_workload(Engine(c14, p14, qcfg, device=dev, **ENGINE),
+                                sp, OBS["spec_gen"])
+    out["b_plain"] = dict(ops.launches)
+    obs = Observability(metrics=True, trace=True)
+    eng = SpecEngine(c14, p14, qcfg, draft_k=OBS["spec_k"], device=dev,
+                     obs=obs, **ENGINE)
+    st, out["b_spec"], _, eq, _ = spec_run(
+        "5m-b", eng, sp, OBS["spec_gen"], [o0[r] for r in r0])
+    if not all(eq):
+        fail(f"engine 5m-b: speculative streams with telemetry differ from "
+             f"the plain engine's on {eq.count(False)} requests")
+    obs_artifacts_ok(eng, "5m-b", expect_spec=True)
+    dispatch_equals_launches(eng, out["b_spec"], "5m-b")
+    snap = obs.metrics.snapshot()
+    by_kind = {name: {c["labels"]["draft"]: int(c["value"])
+                      for c in snap[name]["labels"]}
+               for name in ("spec_draft_tokens_total",
+                            "spec_accepted_tokens_total",
+                            "spec_rolled_back_tokens_total")}
+    want = {"spec_draft_tokens_total": st["drafted_tokens"],
+            "spec_accepted_tokens_total": st["accepted_tokens"],
+            "spec_rolled_back_tokens_total": st["rolled_back_tokens"]}
+    if any(by_kind[k] != {"self-qdq": v} for k, v in want.items()) \
+            or snap["spec_verify_seconds"]["count"] != st["verify_steps"]:
+        fail(f"engine 5m-b: counters {by_kind}, verify histogram "
+             f"{snap['spec_verify_seconds']['count']} against stats {want}, "
+             f"{st['verify_steps']} verify steps")
+    print(f"[engine 5m-b] counters equal stats: {by_kind}; verify steps "
+          f"{st['verify_steps']}; draft steps "
+          f"{int(snap['spec_draft_steps_total']['value'])}", flush=True)
+    del eng, p14
+
+    # (c) run B's load, traced: the counters against the pool's own
+    obs = Observability(metrics=True, trace=True)
+    eng = Engine(cfg, params, qcfg, device=dev, prefill_mode="paged",
+                 kv_alloc="ondemand", prefix_cache=True, obs=obs, **ENGINE)
+    ops.reset_launches()
+    rids_c, out_c = serve.run_workload(eng, b_prompts, RUN_B["gen"])
+    torch.cuda.synchronize()
+    out["c_cache"] = dict(ops.launches)
+    if [out_c[r].tolist() for r in rids_c] != [o.tolist() for o in b_out]:
+        fail("engine 5m-c: traced streams differ from run B's")
+    obs_artifacts_ok(eng, "5m-c", expect_cache=True)
+    dispatch_equals_launches(eng, out["c_cache"], "5m-c")
+    snap = obs.metrics.snapshot()
+    cache = eng.state.cache
+    got = (snap["prefix_cache_hit_total"]["value"],
+           snap["prefix_cache_miss_total"]["value"],
+           snap["prefix_cache_evict_total"]["value"])
+    if got != (cache.hits, cache.misses, cache.evictions) or not cache.hits:
+        fail(f"engine 5m-c: cache counters {got} against the pool's "
+             f"{(cache.hits, cache.misses, cache.evictions)}")
+    print(f"[engine 5m-c] run B traced: streams equal run B's, cache "
+          f"counters hits/misses/evictions {got} equal the pool's; "
+          f"{len(obs.trace.events)} trace events", flush=True)
+    del eng
+
+    # (d) the shadow teacher: the BF16 tree the student was quantized from
+    t0 = time.perf_counter()
+    teacher = serve.teacher_params(cfg, SEED, dev)
+    torch.cuda.synchronize()
+    t_teacher = time.perf_counter() - t0
+    dp = a_prompts[:OBS["shadow_requests"]]
+    ops.reset_launches()
+    r0, o0 = serve.run_workload(Engine(cfg, params, qcfg, device=dev, **ENGINE),
+                                dp, OBS["shadow_gen"])
+    out["d_base"] = dict(ops.launches)
+    torch.cuda.reset_peak_memory_stats()
+
+    def shadow_run(p, label, want):
+        """The shadow on weights ``p``; ``want``: the streams without it
+        (the noisy weights' streams differ: not compared)."""
+        eng = Engine(cfg, p, qcfg, device=dev, obs=Observability(metrics=True),
+                     shadow_teacher=teacher, shadow_rate=OBS["shadow_rate"],
+                     **ENGINE)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rids, got = serve.run_workload(eng, dp, OBS["shadow_gen"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        if want is not None and [got[r].tolist() for r in rids] != want:
+            fail(f"engine 5m-d {label}: streams with the shadow differ from "
+                 "the run without it")
+        snap = obs_artifacts_ok(eng, f"5m-d {label}")
+        dispatch_equals_launches(eng, launches, f"5m-d {label}")
+        num = snap["numerics"]
+        kl = num["series"].get("qad_live_kl", [])
+        top1 = num["series"].get("qad_top1_agree", [])
+        if not (num["sampled_records"] > 0 and kl and top1
+                and all(math.isfinite(v) and v >= 0 for _, v in kl)
+                and all(0.0 <= v <= 1.0 for _, v in top1)
+                and num["sqnr_db_min"] is not None
+                and any(s.startswith("layers.") and "sqnr_db" in st
+                        for s, st in num["per_layer"].items())):
+            fail(f"engine 5m-d {label}: shadow records {num['sampled_records']}"
+                 f", live KL {kl}, top-1 {top1}, SQNR min {num['sqnr_db_min']}")
+        print(f"[engine 5m-d] {label}: {eng.shadow_steps} shadow steps of "
+              f"{len(dp)} requests at rate {OBS['shadow_rate']}, "
+              f"{eng.shadow_s / eng.shadow_steps:.3f} s a shadow step, wall "
+              f"{wall:.2f}s; live KL {[round(v, 5) for _, v in kl]}, top-1 "
+              f"{[round(v, 3) for _, v in top1]}, SQNR min "
+              f"{num['sqnr_db_min']:.2f} dB mean {num['sqnr_db_mean']:.2f} dB,"
+              f" records {num['sampled_records']}"
+              + ("" if want is None else "; streams equal the run without "
+                 "the shadow")
+              + f"; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+              flush=True)
+        return snap, launches
+
+    clean, out["d_shadow"] = shadow_run(params, "clean",
+                                        [o0[r].tolist() for r in r0])
+    if compare.gate_violations(clean, clean, SHADOW_GATE):
+        fail("engine 5m-d: the drift gate trips on clean against clean")
+    noisy_params = serve.inject_quant_noise(params, OBS["noise"])
+    noisy, out["d_noisy"] = shadow_run(noisy_params, f"noise {OBS['noise']}",
+                                       None)
+    violations = compare.gate_violations(clean, noisy, SHADOW_GATE)
+    if not any("amax" in v or "kl" in v for v in violations):
+        fail(f"engine 5m-d: the noise canary did not trip the gate: "
+             f"{violations[:5]}")
+    print(f"[engine 5m-d] teacher {t_teacher:.1f}s to draw; the noise canary "
+          f"trips the gate: {len(violations)} violations, e.g. "
+          f"{violations[:2]}", flush=True)
+    del teacher, noisy_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) whisper-tiny, traced, with the shadow: the slab spans and the
+    # shadow's extras
+    c, wparams, wqcfg, _, _, _ = load_full(WHISPER["arch"], dev)
+    wteacher = serve.teacher_params(c, SEED, dev)
+    n = OBS["whisper_requests"]
+    wp = serve.mixed_prompts(WHISPER["requests"], WHISPER["min_prompt"],
+                             WHISPER["max_prompt"], c.vocab_size, SEED + 6)[:n]
+    extras = [{"enc_frames": f}
+              for f in serve.enc_frames(c, WHISPER["requests"], SEED)[:n]]
+    bs = ENGINE["block_size"]
+    kw = dict(n_slots=ENGINE["n_slots"], block_size=bs,
+              max_blocks_per_slot=WHISPER["s_alloc"] // bs)
+    ops.reset_launches()
+    r0, o0 = serve.run_workload(Engine(c, wparams, wqcfg, device=dev, **kw),
+                                wp, WHISPER["gen"], extras)
+    out["e_off"] = dict(ops.launches)
+    obs = Observability(metrics=True, trace=True)
+    eng = Engine(c, wparams, wqcfg, device=dev, obs=obs, shadow_teacher=wteacher,
+                 shadow_rate=OBS["shadow_rate"], **kw)
+    ops.reset_launches()
+    rids_e, out_e = serve.run_workload(eng, wp, WHISPER["gen"], extras)
+    torch.cuda.synchronize()
+    out["e_shadow"] = dict(ops.launches)
+    if [out_e[r].tolist() for r in rids_e] != [o0[r].tolist() for r in r0]:
+        fail("engine 5m-e: whisper streams with trace and shadow differ from "
+             "telemetry off")
+    snap = obs_artifacts_ok(eng, "5m-e")
+    dispatch_equals_launches(eng, out["e_shadow"], "5m-e")
+    num = snap["numerics"]
+    if not num["sampled_records"] or num["sqnr_db_min"] is None:
+        fail(f"engine 5m-e: shadow records {num['sampled_records']}")
+    kl = num["series"]["qad_live_kl"]
+    print(f"[engine 5m-e] {c.name}: {n} requests, {WHISPER['gen']} tokens, "
+          f"traced ({len(obs.trace.events)} events) with the shadow "
+          f"({eng.shadow_steps} steps, {eng.shadow_s / eng.shadow_steps:.3f} s "
+          f"each): streams equal telemetry off; live KL "
+          f"{min(v for _, v in kl):.5f}..{max(v for _, v in kl):.5f}, SQNR "
+          f"min {num['sqnr_db_min']:.2f} dB", flush=True)
+    del eng, wparams, wteacher
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[engine 5m] serving telemetry: {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     return out
 
 
@@ -3272,6 +3636,10 @@ def main() -> int:
     # ---- 5l. speculative decoding on run A's loads and traffic ------------
     l_launches = phase_5l_ace(dev, cfg, params, pqcfg, a_prompts,
                               [a_out[r] for r in a_rids], engine_a["st"])
+
+    # ---- 5m. serving telemetry on run A's loads ----------------------------
+    m5_launches = phase_5m(dev, cfg, params, pqcfg, a_prompts, b_prompts,
+                           [b_out[r] for r in b_rids])
     del params
     # the engines whose decode the recorders wrap sit in reference cycles
     # (engine -> state -> wrapper -> state): collect them, or their weights
@@ -4371,11 +4739,13 @@ def main() -> int:
 
     # ---- 8. the kernels line, the card, the result ------------------------
     def spec_paths(name):
-        """A kernel's launches on this slice's paths (phases 5k, 5l)."""
+        """A kernel's launches on the paths of phases 5k, 5l and 5m."""
         return {"engine_k_fp8": k_launches["fp8"][name],
                 "engine_k_spec": k_launches["spec"][name],
                 "engine_h_spec": h_spec_launches[name],
-                **{f"engine_l_spec_{d}": n[name] for d, n in l_launches.items()}}
+                **{f"engine_l_spec_{d}": n[name] for d, n in l_launches.items()},
+                **{f"engine_5m_{p}": n.get(name, 0)
+                   for p, n in m5_launches.items()}}
 
     def serve_entry(name, source, replaces):
         dec = [r for r in rows[name] if r["m"] == BATCH]

@@ -6,6 +6,12 @@ raises, nothing falls back.  ``launches`` counts kernel launches only: the
 CPU path does not count, so a nonzero count proves that a run on the card
 went through the kernel.
 
+Each op also counts one dispatch (``kernel_dispatch_total{kernel}``)
+into the dispatch recorder an engine step installs
+(``obs.dispatch.recording``), on either device, as the reference's
+interpret mode does; with no recorder installed that is one ``None``
+check.
+
 ``nvfp4_qdq`` and ``kl_loss`` are differentiable.  The QDQ's backward is
 the straight-through estimator of the reference's ``nvfp4.fake_quant``
 (the identity; no kernel, and no gradient for the amax); ``kl_loss``'s
@@ -19,6 +25,7 @@ from collections.abc import Mapping
 import torch
 
 from ..core.nvfp4 import PackedNVFP4, pack, unpack_layout
+from ..obs import dispatch as obs_dispatch
 from . import kl_loss as _kl
 from . import nvfp4_matmul as _matmul
 from . import nvfp4_qdq as _qdq
@@ -50,6 +57,14 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def _note(name: str) -> None:
+    """Count one dispatch of op ``name`` if an engine step is recording
+    (every call: see ``obs.dispatch``)."""
+    rec = obs_dispatch.active()
+    if rec is not None:
+        rec.kernel(name)
+
+
 class _QDQ(torch.autograd.Function):
     """QDQ forward (kernel or plain); straight-through backward."""
 
@@ -73,6 +88,7 @@ def nvfp4_qdq(x: torch.Tensor, tensor_amax: torch.Tensor | None = None, *,
     last-dim vector) or the caller's ``tensor_amax``; one kernel launch on
     the card.  Differentiable in ``x`` (straight through); the amax gets no
     gradient."""
+    _note("nvfp4_qdq")
     if tensor_amax is not None:
         tensor_amax = tensor_amax.detach()
     return _QDQ.apply(x, tensor_amax, scope)
@@ -111,12 +127,14 @@ def kl_loss(t_logits: torch.Tensor, s_logits: torch.Tensor,
             mask: torch.Tensor) -> torch.Tensor:
     """Masked-mean token KL(p_t || p_s) for [T, V] logits and a [T] mask
     (flatten the batch first); differentiable in ``s_logits`` only."""
+    _note("kl_loss")
     return _KLLoss.apply(t_logits.detach(), s_logits, mask.detach())
 
 
 def nvfp4_matmul(x: torch.Tensor, packed: PackedNVFP4,
                  out_dtype=torch.bfloat16) -> torch.Tensor:
     """y = x @ W from packed NVFP4 weights, dequantized on the fly."""
+    _note("nvfp4_matmul")
     if x.device.type == "cpu":
         return ref.nvfp4_matmul_ref(x, packed, out_dtype)
     out = _matmul.launch(x, packed, out_dtype)
@@ -128,6 +146,7 @@ def nvfp4_matmul_grouped(x: torch.Tensor, packed: PackedNVFP4,
                          out_dtype=torch.bfloat16) -> torch.Tensor:
     """y[g] = x[g] @ W_g for a packed stack [G, N, K/2] in one grouped
     launch (the MoE expert GEMM); x [G, M, K]."""
+    _note("nvfp4_matmul_grouped")
     if x.device.type == "cpu":
         return ref.nvfp4_matmul_grouped_ref(x, packed, out_dtype)
     out = _matmul.launch_grouped(x, packed, out_dtype)
@@ -142,6 +161,7 @@ def nvfp4_matmul_tp(x_local: torch.Tensor, packed_tile: PackedNVFP4, tp,
     ``"column"``: x whole, y this rank's N/n columns, no collective.
     ``"row"``: x this rank's K/n features, y whole: the f32 partials are
     summed over the group, then cast.  One launch per call and rank."""
+    _note("nvfp4_matmul_tp")
     if x_local.device.type == "cpu":
         return ref.nvfp4_matmul_tp_ref(x_local, packed_tile, tp, parallelism,
                                        out_dtype)
@@ -156,6 +176,7 @@ def paged_attention(q: torch.Tensor, pool_sl: dict, block_tables: torch.Tensor,
     q [B, S, H, hd] against ``pool_sl`` {"k", "v", optional "k_scale",
     "v_scale"} through block_tables [B, MB], pos [B] or [B, S] valid-key
     counts.  The ``models.attention.paged_attend`` two-step is its oracle."""
+    _note("paged_attention")
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, pool_sl, block_tables, pos,
                                        window=window)

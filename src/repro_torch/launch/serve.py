@@ -59,6 +59,24 @@ single-device ``serve_batch`` on the full weights:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch qwen1.5-0.5b --weight-format packed --engine --tp 2
+
+Telemetry (engine mode): ``--obs metrics`` (counters, gauges, latency
+histograms, dispatch counts) or ``--obs trace`` (also the request
+lifecycle tracer); ``--metrics-out m.json`` writes the
+``repro.obs.metrics/v1`` snapshot and ``m.prom``, ``--trace-out t.json``
+the Chrome trace (each implies the mode it needs; under ``--tp`` rank 0
+writes them).  ``--shadow-rate R`` re-scores the running requests'
+contexts through the BF16 teacher (the seeded init the weights were
+quantized from) on about R of the decode steps and prints a
+``[numerics]`` line; ``--inject-quant-noise S`` scales every packed
+tensor scale by 1 + S, the canary ``python -m repro_torch.obs.compare
+--gate`` must catch.  Greedy tokens are bitwise the same in every mode:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch qwen1.5-0.5b --weight-format packed --engine --obs trace \
+        --shadow-rate 0.5 --metrics-out m.json --trace-out t.json
+    PYTHONPATH=src python -m repro_torch.obs.validate --trace t.json \
+        --metrics m.json --prom m.prom
 """
 from __future__ import annotations
 
@@ -72,6 +90,7 @@ import torch
 
 from .. import configs
 from ..core import ptq
+from ..core.nvfp4 import PackedNVFP4
 from ..models import common, get_model
 from . import specs
 
@@ -122,6 +141,33 @@ def load_quantized(cfg, seed: int = 0, weight_format: str = "qdq",
             return sharding.shard_leaf(spec, ptq.quantize_leaf(spec, w, qcfg),
                                        tp.rank, tp.size, rules, path, heads)
         return common.init_params(pspecs, gen, device, leaf_fn=tile), qcfg
+
+
+def teacher_params(cfg, seed: int = 0, device="cuda"):
+    """The BF16 teacher: the seeded init ``load_quantized`` quantizes,
+    unquantized (the shadow teacher's parameters)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        return get_model(cfg).init_params(cfg, gen, device)
+
+
+def inject_quant_noise(params, scale: float):
+    """Perturb every PackedNVFP4 leaf's per-tensor scale by (1 + scale).
+
+    The numerics-drift canary: a deliberate calibration error that the
+    shadow teacher's probes must surface (live KL up, per-layer amax
+    drifted) and the snapshot gate must trip on.  Greedy engine-vs-
+    ``serve_batch`` parity still holds (both sides share the perturbed
+    weights), so only the numerics plane sees the fault."""
+
+    def bump(leaf):
+        if isinstance(leaf, PackedNVFP4):
+            return dataclasses.replace(
+                leaf, tensor_scale=leaf.tensor_scale * (1.0 + scale))
+        return leaf
+
+    return common.tree_map(bump, params)
 
 
 def serve_batch(cfg, params, prompts: torch.Tensor, n_gen: int, qcfg=None,
@@ -184,11 +230,29 @@ def mixed_prompts(n: int, min_len: int, max_len: int, vocab: int,
             .astype(np.int32) for l in lens]
 
 
+def obs_from_args(args):
+    """Observability bundle from CLI args (None = fully disabled).
+
+    ``--obs metrics|trace`` turns telemetry on explicitly; an output path
+    implies the mode that produces it (``--trace-out`` needs the tracer,
+    ``--metrics-out`` at least the registry)."""
+    mode = getattr(args, "obs", "off") or "off"
+    if getattr(args, "trace_out", None):
+        mode = "trace"
+    elif getattr(args, "metrics_out", None) and mode == "off":
+        mode = "metrics"
+    if mode == "off":
+        return None
+    from ..obs import Observability
+    return Observability(metrics=True, trace=(mode == "trace"))
+
+
 def build_engine(cfg, params, qcfg, args, mesh=None):
     """(Engine, n_blocks) from CLI-style ``args``: the pool holds
     ``--n-blocks`` blocks, or ``--slots`` worst-case requests; ``mesh``,
     this rank's ``TP``, serves tensor-parallel; ``--speculative K`` builds
-    a ``SpecEngine``."""
+    a ``SpecEngine``; ``--obs`` (and the output paths) telemetry,
+    ``--shadow-rate`` the shadow teacher."""
     from ..serve import Engine
 
     bs = args.block_size
@@ -206,7 +270,14 @@ def build_engine(cfg, params, qcfg, args, mesh=None):
               prefill_chunk=args.prefill_chunk,
               fused_kernels=args.fused_kernels, prefix_cache=prefix_cache,
               kv_alloc=kv_alloc, headroom=args.headroom,
-              device=params_device(params), mesh=mesh)
+              device=params_device(params), mesh=mesh,
+              obs=obs_from_args(args))
+    shadow_rate = getattr(args, "shadow_rate", 0.0) or 0.0
+    if shadow_rate > 0.0:
+        # the BF16 teacher: the seeded init the student was quantized from
+        kw.update(shadow_teacher=teacher_params(cfg, args.seed,
+                                                params_device(params)),
+                  shadow_rate=shadow_rate)
     spec_k = getattr(args, "speculative", 0)
     if not spec_k:
         return Engine(cfg, params, qcfg, **kw), n_blocks
@@ -449,10 +520,48 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
             f"misses={cache_st.get('misses', 0)} "
             f"evictions={cache_st.get('evictions', 0)} "
             f"preempts={st['preempts']} cache-off-parity={cp}")
+    report_obs(eng, args, say, write=mesh is None or mesh.rank == 0)
     return {"ok": ok, "outputs": outputs, "rids": rids, "prompts": prompts,
             "stats": st, "tokens_match_serve_batch": parity,
             "tokens_match_cache_off": cache_parity, "n_blocks": n_blocks,
-            "pool_drained": not leaked, "prefix_cache": cache_st}
+            "pool_drained": not leaked, "prefix_cache": cache_st,
+            "obs": eng.obs.enabled}
+
+
+def report_obs(eng, args, say=print, write: bool = True) -> None:
+    """The ``[numerics]`` line (shadow teacher on) and the ``[metrics]``
+    lines (telemetry on); with ``write`` the ``--metrics-out`` and
+    ``--trace-out`` files."""
+    if eng.numerics is not None:
+        ns = eng.numerics.summary()
+        kl_pts = ns["series"].get("qad_live_kl", [])
+        kl_s = f"{kl_pts[-1][1]:.4f}" if kl_pts else "n/a"
+        sq = ns["sqnr_db_min"]
+        sq_s = f"{sq:.1f}dB" if sq is not None else "n/a"
+        say(f"[numerics] shadow-steps={eng.shadow_steps} "
+            f"rate=1/{eng._shadow_every} "
+            f"records={ns['sampled_records']} "
+            f"live_kl={kl_s} sqnr_min={sq_s}")
+    if not eng.obs.enabled:
+        return
+    from ..obs import export as obs_export
+    qw = eng.obs.metrics.get("serve_queue_wait_seconds")
+    gemms = eng.obs.metrics.get("qeinsum_dispatch_total")
+    backends = ""
+    if gemms is not None:
+        backends = " qeinsum=" + ",".join(
+            f"{e['labels']['backend']}:{int(e['value'])}"
+            for e in gemms.snapshot().get("labels", []))
+    say(f"[metrics] enabled "
+        f"queue_wait_p50={_ms(qw.percentile(50) if qw else None)}"
+        f"{backends} "
+        f"trace_events={len(eng.obs.trace.events)}")
+    if write and getattr(args, "metrics_out", None):
+        obs_export.write_metrics(eng, args.metrics_out)
+        say(f"[metrics] wrote {args.metrics_out} (+ .prom)")
+    if write and getattr(args, "trace_out", None):
+        obs_export.write_trace(eng, args.trace_out)
+        say(f"[metrics] wrote {args.trace_out}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -527,6 +636,32 @@ def build_parser() -> argparse.ArgumentParser:
                     help="draft-cost-aware per-slot draft length: adapt k "
                     "from the measured acceptance rate and draft/verify "
                     "wall clock (requires --speculative)")
+    # --- observability (repro_torch.obs, engine mode) ---
+    ap.add_argument("--obs", choices=("off", "metrics", "trace"),
+                    default="off",
+                    help="serving telemetry: 'metrics' = counters/gauges/"
+                    "latency histograms + dispatch counts; 'trace' adds the "
+                    "request-lifecycle tracer (Chrome-trace export). "
+                    "Greedy tokens are bitwise identical in every mode")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the repro.obs.metrics/v1 JSON snapshot here "
+                    "(plus Prometheus text at the sibling .prom path); "
+                    "implies at least --obs metrics")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the Chrome-trace/Perfetto JSON here; "
+                    "implies --obs trace")
+    ap.add_argument("--shadow-rate", type=float, default=0.0, metavar="R",
+                    help="shadow-teacher sampling rate: on about R of the "
+                    "decode steps, re-forward each running request's "
+                    "context through the BF16 teacher and the quantized "
+                    "student and record live KL / top-1 agreement plus "
+                    "per-layer divergence and quant-error stats (0 = off; "
+                    "stateless, token streams are unchanged)")
+    ap.add_argument("--inject-quant-noise", type=float, default=0.0,
+                    metavar="SCALE",
+                    help="canary: perturb every packed weight's per-tensor "
+                    "scale by (1 + SCALE) so the numerics gate has a fault "
+                    "to trip on (requires --weight-format packed)")
     # --- tensor parallelism (engine mode) ---
     ap.add_argument("--tp", type=int, default=1, metavar="N",
                     help="tensor-parallel degree: N ranks, one process "
@@ -546,6 +681,19 @@ def main(argv=None) -> dict:
     if args.adaptive_k and not args.speculative:
         raise SystemExit("--adaptive-k requires --speculative K (it adapts "
                          "the draft length)")
+    if (args.obs != "off" or args.metrics_out or args.trace_out) \
+            and not args.engine:
+        raise SystemExit("--obs/--metrics-out/--trace-out require --engine "
+                         "(telemetry instruments the serving engine)")
+    if args.shadow_rate and not args.engine:
+        raise SystemExit("--shadow-rate requires --engine (the shadow "
+                         "teacher samples the engine's decode loop)")
+    if args.inject_quant_noise and args.weight_format != "packed":
+        raise SystemExit("--inject-quant-noise perturbs PackedNVFP4 "
+                         "tensor scales; use --weight-format packed")
+    if args.shadow_rate and args.tp > 1:
+        raise SystemExit("--shadow-rate under --tp is part of a later slice "
+                         "of the port (what tensor parallelism left)")
     device = resolve_device(args.device)
     if args.tp > 1:
         if not args.engine:
@@ -560,6 +708,10 @@ def main(argv=None) -> dict:
         return res[0]
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     params, qcfg = load_quantized(cfg, args.seed, args.weight_format, device)
+    if args.inject_quant_noise:
+        params = inject_quant_noise(params, args.inject_quant_noise)
+        print(f"[serve] CANARY: packed tensor scales perturbed by "
+              f"{args.inject_quant_noise:+.0%}")
     wr = weight_report(params)
     if wr["q_params"]:
         print(f"[serve] weights: total={wr['total_bytes']/2**20:.2f}MiB  "
@@ -616,6 +768,8 @@ def _engine_rank(tp, args) -> dict:
     over this rank's tiles, the checks of ``run_engine``."""
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     params, qcfg = load_quantized(cfg, args.seed, args.weight_format, tp.device)
+    if args.inject_quant_noise:
+        params = inject_quant_noise(params, args.inject_quant_noise)
     return run_engine(cfg, params, qcfg, args, mesh=tp)
 
 

@@ -25,6 +25,13 @@ the features and the weight dequantized and multiplied, with no sum
 afterwards.  Column weights always split under TP: the engine admits a
 config only when its heads, KV heads and d_ff divide the group, and a
 column split needs no more.
+
+Every dispatch is counted (``qeinsum_dispatch_total{backend}`` and its
+analytic weight bytes) into the recorder an engine step installs
+(``obs.dispatch``), with the reference's backend labels: ``pallas_2d``
+(K2), ``pallas_grouped`` (K3), ``pallas_tp_column`` / ``pallas_tp_row``
+(K4), ``dequant`` and ``dense``.  The port counts every call; the
+reference one per compiled specialization.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from ..core.qconfig import QuantConfig
 from ..distributed import ctx
 from ..kernels import ops
 from ..kernels.nvfp4_matmul import sum_k_f32
+from ..obs import dispatch as obs_dispatch
 from ..obs import numerics as obs_numerics
 
 _DENSE_EQ = "...k,ko->...o"
@@ -104,9 +112,23 @@ def _moe_einsum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _from_groups(y, x).to(dt)
 
 
+def _note_gemm(backend: str, w) -> None:
+    """Record one qeinsum dispatch and its analytic weight bytes if an
+    engine step is recording: a packed weight moves its codes, block scales
+    and f32 tensor scale, a dense one its elements.  Shapes only: nothing
+    reads the device."""
+    rec = obs_dispatch.active()
+    if rec is None:
+        return
+    nbytes = (w.nbytes if isinstance(w, PackedNVFP4)
+              else w.numel() * w.element_size())
+    rec.gemm(backend, nbytes)
+
+
 def _moe_grouped(xq: torch.Tensor, wr: PackedNVFP4) -> torch.Tensor:
     """``_MOE_EQ`` through ``ops.nvfp4_matmul_grouped``: one launch for all
     experts; x [..., E, C, K] -> [..., E, C, N]."""
+    _note_gemm("pallas_grouped", wr)
     y = ops.nvfp4_matmul_grouped(_to_groups(xq), wr, out_dtype=xq.dtype)
     return _from_groups(y, xq)
 
@@ -138,10 +160,14 @@ def qeinsum(qcfg: QuantConfig, kind: str, eq: str, x: torch.Tensor, w,
         if (wr.ndim == 2 and contract_axis == 0 and eq == _DENSE_EQ
                 and qcfg.packed_backend in ("auto", "grouped")):
             if tp is not None and parallelism == "column":
+                _note_gemm("pallas_tp_column", wr)
                 return ops.nvfp4_matmul_tp(xq, wr, tp, "column",
                                            out_dtype=xq.dtype)
+            _note_gemm("pallas_2d", wr)
             return ops.nvfp4_matmul(xq, wr, out_dtype=xq.dtype)
+        _note_gemm("dequant", wr)
         return einsum(xq, ops.dequant_weight(wr, contract_axis, xq.dtype))
+    _note_gemm("dense", wr)
     return einsum(xq, wr)
 
 
@@ -156,11 +182,14 @@ def _qeinsum_row(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,
         # replicated (no whole-block split): gather the features, no sum
         x = tp.all_gather(x, -1)
         xq = qcfg.q_act(x, kind) if quantize_act else x
+        _note_gemm("dequant" if packed else "dense", wr)
         return _matmul(xq, ops.dequant_weight(wr, 0, xq.dtype)
                        if packed else wr)
     xq = qcfg.q_act(x, kind, tp) if quantize_act else x
     if packed and wr.ndim == 2 and qcfg.packed_backend in ("auto", "grouped"):
+        _note_gemm("pallas_tp_row", wr)
         return ops.nvfp4_matmul_tp(xq, wr, tp, "row", out_dtype=xq.dtype)
+    _note_gemm("dequant" if packed else "dense", wr)
     wd = ops.dequant_weight(wr, 0, xq.dtype) if packed else wr
     part = xq.to(torch.float32) @ wd.to(torch.float32)
     return tp.all_reduce(part).to(torch.promote_types(xq.dtype, wd.dtype))

@@ -1,14 +1,22 @@
-"""Snapshot exporter, training half (port of ``repro.obs.export``).
+"""Snapshot exporter: one schema over Engine/SpecEngine stats, training
+runs and their metrics (port of ``repro.obs.export``).
 
-``training_snapshot`` reshapes a training run's registry, its numerics
-recorder and its last eval into the ``repro.obs.metrics/v1`` document
-that ``schemas/metrics.schema.json`` validates, the schema the serving
-engine's snapshot shares: ``engine.kind`` is ``"train"`` and the
-serving-only sections carry their explicit "no data" shapes (null
-latencies, ``speculative.enabled: false``).  ``write_training_metrics``
-writes the JSON document and a sibling ``.prom`` file in Prometheus text
-exposition format.  The engine's snapshot, ``write_metrics`` and
-``write_trace`` come with the serving-telemetry slice of the port.
+``metrics_snapshot(engine)`` reshapes the engine's flat ``stats()`` dict
+and its live registry into the ``repro.obs.metrics/v1`` document that
+``schemas/metrics.schema.json`` validates: engine identity, throughput,
+latency percentiles (``None`` = no data, never 0.0), a speculative
+section that exists for BOTH engine kinds (``enabled: false`` with null
+rates on the plain engine), the state backend's own stats, the raw
+instrument snapshot and, with the shadow teacher on, the numerics
+section.  ``write_metrics`` writes the JSON document plus a sibling
+``.prom`` file in Prometheus text exposition format (derived engine
+gauges + every registry instrument); ``write_trace`` writes the tracer's
+Chrome-trace JSON (open at ui.perfetto.dev).
+
+``training_snapshot`` is the same document for a QAD training run:
+``engine.kind`` is ``"train"`` and the serving-only sections carry their
+explicit "no data" shapes (null latencies, ``speculative.enabled:
+false``); ``write_training_metrics`` writes it and its ``.prom`` file.
 """
 from __future__ import annotations
 
@@ -18,6 +26,45 @@ SCHEMA = "repro.obs.metrics/v1"
 
 _LATENCY_KEYS = ("ttft_p50_s", "ttft_p95_s",
                  "decode_lat_p50_s", "decode_lat_p95_s")
+
+
+def metrics_snapshot(engine) -> dict:
+    """The unified ``repro.obs.metrics/v1`` document for an engine."""
+    st = engine.stats()
+    spec = bool(st.get("speculative"))
+    return {
+        "schema": SCHEMA,
+        "engine": {
+            "kind": "spec" if spec else "engine",
+            "steps": int(st["steps"]),
+            "decode_steps": int(st["decode_steps"]),
+            "requests_finished": int(st["requests_finished"]),
+            "fused_kernels": "on" if st["fused_kernels"] else "off",
+            "packed_backend": str(st["packed_backend"]),
+        },
+        "throughput": {
+            "tokens_generated": int(st["tokens_generated"]),
+            "prefill_tokens": int(st["prefill_tokens"]),
+            "prefill_s": st["prefill_s"],
+            "decode_s": st["decode_s"],
+            "decode_tok_s": st["decode_tok_s"],
+            "e2e_tok_s": st["e2e_tok_s"],
+        },
+        "latency": {k: st[k] for k in _LATENCY_KEYS},
+        "speculative": {
+            "enabled": spec,
+            "acceptance_rate": st.get("acceptance_rate"),
+            "accepted_per_step": st.get("accepted_per_step"),
+            "drafted_tokens": int(st.get("drafted_tokens", 0)),
+            "accepted_tokens": int(st.get("accepted_tokens", 0)),
+            "rolled_back_tokens": int(st.get("rolled_back_tokens", 0)),
+            "draft_mode": st.get("draft_mode"),
+            "spec_k": st.get("spec_k"),
+        },
+        "state": engine.state.stats(),
+        "metrics": engine.obs.metrics.snapshot(),
+        **_numerics_section(getattr(engine, "numerics", None)),
+    }
 
 
 def _numerics_section(recorder) -> dict:
@@ -120,3 +167,19 @@ def to_prometheus(snap: dict, registry) -> str:
         lines.append(f"{name} {_prom_value(val)}")
     text = "\n".join(lines) + "\n"
     return text + registry.to_prometheus()
+
+
+def write_metrics(engine, path: str) -> dict:
+    """Write the JSON snapshot to ``path`` and the Prometheus text to its
+    ``.prom`` sibling; returns the snapshot."""
+    snap = metrics_snapshot(engine)
+    with open(path, "w") as f:
+        json.dump(snap, f, indent=2)
+    with open(prom_path(path), "w") as f:
+        f.write(to_prometheus(snap, engine.obs.metrics))
+    return snap
+
+
+def write_trace(engine, path: str) -> None:
+    """Write the engine tracer's Chrome-trace JSON to ``path``."""
+    engine.obs.trace.write(path)

@@ -2,9 +2,9 @@
 ``repro.obs.schema``).
 
 No ``jsonschema`` package is needed: the metrics schema check ships its
-own validator.  ``schemas/metrics.schema.json`` is a copy of the
-reference's, so one document passes both packages' validators; the trace
-schema comes with the serving-telemetry slice.  It supports exactly the
+own validator.  ``schemas/metrics.schema.json`` and
+``schemas/trace.schema.json`` are copies of the reference's, so one
+document passes both packages' validators.  It supports exactly the
 keywords the schemas under ``obs/schemas/`` use:
 
     type (incl. union lists, "number" accepting ints, "null"),
@@ -33,7 +33,7 @@ _TYPES = {
 
 
 def load_schema(name: str) -> dict:
-    """Load a checked-in schema by name ("metrics")."""
+    """Load a checked-in schema by name ("metrics", "trace")."""
     with open(os.path.join(_SCHEMA_DIR, f"{name}.schema.json")) as f:
         return json.load(f)
 

@@ -1,23 +1,28 @@
-"""CLI validator for exported obs artifacts, metrics half (port of
+"""CLI validator for exported obs artifacts (port of
 ``repro.obs.validate``).
 
-    python -m repro_torch.obs.validate --metrics metrics.json
-        [--prom metrics.prom]
+    python -m repro_torch.obs.validate [--trace trace.json]
+        [--metrics metrics.json] [--prom metrics.prom] [--expect-spec]
+        [--expect-prefix-cache]
 
 Checks, exiting nonzero on any failure:
 
-  * **schema** - the metrics JSON validates against the checked-in
-    ``schemas/metrics.schema.json`` (the reference's, copied);
+  * **schema** - the Chrome trace and the metrics JSON validate against
+    the checked-in ``schemas/*.schema.json`` (the reference's, copied);
+  * **span semantics** - per-lane B/E events balance (every span that
+    opens closes, no cross-nesting), timestamps are non-decreasing, and
+    the required lifecycle spans all occur: ``request``, ``queue``,
+    ``prefill``, ``decode``, ``engine.decode_step`` and the
+    ``first_token`` instant; plus ``spec.draft`` and ``spec.verify``
+    under ``--expect-spec``, and ``cache_lookup`` (with the prefix-cache
+    and preemption counters on the metrics side) under
+    ``--expect-prefix-cache``;
   * **instruments** - labeled series are lists of cells in sorted label
     order with no duplicate label sets; the numerics section's chart
     series are ``[step, value]`` pairs with non-decreasing steps and its
     per-layer stats are numbers;
   * **prometheus** - every non-comment line of the ``.prom`` text parses
     as ``name[{labels}] value``.
-
-The trace checks (``--trace``) and the serving snapshot's expectations
-(``--expect-spec``, ``--expect-prefix-cache``) come with the
-serving-telemetry slice.
 """
 from __future__ import annotations
 
@@ -28,15 +33,80 @@ import sys
 
 from .schema import load_schema, validate
 
+REQUIRED_SPANS = ("request", "queue", "prefill", "decode",
+                  "engine.decode_step")
+SPEC_SPANS = ("spec.draft", "spec.verify")
+# with --expect-prefix-cache: every admission probes the cache, so the
+# lookup span must occur; preemption only happens under pool pressure, so
+# its presence is asserted on the METRICS side (counters exist at zero)
+CACHE_SPANS = ("cache_lookup",)
+CACHE_COUNTERS = ("prefix_cache_hit_total", "prefix_cache_miss_total",
+                  "prefix_cache_evict_total", "serve_preempt_total",
+                  "serve_requeue_total")
+
 _PROM_LINE = re.compile(
     r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (-?[0-9.eE+-]+|NaN|[+-]Inf)$")
 
 
-def check_metrics(doc: dict) -> list:
-    """Schema, instrument-grammar and numerics errors of a snapshot."""
+def check_trace(doc: dict, expect_spec: bool = False,
+                expect_cache: bool = False) -> list:
+    """Schema + span-semantics errors for a Chrome-trace document."""
+    errs = validate(doc, load_schema("trace"))
+    if errs:
+        return errs
+    stacks: dict[int, list] = {}
+    last_ts = None
+    seen = set()
+    for i, ev in enumerate(doc["traceEvents"]):
+        ph, name, tid = ev["ph"], ev["name"], ev["tid"]
+        if ph == "M":
+            continue
+        seen.add(name)
+        if last_ts is not None and ev["ts"] < last_ts:
+            errs.append(f"event {i} ({name}): ts {ev['ts']} < previous "
+                        f"{last_ts} (events must be emitted in order)")
+        last_ts = ev["ts"]
+        if ph == "B":
+            stacks.setdefault(tid, []).append(name)
+        elif ph == "E":
+            stack = stacks.setdefault(tid, [])
+            if not stack:
+                errs.append(f"event {i}: E {name!r} on tid {tid} "
+                            "with no open span")
+            elif stack[-1] != name:
+                errs.append(f"event {i}: E {name!r} on tid {tid} but "
+                            f"innermost open span is {stack[-1]!r} "
+                            "(spans must nest)")
+                stack.pop()
+            else:
+                stack.pop()
+    for tid, stack in sorted(stacks.items()):
+        if stack:
+            errs.append(f"tid {tid}: unclosed span(s) {stack!r}")
+    want = REQUIRED_SPANS + (SPEC_SPANS if expect_spec else ()) \
+        + (CACHE_SPANS if expect_cache else ())
+    for name in want:
+        if name not in seen:
+            errs.append(f"required span {name!r} never occurs")
+    if "first_token" not in seen:
+        errs.append("required instant 'first_token' never occurs")
+    return errs
+
+
+def check_metrics(doc: dict, expect_spec: bool = False,
+                  expect_cache: bool = False) -> list:
+    """Schema, expectation, instrument-grammar and numerics errors of a
+    snapshot."""
     errs = validate(doc, load_schema("metrics"))
     if errs:
         return errs
+    if expect_spec and not doc["speculative"]["enabled"]:
+        errs.append("$.speculative.enabled: expected true (--expect-spec)")
+    if expect_cache:
+        for name in CACHE_COUNTERS:
+            if name not in doc.get("metrics", {}):
+                errs.append(f"$.metrics.{name}: required counter missing "
+                            "(--expect-prefix-cache)")
     errs.extend(_check_instruments(doc.get("metrics", {})))
     if "numerics" in doc:
         errs.extend(_check_numerics(doc["numerics"]))
@@ -132,23 +202,39 @@ def check_prometheus(text: str) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="repro_torch.obs.validate")
+    ap.add_argument("--trace", help="Chrome-trace JSON to validate")
     ap.add_argument("--metrics", help="metrics snapshot JSON to validate")
     ap.add_argument("--prom", help="Prometheus text file to validate")
+    ap.add_argument("--expect-spec", action="store_true",
+                    help="require speculative spans + enabled flag")
+    ap.add_argument("--expect-prefix-cache", action="store_true",
+                    help="require the cache_lookup span and the prefix-"
+                    "cache / preemption counters")
     args = ap.parse_args(argv)
-    if not (args.metrics or args.prom):
-        ap.error("nothing to validate: pass --metrics / --prom")
+    if not (args.trace or args.metrics or args.prom):
+        ap.error("nothing to validate: pass --trace / --metrics / --prom")
 
     failures = 0
-    if args.metrics:
-        with open(args.metrics) as f:
+    for label, path, check in (
+            ("trace", args.trace,
+             lambda d: check_trace(d, args.expect_spec,
+                                   args.expect_prefix_cache)),
+            ("metrics", args.metrics,
+             lambda d: check_metrics(d, args.expect_spec,
+                                     args.expect_prefix_cache))):
+        if not path:
+            continue
+        with open(path) as f:
             doc = json.load(f)
-        errs = check_metrics(doc)
+        errs = check(doc)
         for e in errs:
-            print(f"[obs.validate] metrics {args.metrics}: {e}")
+            print(f"[obs.validate] {label} {path}: {e}")
         failures += len(errs)
         if not errs:
-            print(f"[obs.validate] metrics {args.metrics}: OK "
-                  f"({len(doc['metrics'])} instruments)")
+            n = len(doc["traceEvents"]) if label == "trace" else \
+                len(doc["metrics"])
+            print(f"[obs.validate] {label} {path}: OK ({n} "
+                  f"{'events' if label == 'trace' else 'instruments'})")
     if args.prom:
         with open(args.prom) as f:
             errs = check_prometheus(f.read())

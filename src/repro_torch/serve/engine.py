@@ -59,8 +59,27 @@ exact prefill's dense cache) holds E4M3 K and V with f32 scales, and K7
 reads the FP8 pages.  ``_after_prefill`` and ``_do_decode`` are the hooks
 the speculative engine (``repro_torch.spec.SpecEngine``) replaces.
 
-Not ported yet, and refused with ``NotImplementedError``: ``obs`` and
-``shadow_teacher`` (observability slice).
+Telemetry (``obs``, a ``repro_torch.obs.Observability``): request
+lifecycle counters and latency histograms, occupancy gauges, the prefix
+cache's and preemption's counters, the dispatch counters of every step
+(``obs.dispatch``: one count a call), and with a tracer the spans
+``request``, ``queue``, ``prefill``, ``decode`` and the ``first_token``
+instant on each request's lane, ``engine.prefill``,
+``engine.decode_step``, ``cache_lookup``, ``preempt`` and ``requeue`` on
+the engine's.  Every probe reads host values the engine already holds
+(its clocks and counts): with telemetry on, no step waits for the card
+any longer, and the token streams are bitwise those of an engine
+without it.  Without ``obs`` the engine holds the shared ``NOOP`` bundle
+and its do-nothing instruments.
+
+The shadow teacher (``shadow_teacher``, the BF16 parameter tree, and
+``shadow_rate`` > 0): on every ``round(1 / shadow_rate)``-th decode
+step it re-scores each running request's whole context through the
+teacher and the serving student, one request a call, and records the
+live KL and top-1 agreement at the last position, and per layer the
+student's quantization error and the teacher-student hidden divergence
+(``self.numerics``, an ``obs.numerics.NumericsRecorder``).  It is
+stateless: the pool, the slabs and the sampling streams are untouched.
 """
 from __future__ import annotations
 
@@ -71,12 +90,17 @@ import time
 import numpy as np
 import torch
 
+from ..core.qconfig import BF16
 from ..distributed import ctx
 from ..distributed import sharding
 from ..launch import specs
 from ..launch.serve import params_device, resolve_device
 from ..models import common, decoder
 from ..models.registry import get_model
+from ..obs import NOOP as OBS_NOOP
+from ..obs import dispatch as obs_dispatch
+from ..obs import numerics as obs_numerics
+from ..obs.trace import request_tid
 from . import state as state_mod
 from .sampling import SamplingParams, sample_tokens_seeded
 from .scheduler import RUNNING, Request, Scheduler
@@ -93,7 +117,8 @@ class Engine:
     block geometry only sets ``s_alloc = max_blocks_per_slot *
     block_size``, the bound of a dense-KV slab.  ``prefill_budget`` (prompt
     tokens prefilled per step) defaults to the larger of ``s_alloc`` and
-    ``prefill_chunk``.
+    ``prefill_chunk``.  ``obs`` turns telemetry on; ``shadow_teacher``
+    (on ``device``) with ``shadow_rate`` > 0 the shadow teacher.
     """
 
     def __init__(self, cfg, params, qcfg=None, *, n_slots: int = 8,
@@ -103,7 +128,8 @@ class Engine:
                  eos_id: int | None = None, mesh=None, rules=None,
                  fused_kernels: str = "auto", prefix_cache: bool = False,
                  kv_alloc: str = "reserve", headroom: int = 2, obs=None,
-                 shadow_teacher=None, device="cuda"):
+                 shadow_teacher=None, shadow_rate: float = 0.0,
+                 device="cuda"):
         # refuse unservable configs before touching params or the policy
         plan = state_mod.check_supported(cfg)
         self.state_plan = plan
@@ -114,10 +140,11 @@ class Engine:
             raise TypeError(f"mesh must be a distributed.ctx.TP (this "
                             f"rank of a tensor-parallel group), got "
                             f"{type(mesh).__name__}")
-        if obs is not None or shadow_teacher is not None:
-            raise NotImplementedError("serving telemetry and the shadow "
-                                      "teacher are part of the "
-                                      "observability slice of the port")
+        if shadow_teacher is not None and mesh is not None:
+            raise NotImplementedError(
+                "the shadow teacher under tensor parallelism is part of a "
+                "later slice of the port (what tensor parallelism left): "
+                "each rank holds tiles of the student")
         if prefill_mode not in ("exact", "chunked", "paged"):
             raise ValueError(prefill_mode)
         if prefill_mode in ("chunked", "paged") and not self.paged:
@@ -218,6 +245,85 @@ class Engine:
         self.token_lat_s: list[float] = []
         self.decode_step_s: list[float] = []
         self.preempts = 0
+        self._init_obs(obs)
+        self._init_shadow(shadow_teacher, shadow_rate)
+
+    def _init_obs(self, obs) -> None:
+        """Bind the instrument handles ONCE; the hot path only calls bound
+        methods.  Without a bundle every handle is the shared no-op."""
+        self.obs = obs if obs is not None else OBS_NOOP
+        m = self.obs.metrics
+        req_events = m.counter("serve_requests_total",
+                               "request lifecycle events",
+                               labels=("event",))
+        self._m_req_submitted = req_events.labels(event="submitted")
+        self._m_req_finished = {
+            r: req_events.labels(event=f"finished_{r}")
+            for r in ("eos", "length")}
+        toks = m.counter("serve_tokens_total", "tokens processed per phase",
+                         labels=("phase",))
+        self._m_tok_prefill = toks.labels(phase="prefill")
+        self._m_tok_decode = toks.labels(phase="decode")
+        self._m_queue_depth = m.gauge("serve_queue_depth",
+                                      "requests waiting for admission")
+        self._m_active_slots = m.gauge("serve_active_slots",
+                                       "slots occupied at the last decode")
+        self._m_state_used = m.gauge(
+            "serve_state_used",
+            "state backend occupancy, used allocation units "
+            "(blocks for paged KV, slots for slabs)")
+        self._m_state_capacity = m.gauge(
+            "serve_state_capacity", "state backend capacity, same unit")
+        self._m_queue_wait = m.histogram("serve_queue_wait_seconds",
+                                         "submit-to-admission wait")
+        self._m_ttft = m.histogram("serve_ttft_seconds",
+                                   "submit-to-first-token latency")
+        self._m_itl = m.histogram("serve_inter_token_seconds",
+                                  "per-request gap between emitted tokens")
+        self._m_prefill_step = m.histogram(
+            "serve_prefill_step_seconds",
+            "wall time of one step's admission + prefill work")
+        self._m_decode_step = m.histogram(
+            "serve_decode_step_seconds",
+            "wall time of one batched decode (or draft+verify) step")
+        # the prefix-cache and preemption plane (never moves with the
+        # cache off or reserve allocation)
+        self._m_cache_hit = m.counter("prefix_cache_hit_total",
+                                      "prefix-cache block hits at admission")
+        self._m_cache_miss = m.counter(
+            "prefix_cache_miss_total",
+            "full prompt blocks that had to be recomputed")
+        self._m_cache_evict = m.counter(
+            "prefix_cache_evict_total",
+            "cached blocks reclaimed under pool pressure")
+        self._m_preempt = m.counter(
+            "serve_preempt_total",
+            "running requests evicted for pool pressure")
+        self._m_requeue = m.counter(
+            "serve_requeue_total",
+            "preempted requests placed back at the queue front")
+        self._m_shared_blocks = m.gauge(
+            "serve_shared_blocks",
+            "pool blocks referenced by more than one request")
+        self._m_cached_blocks = m.gauge(
+            "serve_cached_blocks",
+            "unreferenced pool blocks retained by the prefix cache")
+        self._cache_seen = (0, 0)      # (hits, misses) already counted
+        self._m_state_capacity.set(self.state.occupancy()[1])
+
+    def _init_shadow(self, teacher, rate: float) -> None:
+        self.shadow_teacher = teacher
+        self.shadow_rate = float(rate)
+        self.shadow_steps = 0
+        self.shadow_s = 0.0
+        self.numerics = None
+        if teacher is not None and self.shadow_rate > 0.0:
+            if params_device(teacher) != self.device:
+                raise ValueError(f"the shadow teacher lives on "
+                                 f"{params_device(teacher)}, the engine on "
+                                 f"{self.device}")
+            self._shadow_every = max(1, round(1.0 / self.shadow_rate))
+            self.numerics = obs_numerics.NumericsRecorder(self.obs.metrics)
 
     # -- public API --------------------------------------------------------
 
@@ -230,16 +336,38 @@ class Engine:
         req = self.sched.submit(prompt, max_new_tokens, sampling,
                                 step=self.step_count, extras=extras)
         req.submit_t = time.monotonic()
+        req.submit_wall_t = time.time()     # the one wall-clock anchor
+        self._m_req_submitted.inc()
+        self._m_queue_depth.set(len(self.sched.waiting))
+        tr = self.obs.trace
+        if tr.enabled:
+            tid = request_tid(req.rid)
+            tr.thread_name(tid, f"request {req.rid}")
+            tr.begin("request", tid, rid=req.rid,
+                     prompt_len=req.prompt_len,
+                     max_new_tokens=max_new_tokens,
+                     submit_wall_t=req.submit_wall_t)
+            tr.begin("queue", tid)
         return req.rid
 
     def step(self) -> list[Request]:
         """One scheduling round: admit and prefill queued requests under
         ``prefill_budget`` tokens, then one batched decode step for all
-        running slots.  Returns the requests that finished in it."""
+        running slots.  Returns the requests that finished in it.  The
+        step's qeinsum and kernel dispatches count into ``obs``."""
+        if self.obs.dispatch is None:
+            return self._step_impl()
+        with obs_dispatch.recording(self.obs.dispatch):
+            return self._step_impl()
+
+    def _step_impl(self) -> list[Request]:
         finished: list[Request] = []
         with ctx.maybe_use(self.mesh):
             self._do_prefills(finished)
+            reqs = self.sched.running() if self.numerics is not None else ()
             self._do_decode(finished)
+            if reqs and self.decode_steps % self._shadow_every == 0:
+                self._run_shadow(reqs)
         self.step_count += 1
         return finished
 
@@ -280,6 +408,11 @@ class Engine:
              "packed_backend": self.sq.packed_backend,
              "moe_dispatch": (self.cfg.moe_dispatch if self.cfg.n_experts
                               else None),
+             # the speculative engine's keys, disabled: one shape for both
+             # engines' stats and snapshots
+             "speculative": False,
+             "acceptance_rate": None,
+             "accepted_per_step": None,
              "requests_finished": len(self.sched.finished),
              "preempts": self.preempts,
              "tokens_generated": self.tokens_generated,
@@ -311,24 +444,32 @@ class Engine:
     def _do_prefills(self, finished: list[Request]) -> None:
         budget = self.prefill_budget
         t0 = time.monotonic()
+        any_work = False
+        tr = self.obs.trace
         while budget > 0:
             req = self._in_flight_prefill()
             if req is None:
-                req = self.sched.admit_next()
+                req = self._admit_next()
+                if req is not None:
+                    self._on_admit(req)
             if req is None:
                 break
+            any_work = True
             resumed = bool(req.output)     # re-admitted after preemption
-            if self.prefill_mode == "exact":
-                if req.prompt_len > budget and budget < self.prefill_budget:
-                    break                  # defer to next step; never livelock
-                logits = self._prefill_exact(req)
-                used = req.prompt_len
-            elif self.prefill_mode == "chunked":
-                logits, used = self._prefill_chunked(req, budget)
-            else:
-                logits, used = self._prefill_paged(req, budget)
+            with tr.annotate("engine.prefill", rid=req.rid):
+                if self.prefill_mode == "exact":
+                    if req.prompt_len > budget \
+                            and budget < self.prefill_budget:
+                        break              # defer to next step; never livelock
+                    logits = self._prefill_exact(req)
+                    used = req.prompt_len
+                elif self.prefill_mode == "chunked":
+                    logits, used = self._prefill_chunked(req, budget)
+                else:
+                    logits, used = self._prefill_paged(req, budget)
             budget -= used
             self.prefill_tokens += used
+            self._m_tok_prefill.inc(used)
             if logits is None:
                 break                      # budget ran out mid-prompt
             if self.prefill_mode == "paged":
@@ -336,14 +477,60 @@ class Engine:
                 # this request's own blocks after a future preemption)
                 self.state.register_prefix(req, req.resume_tokens())
             self._after_prefill(req)
+            if tr.enabled:
+                tr.end("prefill", request_tid(req.rid))
             if resumed:
                 # the resume prefill only rebuilds KV over tokens already
                 # emitted; its logits re-predict output[-1], which decode
                 # re-feeds: emitting here would duplicate a token
                 req.state = RUNNING
+                if tr.enabled:
+                    tr.begin("decode", request_tid(req.rid))
             else:
                 self._emit(req, self._sample_one(req, logits), finished)
-        self.prefill_s += time.monotonic() - t0
+        dt = time.monotonic() - t0
+        self.prefill_s += dt
+        if any_work:
+            self._m_prefill_step.observe(dt)
+
+    def _admit_next(self) -> Request | None:
+        """Admit the queue head, under a ``cache_lookup`` span when the
+        prefix cache is live (admission is where the cache walk and the
+        hits' acquisition happen, inside ``state.reserve``)."""
+        if getattr(self.state, "cache", None) is None \
+                or not self.sched.waiting:
+            return self.sched.admit_next()
+        head = self.sched.waiting[0]
+        with self.obs.trace.annotate("cache_lookup", rid=head.rid):
+            return self.sched.admit_next()
+
+    def _count_cache_evict(self, n: int) -> None:
+        """State-backend hook: ``n`` cached blocks were just reclaimed."""
+        if n:
+            self._m_cache_evict.inc(n)
+
+    def _sync_cache_counters(self) -> None:
+        c = getattr(self.state, "cache", None)
+        if c is None:
+            return
+        h0, m0 = self._cache_seen
+        if c.hits > h0:
+            self._m_cache_hit.inc(c.hits - h0)
+        if c.misses > m0:
+            self._m_cache_miss.inc(c.misses - m0)
+        self._cache_seen = (c.hits, c.misses)
+
+    def _on_admit(self, req: Request) -> None:
+        """A request left the queue for a slot (state reserved)."""
+        self._sync_cache_counters()
+        self._m_queue_depth.set(len(self.sched.waiting))
+        self._m_queue_wait.observe(req.queue_wait_s)
+        tr = self.obs.trace
+        if tr.enabled:
+            tid = request_tid(req.rid)
+            tr.end("queue", tid, slot=req.slot,
+                   queue_wait_s=req.queue_wait_s)
+            tr.begin("prefill", tid, prompt_len=req.prompt_len)
 
     def _after_prefill(self, req: Request) -> None:
         """Hook: a request's context is fully prefilled (state written),
@@ -447,9 +634,22 @@ class Engine:
 
     def _preempt_one(self, victim: Request) -> None:
         """Evict one running request: release its state, count it, and
-        re-queue it at the front."""
-        self.sched.preempt(victim)
-        self.preempts += 1
+        re-queue it at the front (``preempt`` and ``requeue`` spans on the
+        engine lane, ``queue`` re-opened on the request's)."""
+        tr = self.obs.trace
+        with tr.annotate("preempt", rid=victim.rid,
+                         progress=len(victim.output)):
+            if tr.enabled:
+                tid = request_tid(victim.rid)
+                tr.end("decode", tid)
+                tr.begin("queue", tid)
+            self.sched.preempt(victim)
+        with tr.annotate("requeue", rid=victim.rid,
+                         queue_depth=len(self.sched.waiting)):
+            self.preempts += 1
+            self._m_preempt.inc()
+            self._m_requeue.inc()
+            self._m_queue_depth.set(len(self.sched.waiting))
 
     def _ensure_decode_capacity(self, reqs: list[Request],
                                 extra: int = 0) -> list[Request]:
@@ -503,13 +703,16 @@ class Engine:
             topks[s] = r.sampling.top_k
             seeds[s] = r.sampling.seed
             idxs[s] = len(r.output)
-        with torch.inference_mode():
+        with self.obs.trace.annotate("engine.decode_step",
+                                     n_active=len(reqs)), \
+                torch.inference_mode():
             logits = self.state.decode(reqs, toks, lens, active)
             sampled = sample_tokens_seeded(logits[:, 0, :], temps, topks,
                                            seeds, idxs).tolist()
         dt = time.monotonic() - t0
-        self._note_decode_step(dt)
+        self._note_decode_step(dt, len(reqs))
         self.decode_tokens += len(reqs)
+        self._m_tok_decode.inc(len(reqs))
         self.token_lat_s.extend([dt] * len(reqs))
         for r in reqs:
             r.n_cached += 1
@@ -518,12 +721,103 @@ class Engine:
 
     # -- shared ------------------------------------------------------------
 
-    def _note_decode_step(self, dt: float) -> None:
-        """Account one batched decode (or draft + verify) step's wall
-        time; the speculative engine shares it."""
+    def _note_decode_step(self, dt: float, n_active: int) -> None:
+        """Account one batched decode (or draft + verify) step's wall time
+        and refresh the occupancy gauges; the speculative engine shares
+        it."""
         self.decode_s += dt
         self.decode_step_s.append(dt)
         self.decode_steps += 1
+        self._m_decode_step.observe(dt)
+        if self.obs.metrics.enabled:
+            self._m_active_slots.set(n_active)
+            used, cap = self.state.occupancy()
+            self._m_state_used.set(used)
+            self._m_state_capacity.set(cap)
+            if self.pool is not None:
+                self._m_shared_blocks.set(self.pool.shared_blocks)
+                self._m_cached_blocks.set(self.pool.cached_blocks)
+
+    # -- the shadow teacher ------------------------------------------------
+
+    def _live_acceptance(self):
+        """Speculative acceptance so far, or None (plain engine, or no
+        drafts yet).  The shadow plots it beside the live KL."""
+        return None
+
+    def _shadow_forward(self, batch, n_valid: int) -> dict:
+        """Teacher (BF16) and student (the serving policy) forwards of one
+        [1, bucket] context under numerics tapes: KL(teacher || student)
+        and top-1 agreement at position ``n_valid - 1`` in f32, the
+        per-layer hidden divergence over the valid positions, and the
+        student's quantization probes."""
+        t_qc = dataclasses.replace(BF16, numerics=True)
+        s_qc = dataclasses.replace(self.sq, numerics=True)
+        tape = obs_numerics.Tape()
+        with obs_numerics.collecting(tape):
+            t_logits = self.model.apply(self.cfg, self.shadow_teacher, batch,
+                                        t_qc)
+        h_t = tape.drain().pop("layers.hidden", None)
+        tl = t_logits[0, n_valid - 1].to(torch.float32)
+        del t_logits
+        tape = obs_numerics.Tape()
+        with obs_numerics.collecting(tape):
+            s_logits = self.model.apply(self.cfg, self.params, batch, s_qc)
+        s_aux = tape.drain()
+        sl = s_logits[0, n_valid - 1].to(torch.float32)
+        del s_logits, tape
+        tlp = torch.log_softmax(tl, -1)
+        slp = torch.log_softmax(sl, -1)
+        out = {"shadow": {
+            "kl": torch.sum(torch.exp(tlp) * (tlp - slp)),
+            "top1_agree": (torch.argmax(tl) == torch.argmax(sl))
+            .to(torch.float32)}}
+        h_s = s_aux.pop("layers.hidden", None)
+        if h_t is not None and h_s is not None:
+            seq = batch["tokens"].shape[1]
+            mask = (torch.arange(seq, device=self.device)[None, :]
+                    < n_valid).to(torch.float32)
+            out["layers.hidden"] = obs_numerics.hidden_divergence(
+                h_t["h"], h_s["h"], mask)
+        out.update(s_aux)
+        return out
+
+    def _run_shadow(self, reqs) -> None:
+        """Score each request's whole context, teacher against student, one
+        request a call (stateless: the pool, the slabs and the token
+        streams are untouched).  Contexts pad to a power-of-two bucket of
+        at least 16: a tensor-scope amax sees the padded positions, so the
+        bucket is the reference's."""
+        t0 = time.monotonic()
+        self.shadow_steps += 1
+        kls, agrees = [], []
+        for r in reqs:
+            ctx_toks = np.concatenate([np.asarray(r.prompt, np.int64),
+                                       np.asarray(r.output, np.int64)])
+            n = len(ctx_toks)
+            bucket = max(16, 1 << (n - 1).bit_length())
+            toks = np.zeros((1, bucket), np.int64)
+            toks[0, :n] = ctx_toks
+            batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+            for k, v in (r.extras or {}).items():
+                batch[k] = torch.as_tensor(v, device=self.device)[None]
+            with torch.no_grad():
+                aux = self._shadow_forward(batch, n)
+            sh = aux.pop("shadow")
+            kls.append(float(sh["kl"]))
+            agrees.append(float(sh["top1_agree"]))
+            self.numerics.record(aux)
+            del aux, batch
+        step = self.decode_steps
+        self.numerics.record({"shadow": {
+            "kl": float(np.mean(kls)),
+            "top1_agree": float(np.mean(agrees))}})
+        self.numerics.series_point("qad_live_kl", step, float(np.mean(kls)))
+        self.numerics.series_point("qad_top1_agree", step,
+                                   float(np.mean(agrees)))
+        self.numerics.series_point("spec_accept_rate", step,
+                                   self._live_acceptance())
+        self.shadow_s += time.monotonic() - t0
 
     def _sample_one(self, req: Request, logits: torch.Tensor) -> int:
         req.state = RUNNING
@@ -535,8 +829,19 @@ class Engine:
     def _emit(self, req: Request, tok: int, finished: list[Request]) -> None:
         req.output.append(tok)
         self.tokens_generated += 1
+        tr = self.obs.trace
         if not req.first_tok_t:
             req.first_tok_t = req.last_tok_t = time.monotonic()
+            self._m_ttft.observe(req.ttft_s)
+            if tr.enabled:
+                tid = request_tid(req.rid)
+                tr.instant("first_token", tid, token=tok,
+                           ttft_s=req.ttft_s)
+                tr.begin("decode", tid)
+        elif self.obs.metrics.enabled:
+            now = time.monotonic()
+            self._m_itl.observe(now - req.last_tok_t)
+            req.last_tok_t = now
         if self.eos_id is not None and tok == self.eos_id:
             reason = "eos"
         elif len(req.output) >= req.max_new_tokens:
@@ -545,6 +850,11 @@ class Engine:
             return
         self.sched.finish(req, reason, self.step_count)
         finished.append(req)
+        self._m_req_finished[reason].inc()
+        if tr.enabled:
+            tid = request_tid(req.rid)
+            tr.end("decode", tid)
+            tr.end("request", tid, reason=reason, tokens=len(req.output))
 
 
 def _check_tp(cfg, size: int) -> None:

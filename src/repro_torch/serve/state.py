@@ -189,7 +189,7 @@ class PagedKVState:
         the free list.  Returns False if the pool can't get there."""
         short = n - self.pool.free_blocks
         if short > 0 and self.cache is not None:
-            self.cache.evict(short)
+            self.eng._count_cache_evict(len(self.cache.evict(short)))
             short = n - self.pool.free_blocks
         return short <= 0
 
@@ -314,6 +314,10 @@ class PagedKVState:
                 "cached")
         return False
 
+    def occupancy(self) -> tuple[int, int]:
+        """(used, capacity) in the backend's own allocation unit (blocks)."""
+        return self.pool.occupancy()
+
     def stats(self) -> dict:
         out = dict(self.pool.stats(), state_backend="paged_kv",
                    state_kinds=list(self.kinds), kv_alloc=self.kv_alloc)
@@ -424,6 +428,10 @@ class SlabState:
 
     def leaked(self) -> bool:
         return any(self.in_use)
+
+    def occupancy(self) -> tuple[int, int]:
+        """(used, capacity) in the backend's own allocation unit (slots)."""
+        return sum(self.in_use), self.n_slots
 
     def stats(self) -> dict:
         used = sum(self.in_use)

@@ -30,11 +30,13 @@ construction), keeping the state tree after each; after acceptance each
 slot restores the tree of its emitted length (``SlabState.
 restore_select``) and the slab proposer restores its own chain.
 
-The reference's speculative telemetry counters and spans (``obs``) come
-with the serving-telemetry slice: the port's engine refuses ``obs``.  The
-round's draft time is the host's time to issue the draft steps (their
-device work runs on behind it); the verify time runs to the accepted
-tokens' arrival on the host.
+Telemetry (``obs``): the drafted, accepted and rolled-back token
+counters by draft kind, the draft and verify histograms of each round,
+the proposers' ``spec_draft_steps_total``, and the spans ``spec.draft``,
+``spec.verify`` and (slab plans) ``spec.rollback`` nested in the round's
+``engine.decode_step``.  The round's draft time is the host's time to
+issue the draft steps (their device work runs on behind it); the verify
+time runs to the accepted tokens' arrival on the host.
 """
 from __future__ import annotations
 
@@ -98,7 +100,7 @@ class SpecEngine(Engine):
         if self.paged:
             self.proposer = DraftProposer(
                 dcfg, dparams, dqcfg, pool=self.pool, device=self.device,
-                fused=self.fused,
+                fused=self.fused, obs=self.obs,
                 prefill_scope=("token" if self.prefill_mode == "paged"
                                else "row"))
         else:
@@ -115,6 +117,26 @@ class SpecEngine(Engine):
         self.drafted_tokens = 0
         self.accepted_tokens = 0
         self.rolled_back_tokens = 0
+        # the draft kind is fixed at construction, so the counters by draft
+        # kind are bound once; the accounting loop pays plain inc()s
+        m = self.obs.metrics
+        kind = {"draft": self.draft_mode}
+        self._m_drafted = m.counter(
+            "spec_draft_tokens_total", "draft tokens proposed",
+            labels=("draft",)).labels(**kind)
+        self._m_accepted = m.counter(
+            "spec_accepted_tokens_total",
+            "draft tokens the verify step accepted",
+            labels=("draft",)).labels(**kind)
+        self._m_rolled_back = m.counter(
+            "spec_rolled_back_tokens_total",
+            "draft tokens rejected and rolled back",
+            labels=("draft",)).labels(**kind)
+        self._m_draft_s = m.histogram(
+            "spec_draft_seconds", "wall time of one round's draft phase")
+        self._m_verify_s = m.histogram(
+            "spec_verify_seconds",
+            "wall time of one round's verify + accept phase")
         # draft-cost-aware adaptive k: k* = argmax over 1..draft_k of
         # (expected emitted tokens) / (k t_draft + t_verify), acceptance
         # from the slot's own history (else the engine's EWMA)
@@ -130,6 +152,13 @@ class SpecEngine(Engine):
     def _after_prefill(self, req: Request) -> None:
         with torch.inference_mode():
             self.proposer.prefill_request(req)
+
+    def _live_acceptance(self):
+        """Cumulative acceptance rate, the series the shadow teacher plots
+        beside its live KL (None before any draft)."""
+        if not self.drafted_tokens:
+            return None
+        return self.accepted_tokens / self.drafted_tokens
 
     def _do_decode(self, finished: list[Request]) -> None:
         if self.paged:
@@ -189,6 +218,9 @@ class SpecEngine(Engine):
             self.drafted_tokens += ke
             self.accepted_tokens += j
             self.rolled_back_tokens += ke - j
+            self._m_drafted.inc(ke)
+            self._m_accepted.inc(j)
+            self._m_rolled_back.inc(ke - j)
             if ke:
                 d0, a0 = self._req_acc.get(r.rid, (0, 0))
                 self._req_acc[r.rid] = (d0 + ke, a0 + j)
@@ -206,6 +238,7 @@ class SpecEngine(Engine):
             sel[s] = len(toks_emit)
             adv[s] = min(j + 1, ke)
             self.decode_tokens += len(toks_emit)
+            self._m_tok_decode.inc(len(toks_emit))
             # a request that got n tokens this step waited dt / n a token
             self.token_lat_s.extend([dt / len(toks_emit)] * len(toks_emit))
             for tok in toks_emit:
@@ -218,7 +251,9 @@ class SpecEngine(Engine):
         dt = time.monotonic() - t0
         self._observe_costs(t_draft, dt - t_draft,
                             int(st.k_eff.max(initial=0)))
-        self._note_decode_step(dt)
+        self._note_decode_step(dt, n_active)
+        self._m_draft_s.observe(t_draft)
+        self._m_verify_s.observe(dt - t_draft)
         self.verify_steps += 1
         self.verify_slot_rounds += n_active
         return dt
@@ -234,24 +269,32 @@ class SpecEngine(Engine):
             return
         t0 = time.monotonic()
         dev = self.device
-        with torch.inference_mode():
-            st = self._round_state(reqs)
-            draft_toks, draft_probs = self.proposer.propose(st, self.spec_k)
-            t_draft = time.monotonic() - t0
-            tokens = torch.cat([torch.from_numpy(st.last_tok).to(dev)[:, None],
-                                draft_toks], 1)
-            logits, _ = decoder.verify_step_paged(
-                self.vcfg, self.params, self.pool.data,
-                torch.from_numpy(st.bt).to(dev),
-                torch.from_numpy(st.lens).to(dev),
-                torch.from_numpy(st.active).to(dev),
-                torch.from_numpy(st.k_eff).to(dev), {"tokens": tokens},
-                self.vsq, fused=self.fused)
-            out_toks, n_emit, n_acc = self._accept(logits, draft_toks,
-                                                   draft_probs, st)
-        dt = self._finish_round(t0, t_draft, st, len(reqs))
-        self._account_round(reqs, out_toks, n_emit, n_acc, st.k_eff, dt,
-                            finished)
+        tr = self.obs.trace
+        n = len(reqs)
+        # the round is this engine's decode step: the engine-lane span is
+        # the plain engine's, the spec.* spans nest in it
+        with tr.span("engine.decode_step", n_active=n):
+            with torch.inference_mode():
+                st = self._round_state(reqs)
+                with tr.annotate("spec.draft", n_active=n, k=self.spec_k):
+                    draft_toks, draft_probs = self.proposer.propose(
+                        st, self.spec_k)
+                t_draft = time.monotonic() - t0
+                with tr.annotate("spec.verify", n_active=n):
+                    tokens = torch.cat([torch.from_numpy(st.last_tok)
+                                        .to(dev)[:, None], draft_toks], 1)
+                    logits, _ = decoder.verify_step_paged(
+                        self.vcfg, self.params, self.pool.data,
+                        torch.from_numpy(st.bt).to(dev),
+                        torch.from_numpy(st.lens).to(dev),
+                        torch.from_numpy(st.active).to(dev),
+                        torch.from_numpy(st.k_eff).to(dev),
+                        {"tokens": tokens}, self.vsq, fused=self.fused)
+                    out_toks, n_emit, n_acc = self._accept(
+                        logits, draft_toks, draft_probs, st)
+            dt = self._finish_round(t0, t_draft, st, n)
+            self._account_round(reqs, out_toks, n_emit, n_acc, st.k_eff, dt,
+                                finished)
 
     def _do_decode_stepped(self, finished: list[Request]) -> None:
         """Slab round: k + 1 masked calls of the plain engine's decode,
@@ -264,26 +307,35 @@ class SpecEngine(Engine):
             return
         t0 = time.monotonic()
         k = self.spec_k
-        with torch.inference_mode():
-            st = self._round_state(reqs)
-            draft_toks, draft_probs = self.proposer.propose(st, k)
-            t_draft = time.monotonic() - t0
-            tokens = np.concatenate([st.last_tok[:, None],
-                                     draft_toks.cpu().numpy()], 1)
-            snaps = [self.state.snapshot()]
-            logits = []
-            for i in range(k + 1):
-                act_i = st.active & (i <= st.k_eff)
-                logits.append(self.state.decode(reqs, tokens[:, i:i + 1],
-                                                st.lens + i, act_i)[:, 0])
-                snaps.append(self.state.snapshot())
-            out_toks, n_emit, n_acc = self._accept(
-                torch.stack(logits, 1), draft_toks, draft_probs, st)
-        dt = self._finish_round(t0, t_draft, st, len(reqs))
-        sel, adv = self._account_round(reqs, out_toks, n_emit, n_acc,
-                                       st.k_eff, dt, finished)
-        self.state.restore_select(snaps, sel)
-        self.proposer.commit(adv)
+        tr = self.obs.trace
+        n = len(reqs)
+        with tr.span("engine.decode_step", n_active=n):
+            with torch.inference_mode():
+                st = self._round_state(reqs)
+                with tr.annotate("spec.draft", n_active=n, k=k):
+                    draft_toks, draft_probs = self.proposer.propose(st, k)
+                t_draft = time.monotonic() - t0
+                with tr.annotate("spec.verify", n_active=n):
+                    tokens = np.concatenate([st.last_tok[:, None],
+                                             draft_toks.cpu().numpy()], 1)
+                    snaps = [self.state.snapshot()]
+                    logits = []
+                    for i in range(k + 1):
+                        act_i = st.active & (i <= st.k_eff)
+                        logits.append(self.state.decode(
+                            reqs, tokens[:, i:i + 1], st.lens + i,
+                            act_i)[:, 0])
+                        snaps.append(self.state.snapshot())
+                    out_toks, n_emit, n_acc = self._accept(
+                        torch.stack(logits, 1), draft_toks, draft_probs, st)
+            dt = self._finish_round(t0, t_draft, st, n)
+            sel, adv = self._account_round(reqs, out_toks, n_emit, n_acc,
+                                           st.k_eff, dt, finished)
+            # lossless rollback: each slot's state becomes the state after
+            # its emitted tokens, bitwise, as if it had never drafted
+            with tr.span("spec.rollback", n_active=n):
+                self.state.restore_select(snaps, sel)
+                self.proposer.commit(adv)
 
     # -- draft-cost-aware adaptive k -----------------------------------------
 

@@ -35,6 +35,7 @@ import torch
 
 from ..models import common, decoder
 from ..models.registry import get_model
+from ..obs import NOOP as OBS_NOOP
 from ..serve import state as state_mod
 from ..serve.sampling import draft_sample_tokens
 
@@ -92,11 +93,17 @@ class DraftProposer:
     ``qcfg`` is the draft's serving policy (weights already quantized, no
     run-time weight fake-quant here).  ``pool`` is the TARGET engine's
     ``PagedKVPool``: the mirror copies its geometry and uses its block
-    ids, but keeps its own pages on ``device``.
+    ids, but keeps its own pages on ``device``.  ``obs``: the engine's
+    telemetry bundle (``spec_draft_steps_total``, the
+    ``spec.draft_prefill`` spans).
     """
 
     def __init__(self, cfg, params, qcfg, *, pool, device, fused: bool = False,
-                 prefill_scope: str = "row"):
+                 prefill_scope: str = "row", obs=None):
+        self.obs = obs if obs is not None else OBS_NOOP
+        self._m_draft_steps = self.obs.metrics.counter(
+            "spec_draft_steps_total",
+            "single-token draft-model decode steps (incl. catch-up feeds)")
         cfg = _moe_local(cfg)
         self.cfg = cfg
         self.dcfg = (dataclasses.replace(cfg, moe_dispatch="token")
@@ -122,6 +129,7 @@ class DraftProposer:
                                             pool.block_size, device)
 
     def _step(self, bt, lens, active, toks, st, tok_idx):
+        self._m_draft_steps.inc()
         logits, _ = decoder.decode_step_paged(
             self.dcfg, self.params, self.data, bt, lens, active,
             {"tokens": toks}, self.dsq, fused=self.fused)
@@ -141,11 +149,12 @@ class DraftProposer:
         ctx = req.resume_tokens()
         p = len(ctx)
         toks = torch.from_numpy(ctx[None].astype(np.int64)).to(self.device)
-        _, cache = decoder.prefill(self.pcfg, self.params, {"tokens": toks},
-                                   self.psq, s_max=None)
-        cache = {k: v for k, v in cache.items() if k != "pos"}
-        decoder.write_prompt_to_pool(
-            self.data, cache, req.block_ids[: self.pool.blocks_for(p)])
+        with self.obs.trace.annotate("spec.draft_prefill", rid=req.rid):
+            _, cache = decoder.prefill(self.pcfg, self.params,
+                                       {"tokens": toks}, self.psq, s_max=None)
+            cache = {k: v for k, v in cache.items() if k != "pos"}
+            decoder.write_prompt_to_pool(
+                self.data, cache, req.block_ids[: self.pool.blocks_for(p)])
         req.draft_cached = p
 
     # -- the proposal round ----------------------------------------------
@@ -208,6 +217,10 @@ class SlabDraftProposer:
         self.cfg = cfg
         self.eng = engine
         self.device = engine.device
+        self.obs = engine.obs
+        self._m_draft_steps = self.obs.metrics.counter(
+            "spec_draft_steps_total",
+            "single-token draft-model decode steps (incl. catch-up feeds)")
         self.model = get_model(cfg)
         sq = dataclasses.replace(qcfg, quantize_weights=False)
         self.psq = self.dsq = dataclasses.replace(sq, act_scope="row")
@@ -217,6 +230,7 @@ class SlabDraftProposer:
         self._snaps: list = []
 
     def _step(self, lens, active, toks, st, tok_idx):
+        self._m_draft_steps.inc()
         dev = self.device
         logits, self.data = self.model.decode_step_slots(
             self.cfg, self.params, self.data, {"tokens": toks},
@@ -231,12 +245,13 @@ class SlabDraftProposer:
 
     def prefill_request(self, req) -> None:
         """Whole-prompt draft prefill into the request's state slot."""
-        _, cache = self.model.prefill(self.cfg, self.params,
-                                      self.eng.prefill_batch(req), self.psq,
-                                      None)
-        cache = {k: v for k, v in cache.items() if k != "pos"}
-        self.data = state_mod.slab_write(self.specs, self.data, cache,
-                                         req.slot)
+        with self.obs.trace.annotate("spec.draft_prefill", rid=req.rid):
+            _, cache = self.model.prefill(self.cfg, self.params,
+                                          self.eng.prefill_batch(req),
+                                          self.psq, None)
+            cache = {k: v for k, v in cache.items() if k != "pos"}
+            self.data = state_mod.slab_write(self.specs, self.data, cache,
+                                             req.slot)
         req.draft_cached = req.prompt_len
 
     def propose(self, st, k: int):

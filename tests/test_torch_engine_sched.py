@@ -424,10 +424,15 @@ def test_engine_raises_on_unported_plans_and_options(loaded):
         SpecEngine(cfg, params, qcfg, mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="TP"):
         _engine(cfg, params, qcfg, mesh=object())
-    for kw, slice_name in ((dict(obs=object()), "observability"),
-                           (dict(shadow_teacher={}), "observability")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            _engine(cfg, params, qcfg, **kw)
+    # telemetry serves; the shadow teacher under tensor parallelism is
+    # refused (each rank holds tiles of the student)
+    from repro_torch.distributed.ctx import TP
+    from repro_torch.obs import Observability
+    assert _engine(cfg, params, qcfg, obs=Observability()).obs.enabled
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        _engine(cfg, params, qcfg, shadow_teacher=params, shadow_rate=0.5,
+                mesh=TP(group=None, rank=0, size=1,
+                        device=torch.device("cpu")))
     for mode in ("chunked", "paged"):          # paged-KV plans only
         with pytest.raises(ValueError, match="paged-KV"):
             Engine(configs.get_smoke("recurrentgemma-2b"), params,

@@ -39,6 +39,7 @@ def test_port_sources_import_no_jax():
             PORT / "obs" / "numerics.py", PORT / "obs" / "metrics.py",
             PORT / "obs" / "schema.py", PORT / "obs" / "validate.py",
             PORT / "obs" / "compare.py", PORT / "obs" / "export.py",
+            PORT / "obs" / "trace.py", PORT / "obs" / "dispatch.py",
             PORT / "models" / "rglru.py", PORT / "serve" / "state.py",
             PORT / "models" / "rwkv6.py", PORT / "models" / "whisper.py",
             PORT / "spec" / "__init__.py", PORT / "spec" / "proposer.py",
@@ -56,6 +57,7 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.data.generated, repro_torch.core.ptq, "
             "repro_torch.obs.validate, repro_torch.obs.compare, "
             "repro_torch.obs.export, repro_torch.obs.numerics, "
+            "repro_torch.obs.trace, repro_torch.obs.dispatch, "
             "repro_torch.models.rglru, repro_torch.serve.state, "
             "repro_torch.models.rwkv6, repro_torch.models.whisper, "
             "repro_torch.spec, repro_torch.spec.proposer, "

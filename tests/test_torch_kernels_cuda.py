@@ -737,3 +737,40 @@ def test_k4_two_gloo_ranks_on_one_card(gen, site):
     else:
         assert torch.equal(ys[0], ys[1])
         assert _full_k_ok(x, p, ys[0])
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen2-moe-a2.7b"])
+def test_engine_telemetry_on_the_card(gen, arch):
+    """Smoke size on the card: greedy tokens bitwise the same with
+    telemetry off and tracing on, the trace valid, and each
+    ``kernel_dispatch_total{kernel}`` equal to the launches ``ops``
+    counted over the traced engine's steps (the MoE config's fused tier
+    runs ``nvfp4_matmul_grouped``, the dense one ``paged_attention``)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.obs import Observability
+    from repro_torch.obs import validate
+    from repro_torch.serve import Engine
+    cfg = configs.get_smoke(arch)
+    params, qcfg = serve.load_quantized(cfg, 0, "packed", "cuda")
+    prompts = serve.mixed_prompts(4, 4, 16, cfg.vocab_size, seed=3)
+    outs = []
+    for obs in (None, Observability(metrics=True, trace=True)):
+        eng = Engine(cfg, params, qcfg, obs=obs, n_slots=4, block_size=8,
+                     max_blocks_per_slot=4, n_blocks=16)
+        ops.reset_launches()
+        rids, out = serve.run_workload(eng, prompts, 5)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launches.items() if v}
+        outs.append([out[r].tolist() for r in rids])
+    assert outs[0] == outs[1]
+    snap = eng.obs.metrics.snapshot()
+    kern = {c["labels"]["kernel"]: c["value"]
+            for c in snap["kernel_dispatch_total"]["labels"]}
+    assert kern == launches
+    assert kern["nvfp4_matmul_grouped" if cfg.n_experts
+                else "paged_attention"] > 0
+    gemm = {c["labels"]["backend"]: c["value"]
+            for c in snap["qeinsum_dispatch_total"]["labels"]}
+    assert gemm["pallas_2d"] == launches["nvfp4_matmul"]
+    assert validate.check_trace(eng.obs.trace.to_chrome()) == []
