@@ -204,6 +204,36 @@ Phases (every failure exits nonzero):
      or KL; seconds a shadow step, live KL, top-1, SQNR printed; (e)
      whisper-tiny at full size, run I's first 8 requests, traced with the
      shadow: the trace valid, streams equal telemetry off;
+  5n. the decoder's remaining serving paths under tensor parallelism, two
+     ranks sharing the card: (a) qwen2-moe-a2.7b under ``moe_hybrid`` at
+     full size, each rank drawing its tiles leaf by leaf, the 60 experts
+     split on E (30 a rank) and the FP8 pool by KV head, run K's first 8
+     requests, 8 tokens: the ranks' streams bitwise equal, pools drained,
+     the per-rank FP8 pool half of run K's, experts and FP8 scales
+     sharded, 5 K1 and 3 K4 launches a layer a forward (and no K2, K3 or
+     K7), prefill logits within TP_LOGIT_TOL of run K's and of the same
+     prefills through run K's engine with ``fused_kernels="off"`` (the
+     tier a TP rank runs), and a planted fault (each rank's experts one
+     place off, K's first 4 requests) outside it; each first token among
+     the fused-off logits' top TP_FIRST_RANK, later tokens' agreement
+     printed (random weights' near-flat logits flip a greedy token under
+     any change of summation order: the card's fused and fused-off tiers
+     part on 3 of these 8 first tokens); a traced decode step (every
+     slot busy) of the run on rank 0; (b) the
+     same with ``moe_shard="tp"`` (each expert's FFN dim split: 704
+     features, 44 whole blocks a rank), 4 requests, 4 tokens, the same
+     gates; (c) on phase 5d's tiles, run A's 4 shortest prompts, 8
+     tokens: a self-qdq ``SpecEngine`` at k = 2: streams equal the rank's
+     plain TP engine's, acceptance 1.000, drafted = accepted + rolled
+     back, the ranks agree, the draft pool's local KV heads, and the
+     gather-then-attend attention's rows at the verify's 3 queries
+     bitwise one query a call; (d) the BF16 teacher's tiles drawn leaf by
+     leaf, the shadow's record of the same 4 prompts as contexts on every
+     rank identical and against the single-device shadow on run A's tree
+     (computed before the ranks start): the same sites and stats,
+     per-layer SQNR within 1 dB, live KL within 10%; then (c)'s requests
+     with the shadow at rate 0.5: tokens bitwise equal to (c)'s plain
+     run.  (c), (d), then (a) and (b) run in 5d's two ranks after run TP;
   6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
      (16 layers, d_model 2048, vocab 50304) under its config's
      rematerialization (``remat="full"``: the student's QDQ runs twice a
@@ -344,6 +374,29 @@ RUN_MB = dict(requests=8, prefix=256, min_suffix=16, max_suffix=128, gen=8)
 # card; run A's first 8 requests, 16 tokens each
 TP_SIZE = 2
 RUN_TP = dict(requests=8, gen=16)
+# the decoder's remaining serving paths at tp = 2 (phase 5n): qwen2-moe-
+# a2.7b under moe_hybrid with its experts split on E (run K's first 8
+# requests, 8 tokens) and on their FFN dim (4 requests, 4 tokens); on
+# phase 5d's acereason-7b tiles, run A's 4 shortest prompts: a self-qdq
+# draft at k = 2 and the plain engine, 8 tokens; the shadow teacher's
+# record of each as a context, then the shadow on at rate 0.5 (all in 5d's
+# ranks)
+# (8 and 4 tokens keep the script well inside its time limit on a slow
+# host), and a planted fault on the first 4 requests
+RUN_KTP = dict(requests=8, gen=8, ffn_requests=4, ffn_gen=4,
+               fault_requests=4)
+# phase 5n (a) and (b)'s prefill logits against one card's (relative L2),
+# and where the fused-off card's logits may rank TP's first token.  Read
+# on the H100 (PERF.md, section 6): sound TP 0.090-0.153 from either one-card
+# tier (the two tiers 0.081-0.145 apart), a planted fault (each rank's
+# experts one place off) 0.472-0.561, which LOGIT_TOL's 0.5 let through;
+# TP's first tokens rank 0-3 there, the fused tier's own 0-2.  Random
+# weights' near-flat logits flip a greedy token under another summation
+# order, so the tokens themselves are not gated equal
+TP_LOGIT_TOL = 0.25
+TP_FIRST_RANK = 8
+RUN_NTP = dict(spec_k=2, spec_gen=8, shadow_contexts=4, shadow_rate=0.5,
+               sqnr_db=1.0, kl_rel=0.1)
 # the rglru_hybrid family (the slab engine): nemotron-nano-9b-sim at full
 # width and depth takes run A's traffic (phase 5e); recurrentgemma-2b at
 # full size serves prompts longer than its window of 2048, so its ring
@@ -501,7 +554,7 @@ def profile_step(step, spins: int = WARMUP_SPINS) -> dict:
 
     from repro_torch.kernels import ops
     torch.cuda.synchronize()
-    ops.reset_launches()
+    before = dict(ops.launches)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(spins):
@@ -516,27 +569,77 @@ def profile_step(step, spins: int = WARMUP_SPINS) -> dict:
     n_k7 = sum(e.device_type == DeviceType.CUDA
                and "paged_attention_kernel" in e.name for e in prof.events())
     return dict(by_kernel=by_kernel, n_port=n_port, n_qdq=n_qdq,
-                n_other=n_other, wall_ms=wall_ms, launches=dict(ops.launches),
-                n_k7=n_k7)
+                n_other=n_other, wall_ms=wall_ms, n_k7=n_k7,
+                launches={k: v - before[k] for k, v in ops.launches.items()})
 
 
-def trace_engine_step(eng, label) -> dict:
-    """``profile_step`` of one engine step, every slot decoding (the
-    caller fills them, with tokens to spare for two more steps).  The
+def all_decoding(eng) -> bool:
+    """Every slot of ``eng`` decodes and no request waits."""
+    return not eng.sched.waiting and len(eng.sched.running()) == eng.n_slots
+
+
+def trace_steps(eng, label, tp=None):
+    """``profile_step`` of an engine step, every slot decoding (the
+    caller makes it so, with tokens to spare for two more steps).  The
     profiler drops a kernel's record now and then but never adds one: a
-    profile that holds fewer QDQ kernels than the step launched is
-    printed and the next step traced, RETRACE_SPINS more spins ahead of
-    it, up to three in all, while every slot still decodes.  The caller
-    gates the count of the last one."""
+    profile that holds fewer QDQ kernels than the step launched is printed
+    and the next step traced, RETRACE_SPINS more spins ahead of it, up to
+    three in all, while every slot still decodes.  The caller gates the
+    count of the last profile, which carries its ``attempt`` and, on a TP
+    engine, the step's ``collectives`` and their host ``collective_ms``.
+    Under ``tp`` every rank takes three steps (the collectives meet) and
+    rank 0 alone traces: the other ranks get None."""
+    t = None
     for attempt in (1, 2, 3):
+        done = t is not None and (t["n_qdq"] >= t["launches"]["nvfp4_qdq"]
+                                  or not all_decoding(eng))
+        if done or (tp is not None and tp.rank):
+            if tp is None:
+                break
+            eng.step()
+            continue
+        if t is not None:
+            print(f"[trace] {label}: the profile holds {t['n_qdq']:.0f} QDQ "
+                  f"kernels for {t['launches']['nvfp4_qdq']} QDQ launches "
+                  f"(trace {attempt - 1})", flush=True)
+        c0 = dict(eng.mesh.counts) if eng.mesh is not None else None
         t = profile_step(eng.step,
                          WARMUP_SPINS + RETRACE_SPINS * (attempt - 1))
-        if (t["n_qdq"] >= t["launches"]["nvfp4_qdq"] or attempt == 3
-                or len(eng.sched.running()) < eng.n_slots):
-            return t
-        print(f"[trace] {label}: the profile holds {t['n_qdq']:.0f} QDQ "
-              f"kernels for {t['launches']['nvfp4_qdq']} QDQ launches "
-              f"(trace {attempt})", flush=True)
+        t["attempt"] = attempt
+        if c0 is not None:
+            t.update(collectives=eng.mesh.counts["calls"] - c0["calls"],
+                     collective_ms=(eng.mesh.counts["seconds"]
+                                    - c0["seconds"]) * 1e3)
+    return t
+
+
+def trace_filled(eng, prompts, label, tp=None, extras=None):
+    """Fill every slot with ``prompts`` (TRACE_GEN tokens each; ``extras``
+    each prompt's extras), ``trace_steps`` a decode step, then drain.
+    Returns the trace (None on a TP rank other than 0)."""
+    extras = extras or [None] * len(prompts)
+    for p, e in zip(prompts[:eng.n_slots], extras):
+        eng.submit(p, TRACE_GEN, extras=e)
+    while not all_decoding(eng):
+        eng.step()
+    t = trace_steps(eng, label, tp)
+    eng.drain()
+    return t
+
+
+def tp_trace_record(t) -> dict:
+    """A TP rank's trace (``trace_steps``) as host data: device ops, wall
+    and busy ms, K4's ms, the step's collectives, the top kernels."""
+    by_kernel = t["by_kernel"]
+    return dict(n_port=t["n_port"], n_qdq=t["n_qdq"], n_other=t["n_other"],
+                qdq_calls=t["launches"]["nvfp4_qdq"], attempt=t["attempt"],
+                launches=t["launches"], wall_ms=t["wall_ms"],
+                busy_ms=sum(by_kernel.values()),
+                k4_ms=sum(ms for kname, ms in by_kernel.items()
+                          if "mma_kernel<false" in kname
+                          or "wg_kernel<false" in kname),
+                collective_ms=t["collective_ms"], collectives=t["collectives"],
+                top=sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
 
 
 def print_by_kind(label, by_kernel) -> None:
@@ -639,12 +742,14 @@ def k4_rank_check(tp, cfg):
     return out
 
 
-def tp_rank(tp, prompts, n_gen):
+def tp_rank(tp, prompts, n_gen, contexts, moe_prompts):
     """One rank of phase 5d (runs in its own process): K4's wrapper held
     to its plain version (``k4_rank_check``); the seed-0 weights drawn on
     the card with the rank's own generator, only its tiles kept;
     the engine over them; run TP's traffic; one traced decode step on
-    rank 0.  Returns host data only."""
+    rank 0; then phase 5n in the same process: (c) and (d) on the same
+    tiles (``tp_rank_spec_shadow``), (a) and (b) on qwen2-moe-a2.7b
+    (``tp_moe_rank``).  Returns host data only."""
     import torch
 
     from repro_torch import configs
@@ -666,12 +771,7 @@ def tp_rank(tp, prompts, n_gen):
     eng = Engine(cfg, params, qcfg, device=tp.device, mesh=tp, **ENGINE)
     del params
     report = serve.tp_shard_report(eng)
-    pre, inner = {}, eng._sample_one
-
-    def sample_one(req, logits):
-        pre[req.rid] = logits[0].float().cpu()
-        return inner(req, logits)
-    eng._sample_one = sample_one
+    pre = prefill_logits(eng)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     eng.mesh.reset_counts()
@@ -683,42 +783,488 @@ def tp_rank(tp, prompts, n_gen):
     coll = dict(eng.mesh.counts)
     st = eng.stats()
     res = dict(k4_check=k4_check,
-               tokens=[out[r] for r in rids], pre=[pre.get(r) for r in rids],
+               tokens=[out[r] for r in rids], pre=[pre[r].cpu() for r in rids],
                finished=len(out), stats=st, report=report, launches=launches,
                collectives=coll, wall=wall, load_s=load_s, load_peak=load_peak,
                peak=torch.cuda.max_memory_allocated() / 1e9,
                drained=not eng.state.leaked()
                and eng.pool.used_blocks == eng.pool.cached_blocks)
-
-    # one traced decode step: 8 running requests, nothing left to prefill;
-    # both ranks step alike, rank 0 under the profiler
-    for p in prompts[:ENGINE["n_slots"]]:
-        eng.submit(p, TRACE_GEN)
-    while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
-        eng.step()
-    # (both ranks take three steps; rank 0 traces them until a profile
-    # holds one QDQ kernel for each QDQ launch, as ``trace_engine_step``)
-    torch.cuda.synchronize()
-    for attempt in (1, 2, 3):
-        eng.mesh.reset_counts()
-        if tp.rank or ("trace" in res and res["trace"]["n_qdq"]
-                       >= res["trace"]["qdq_calls"]):
-            eng.step()
-            continue
-        t = profile_step(eng.step)
-        by_kernel = t["by_kernel"]
-        res["trace"] = dict(
-            n_port=t["n_port"], n_qdq=t["n_qdq"], n_other=t["n_other"],
-            qdq_calls=t["launches"]["nvfp4_qdq"], attempt=attempt,
-            wall_ms=t["wall_ms"], busy_ms=sum(by_kernel.values()),
-            k4_ms=sum(ms for kname, ms in by_kernel.items()
-                      if "mma_kernel<false" in kname
-                      or "wg_kernel<false" in kname),
-            collective_ms=eng.mesh.counts["seconds"] * 1e3,
-            collectives=eng.mesh.counts["calls"],
-            top=sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
-    eng.drain()
+    del pre
+    t = trace_filled(eng, prompts, "TP decode step", tp)
+    res["trace"] = None if t is None else tp_trace_record(t)
+    res.update(tp_rank_spec_shadow(tp, eng, qcfg, contexts))
+    # nothing of 5d or 5n (c)/(d) may stay on the card: (a) and (b)
+    # measure their own load and run peaks
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["moe"] = tp_moe_rank(tp, moe_prompts)
     return res
+
+
+def shadow_host(aux) -> dict:
+    """A shadow record as {site/stat: f64 numpy} on the host."""
+    import torch
+    return {f"{site}/{stat}": v.detach().to("cpu", torch.float64).numpy()
+            for site, stats in aux.items() for stat, v in stats.items()}
+
+
+def tp_rank_spec_shadow(tp, eng, qcfg, contexts) -> dict:
+    """Phase 5n (c) and (d) on a rank of 5d, over its engine's tiles
+    (``eng.params``), the contexts (run A's shortest prompts) as the
+    requests: the plain TP engine and a self-qdq ``SpecEngine`` at k = 2;
+    the gather-then-attend attention's rows at the verify's k + 1 queries
+    against one query a call, bitwise; the BF16 teacher's tiles drawn leaf
+    by leaf, the shadow's record of each context, then an engine with the
+    shadow on (its tokens against the plain engine's: the shadow off).
+    Host data only."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import common
+    from repro_torch.serve import Engine
+    from repro_torch.spec import SpecEngine
+
+    cfg, dev, out = eng.cfg, tp.device, {}
+
+    prompts = [np.asarray(c, np.int32) for c in contexts]
+
+    def run(e, gen):
+        ops.reset_launches()
+        e.mesh.reset_counts()
+        t0 = time.perf_counter()
+        rids, got = serve.run_workload(e, prompts, gen)
+        torch.cuda.synchronize()
+        return dict(tokens=[got[r] for r in rids], stats=e.stats(),
+                    launches=dict(ops.launches), wall=time.perf_counter() - t0,
+                    collectives=dict(e.mesh.counts),
+                    drained=not e.state.leaked()
+                    and e.pool.used_blocks == e.pool.cached_blocks)
+
+    t0 = time.perf_counter()
+    out["c_plain"] = run(Engine(cfg, eng.params, qcfg, device=dev, mesh=tp,
+                                **ENGINE), RUN_NTP["spec_gen"])
+    seng = SpecEngine(cfg, eng.params, qcfg, draft_k=RUN_NTP["spec_k"],
+                      draft="self-qdq", device=dev, mesh=tp, **ENGINE)
+    out["c_spec"] = run(seng, RUN_NTP["spec_gen"])
+    out["c_draft_heads"] = seng.proposer.data["k"].shape[3]
+    del seng
+    # the two-step attention at the verify's k + 1 queries a row (this
+    # rank's heads) against each query alone
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    hkv = cfg.n_kv_heads // tp.size
+    h, hd, nb, bs = cfg.n_heads // tp.size, cfg.head_dim, 64, ENGINE["block_size"]
+    layer = {n: torch.randn((nb, bs, hkv, hd), generator=gen, device=dev)
+             .to(torch.bfloat16) for n in ("k", "v")}
+    ns, k1 = ENGINE["n_slots"], RUN_NTP["spec_k"] + 1
+    bt = torch.randperm(nb, generator=gen, device=dev)[:ns * 8].reshape(ns, 8)
+    lens = torch.randint(1, 8 * bs - k1, (ns,), generator=gen, device=dev)
+    q = torch.randn((ns, k1, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+    pos = lens[:, None] + torch.arange(1, k1 + 1, device=dev)[None]
+    many = mattn.paged_attend(q, layer, bt, pos)
+    one = torch.cat([mattn.paged_attend(q[:, i:i + 1], layer, bt, pos[:, i])
+                     for i in range(k1)], 1)
+    out["c_attn_rows_equal"] = bool(torch.equal(many, one))
+    out["c_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    teacher = serve.load_teacher(cfg, SEED, dev, tp=tp)
+    torch.cuda.synchronize()
+    out["d_teacher_s"] = time.perf_counter() - t0
+    out["d_teacher_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in common.tree_leaves(teacher))
+    out["d_teacher_peak"] = torch.cuda.max_memory_allocated() / 1e9
+    sh = Engine(cfg, eng.params, qcfg, device=dev, mesh=tp,
+                shadow_teacher=teacher, shadow_rate=RUN_NTP["shadow_rate"],
+                **ENGINE)
+    del teacher
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    out["d_records"] = [shadow_host(sh.shadow_score(c)) for c in contexts]
+    torch.cuda.synchronize()
+    out["d_record_s"] = time.perf_counter() - t1
+    out["d_record_launches"] = dict(ops.launches)
+    out["d_on"] = run(sh, RUN_NTP["spec_gen"])
+    out["d_on"]["shadow_steps"], out["d_on"]["shadow_s"] = (sh.shadow_steps,
+                                                            sh.shadow_s)
+    del sh
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d_s"] = time.perf_counter() - t0
+    out["tokens_equal"] = bool(all(np.array_equal(a, b) for a, b in zip(
+        out["d_on"]["tokens"], out["c_plain"]["tokens"])))
+    return out
+
+
+def run_traced(tp, eng, prompts, gen, trace: bool):
+    """``serve.run_workload``'s arrivals on a TP engine; with ``trace``,
+    the first time every slot decodes, ``trace_steps`` on every rank (rank
+    0 traces).  The traced steps stay in the run: its launch and
+    collective counts keep them.  Returns (rids, outputs, rank 0's trace
+    record or None)."""
+    half = len(prompts) // 2
+    rids = [eng.submit(p, gen) for p in prompts[:half]]
+    for p in prompts[half:]:
+        eng.step()
+        rids.append(eng.submit(p, gen))
+    t, traced = None, not trace
+    while eng.sched.has_work():
+        if not traced and all_decoding(eng):
+            t, traced = trace_steps(eng, "TP MoE decode step", tp), True
+        else:
+            eng.step()
+    if not traced:
+        raise RuntimeError("no decode step with every slot busy to trace")
+    return rids, eng.drain(), None if t is None else tp_trace_record(t)
+
+
+def tp_moe_rank(tp, oracle_prompts):
+    """Phase 5n (a) and (b) on a rank of 5d: qwen2-moe-a2.7b under
+    moe_hybrid at full size, its tiles drawn leaf by leaf, with the
+    experts split on E (a: run K's first requests) and then on their FFN
+    dim (b: fewer requests and tokens); each run's tokens, prefill logits,
+    shard report, launches, collectives and memory; a traced decode step
+    of (a) on rank 0 (``run_traced``).  Host data only."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    res = {"resident_gb": torch.cuda.memory_allocated() / 1e9}
+    for part, shard, n, gen in (("a", "ep", RUN_KTP["requests"], RUN_KTP["gen"]),
+                                ("b", "tp", RUN_KTP["ffn_requests"],
+                                 RUN_KTP["ffn_gen"])):
+        t_part = time.perf_counter()
+        c = dataclasses.replace(configs.get_config(MOE_ARCH),
+                                quant_recipe="moe_hybrid", moe_shard=shard)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, qcfg = serve.load_quantized(c, SEED, "packed", tp.device, tp=tp)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        eng = Engine(c, params, qcfg, device=tp.device, mesh=tp, **ENGINE)
+        del params
+        report = serve.tp_shard_report(eng)
+        pre = prefill_logits(eng)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        eng.mesh.reset_counts()
+        t0 = time.perf_counter()
+        rids, out, trace = run_traced(tp, eng, oracle_prompts[:n], gen,
+                                      trace=part == "a")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = dict(tokens=[out[i] for i in rids], pre=[pre[i].cpu() for i in rids],
+                 finished=len(out), stats=eng.stats(), report=report,
+                 launches=dict(ops.launches), collectives=dict(eng.mesh.counts),
+                 wall=wall, load_s=load_s, load_peak=load_peak,
+                 peak=torch.cuda.max_memory_allocated() / 1e9,
+                 drained=not eng.state.leaked()
+                 and eng.pool.used_blocks == eng.pool.cached_blocks,
+                 fp8=eng.pool.fp8, fused=eng.fused, n_layers=c.n_layers,
+                 trace=trace)
+        if part == "a":
+            # a planted fault: each rank's experts one place off (expert j
+            # computed with expert j + 1's weights), the first requests'
+            # prefill logits read as the sound ones are
+            feng = Engine(c, roll_experts(eng.params), qcfg, device=tp.device,
+                          mesh=tp, **ENGINE)
+            fpre = prefill_logits(feng)
+            frids, _ = serve.run_workload(
+                feng, oracle_prompts[:RUN_KTP["fault_requests"]], 1)
+            r["pre_fault"] = [fpre[i].cpu() for i in frids]
+            del feng, fpre
+        r["seconds"] = time.perf_counter() - t_part
+        res[part] = r
+        del eng, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def roll_experts(params):
+    """A parameter tree with every layer's expert stacks (``moe_wg``,
+    ``moe_wu``, ``moe_wd``: [L, E, ...], packed or not) rolled by one
+    along E; the other leaves shared."""
+    import torch
+
+    from repro_torch.core.nvfp4 import PackedNVFP4
+
+    lay = dict(params["layers"])
+    for name in ("moe_wg", "moe_wu", "moe_wd"):
+        w = lay[name]
+        n_e = (w.codes if isinstance(w, PackedNVFP4) else w).shape[1]
+
+        def roll(t):
+            if t.ndim < 2 or t.shape[1] != n_e:
+                return t
+            if t.element_size() == 1:       # no roll on the card for FP8
+                return torch.roll(t.view(torch.uint8), 1, 1).view(t.dtype)
+            return torch.roll(t, 1, 1)
+        lay[name] = (dataclasses.replace(w, codes=roll(w.codes),
+                                         scales=roll(w.scales),
+                                         tensor_scale=roll(w.tensor_scale))
+                     if isinstance(w, PackedNVFP4) else roll(w))
+    return {**params, "layers": lay}
+
+
+def shadow_oracle(dev, cfg, params, qcfg, contexts) -> list:
+    """Phase 5n (d)'s oracle, in this process on run A's tree: the BF16
+    teacher drawn whole, the single-device shadow's record of each
+    context; everything freed before the ranks start."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+
+    t0 = time.perf_counter()
+    teacher = serve.load_teacher(cfg, SEED, dev)
+    eng = Engine(cfg, params, qcfg, device=dev, shadow_teacher=teacher,
+                 shadow_rate=RUN_NTP["shadow_rate"], **ENGINE)
+    recs = [shadow_host(eng.shadow_score(c)) for c in contexts]
+    torch.cuda.synchronize()
+    print(f"[engine 5n-d] single-device shadow on {len(contexts)} contexts "
+          f"of {[len(c) for c in contexts]} tokens (run A's tree, the BF16 "
+          f"teacher whole): {time.perf_counter() - t0:.1f}s", flush=True)
+    del eng, teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
+def shadow_compare(mine, want) -> dict:
+    """Per-layer SQNR's largest gap (dB) and the live KL's relative gap
+    (the mean over the contexts) of TP records against single-device
+    ones; the keys must be the same."""
+    import numpy as np
+    for m, w in zip(mine, want):
+        if sorted(m) != sorted(w):
+            fail(f"phase 5n (d): the TP shadow's sites {sorted(m)} differ "
+                 f"from single-device's {sorted(w)}")
+    gaps = [float(np.nanmax(np.abs(m[k] - w[k]))) for m, w in zip(mine, want)
+            for k in m if k.endswith("/sqnr_db")]
+    kl_m = float(np.mean([float(m["shadow/kl"]) for m in mine]))
+    kl_w = float(np.mean([float(w["shadow/kl"]) for w in want]))
+    return dict(sqnr_gap=max(gaps), kl=kl_m, kl_single=kl_w,
+                kl_rel=abs(kl_m - kl_w) / max(abs(kl_w), 1e-12),
+                kls=[float(m["shadow/kl"]) for m in mine],
+                kls_single=[float(w["shadow/kl"]) for w in want],
+                sites=len(mine[0]))
+
+
+def phase_5n_spec_shadow(ranks, cfg, single) -> dict:
+    """Phase 5n (c) and (d)'s gates and lines from 5d's ranks; returns
+    rank 0's launches of each run."""
+    import numpy as np
+    r0 = ranks[0]
+    for i, r in enumerate(ranks):
+        pl, sp = r["c_plain"], r["c_spec"]
+        st = sp["stats"]
+        eq = [np.array_equal(a, b) for a, b in zip(sp["tokens"], pl["tokens"])]
+        print(f"[engine 5n-c] rank {i}: self-qdq k={RUN_NTP['spec_k']} at "
+              f"tp={TP_SIZE}, {len(sp['tokens'])} requests (run A's "
+              f"shortest), {RUN_NTP['spec_gen']} tokens: streams equal the "
+              f"plain TP "
+              f"engine's {sum(eq)}/{len(eq)}; acceptance "
+              f"{st['acceptance_rate']:.3f}, {st['accepted_per_step']:.3f} a "
+              f"round, drafted {st['drafted_tokens']} = accepted "
+              f"{st['accepted_tokens']} + rolled back "
+              f"{st['rolled_back_tokens']}; round p50 "
+              f"{st['decode_step_p50_s'] * 1e3:.1f} ms (plain step "
+              f"{pl['stats']['decode_step_p50_s'] * 1e3:.1f} ms), ttft p50 "
+              f"{st['ttft_p50_s'] * 1e3:.1f} ms, decode "
+              f"{st['decode_tok_s']:.1f} tok/s (plain "
+              f"{pl['stats']['decode_tok_s']:.1f}); draft pool KV heads "
+              f"{r['c_draft_heads']}; the two-step attention's rows at "
+              f"{RUN_NTP['spec_k'] + 1} queries equal one query a call: "
+              f"{r['c_attn_rows_equal']}; launches {sp['launches']}; "
+              f"{r['c_s']:.1f}s", flush=True)
+        if not all(eq) or not pl["drained"] or not sp["drained"]:
+            fail(f"engine 5n-c rank {i}: speculative streams differ from the "
+                 "plain TP engine's, or a pool did not drain")
+        if st["acceptance_rate"] != 1.0 or st["drafted_tokens"] != (
+                st["accepted_tokens"] + st["rolled_back_tokens"]):
+            fail(f"engine 5n-c rank {i}: acceptance {st['acceptance_rate']}, "
+                 f"drafted {st['drafted_tokens']}")
+        if not r["c_attn_rows_equal"]:
+            fail(f"engine 5n-c rank {i}: the gather-then-attend rows differ "
+                 "between the verify's queries and one query a call")
+        if r["c_draft_heads"] * TP_SIZE != cfg.n_kv_heads:
+            fail(f"engine 5n-c rank {i}: the draft pool holds "
+                 f"{r['c_draft_heads']} KV heads")
+        if any(not np.array_equal(a, b) for a, b in zip(
+                sp["tokens"], r0["c_spec"]["tokens"])):
+            fail(f"engine 5n-c: rank {i}'s speculative tokens differ from "
+                 "rank 0's")
+    for i, r in enumerate(ranks):
+        for a, b in zip(r["d_records"], r0["d_records"]):
+            if sorted(a) != sorted(b) or any(
+                    not np.array_equal(a[k], b[k], equal_nan=True) for k in a):
+                fail(f"engine 5n-d: rank {i}'s shadow records differ from "
+                     "rank 0's")
+        if not r["tokens_equal"] or not r["d_on"]["drained"]:
+            fail(f"engine 5n-d rank {i}: tokens with the shadow on differ "
+                 "from it off, or the pool did not drain")
+    cmp = shadow_compare(r0["d_records"], single)
+    on, off = r0["d_on"], r0["c_plain"]
+    print(f"[engine 5n-d] shadow at tp={TP_SIZE}: teacher tiles "
+          f"{r0['d_teacher_bytes'] / 1e9:.2f} GB a rank drawn leaf by leaf in "
+          f"{r0['d_teacher_s']:.1f}s (peak {r0['d_teacher_peak']:.2f} GB); "
+          f"{len(r0['d_records'])} contexts in {r0['d_record_s']:.2f}s, "
+          f"{cmp['sites']} site stats, the same on every rank; SQNR's "
+          f"largest gap to single-device {cmp['sqnr_gap']:.3f} dB (gate "
+          f"{RUN_NTP['sqnr_db']}), live KL {cmp['kl']:.4f} against "
+          f"{cmp['kl_single']:.4f}, rel {cmp['kl_rel']:.4f} (gate "
+          f"{RUN_NTP['kl_rel']}); per context {['%.4f' % k for k in cmp['kls']]}"
+          f" vs {['%.4f' % k for k in cmp['kls_single']]}", flush=True)
+    print(f"[engine 5n-d] shadow rate {RUN_NTP['shadow_rate']}, 5n-c's "
+          f"requests and tokens: {on['shadow_steps']} shadow steps, "
+          f"{on['shadow_s'] / max(on['shadow_steps'], 1):.2f}s a step; tokens "
+          f"equal shadow off (5n-c's plain run) on every rank: "
+          f"{all(r['tokens_equal'] for r in ranks)}; decode step p50 on "
+          f"{on['stats']['decode_step_p50_s'] * 1e3:.1f} ms, off "
+          f"{off['stats']['decode_step_p50_s'] * 1e3:.1f} ms; {r0['d_s']:.1f}s",
+          flush=True)
+    if cmp["sqnr_gap"] > RUN_NTP["sqnr_db"] or cmp["kl_rel"] > RUN_NTP["kl_rel"]:
+        fail(f"engine 5n-d: the TP shadow parts from single-device's: SQNR "
+             f"{cmp['sqnr_gap']} dB, live KL rel {cmp['kl_rel']}")
+    return {"c_plain": r0["c_plain"]["launches"],
+            "c_spec": r0["c_spec"]["launches"],
+            "d_records": r0["d_record_launches"],
+            "d_on": on["launches"]}
+
+
+def phase_5n_moe(ranks, oracle) -> dict:
+    """Phase 5n (a) and (b)'s gates and lines from 5d's ranks (qwen2-moe
+    against run K: its prefill logits and pool bytes; the tokens printed),
+    PERF.md's TP table; returns rank 0's launches of each run."""
+    import numpy as np
+    import torch
+
+    ranks = [r["moe"] for r in ranks]
+    out = {}
+    for part, label in (("a", "experts on E (ep)"),
+                        ("b", "experts' FFN dim (tp)")):
+        r0 = ranks[0][part]
+        st, rep = r0["stats"], r0["report"]
+        n, n_layers = len(r0["tokens"]), r0["n_layers"]
+        n_fwd = n + st["decode_steps"]
+        print(f"[engine 5n-{part}] {MOE_ARCH} full size, moe_hybrid, "
+              f"tp={TP_SIZE}, {label}: {n} requests (run K's first), gen "
+              f"{len(r0['tokens'][0])}, wall {r0['wall']:.2f}s; "
+              f"ttft_p50_ms={st['ttft_p50_s'] * 1e3:.1f} "
+              f"decode_step_p50_ms={st['decode_step_p50_s'] * 1e3:.2f} "
+              f"decode_step_p95_ms={st['decode_step_p95_s'] * 1e3:.2f} "
+              f"decode_tok_s={st['decode_tok_s']:.1f} collectives="
+              f"{r0['collectives']['calls']} ({r0['collectives']['seconds']:.2f}"
+              f"s on the host) over {n_fwd} forwards; {r0['seconds']:.1f}s",
+              flush=True)
+        for i, rk in enumerate(ranks):
+            r = rk[part]
+            print(f"[engine 5n-{part}] rank {i}: {rk['resident_gb']:.2f} GB "
+                  f"on the card before; load+pack+cut "
+                  f"{r['load_s']:.1f}s (peak {r['load_peak']:.2f} GB), peak in "
+                  f"the run {r['peak']:.2f} GB, launches {r['launches']}",
+                  flush=True)
+        print(f"[engine 5n-{part}] tp_shard_report (rank 0): {rep}", flush=True)
+        for i, rk in enumerate(ranks):
+            r = rk[part]
+            rp, ln = r["report"], r["launches"]
+            if r["finished"] != n or not r["drained"] or r["fused"]:
+                fail(f"engine 5n-{part} rank {i}: {r['finished']} of {n} "
+                     "finished, or the pool did not drain, or the fused tier "
+                     "ran")
+            if any(not np.array_equal(a, b) for a, b in zip(
+                    r["tokens"], r0["tokens"])):
+                fail(f"engine 5n-{part}: rank {i}'s tokens differ from rank 0's")
+            if not (rp["experts_sharded"] and rp["fp8_scales_sharded"]
+                    and rp["kv_sharded"] and r["fp8"]
+                    and rp["kv_pool_bytes_per_device"] * TP_SIZE
+                    == oracle["pool_bytes"]):
+                fail(f"engine 5n-{part} rank {i}: shard report {rp} (run K's "
+                     f"pool {oracle['pool_bytes']} B)")
+            want = {"nvfp4_qdq": 5 * n_layers * n_fwd,
+                    "nvfp4_matmul_tp": 3 * n_layers * n_fwd}
+            if any(ln[k] != v for k, v in want.items()) or ln["nvfp4_matmul"] \
+                    or ln["nvfp4_matmul_grouped"] or ln["paged_attention"]:
+                fail(f"engine 5n-{part} rank {i} launched {ln}, expected "
+                     f"{want} (5 K1 and 3 K4 a layer) and no K2, K3 or K7")
+        def rel_to(ref, got=None):
+            return [float((p.float() - q.float()).norm() / q.float().norm())
+                    for p, q in zip(got or r0["pre"], ref)]
+        rel, rel_u = rel_to(oracle["pre"]), rel_to(oracle["pre_unfused"])
+        tiers = rel_to(oracle["pre_unfused"], oracle["pre"][:n])
+        k_first = [int(k[0]) for k in oracle["tokens"][:n]]
+        u_first = oracle["first_unfused"][:n]
+        mine = [int(t[0]) for t in r0["tokens"]]
+
+        def rank(i, logits):
+            """Where the fused-off card's logits rank request i's token."""
+            u = oracle["pre_unfused"][i].float()
+            return int((u > u[int(torch.argmax(logits))]).sum())
+        ranks_tp = [rank(i, p) for i, p in enumerate(r0["pre"])]
+        ranks_k = [rank(i, p) for i, p in enumerate(oracle["pre"][:n])]
+        later = float(np.mean([np.mean(t[1:] == k[1:len(t)])
+                               for t, k in zip(r0["tokens"], oracle["tokens"])]))
+        print(f"[engine 5n-{part}] prefill logits rel_l2 vs run K (one card, "
+              f"fused tier): " + " ".join(f"{x:.4g}" for x in rel)
+              + f"; vs one card with the fused tier off: "
+              + " ".join(f"{x:.4g}" for x in rel_u)
+              + f" (tolerance {TP_LOGIT_TOL}; the two one-card tiers apart: "
+              + " ".join(f"{x:.4g}" for x in tiers) + f"); first tokens: "
+              f"run K {k_first}, fused off {u_first}, TP {mine}; where the "
+              f"fused-off logits rank TP's {ranks_tp} and run K's {ranks_k} "
+              f"(gate: below {TP_FIRST_RANK}); later tokens equal run K's at "
+              f"{later:.3f} of positions (printed, not gated)", flush=True)
+        if part == "a":
+            fault = rel_to(oracle["pre_unfused"], r0["pre_fault"])
+            ranks_f = [rank(i, p) for i, p in enumerate(r0["pre_fault"])]
+            print(f"[engine 5n-a] planted fault (each rank's experts one place "
+                  f"off), the first {len(fault)} requests: prefill logits "
+                  f"rel_l2 vs the fused-off card "
+                  + " ".join(f"{x:.4g}" for x in fault)
+                  + f", first tokens ranked {ranks_f} there; the sound run's "
+                  f"largest {max(rel + rel_u):.4g}, the tolerance "
+                  f"{TP_LOGIT_TOL} between", flush=True)
+            if min(fault) <= TP_LOGIT_TOL:
+                fail(f"engine 5n-a: a planted fault reads {min(fault)}, within "
+                     f"the tolerance {TP_LOGIT_TOL}")
+        if max(rel) > TP_LOGIT_TOL or max(rel_u) > TP_LOGIT_TOL:
+            fail(f"engine 5n-{part}: prefill logits {max(rel)} from run K's, "
+                 f"{max(rel_u)} from the fused-off card's")
+        if max(ranks_tp) >= TP_FIRST_RANK:
+            fail(f"engine 5n-{part}: a first token ranks {max(ranks_tp)} in "
+                 "the fused-off card's logits")
+        out[f"{part}_ep" if part == "a" else f"{part}_tp"] = r0["launches"]
+    tr = ranks[0]["a"]["trace"]
+    print(f"[trace] 5n-a TP MoE decode step, 8 slots, rank 0 (traced): "
+          f"wall_ms={tr['wall_ms']:.3f} device_busy_ms={tr['busy_ms']:.3f} "
+          f"idle_share={1 - tr['busy_ms'] / tr['wall_ms']:.3f} "
+          f"collective_ms={tr['collective_ms']:.3f} ({tr['collectives']} "
+          f"collectives, host-staged); device ops: {tr['n_port']:.0f} of the "
+          f"port's kernels ({tr['n_qdq']:.0f} QDQ for {tr['qdq_calls']} QDQ "
+          f"calls; trace {tr['attempt']}), {tr['n_other']:.0f} others",
+          flush=True)
+    if tr["n_qdq"] != tr["qdq_calls"]:
+        fail(f"engine 5n-a decode step: {tr['n_qdq']} QDQ kernels for "
+             f"{tr['qdq_calls']} QDQ calls")
+    for kname, ms in tr["top"]:
+        print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
+    print(f"[engine 5n] qwen2-moe at tp={TP_SIZE}: "
+          f"{sum(ranks[0][p]['seconds'] for p in ('a', 'b')):.1f}s in the "
+          "ranks", flush=True)
+    return out
 
 
 def q_bound(x):
@@ -783,13 +1329,7 @@ def trace_slab_step(eng, prompts, label, extras=None):
     """Fill every slot, then trace one engine step (a decode step and
     nothing else) and print it: wall and busy ms, the idle share,
     device ops and time by kind.  ``extras``: each prompt's extras."""
-    extras = extras or [None] * len(prompts)
-    for p, e in zip(prompts[:eng.n_slots], extras):
-        eng.submit(p, TRACE_GEN, extras=e)
-    while eng.sched.waiting or len(eng.sched.running()) < eng.n_slots:
-        eng.step()
-    t = trace_engine_step(eng, f"{label} decode step")
-    eng.drain()
+    t = trace_filled(eng, prompts, f"{label} decode step", extras=extras)
     by_kernel, n_port, n_qdq, n_other, wall_ms, launches = (
         t["by_kernel"], t["n_port"], t["n_qdq"], t["n_other"], t["wall_ms"],
         t["launches"])
@@ -1510,7 +2050,7 @@ def phase_5m(dev, cfg, params, qcfg, a_prompts, b_prompts, b_out) -> dict:
 
     # (d) the shadow teacher: the BF16 tree the student was quantized from
     t0 = time.perf_counter()
-    teacher = serve.teacher_params(cfg, SEED, dev)
+    teacher = serve.load_teacher(cfg, SEED, dev)
     torch.cuda.synchronize()
     t_teacher = time.perf_counter() - t0
     dp = a_prompts[:OBS["shadow_requests"]]
@@ -1582,7 +2122,7 @@ def phase_5m(dev, cfg, params, qcfg, a_prompts, b_prompts, b_out) -> dict:
     # (e) whisper-tiny, traced, with the shadow: the slab spans and the
     # shadow's extras
     c, wparams, wqcfg, _, _, _ = load_full(WHISPER["arch"], dev)
-    wteacher = serve.teacher_params(c, SEED, dev)
+    wteacher = serve.load_teacher(c, SEED, dev)
     n = OBS["whisper_requests"]
     wp = serve.mixed_prompts(WHISPER["requests"], WHISPER["min_prompt"],
                              WHISPER["max_prompt"], c.vocab_size, SEED + 6)[:n]
@@ -1679,6 +2219,7 @@ def phase_5k(dev, row_inv) -> dict:
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(c, params, qcfg, device=dev, fused_kernels="on", **ENGINE)
     first = first_decode_logits(eng)
+    k_pre = prefill_logits(eng)          # the oracle of phase 5n's runs
     ops.reset_launches()
     t0 = time.perf_counter()
     rids, out = serve.run_workload(eng, prompts, RUN_A["gen"])
@@ -1745,12 +2286,7 @@ def phase_5k(dev, row_inv) -> dict:
     if max(rel) > LOGIT_TOL["nvfp4"]:
         fail(f"engine K: first decode step's logits differ by {max(rel)}")
     # a traced decode step: one K7 kernel (FP8 pages) for each layer
-    for p in prompts[:ENGINE["n_slots"]]:
-        eng.submit(p, TRACE_GEN)
-    while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
-        eng.step()
-    t = trace_engine_step(eng, "FP8 MoE engine decode step")
-    eng.drain()
+    t = trace_filled(eng, prompts, "FP8 MoE engine decode step")
     busy = sum(t["by_kernel"].values())
     k7_ms = sum(ms for k, ms in t["by_kernel"].items()
                 if "paged_attention_kernel" in k)
@@ -1807,11 +2343,24 @@ def phase_5k(dev, row_inv) -> dict:
         fail("engine K spec: a first token differs from the plain engine's")
     if max(vrel) > LOGIT_TOL["nvfp4"]:
         fail(f"engine K spec: first verify logits differ by {max(vrel)}")
-    del seng, params, first
+    # phase 5n's oracle: run K's prefill logits and first tokens of its
+    # first requests, and the same prefills through the tier a TP rank
+    # runs: this engine's with fused_kernels="off" (the expert stacks
+    # dequantized and multiplied, the gather-then-attend attention)
+    n_tp = RUN_KTP["requests"]
+    ueng = Engine(c, params, qcfg, device=dev, fused_kernels="off", **ENGINE)
+    u_pre = prefill_logits(ueng)
+    u_rids, u_out = serve.run_workload(ueng, prompts[:n_tp], 1)
+    oracle = dict(prompts=prompts[:n_tp], tokens=want[:n_tp], pool_bytes=pool_b,
+                  pre=[k_pre[r].cpu() for r in rids[:n_tp]],
+                  pre_unfused=[u_pre[r].cpu() for r in u_rids],
+                  first_unfused=[int(u_out[r][0]) for r in u_rids])
+    del ueng, u_pre
+    del seng, params, first, k_pre
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[engine K] {time.perf_counter() - t_start:.1f}s", flush=True)
-    return {"fp8": launches, "spec": slaunches}
+    return {"fp8": launches, "spec": slaunches, "tp_oracle": oracle}
 
 
 def gemm_rows_batched_attention():
@@ -3453,12 +4002,7 @@ def main() -> int:
         fail("engine A: a first token differs from single-request serve_batch")
 
     # one traced decode step: 8 running requests, nothing left to prefill
-    for p in a_prompts[:ENGINE["n_slots"]]:
-        eng.submit(p, TRACE_GEN)
-    while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
-        eng.step()
-    t = trace_engine_step(eng, "engine decode step")
-    eng.drain()
+    t = trace_filled(eng, a_prompts, "engine decode step")
     by_kernel, n_port, n_qdq, n_other, wall_ms, step_launches = (
         t["by_kernel"], t["n_port"], t["n_qdq"], t["n_other"], t["wall_ms"],
         t["launches"])
@@ -3640,6 +4184,11 @@ def main() -> int:
     # ---- 5m. serving telemetry on run A's loads ----------------------------
     m5_launches = phase_5m(dev, cfg, params, pqcfg, a_prompts, b_prompts,
                            [b_out[r] for r in b_rids])
+    # ---- 5n (d), its oracle: the single-device shadow on run A's tree -----
+    n_ctx = RUN_NTP["shadow_contexts"]
+    shadow_ctx = [np.asarray(p, np.int64) for p in
+                  sorted(a_prompts, key=len)[:n_ctx]]
+    shadow_single = shadow_oracle(dev, cfg, params, pqcfg, shadow_ctx)
     del params
     # the engines whose decode the recorders wrap sit in reference cycles
     # (engine -> state -> wrapper -> state): collect them, or their weights
@@ -3726,12 +4275,7 @@ def main() -> int:
             fail(f"engine M never launched {k}")
 
     # one traced decode step: 8 running requests, nothing left to prefill
-    for p in m_prompts[:ENGINE["n_slots"]]:
-        eng.submit(p, TRACE_GEN)
-    while eng.sched.waiting or len(eng.sched.running()) < ENGINE["n_slots"]:
-        eng.step()
-    t = trace_engine_step(eng, "MoE engine decode step")
-    eng.drain()
+    t = trace_filled(eng, m_prompts, "MoE engine decode step")
     by_kernel, n_port, n_qdq, n_other, wall_ms, step_launches = (
         t["by_kernel"], t["n_port"], t["n_qdq"], t["n_other"], t["wall_ms"],
         t["launches"])
@@ -3862,6 +4406,7 @@ def main() -> int:
     tp_prompts = a_prompts[:RUN_TP["requests"]]
     t0 = time.perf_counter()
     ranks = tp_mesh.spawn(tp_rank, TP_SIZE, tp_prompts, RUN_TP["gen"],
+                          shadow_ctx, k_launches["tp_oracle"]["prompts"],
                           device="cuda", timeout=900)
     tp_wall = time.perf_counter() - t0
     r0 = ranks[0]
@@ -3954,6 +4499,8 @@ def main() -> int:
     tp_launches = [r["launches"] for r in ranks]
     engine_tp = dict(st=stt, wall=r0["wall"], trace=tr, rel=tp_rel,
                      agree=tp_agree)
+    n5_launches = phase_5n_spec_shadow(ranks, cfg, shadow_single)
+    n5_launches.update(phase_5n_moe(ranks, k_launches["tp_oracle"]))
     del ranks, r0
 
     # ---- 5e. the rglru_hybrid family through the slab engine ---------------
@@ -4795,7 +5342,9 @@ def main() -> int:
                    "engine_h_rwkv6": h_launches["nvfp4_qdq"],
                    "engine_i_whisper": i_launches["nvfp4_qdq"],
                    "static_j_qwen2vl": j_launches["nvfp4_qdq"],
-                   **spec_paths("nvfp4_qdq")}
+                   **spec_paths("nvfp4_qdq"),
+                   **{f"engine_5n_{p}_rank0": n["nvfp4_qdq"]
+                      for p, n in n5_launches.items()}}
         return {"name": "nvfp4_qdq", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/nvfp4_qdq.cu",
                 "replaces": "src/repro/kernels/nvfp4_qdq.py:44",
@@ -4900,7 +5449,12 @@ def main() -> int:
                 "source": "src/repro_torch/kernels/csrc/nvfp4_matmul.cu",
                 "wrapper": "src/repro_torch/kernels/nvfp4_matmul.py",
                 "replaces": "src/repro/kernels/nvfp4_matmul.py:318",
-                "launches": tp_launches[0]["nvfp4_matmul_tp"],
+                "launches": tp_launches[0]["nvfp4_matmul_tp"]
+                + sum(n["nvfp4_matmul_tp"] for n in n5_launches.values()),
+                "launches_by_path": {
+                    "engine_tp_rank0": tp_launches[0]["nvfp4_matmul_tp"],
+                    **{f"engine_5n_{p}_rank0": n["nvfp4_matmul_tp"]
+                       for p, n in n5_launches.items()}},
                 "max_abs_err": err["nvfp4_matmul_tp"],
                 "max_err_over_bound": err_bound["nvfp4_matmul_tp"],
                 "ms": sum(r["ms"] for r in dec),

@@ -90,8 +90,10 @@ class QuantConfig:
         """Fake-quantize an activation (blocked along its last dim).
 
         ``tp`` (a ``distributed.ctx.TP``): ``x`` holds this rank's slice
-        of the features, so the scope's amax is the maximum over the
-        group, what the reference computes on the whole activation."""
+        of a tensor split over the group (its features, or an MoE slab's
+        experts), so the scope's amax is the maximum over the group, what
+        the reference computes on the whole activation, and a probe's
+        sums are the group's."""
         if not (self.quantizes(kind) and self.quantize_activations):
             return x
         amax = None
@@ -103,7 +105,7 @@ class QuantConfig:
             if probe_amax is None and self.act_scope != "tensor":
                 probe_amax = _qdq.scope_amax(x, self.act_scope)
             tape.put(f"{kind}.act",
-                     obs_numerics.quant_error_stats(x, probe_amax))
+                     obs_numerics.quant_error_stats(x, probe_amax, tp))
         if amax is None:
             return _fq_lastdim(x, scope=self.act_scope)
         return _fq_lastdim(x, amax)

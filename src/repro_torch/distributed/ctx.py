@@ -82,10 +82,11 @@ class TP:
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``dim`` in rank order.
-        The bytes move as they are (any dtype)."""
+        The bytes move as they are (any dtype: gloo takes no float8, so
+        every tensor travels as its bytes)."""
         t0 = self._start()
         src = self._host(x).contiguous()
-        raw = src.view(torch.uint8) if src.element_size() > 1 else src
+        raw = src if src.dtype == torch.uint8 else src.view(torch.uint8)
         parts = [torch.empty_like(raw) for _ in range(self.size)]
         dist.all_gather(parts, raw, group=self.group)
         parts = [p.view(x.dtype) for p in parts]

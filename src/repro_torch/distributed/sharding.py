@@ -21,6 +21,15 @@ of the bias) so that rank r's contiguous tile holds exactly its own q, k
 and v heads, which the head-local attention needs.  Choosing rows of W^T
 is exact: every output element is the unsharded GEMM's.  GQA stays
 aligned only when the KV heads divide the group.
+
+The MoE leaves follow the same rules.  An expert stack [E, K, N] splits
+on E where its config shards experts (``moe_shard="ep"``: the leading
+stored dim of a packed stack, codes and block scales alike, the per-layer
+tensor scale whole), or on the FFN dim under ``moe_shard="tp"`` (or when
+E does not divide the group and the FFN dim does): the gate and up stacks
+column-parallel, the down stack's packed K in whole blocks only.  The
+router [d, E] splits on E.  An FP8 KV pool's pages and f32 scale planes
+split on the KV-head dim, by the same "kv" rule.
 """
 from __future__ import annotations
 
@@ -43,6 +52,9 @@ TP_ONLY = {"batch": (), "vocab": (MODEL,), "mlp": (MODEL,), "qkv": (MODEL,),
            "layers": (), "inner": (), "none": ()}
 # leaves whose N dim is the fused [q heads | k heads | v heads] projection
 FUSED_QKV = ("wqkv", "bqkv")
+# the MoE expert stacks [E, K, N]: split on E ("expert", ``moe_shard="ep"``)
+# or on the FFN dim ("mlp", ``moe_shard="tp"``)
+EXPERT_STACKS = ("moe_wg", "moe_wu", "moe_wd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +165,18 @@ def _cut(t: torch.Tensor, axis: int, rank: int, size: int) -> torch.Tensor:
     return t.narrow(axis, rank * n, n).contiguous()
 
 
+def _cut_packed(p: PackedNVFP4, axis: int, rank: int,
+                size: int) -> PackedNVFP4:
+    """A packed leaf's tile on a leading stored dim (an expert stack's E):
+    codes and block scales cut alike, the tensor scale too where it varies
+    along that dim (else it is broadcast and stays whole)."""
+    ts = p.tensor_scale
+    if ts.ndim >= -axis and ts.shape[axis] > 1:
+        ts = _cut(ts, axis, rank, size)
+    return PackedNVFP4(_cut(p.codes, axis, rank, size),
+                       _cut(p.scales, axis, rank, size), ts.clone(), p.orig_k)
+
+
 def _stored(spec: ParamSpec) -> tuple:
     """A packed leaf's codes shape: the non-contraction dims, then K/2."""
     full = list(spec.shape)
@@ -198,8 +222,7 @@ def shard_leaf(spec: ParamSpec, leaf, rank: int, size: int, rules: Rules,
         if axis == -1:
             return nvfp4.tp_tile(leaf, "row", rank, size)
         if axis != -2:
-            raise NotImplementedError(f"{name}: a packed leaf split on "
-                                      f"stored dim {axis}")
+            return _cut_packed(leaf, axis, rank, size)
         rows = (_qkv_rows(*heads, size, name).to(leaf.codes.device)
                 if fused and heads else None)
         return nvfp4.tp_tile(leaf, "column", rank, size, rows)
@@ -231,8 +254,12 @@ def shard_counts(specs, params, size: int, rules: Rules) -> dict:
     """Packed leaves, packed leaves this rank holds as tiles (read from the
     shapes held: column- and row-parallel weights must not silently
     replicate), and the tree's bytes over the group: a tile counts
-    ``size`` times, a packed leaf's replicated tensor scale once."""
-    out = {"packed_total": 0, "packed_sharded": 0, "weight_bytes_total": 0}
+    ``size`` times, a packed leaf's replicated tensor scale once.  The MoE
+    expert stacks (``EXPERT_STACKS``) are counted apart too: how many, how
+    many held as tiles (on E or on the FFN dim), and their bytes on this
+    rank."""
+    out = {"packed_total": 0, "packed_sharded": 0, "weight_bytes_total": 0,
+           "expert_total": 0, "expert_sharded": 0, "expert_bytes": 0}
 
     def walk(sp, pr, path):
         if isinstance(sp, dict):
@@ -248,13 +275,18 @@ def shard_counts(specs, params, size: int, rules: Rules) -> dict:
                 out["packed_total"] += 1
                 out["packed_sharded"] += split
                 tiles = pr.codes.numel() + pr.scales.numel()   # 1 B each
+                nbytes = tiles + pr.tensor_scale.numel() * 4
                 out["weight_bytes_total"] += (tiles * (size if split else 1)
                                               + pr.tensor_scale.numel() * 4)
             else:
                 split = _is_tile(path, tuple(pr.shape), tuple(sp.shape),
                                  _axis(resolve(sp, size, rules, path)), size)
-                out["weight_bytes_total"] += (pr.numel() * pr.element_size()
-                                              * (size if split else 1))
+                nbytes = pr.numel() * pr.element_size()
+                out["weight_bytes_total"] += nbytes * (size if split else 1)
+        if path.rsplit(".", 1)[-1] in EXPERT_STACKS:
+            out["expert_total"] += 1
+            out["expert_sharded"] += split
+            out["expert_bytes"] += nbytes
 
     walk(specs, params, "")
     return out

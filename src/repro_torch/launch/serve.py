@@ -55,10 +55,17 @@ token for token against the plain engine's on the same workload, and a
 each (``launch.mesh.spawn``, a gloo group), on ``--device``: every rank
 cuts its tiles of the weights and of the KV pool, the packed GEMMs run
 K4, and rank 0 prints.  Each rank checks its outputs against the
-single-device ``serve_batch`` on the full weights:
+single-device ``serve_batch`` on the full weights (with ``--speculative``
+against the plain engine under the same ``--tp``).  MoE configs split
+their experts (E, or each expert's FFN dim under ``moe_shard="tp"``),
+an FP8 pool its pages and scales by KV head; ``--speculative``,
+``--draft``, ``--adaptive-k`` and ``--shadow-rate`` compose with it:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch qwen1.5-0.5b --weight-format packed --engine --tp 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch arctic-480b --weight-format packed --engine --tp 2 \
+        --speculative 2 --shadow-rate 0.5
 
 Telemetry (engine mode): ``--obs metrics`` (counters, gauges, latency
 histograms, dispatch counts) or ``--obs trace`` (also the request
@@ -114,42 +121,46 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def load_quantized(cfg, seed: int = 0, weight_format: str = "qdq",
-                   device="cuda", tp=None):
-    """Deploy-time weights: random BF16 init from ``seed``, then one-shot
-    PTQ.  Returns (params, qcfg).
-
-    With ``tp`` (a ``distributed.ctx.TP``) the rank draws the same seeded
-    weights and keeps only its tiles (``distributed.sharding``): each leaf
-    is quantized and cut as soon as it is drawn, so one full leaf at most
-    is alive at a time."""
+def _draw(cfg, seed: int, device, tp=None, leaf=lambda spec, w: w):
+    """The seeded BF16 init of ``cfg``, each leaf replaced by
+    ``leaf(spec, w)`` as soon as it is drawn and, with ``tp`` (a
+    ``distributed.ctx.TP``), cut to this rank's tile under the rules of
+    ``distributed.sharding``: one full leaf at most is alive at a time."""
     device = resolve_device(device)
-    model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
-    qcfg = dataclasses.replace(specs.recipe_qconfig(cfg),
-                               weight_format=weight_format)
-    pspecs = model.param_specs(cfg)
-    with torch.no_grad():
-        if tp is None:
-            params = model.init_params(cfg, gen, device)
-            return ptq.quantize_weights(params, pspecs, qcfg), qcfg
+    pspecs = get_model(cfg).param_specs(cfg)
+    if tp is None:
+        def one(path, spec, w):
+            return leaf(spec, w)
+    else:
         from ..distributed import sharding
         rules = sharding.make_rules()
         heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
-        def tile(path, spec, w):
-            return sharding.shard_leaf(spec, ptq.quantize_leaf(spec, w, qcfg),
-                                       tp.rank, tp.size, rules, path, heads)
-        return common.init_params(pspecs, gen, device, leaf_fn=tile), qcfg
-
-
-def teacher_params(cfg, seed: int = 0, device="cuda"):
-    """The BF16 teacher: the seeded init ``load_quantized`` quantizes,
-    unquantized (the shadow teacher's parameters)."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+        def one(path, spec, w):
+            return sharding.shard_leaf(spec, leaf(spec, w), tp.rank, tp.size,
+                                       rules, path, heads)
     with torch.no_grad():
-        return get_model(cfg).init_params(cfg, gen, device)
+        return common.init_params(pspecs, gen, device, leaf_fn=one)
+
+
+def load_quantized(cfg, seed: int = 0, weight_format: str = "qdq",
+                   device="cuda", tp=None):
+    """Deploy-time weights: random BF16 init from ``seed``, then one-shot
+    PTQ of each leaf as it is drawn (``_draw``).  Returns (params, qcfg).
+    With ``tp`` (a ``distributed.ctx.TP``) the rank keeps only its tiles
+    of the same weights."""
+    qcfg = dataclasses.replace(specs.recipe_qconfig(cfg),
+                               weight_format=weight_format)
+    return _draw(cfg, seed, device, tp,
+                 lambda spec, w: ptq.quantize_leaf(spec, w, qcfg)), qcfg
+
+
+def load_teacher(cfg, seed: int = 0, device="cuda", tp=None):
+    """The BF16 teacher: the seeded init ``load_quantized`` quantizes,
+    unquantized (the shadow teacher's parameters).  With ``tp`` only this
+    rank's tiles, under the rules the student's tiles follow."""
+    return _draw(cfg, seed, device, tp)
 
 
 def inject_quant_noise(params, scale: float):
@@ -275,8 +286,9 @@ def build_engine(cfg, params, qcfg, args, mesh=None):
     shadow_rate = getattr(args, "shadow_rate", 0.0) or 0.0
     if shadow_rate > 0.0:
         # the BF16 teacher: the seeded init the student was quantized from
-        kw.update(shadow_teacher=teacher_params(cfg, args.seed,
-                                                params_device(params)),
+        # (under TP this rank's tiles of it)
+        kw.update(shadow_teacher=load_teacher(cfg, args.seed,
+                                              params_device(params), mesh),
                   shadow_rate=shadow_rate)
     spec_k = getattr(args, "speculative", 0)
     if not spec_k:
@@ -290,7 +302,8 @@ def build_engine(cfg, params, qcfg, args, mesh=None):
         # random weights; the output must still be the plain engine's)
         dl = args.draft_layers or max(1, cfg.n_layers // 2)
         dcfg = dataclasses.replace(cfg, n_layers=dl, name=f"{cfg.name}-2m")
-        dparams, dqcfg = load_quantized(dcfg, 99, "qdq", params_device(params))
+        dparams, dqcfg = load_quantized(dcfg, 99, "qdq", params_device(params),
+                                        tp=mesh)
         draft_model = (dcfg, dparams, dqcfg)
     eng = SpecEngine(cfg, params, qcfg, draft_k=spec_k, draft=args.draft,
                      draft_layers=args.draft_layers, draft_model=draft_model,
@@ -300,16 +313,22 @@ def build_engine(cfg, params, qcfg, args, mesh=None):
 
 def tp_shard_report(eng) -> dict:
     """How the engine's packed weights and KV pool sharded (the
-    reference's keys).  ``packed_total`` / ``packed_sharded`` count
-    ``PackedNVFP4`` leaves and those cut into tiles (column- and
-    row-parallel layers must not silently replicate); ``kv_sharded`` says
-    the pool pages split on the KV-head dim.  Byte counts are per device
-    and over the whole group."""
+    reference's keys, then the port's MoE and FP8 ones).
+    ``packed_total`` / ``packed_sharded`` count ``PackedNVFP4`` leaves and
+    those cut into tiles (column- and row-parallel layers must not
+    silently replicate); ``kv_sharded`` says the pool pages split on the
+    KV-head dim.  ``experts_sharded``: every MoE expert stack is held as
+    a tile (on E or on its FFN dim), ``expert_bytes_per_device`` their
+    bytes on this rank; ``fp8_scales_sharded``: an FP8 pool's f32 scale
+    planes split on the KV-head dim with its pages.  Byte counts are per
+    device and over the whole group."""
     from ..distributed import sharding
 
+    size = eng.mesh.size if eng.mesh else 1
     counts = sharding.shard_counts(eng.model.param_specs(eng.cfg), eng.params,
-                                   eng.mesh.size if eng.mesh else 1, eng.rules)
+                                   size, eng.rules)
     sst = eng.state.stats()
+    pool = eng.pool.data
     return {
         "packed_total": counts["packed_total"],
         "packed_sharded": counts["packed_sharded"],
@@ -318,6 +337,12 @@ def tp_shard_report(eng) -> dict:
         "weight_bytes_total": counts["weight_bytes_total"],
         "kv_pool_bytes_per_device": sst["pool_bytes_per_device"],
         "kv_pool_bytes_total": sst["pool_bytes"],
+        "experts_sharded": (counts["expert_sharded"]
+                            == counts["expert_total"] > 0),
+        "expert_bytes_per_device": counts["expert_bytes"],
+        "fp8_scales_sharded": (eng.pool.fp8 and size > 1 and all(
+            pool[k].shape[3] * size == eng.cfg.n_kv_heads
+            for k in ("k_scale", "v_scale"))),
     }
 
 
@@ -374,7 +399,12 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
             f"weights/device={tp_rep['weight_bytes_per_device']/2**20:.2f}"
             f"MiB (total {tp_rep['weight_bytes_total']/2**20:.2f}MiB) "
             f"kv-pool/device={tp_rep['kv_pool_bytes_per_device']/2**20:.2f}"
-            f"MiB")
+            f"MiB"
+            + (f" experts-sharded={tp_rep['experts_sharded']} "
+               f"experts/device={tp_rep['expert_bytes_per_device']/2**20:.2f}"
+               f"MiB" if cfg.n_experts else "")
+            + (f" fp8-scales-sharded={tp_rep['fp8_scales_sharded']}"
+               if eng.pool.fp8 else ""))
         tp_ok = tp_rep["packed_sharded"] == tp_rep["packed_total"]
         if not tp_ok:
             say("[engine] FAIL: packed leaves left replicated under TP")
@@ -691,9 +721,6 @@ def main(argv=None) -> dict:
     if args.inject_quant_noise and args.weight_format != "packed":
         raise SystemExit("--inject-quant-noise perturbs PackedNVFP4 "
                          "tensor scales; use --weight-format packed")
-    if args.shadow_rate and args.tp > 1:
-        raise SystemExit("--shadow-rate under --tp is part of a later slice "
-                         "of the port (what tensor parallelism left)")
     device = resolve_device(args.device)
     if args.tp > 1:
         if not args.engine:

@@ -25,10 +25,12 @@ nonzero term), and ``_lm_head`` all-gathers the local logits to the full
 vocabulary on every rank.  The paged forwards of the engine write the pool
 in place too.  A MoE layer (``n_experts``) runs ``layers.moe_ffn`` with
 a shared expert behind a sigmoid gate (Qwen1.5-MoE) or a dense residual
-FFN (Arctic).  The slab engine's per-row decode (``_block_slots``) and
+FFN (Arctic); under TP both are ordinary column- and row-parallel sites
+and the gate [d, 1] stays whole.  The slab engine's per-row decode (``_block_slots``) and
 the paged engine's chunked prefill (``prefill_chunk_paged``) are here
 too.  FP8 KV (the ``moe_hybrid`` recipe, ``_kv_fp8``): the dense cache
-and the pool hold E4M3 K and V with f32 scales per (position, head);
+and the pool hold E4M3 K and V with f32 scales per (position, head), so
+under TP a rank's KV heads carry their own scales;
 ``prefill`` attends its prompt's BF16 KV and stores it quantized, the
 decode and paged forwards quantize each new row as they write it, and the
 chunked prefill attends its BF16 scratch and quantizes only the pool's

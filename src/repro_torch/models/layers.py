@@ -11,7 +11,12 @@ weights are dequantized and multiplied; dense weights are multiplied as
 they are.
 
 ``moe_ffn`` is the top-k MoE with sorted capacity dispatch in the
-reference's three scopes.
+reference's three scopes.  Under TP the router's logits are all-gathered
+along E before the softmax (every rank routes and drops alike) and each
+rank runs its tiles of the expert stacks (``_expert_ffn``): its E/n
+experts, whose outputs are all-gathered along E before the combine, or
+every expert's slice of the FFN dim, the down projection's f32 partials
+summed over the group.
 
 Under an active tensor-parallel context (``distributed.ctx``) a dense
 GEMM site names its ``parallelism``.  A column site takes the whole
@@ -41,7 +46,7 @@ import math
 import numpy as np
 import torch
 
-from ..core.nvfp4 import PackedNVFP4
+from ..core.nvfp4 import BLOCK, PackedNVFP4
 from ..core.qconfig import QuantConfig
 from ..distributed import ctx
 from ..kernels import ops
@@ -97,13 +102,14 @@ def _from_groups(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return y.reshape(e, -1, c, n).movedim(0, 1).reshape(*lead, e, c, n)
 
 
-def _moe_einsum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _moe_einsum(x: torch.Tensor, w: torch.Tensor,
+                out_dtype=None) -> torch.Tensor:
     """``einsum(_MOE_EQ, x, w)`` for a dense expert stack w [E, K, N]: f32
-    products and sums, rounded once to the promoted dtype, as XLA computes
-    a bf16 dot.  On the CPU the sum runs over K in order, as XLA's CPU dot
-    sums (so this is bitwise the grouped kernel's plain version); on the
-    card it is one f32 batched product."""
-    dt = torch.promote_types(x.dtype, w.dtype)
+    products and sums, rounded once to the promoted dtype (or to
+    ``out_dtype``), as XLA computes a bf16 dot.  On the CPU the sum runs
+    over K in order, as XLA's CPU dot sums (so this is bitwise the grouped
+    kernel's plain version); on the card it is one f32 batched product."""
+    dt = out_dtype or torch.promote_types(x.dtype, w.dtype)
     xg = _to_groups(x)
     if xg.device.type == "cpu":
         y = sum_k_f32(xg, w.transpose(1, 2))
@@ -125,6 +131,14 @@ def _note_gemm(backend: str, w) -> None:
     rec.gemm(backend, nbytes)
 
 
+def _probe_packed(qcfg: QuantConfig, kind: str, wr, tp=None) -> None:
+    """A packed weight bypasses ``q_weight``: its scale-structure probe
+    lives at the dispatch point (``tp``: ``wr`` is this rank's tile)."""
+    tape = obs_numerics.active() if qcfg.numerics else None
+    if tape is not None and isinstance(wr, PackedNVFP4):
+        tape.put(f"{kind}.w", obs_numerics.packed_weight_stats(wr, tp))
+
+
 def _moe_grouped(xq: torch.Tensor, wr: PackedNVFP4) -> torch.Tensor:
     """``_MOE_EQ`` through ``ops.nvfp4_matmul_grouped``: one launch for all
     experts; x [..., E, C, K] -> [..., E, C, N]."""
@@ -139,7 +153,9 @@ def qeinsum(qcfg: QuantConfig, kind: str, eq: str, x: torch.Tensor, w,
     """``einsum(eq, q_act(x), resolve(w))`` for the dense equation
     (w [K, N]) or the MoE one (w [E, K, N], ``contract_axis=1``).
     ``quantize_act=False`` lets the MoE fake-quant an activation once and
-    reuse it across GEMMs."""
+    reuse it across GEMMs.  ``parallelism`` under TP: "column" or "row"
+    (a dense site), "column" or "expert" (an expert stack's tile on its
+    FFN dim or on E: the product is the tile's, no collective)."""
     if eq not in (_DENSE_EQ, _MOE_EQ):
         raise ValueError(f"unsupported einsum {eq!r}")
     tp = ctx.current()
@@ -147,11 +163,7 @@ def qeinsum(qcfg: QuantConfig, kind: str, eq: str, x: torch.Tensor, w,
         return _qeinsum_row(qcfg, kind, x, w, quantize_act, tp)
     xq = qcfg.q_act(x, kind) if quantize_act else x
     wr = qcfg.resolve_weight(w, kind, contract_axis)
-    tape = obs_numerics.active() if qcfg.numerics else None
-    if tape is not None and isinstance(wr, PackedNVFP4):
-        # a packed weight bypasses q_weight: its scale-structure probe
-        # lives here, at the dispatch point
-        tape.put(f"{kind}.w", obs_numerics.packed_weight_stats(wr))
+    _probe_packed(qcfg, kind, wr, tp if parallelism else None)
     einsum = _matmul if eq == _DENSE_EQ else _moe_einsum
     if isinstance(wr, PackedNVFP4):
         if (wr.ndim == 3 and contract_axis == 1 and eq == _MOE_EQ
@@ -182,10 +194,12 @@ def _qeinsum_row(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,
         # replicated (no whole-block split): gather the features, no sum
         x = tp.all_gather(x, -1)
         xq = qcfg.q_act(x, kind) if quantize_act else x
+        _probe_packed(qcfg, kind, wr)
         _note_gemm("dequant" if packed else "dense", wr)
         return _matmul(xq, ops.dequant_weight(wr, 0, xq.dtype)
                        if packed else wr)
     xq = qcfg.q_act(x, kind, tp) if quantize_act else x
+    _probe_packed(qcfg, kind, wr, tp)
     if packed and wr.ndim == 2 and qcfg.packed_backend in ("auto", "grouped"):
         _note_gemm("pallas_tp_row", wr)
         return ops.nvfp4_matmul_tp(xq, wr, tp, "row", out_dtype=xq.dtype)
@@ -410,14 +424,86 @@ def moe_ffn(qcfg, cfg, x, router_w, wg, wu, wd):
     return out.reshape(b, s, d), aux
 
 
-def _expert_ffn(qcfg, xe, wg, wu, wd):
+def _expert_layout(cfg, wg) -> str | None:
+    """How this rank holds the expert stacks under TP, read from the gate
+    stack's shape: "ep" (E/n experts, ``moe_shard="ep"``), "tp" (every
+    expert's FFN dim split, ``moe_shard="tp"``, or E not dividing the
+    group), or None (no context, or every expert whole on every rank)."""
+    if ctx.current() is None:
+        return None
+    if wg.shape[0] != cfg.n_experts:
+        return "ep"
+    ffe = wg.codes.shape[-2] if isinstance(wg, PackedNVFP4) else wg.shape[-1]
+    return "tp" if ffe != cfg.moe_d_ff else None
+
+
+def _expert_ffn(qcfg, cfg, xe, wg, wu, wd):
     """Quantized SwiGLU over per-expert token slabs xe [..., E, C, d]; the
-    input is fake-quantized once for the gate and up GEMMs."""
+    input is fake-quantized once for the gate and up GEMMs.
+
+    Under TP every rank holds the whole slab (routing is replicated) and
+    quantizes it whole.  "ep": the rank runs its E/n experts, the hidden's
+    QDQ takes the group's amax where its scope spans the experts, and the
+    experts' outputs are all-gathered along E, so the combine sees every
+    expert's bits.  "tp": gate and up column-parallel on the FFN dim, the
+    down projection row-parallel (``_expert_down_tp``)."""
+    layout = _expert_layout(cfg, wg)
+    tp = ctx.current()
     xq = qcfg.q_act(xe, "mlp")
-    g = qdense(qcfg, "mlp", xq, wg, contract_axis=1, quantize_act=False)
-    u = qdense(qcfg, "mlp", xq, wu, contract_axis=1, quantize_act=False)
-    h = qcfg.q_act(silu(g) * u, "mlp")
+    if layout == "ep":
+        e_loc = wg.shape[0]
+        xq = xq.narrow(-3, tp.rank * e_loc, e_loc)
+    par = {"ep": "expert", "tp": "column"}.get(layout)
+    g = qdense(qcfg, "mlp", xq, wg, contract_axis=1, quantize_act=False,
+               parallelism=par)
+    u = qdense(qcfg, "mlp", xq, wu, contract_axis=1, quantize_act=False,
+               parallelism=par)
+    h = silu(g) * u
+    if layout == "tp":
+        return _expert_down_tp(qcfg, h, wd, tp)
+    if layout == "ep":
+        # the group's amax is the slab's where the scope spans the experts:
+        # the tensor, or a row ahead of them (the engine's per-row and
+        # per-token dispatch); a flat slab's rows are its experts
+        if not (qcfg.act_scope == "tensor"
+                or (qcfg.act_scope == "row" and h.ndim > 3)):
+            raise NotImplementedError(
+                f"experts split over ranks with {qcfg.act_scope!r} "
+                f"activation scales on a {h.ndim}-D slab: serve with per-row "
+                "dispatch (moe_dispatch='local' or 'token')")
+        h = qcfg.q_act(h, "mlp", tp)
+        y = qdense(qcfg, "mlp", h, wd, contract_axis=1, quantize_act=False,
+                   parallelism="expert")
+        return tp.all_gather(y, -3)
+    h = qcfg.q_act(h, "mlp")
     return qdense(qcfg, "mlp", h, wd, contract_axis=1, quantize_act=False)
+
+
+def _expert_down_tp(qcfg, h, wd, tp):
+    """The down projection of FFN-split experts: ``h`` [..., E, C, ffe/n]
+    holds this rank's features.  Where they are whole 16-element blocks
+    the QDQ takes the group's amax and ``wd``'s rows multiply them, the
+    f32 partials summed over the group.  Where blocks cross the cut, the
+    hidden is all-gathered and quantized whole; a replicated ``wd`` (its
+    packed K could not split) then runs whole with no sum, a split one on
+    the rank's features of the quantized hidden."""
+    f_loc = h.shape[-1]
+    whole = (wd.k if isinstance(wd, PackedNVFP4) else wd.shape[-2]) != f_loc
+    if whole or f_loc % BLOCK:
+        hq = qcfg.q_act(tp.all_gather(h, -1), "mlp")
+        if whole:
+            return qdense(qcfg, "mlp", hq, wd, contract_axis=1,
+                          quantize_act=False)
+        hq = hq.narrow(-1, tp.rank * f_loc, f_loc)
+    else:
+        hq = qcfg.q_act(h, "mlp", tp)
+    wr = qcfg.resolve_weight(wd, "mlp", 1)
+    packed = isinstance(wr, PackedNVFP4)
+    _probe_packed(qcfg, "mlp", wr, tp)
+    _note_gemm("dequant" if packed else "dense", wr)
+    w = ops.dequant_weight(wr, 1, hq.dtype) if packed else wr
+    part = _moe_einsum(hq, w, torch.float32)
+    return tp.all_reduce(part).to(torch.promote_types(hq.dtype, w.dtype))
 
 
 def _top_k(gates: torch.Tensor, k: int):
@@ -437,8 +523,12 @@ def _route(qcfg, cfg, x, router_w):
     r, n, _ = x.shape
     e, k = cfg.n_experts, cfg.experts_per_tok
     dev = x.device
-    gates = torch.softmax(
-        qdense(qcfg, "router", x, router_w).to(torch.float32), -1)  # [R,N,E]
+    logits = qdense(qcfg, "router", x, router_w)
+    if logits.shape[-1] != e:
+        # the router's E split over the group: every rank gathers every
+        # expert's logit, so every rank routes (and drops) alike
+        logits = ctx.current().all_gather(logits, -1)
+    gates = torch.softmax(logits.to(torch.float32), -1)              # [R,N,E]
     topw, topi = _top_k(gates, k)                                    # [R,N,k]
     topw = topw / torch.clamp_min(torch.sum(topw, -1, keepdim=True), 1e-9)
 
@@ -503,7 +593,7 @@ def _moe_dispatch_local(qcfg, cfg, x, router_w, wg, wu, wd):
     e = cfg.n_experts
     buf_tok, plan, cap, aux = _route(qcfg, cfg, x, router_w)
     xe = torch.take_along_dim(x, buf_tok[:, :, None], 1).reshape(b, e, cap, d)
-    ye = _expert_ffn(qcfg, xe, wg, wu, wd)
+    ye = _expert_ffn(qcfg, cfg, xe, wg, wu, wd)
     out = _combine(ye.reshape(b, e * cap, d), plan)
     return out.to(x.dtype), aux
 
@@ -515,6 +605,6 @@ def _moe_dispatch_flat(qcfg, cfg, xf, router_w, wg, wu, wd):
     e = cfg.n_experts
     buf_tok, plan, cap, aux = _route(qcfg, cfg, xf[None], router_w)
     xe = xf[buf_tok[0]].reshape(e, cap, d)
-    ye = _expert_ffn(qcfg, xe, wg, wu, wd)
+    ye = _expert_ffn(qcfg, cfg, xe, wg, wu, wd)
     out = _combine(ye.reshape(1, e * cap, d), plan)[0]
     return out.to(xf.dtype), aux

@@ -92,8 +92,36 @@ class Tape:
 # ---------------------------------------------------------------------------
 
 
+def _group_stats(tp, sums: list, counts: list, amax: torch.Tensor) -> tuple:
+    """The stats' sums (0-d f32), counts (ints) and amax, as they stand on
+    one device or, under tensor parallelism (``tp``), over the group: one
+    all-gather of this rank's values in f64, added in rank order on every
+    rank (so every rank gets the same bits; the counts exactly), the amax
+    the group's max."""
+    if tp is None:
+        return sums, counts, amax
+    mine = torch.stack([*(s.to(torch.float64) for s in sums),
+                        *(torch.full((), float(c), dtype=torch.float64,
+                                     device=amax.device) for c in counts),
+                        amax.to(torch.float64)])
+    every = tp.all_gather(mine[None], 0)                  # [size, n + 1]
+    total = every[0]
+    for r in range(1, every.shape[0]):
+        total = total + every[r]
+    n = len(sums)
+    return ([t.to(torch.float32) for t in total[:n]],
+            [int(c) for c in total[n:-1].tolist()],
+            torch.amax(every[:, -1]).to(torch.float32))
+
+
+def _mean(total: torch.Tensor, count: int) -> torch.Tensor:
+    """The mean as the jitted reference takes it: the sum times the f32
+    reciprocal of the count."""
+    return total * float(np.float32(1.0) / np.float32(count))
+
+
 @torch.no_grad()
-def quant_error_stats(x: torch.Tensor, tensor_amax=None) -> dict:
+def quant_error_stats(x: torch.Tensor, tensor_amax=None, tp=None) -> dict:
     """NVFP4 quantization-error stats for ``x``, blocked along the last dim.
 
     Returns 0-d f32 tensors:
@@ -110,6 +138,12 @@ def quant_error_stats(x: torch.Tensor, tensor_amax=None) -> dict:
     divisions by constants as f32 reciprocal multiplications, as the
     ``nvfp4_qdq`` kernel and the reference's jitted step compute them);
     the dequantized values stay in f32, as in the reference.
+
+    ``tp`` (a ``distributed.ctx.TP``): ``x`` is this rank's slice of a
+    tensor split over the group; the signal, noise and clip sums, the
+    counts and the block scales' sum are the group's, the amax its max,
+    so the stats are those of the whole tensor (up to the order of the
+    f32 sums).
     """
     xf = x.detach().to(torch.float32)
     k = xf.shape[-1]
@@ -123,34 +157,37 @@ def quant_error_stats(x: torch.Tensor, tensor_amax=None) -> dict:
     err = xf - y
     sig = torch.sum(xf * xf)
     noise = torch.sum(err * err)
-    sqnr_db = 10.0 * (torch.log10(torch.clamp_min(sig, 1e-30))
-                      - torch.log10(torch.clamp_min(noise, 1e-30)))
     cap = (scales.block * scales.tensor) * nvfp4.E2M1_MAX
     xb = torch.abs(xf).reshape(*xf.shape[:-1], xf.shape[-1] // nvfp4.BLOCK,
                                nvfp4.BLOCK)
-    # the mean as the jitted reference takes it: the sum times the f32
-    # reciprocal of the count
     clipped = (xb > cap[..., None]).to(torch.float32)
-    clip_frac = torch.sum(clipped) * float(np.float32(1.0) /
-                                           np.float32(clipped.numel()))
+    (sig, noise, n_clip, s_sum), (n, n_s), amax = _group_stats(
+        tp, [sig, noise, torch.sum(clipped), torch.sum(scales.block)],
+        [clipped.numel(), scales.block.numel()], torch.amax(torch.abs(xf)))
+    sqnr_db = 10.0 * (torch.log10(torch.clamp_min(sig, 1e-30))
+                      - torch.log10(torch.clamp_min(noise, 1e-30)))
     return {
         "sqnr_db": sqnr_db,
-        "amax": torch.amax(torch.abs(xf)),
-        "clip_frac": clip_frac,
-        "scale_util": torch.mean(scales.block) / nvfp4.E4M3_MAX,
+        "amax": amax,
+        "clip_frac": _mean(n_clip, n),
+        "scale_util": _mean(s_sum, n_s) / nvfp4.E4M3_MAX,
     }
 
 
 @torch.no_grad()
-def packed_weight_stats(p: "nvfp4.PackedNVFP4") -> dict:
+def packed_weight_stats(p: "nvfp4.PackedNVFP4", tp=None) -> dict:
     """Probe stats for an already-packed weight: the reconstructed amax
     (max block scale x tensor scale x E2M1_MAX) and the FP8 scale-range
-    utilization (the original values are gone, so no SQNR)."""
+    utilization (the original values are gone, so no SQNR).  ``tp``:
+    ``p`` is this rank's tile; the amax is the group's max and the scale
+    use the mean over every tile."""
     sb = p.scales.to(torch.float32)
     ts = p.tensor_scale.to(torch.float32)
+    (s_sum,), (n,), amax = _group_stats(tp, [torch.sum(sb)], [sb.numel()],
+                                        torch.amax(sb * ts))
     return {
-        "amax": torch.amax(sb * ts) * nvfp4.E2M1_MAX,
-        "scale_util": torch.mean(sb) / nvfp4.E4M3_MAX,
+        "amax": amax * nvfp4.E2M1_MAX,
+        "scale_util": _mean(s_sum, n) / nvfp4.E4M3_MAX,
     }
 
 

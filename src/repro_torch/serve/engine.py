@@ -51,13 +51,19 @@ heads.  Each forward runs under the context: K4 for the packed GEMMs,
 head-local attention, a vocab-parallel embedding and all-gathered logits,
 so greedy sampling (and seeded sampling) picks the same tokens on every
 rank; ``drain`` checks that.  As in the reference, "auto" turns the fused
-tier off under a mesh and ``fused_kernels="on"`` with one raises.  MoE,
-FP8-KV and slab-state configs under TP raise ``NotImplementedError``.
+tier off under a mesh and ``fused_kernels="on"`` with one raises: the
+expert stacks take dequantize-then-multiply and the attention the
+gather-then-attend two-step.  MoE configs split their experts (on E, or
+on each expert's FFN dim) and route on the all-gathered router logits
+(``layers.moe_ffn``); an FP8 pool splits its pages and scale planes by
+KV head; the shadow teacher's tiles are cut by the same rules.
+Slab-state configs under TP raise ``NotImplementedError`` (the next
+slice).
 
-FP8 KV (the ``moe_hybrid`` recipe) serves on one device: the pool (or the
-exact prefill's dense cache) holds E4M3 K and V with f32 scales, and K7
-reads the FP8 pages.  ``_after_prefill`` and ``_do_decode`` are the hooks
-the speculative engine (``repro_torch.spec.SpecEngine``) replaces.
+FP8 KV (the ``moe_hybrid`` recipe): the pool (or the exact prefill's
+dense cache) holds E4M3 K and V with f32 scales, and K7 reads the FP8
+pages.  ``_after_prefill`` and ``_do_decode`` are the hooks the
+speculative engine (``repro_torch.spec.SpecEngine``) replaces.
 
 Telemetry (``obs``, a ``repro_torch.obs.Observability``): request
 lifecycle counters and latency histograms, occupancy gauges, the prefix
@@ -80,6 +86,9 @@ live KL and top-1 agreement at the last position, and per layer the
 student's quantization error and the teacher-student hidden divergence
 (``self.numerics``, an ``obs.numerics.NumericsRecorder``).  It is
 stateless: the pool, the slabs and the sampling streams are untouched.
+Under a mesh each rank runs both forwards on its tiles (the teacher is
+cut as the student is) and the probes reduce over the group
+(``obs.numerics``), so every rank records the same values.
 """
 from __future__ import annotations
 
@@ -140,11 +149,6 @@ class Engine:
             raise TypeError(f"mesh must be a distributed.ctx.TP (this "
                             f"rank of a tensor-parallel group), got "
                             f"{type(mesh).__name__}")
-        if shadow_teacher is not None and mesh is not None:
-            raise NotImplementedError(
-                "the shadow teacher under tensor parallelism is part of a "
-                "later slice of the port (what tensor parallelism left): "
-                "each rank holds tiles of the student")
         if prefill_mode not in ("exact", "chunked", "paged"):
             raise ValueError(prefill_mode)
         if prefill_mode in ("chunked", "paged") and not self.paged:
@@ -173,12 +177,12 @@ class Engine:
             raise ValueError(f"params live on {params_device(params)}, the "
                              f"engine on {self.device}")
         self.rules = rules or sharding.make_rules()
+        self.mesh = mesh
         if mesh is not None:
             _check_tp(cfg, mesh.size)
-            params = sharding.shard_params(
-                params, self.model.param_specs(cfg), mesh, self.rules,
-                heads=(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim))
-        self.mesh = mesh
+            params = self.shard(params)
+            if shadow_teacher is not None and shadow_rate > 0.0:
+                shadow_teacher = self.shard(shadow_teacher)
         self.params = params
         if qcfg is None:
             qcfg = specs.recipe_qconfig(cfg)
@@ -324,6 +328,15 @@ class Engine:
                                  f"{self.device}")
             self._shadow_every = max(1, round(1.0 / self.shadow_rate))
             self.numerics = obs_numerics.NumericsRecorder(self.obs.metrics)
+
+    def shard(self, params, cfg=None):
+        """This rank's tiles of a parameter tree of ``cfg`` (the engine's
+        config by default) under the engine's rules; a tree already cut
+        (a tile-by-tile loader's) passes as it is."""
+        cfg = cfg or self.cfg
+        return sharding.shard_params(
+            params, get_model(cfg).param_specs(cfg), self.mesh,
+            self.rules, heads=(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim))
 
     # -- public API --------------------------------------------------------
 
@@ -782,6 +795,20 @@ class Engine:
         out.update(s_aux)
         return out
 
+    def shadow_score(self, ctx_toks, extras=None) -> dict:
+        """The shadow's record of one context (``ctx_toks``, host ints):
+        ``_shadow_forward`` on it padded to its bucket, under the engine's
+        tensor-parallel context (every rank gets the same record)."""
+        n = len(ctx_toks)
+        bucket = max(16, 1 << (n - 1).bit_length())
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :n] = ctx_toks
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        for k, v in (extras or {}).items():
+            batch[k] = torch.as_tensor(v, device=self.device)[None]
+        with torch.no_grad(), ctx.maybe_use(self.mesh):
+            return self._shadow_forward(batch, n)
+
     def _run_shadow(self, reqs) -> None:
         """Score each request's whole context, teacher against student, one
         request a call (stateless: the pool, the slabs and the token
@@ -792,22 +819,14 @@ class Engine:
         self.shadow_steps += 1
         kls, agrees = [], []
         for r in reqs:
-            ctx_toks = np.concatenate([np.asarray(r.prompt, np.int64),
-                                       np.asarray(r.output, np.int64)])
-            n = len(ctx_toks)
-            bucket = max(16, 1 << (n - 1).bit_length())
-            toks = np.zeros((1, bucket), np.int64)
-            toks[0, :n] = ctx_toks
-            batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-            for k, v in (r.extras or {}).items():
-                batch[k] = torch.as_tensor(v, device=self.device)[None]
-            with torch.no_grad():
-                aux = self._shadow_forward(batch, n)
+            aux = self.shadow_score(np.concatenate([
+                np.asarray(r.prompt, np.int64),
+                np.asarray(r.output, np.int64)]), r.extras)
             sh = aux.pop("shadow")
             kls.append(float(sh["kl"]))
             agrees.append(float(sh["top1_agree"]))
             self.numerics.record(aux)
-            del aux, batch
+            del aux
         step = self.decode_steps
         self.numerics.record({"shadow": {
             "kl": float(np.mean(kls)),
@@ -858,24 +877,26 @@ class Engine:
 
 
 def _check_tp(cfg, size: int) -> None:
-    """Refuse what this slice does not serve under tensor parallelism, and
-    configs whose column-parallel dims do not divide the group (a row
-    site's input must then be feature-sharded)."""
+    """Refuse what tensor parallelism does not serve yet (the slab
+    families), and configs whose column-parallel dims do not divide the
+    group (a row site's input must then be feature-sharded).  An MoE
+    config's shared expert is such a site, and under ``moe_shard="tp"`` its
+    experts' FFN dim; expert stacks whose E (under "ep") and FFN dim both
+    fail to divide stay whole on every rank."""
     if cfg.family != "decoder":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family "
-                                  "under tensor parallelism is part of a "
-                                  "later slice of the port")
-    if decoder._kv_fp8(cfg):
-        raise NotImplementedError(f"{cfg.name}: FP8 KV under tensor "
-                                  "parallelism is part of a later slice of "
-                                  "the port (what tensor parallelism left)")
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE under tensor "
-                                  "parallelism is part of a later slice of "
-                                  "the port")
-    for leaf, n in (("wqkv (query heads)", cfg.n_heads),
-                    ("wqkv (KV heads)", cfg.n_kv_heads),
-                    ("wg/wu (d_ff)", cfg.d_ff)):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family (slab state) under tensor "
+            "parallelism is the next slice of the port (per-family sharding "
+            "of the recurrent state)")
+    dims = [("wqkv (query heads)", cfg.n_heads),
+            ("wqkv (KV heads)", cfg.n_kv_heads)]
+    if not cfg.n_experts or cfg.moe_dense_residual:
+        dims.append(("wg/wu (d_ff)", cfg.d_ff))
+    if cfg.n_experts and cfg.shared_d_ff:
+        dims.append(("sh_wg/sh_wu (shared_d_ff)", cfg.shared_d_ff))
+    if cfg.n_experts and cfg.moe_shard == "tp":
+        dims.append(("moe_wg/moe_wu (moe_d_ff)", cfg.moe_d_ff))
+    for leaf, n in dims:
         if n % size:
             raise NotImplementedError(
                 f"{cfg.name}: {leaf} = {n} does not split over {size} "

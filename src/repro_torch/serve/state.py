@@ -341,8 +341,9 @@ class SlabState:
     def __init__(self, engine, cfg, *, n_slots, s_alloc, plan):
         if engine.mesh is not None:
             raise NotImplementedError(
-                f"{cfg.name}: slab state under tensor parallelism is part "
-                "of a later slice of the port")
+                f"{cfg.name}: slab state under tensor parallelism is the "
+                "next slice of the port (per-family sharding of the "
+                "recurrent state)")
         self.eng = engine
         self.cfg = cfg
         self.kinds = tuple(plan)

@@ -49,7 +49,7 @@ import torch
 
 from ..models import decoder
 from ..serve import sampling
-from ..serve.engine import Engine
+from ..serve.engine import Engine, _check_tp
 from ..serve.scheduler import Request
 from .proposer import DraftProposer, SlabDraftProposer, self_draft_model
 
@@ -65,16 +65,20 @@ class SpecEngine(Engine):
     equal the plain ``Engine``'s token for token whatever the draft; the
     draft moves only the acceptance rate.  ``adaptive_k`` picks each
     slot's k from its measured acceptance and the measured draft and
-    verify costs.  Tensor parallelism is refused (a later slice).
+    verify costs.
+
+    Under tensor parallelism (``mesh``) the draft is cut like the target:
+    a self draft slices the target's tiles, a two-model draft is cut by
+    the same rules (a tree already cut passes as it is), and the draft's
+    pool holds the local KV heads.  Adaptive k decides from costs every
+    rank shares (the group's max of each round's measured walls), so the
+    ranks draft alike.  A slab plan under a mesh raises, as the plain
+    engine does.
     """
 
     def __init__(self, cfg, params, qcfg=None, *, draft_k: int = 4,
                  draft: str = "self-qdq", draft_layers: int = 0,
                  draft_model=None, adaptive_k: bool = False, **kw):
-        if kw.get("mesh") is not None:
-            raise NotImplementedError(
-                "speculative decoding under tensor parallelism is part of a "
-                "later slice of the port (what tensor parallelism left)")
         super().__init__(cfg, params, qcfg, **kw)
         if draft_k < 1:
             raise ValueError(f"draft_k must be >= 1, got {draft_k}")
@@ -87,6 +91,9 @@ class SpecEngine(Engine):
                      if self.cfg.n_experts else self.cfg)
         if draft_model is not None:
             dcfg, dparams, dqcfg = draft_model
+            if self.mesh is not None:
+                _check_tp(dcfg, self.mesh.size)
+                dparams = self.shard(dparams, dcfg)
         elif draft in ("self-qdq", "self-truncate"):
             dcfg, dparams = self_draft_model(
                 self.cfg, self.params, mode=draft.removeprefix("self-"),
@@ -249,8 +256,13 @@ class SpecEngine(Engine):
 
     def _finish_round(self, t0, t_draft, st, n_active):
         dt = time.monotonic() - t0
-        self._observe_costs(t_draft, dt - t_draft,
-                            int(st.k_eff.max(initial=0)))
+        t_d, t_v = t_draft, dt - t_draft
+        if self.adaptive_k and self.mesh is not None:
+            # each rank's walls differ: k is chosen from the group's max,
+            # which every rank holds, or the ranks would draft apart
+            t_d, t_v = self.mesh.all_reduce(torch.tensor(
+                [t_d, t_v], dtype=torch.float64), "max").tolist()
+        self._observe_costs(t_d, t_v, int(st.k_eff.max(initial=0)))
         self._note_decode_step(dt, n_active)
         self._m_draft_s.observe(t_draft)
         self._m_verify_s.observe(dt - t_draft)

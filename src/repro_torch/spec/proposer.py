@@ -125,8 +125,11 @@ class DraftProposer:
         self.psq = dataclasses.replace(sq, act_scope=prefill_scope)
         self.dsq = dataclasses.replace(sq, act_scope="token")
         self.pool = pool                                  # geometry only
+        # under tensor parallelism the target's KV heads split, and so do
+        # the draft's (FP8 pages with their scales alike)
         self.data = decoder.init_paged_pool(cfg, pool.n_blocks,
-                                            pool.block_size, device)
+                                            pool.block_size, device,
+                                            n_shards=pool.n_shards)
 
     def _step(self, bt, lens, active, toks, st, tok_idx):
         self._m_draft_steps.inc()

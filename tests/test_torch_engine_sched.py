@@ -412,27 +412,30 @@ def test_engine_raises_on_unported_plans_and_options(loaded):
     with pytest.raises(ValueError, match="paged-KV state plan"):
         Engine(configs.get_smoke("rwkv6-3b"), params={}, prefill_mode="paged",
                prefix_cache=True, device="cpu")
-    # FP8 KV serves on one device; under tensor parallelism it is refused,
-    # as is speculative decoding
+    # FP8 KV and speculative decoding serve under tensor parallelism; slab
+    # plans under it are refused (the next slice), the speculative engine's
+    # too, and a mesh that is not a TP context
+    from repro_torch.distributed.ctx import TP
     from repro_torch.serve import engine as engine_mod
     from repro_torch.spec import SpecEngine
-    with pytest.raises(NotImplementedError,
-                       match="FP8 KV under tensor parallelism"):
-        engine_mod._check_tp(configs.get_smoke("arctic-480b"), 2)
-    with pytest.raises(NotImplementedError,
-                       match="speculative decoding under tensor parallelism"):
+    assert engine_mod._check_tp(configs.get_smoke("arctic-480b"), 2) is None
+    tp2 = TP(group=None, rank=0, size=2, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="next slice"):
+        SpecEngine(configs.get_smoke("rwkv6-3b"), {"embed": torch.zeros(1)},
+                   mesh=tp2, device="cpu")
+    with pytest.raises(TypeError, match="TP"):
         SpecEngine(cfg, params, qcfg, mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="TP"):
         _engine(cfg, params, qcfg, mesh=object())
-    # telemetry serves; the shadow teacher under tensor parallelism is
-    # refused (each rank holds tiles of the student)
-    from repro_torch.distributed.ctx import TP
+    # telemetry serves; under tensor parallelism the shadow teacher is cut
+    # as the student is, and a teacher held at neither its whole shape nor
+    # its tile is refused
     from repro_torch.obs import Observability
     assert _engine(cfg, params, qcfg, obs=Observability()).obs.enabled
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        _engine(cfg, params, qcfg, shadow_teacher=params, shadow_rate=0.5,
-                mesh=TP(group=None, rank=0, size=1,
-                        device=torch.device("cpu")))
+    bad = {**params, "embed": params["embed"][: cfg.vocab_size // 4]}
+    with pytest.raises(ValueError, match="neither the whole"):
+        _engine(cfg, params, qcfg, shadow_teacher=bad, shadow_rate=0.5,
+                mesh=tp2)
     for mode in ("chunked", "paged"):          # paged-KV plans only
         with pytest.raises(ValueError, match="paged-KV"):
             Engine(configs.get_smoke("recurrentgemma-2b"), params,

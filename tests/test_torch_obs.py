@@ -418,11 +418,25 @@ def test_engine_without_obs_holds_noop_handles(loaded):
 
 
 def test_shadow_refused_under_tensor_parallelism(loaded):
+    """Under tensor parallelism the shadow teacher is cut into the rank's
+    tiles with the student's rules (a teacher already cut passes as it
+    is); a teacher leaf at neither its whole shape nor its tile is
+    refused before any collective.  (The shadow's records under TP:
+    ``test_torch_tp_serve.py``.)"""
     cfg, params, qcfg, teacher = loaded
-    tp = TP(group=None, rank=0, size=1, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        Engine(cfg, params, qcfg, mesh=tp, shadow_teacher=teacher,
-               shadow_rate=0.5, device="cpu")
+    tp = TP(group=None, rank=0, size=2, device=torch.device("cpu"))
+    eng = Engine(cfg, params, qcfg, mesh=tp, shadow_teacher=teacher,
+                 shadow_rate=0.5, device="cpu")
+    wqkv = eng.shadow_teacher["layers"]["wqkv"]
+    assert wqkv.shape[-1] * 2 == teacher["layers"]["wqkv"].shape[-1]
+    again = Engine(cfg, params, qcfg, mesh=tp, shadow_teacher=eng.shadow_teacher,
+                   shadow_rate=0.5, device="cpu")
+    assert again.shadow_teacher["layers"]["wqkv"] is wqkv
+    layers = dict(teacher["layers"], wqkv=teacher["layers"]["wqkv"][..., :8])
+    with pytest.raises(ValueError, match="neither the whole"):
+        Engine(cfg, params, qcfg, mesh=tp,
+               shadow_teacher=dict(teacher, layers=layers), shadow_rate=0.5,
+               device="cpu")
 
 
 # ---------------------------------------------------------------------------

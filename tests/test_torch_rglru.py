@@ -541,8 +541,8 @@ def test_family_dispatch_and_refusals():
     """``get_model`` gives the rglru module for ``rglru_hybrid`` (and the
     rwkv6, whisper and decoder modules for the other families, M-RoPE's
     qwen2-vl included); a dense-KV slab refuses a request that cannot
-    fit; FP8 KV (served since the FP8 KV slice) and the family under
-    tensor parallelism are refused."""
+    fit; the family under tensor parallelism is refused (the next slice),
+    while FP8 KV and MoE (arctic-480b) pass the tensor-parallel check."""
     from repro_torch.models import decoder, rwkv6, whisper
     cfg = configs.get_smoke(NEMO)
     assert get_model(cfg) is rglru
@@ -559,11 +559,9 @@ def test_family_dispatch_and_refusals():
     with pytest.raises(ValueError, match="capacity=16"):
         eng.submit(np.arange(4, 14, dtype=np.int32), 8)
     from repro_torch.serve import engine as engine_mod
-    with pytest.raises(NotImplementedError, match="rglru_hybrid"):
+    with pytest.raises(NotImplementedError, match="rglru_hybrid.*next slice"):
         engine_mod._check_tp(cfg, 2)
-    with pytest.raises(NotImplementedError,
-                       match="FP8 KV under tensor parallelism"):
-        engine_mod._check_tp(arctic, 2)
+    assert engine_mod._check_tp(arctic, 2) is None
 
 
 # ---------------------------------------------------------------------------

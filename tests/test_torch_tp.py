@@ -332,7 +332,8 @@ def test_k4_matches_reference(ref):
 def test_engine_tp2_tokens_match_reference_and_single_device(ref):
     """Greedy tokens: the port's tp = 2 engine equals the reference's tp = 2
     engine and the port's single-device engine; every rank agrees and its
-    pool drains; the shard report is the reference's."""
+    pool drains; the shard report holds the reference's (and no MoE or
+    FP8 leaf to split)."""
     cfg, params, qcfg = _params(ref)
     prompts = _prompts(ref)
     single = _serve(Engine(cfg, params, qcfg, device="cpu", **ENGINE), prompts)
@@ -346,7 +347,10 @@ def test_engine_tp2_tokens_match_reference_and_single_device(ref):
         np.testing.assert_array_equal(r["tokens"], ref["engine/tp2"])
         np.testing.assert_array_equal(r["tokens"], single)
         assert not r["leaked"] and r["used"] == 0 and not r["fused"]
-        assert r["report"] == want_rep
+        # the reference's keys; the port's MoE and FP8 keys come after
+        assert {k: r["report"][k] for k in want_rep} == want_rep
+        assert not (r["report"]["experts_sharded"]
+                    or r["report"]["fp8_scales_sharded"])
         assert r["warnings"] == []
     assert want_rep["packed_sharded"] == want_rep["packed_total"] == 5
     assert want_rep["kv_pool_bytes_per_device"] * 2 == want_rep["kv_pool_bytes_total"]
@@ -374,9 +378,12 @@ def test_engine_tp4_replicated_fallback_tokens(ref):
 
 
 def test_tp_refusals():
-    """What this slice does not serve under TP raises before any
-    collective: the fused tier forced on, KV heads that do not divide the
-    group, an MoE config, an FP8-KV config, rules without a mesh."""
+    """What TP does not serve raises before any collective: the fused
+    tier forced on, KV heads that do not divide the group, an MoE
+    config's shared expert or (under ``moe_shard="tp"``) expert FFN dim
+    that does not divide it, a slab family, rules without a mesh.  MoE
+    and FP8-KV configs that divide are served
+    (``test_torch_tp_serve.py``)."""
     cfg = configs.get_smoke(ARCH)
     params, qcfg = serve.load_quantized(cfg, 0, "packed", "cpu")
     with pytest.raises(ValueError, match="single-device"):
@@ -389,12 +396,18 @@ def test_tp_refusals():
     aparams, aq = serve.load_quantized(acfg, 0, "packed", "cpu")
     with pytest.raises(NotImplementedError, match="KV heads"):
         Engine(acfg, aparams, aq, device="cpu", mesh=_cpu_tp(0, 4), **ENGINE)
-    mcfg = configs.get_smoke("qwen2-moe-a2.7b")
+    mcfg = dataclasses.replace(configs.get_smoke("qwen2-moe-a2.7b"),
+                               shared_d_ff=90)
     mparams, mq = serve.load_quantized(mcfg, 0, "packed", "cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Engine(mcfg, mparams, mq, device="cpu", mesh=_cpu_tp(0, 2), **ENGINE)
-    with pytest.raises(NotImplementedError, match="FP8 KV"):
-        Engine(configs.get_smoke("arctic-480b"), {"embed": torch.zeros(1)},
+    with pytest.raises(NotImplementedError, match="shared_d_ff"):
+        Engine(mcfg, mparams, mq, device="cpu", mesh=_cpu_tp(0, 4), **ENGINE)
+    acfg = dataclasses.replace(configs.get_smoke("arctic-480b"),
+                               moe_shard="tp", moe_d_ff=49)
+    with pytest.raises(NotImplementedError, match="moe_d_ff"):
+        Engine(acfg, {"embed": torch.zeros(1)}, device="cpu",
+               mesh=_cpu_tp(0, 2), **ENGINE)
+    with pytest.raises(NotImplementedError, match="rwkv6"):
+        Engine(configs.get_smoke("rwkv6-3b"), {"embed": torch.zeros(1)},
                device="cpu", mesh=_cpu_tp(0, 2), **ENGINE)
     # a single-device engine is untouched by the TP code: fused on
     assert Engine(cfg, params, qcfg, device="cpu", **ENGINE).fused
