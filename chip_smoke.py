@@ -79,7 +79,7 @@ Phases (every failure exits nonzero):
      step; then the QDQ-format replay from the same seed, whose first-step
      logits must agree with the packed path's (see the tolerances below);
   5b. the engine (``repro_torch.serve.Engine``) over packed weights of
-     ``acereason-7b`` at full width and depth.  Run A: 16 requests of prompt lengths 64..512, 32 greedy
+     ``acereason-7b`` at full width and depth.  Run A: 16 requests of prompt lengths 64..512, 16 greedy
      tokens each, 8 submitted at the start and one after each step, 8
      slots over a pool of 272 blocks of 16, exact prefill, worst-case
      reservation; every request finishes, the pool drains, K7 launches 28
@@ -123,7 +123,7 @@ Phases (every failure exits nonzero):
      serving peak, state bytes a slot, the decode step's byte bound and a
      traced decode step printed;
   5f. ``recurrentgemma-2b`` at full size (26 layers, window 2048): 4
-     requests of prompts 2100..2600 tokens and 32 greedy tokens, so its
+     requests of prompts 2100..2600 tokens and 16 greedy tokens, so its
      ring wraps in prefill and in decode: served one slot at a time and
      over 4 slots, tokens equal to single-request ``serve_batch``'s, the
      first decode step's logits within LOGIT_TOL; every slot released;
@@ -140,10 +140,10 @@ Phases (every failure exits nonzero):
      params) on the slab engine, plan ("recurrent",), 8 slots: run A's
      arrivals, 16 prompts of 64 k tokens (k = 1..8, each twice: the
      chunked WKV takes at most 64 tokens or a multiple of 64) from its own
-     vocabulary, 32 greedy tokens: every request finishes and every slot
+     vocabulary, 16 greedy tokens: every request finishes and every slot
      is released, K1 and K2 launch 320 times a forward, each request's
      prefill logits bitwise the static path's and its first decode step
-     within LOGIT_TOL, 2 requests one slot at a time equal to
+     within LOGIT_TOL, 1 request one slot at a time equal to
      ``serve_batch``'s tokens; load and serving peak, state a slot, the
      decode step's byte bound and a traced decode step printed;
   5i. ``whisper-tiny`` at full size (4 + 4 layers, 1500 encoder frames) on
@@ -170,16 +170,19 @@ Phases (every failure exits nonzero):
      path's at batch 1 (FP8 dense cache) and its first decode step within
      LOGIT_TOL, a traced decode step with one K7 kernel a layer; the decode
      step's byte bound; then the speculative engine at k = 2 (self-qdq) on
-     the same requests: streams equal to the plain run's token for token
+     all 16 requests (more than the 8 slots), 8 tokens: streams equal to
+     the plain run's
      (gated where phase 3l found the BF16 GEMM rows invariant across M = 8
      and 24), first tokens, the first verify's logits within LOGIT_TOL;
   5l. speculative decoding (``repro_torch.spec.SpecEngine``): acereason-7b
-     on run A's loads and traffic with a self-qdq draft at k = 4,
-     self-truncate at 14 layers and a 2-layer two-model draft (seed 99),
-     each run's streams equal to run A's token for token, the pool drained,
-     accepted + rolled back = drafted, acceptance and tokens a round
-     printed; rwkv6-3b (inside 5h) with a self-qdq draft at k = 3 on 8
-     requests, 16 tokens, its streams equal to run H's;
+     on run A's loads and all 16 of its requests on the 8 slots (so a
+     request takes a slot, pool blocks and draft blocks another released),
+     8 tokens, with a self-qdq
+     draft at k = 4, self-truncate at 14 layers and a 2-layer two-model
+     draft (seed 99), each run's streams equal to run A's token for token,
+     the pool drained, accepted + rolled back = drafted, acceptance and
+     tokens a round printed; rwkv6-3b (inside 5h) with a self-qdq draft at
+     k = 3 on 4 requests, 8 tokens, its streams equal to run H's;
   5m. serving telemetry (``repro_torch.obs``) on 5l's loads: (a) run A's
      traffic through three engines, telemetry off, metrics, metrics and
      trace, one warm-up each, then stepped in lockstep (their order
@@ -202,8 +205,8 @@ Phases (every failure exits nonzero):
      the snapshot valid, clean against clean passing the drift gate;
      then on ``inject_quant_noise(params, 0.3)``: the gate trips on amax
      or KL; seconds a shadow step, live KL, top-1, SQNR printed; (e)
-     whisper-tiny at full size, run I's first 8 requests, traced with the
-     shadow: the trace valid, streams equal telemetry off;
+     whisper-tiny at full size, run I's first 8 requests, 16 tokens, traced
+     with the shadow: the trace valid, streams equal telemetry off;
   5n. the decoder's remaining serving paths under tensor parallelism, two
      ranks sharing the card: (a) qwen2-moe-a2.7b under ``moe_hybrid`` at
      full size, each rank drawing its tiles leaf by leaf, the 60 experts
@@ -232,8 +235,40 @@ Phases (every failure exits nonzero):
      rank identical and against the single-device shadow on run A's tree
      (computed before the ranks start): the same sites and stats,
      per-layer SQNR within 1 dB, live KL within 10%; then (c)'s requests
-     with the shadow at rate 0.5: tokens bitwise equal to (c)'s plain
+     with the shadow at rate 0.25: tokens bitwise equal to (c)'s plain
      run.  (c), (d), then (a) and (b) run in 5d's two ranks after run TP;
+  5o. the slab families under tensor parallelism, in the same two ranks
+     after 5n, each model at full width and depth drawn leaf by leaf and
+     freed before the next, on its one-card run's prompts and engine
+     geometry (the one-card runs' prefill logits and streams copied to the
+     host before the spawn, which runs after 5j): (a) nemotron-nano-9b-sim
+     on run E's 4 shortest prompts, 4 tokens; (b) recurrentgemma-2b on run
+     F's 4 prompts past its window (its one KV head, and so its ring,
+     whole on both ranks), 8 tokens; (c) rwkv6-3b on run H's 8 shortest,
+     8 tokens, then a self-qdq ``SpecEngine`` at k = 2 on 4 of them, 4
+     tokens; (d) whisper-tiny on run I's first 8 with their frames, 16
+     tokens.  Gates: every request finishes and every slot is released,
+     the ranks' tokens bitwise equal; the first 4 requests' prefill logits
+     within TP_SLAB_TOL of the one-card run's (its static path's), by
+     family and activation format (BF16 activations for the RG-LRU
+     hybrids and RWKV, whose NVFP4 readings at full depth are printed;
+     both for whisper), a planted fault on those requests outside it (the
+     RG-LRU's post-conv gather in reversed rank order on (a), RWKV's
+     receptance gather so on (c), whisper's cross-attention ``x_wqkv`` cut
+     contiguously on (d)), and each first token among the one-card logits'
+     top TP_SLAB_RANK; the served path (NVFP4 activations) of (a)-(c) on a
+     copy cut in depth (TP_SLAB_CUT, full width) within TP_CUT_TOL of one
+     card on the same cut, a planted fault (each rank's own amax at the
+     row sites) outside it; the shard report
+     (every packed leaf split but those the rules keep whole; each split
+     state leaf's bytes half one card's, the whole ones (recurrentgemma's
+     ring, RWKV's shift carries, whisper's ``enc_out``) one card's); K1,
+     K2 and K4
+     launches per forward (no K3 or K7); the speculative run's streams
+     equal the plain TP engine's, drafted = accepted + rolled back.
+     Printed: TTFT p50, the decode step p50 and tok/s, collectives a
+     forward and their host seconds, each rank's load and run peaks, the
+     state a slot a rank, each run's seconds;
   6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
      (16 layers, d_model 2048, vocab 50304) under its config's
      rematerialization (``remat="full"``: the student's QDQ runs twice a
@@ -345,7 +380,7 @@ K7_ATOL = 1e-3
 ENGINE = dict(n_slots=8, block_size=16, max_blocks_per_slot=34, n_blocks=272)
 # the engine's paged-prefill chunk: rows a GEMM sees per chunk
 CHUNK = 16
-RUN_A = dict(requests=16, min_prompt=64, max_prompt=512, gen=32)
+RUN_A = dict(requests=16, min_prompt=64, max_prompt=512, gen=16)
 RUN_B = dict(requests=16, prefix=256, min_suffix=16, max_suffix=128, gen=8)
 # fused (K7) against unfused (gather + attend) decode: the first decode
 # step's logits per request, relative L2.  The attention outputs differ by
@@ -369,6 +404,11 @@ SERVE_DEPTH = 14
 # M-B is paged prefill over a shared prefix
 MOE_ARCH = "qwen2-moe-a2.7b"
 RUN_M_OFF = dict(requests=8, gen=4)
+# run K's speculative engine takes all 16 requests at 8 tokens (16 at 32
+# took about 26 s, before phase 5o): more requests than the 8 slots, so
+# a request is admitted into a slot, its pool blocks and its draft
+# mirror's that a finished one released
+RUN_KSPEC = dict(requests=16, gen=8)
 RUN_MB = dict(requests=8, prefix=256, min_suffix=16, max_suffix=128, gen=8)
 # tensor-parallel serving (acereason-7b, full size): two ranks share the
 # card; run A's first 8 requests, 16 tokens each
@@ -379,7 +419,7 @@ RUN_TP = dict(requests=8, gen=16)
 # requests, 8 tokens) and on their FFN dim (4 requests, 4 tokens); on
 # phase 5d's acereason-7b tiles, run A's 4 shortest prompts: a self-qdq
 # draft at k = 2 and the plain engine, 8 tokens; the shadow teacher's
-# record of each as a context, then the shadow on at rate 0.5 (all in 5d's
+# record of each as a context, then the shadow on at rate 0.25 (all in 5d's
 # ranks)
 # (8 and 4 tokens keep the script well inside its time limit on a slow
 # host), and a planted fault on the first 4 requests
@@ -395,15 +435,61 @@ RUN_KTP = dict(requests=8, gen=8, ffn_requests=4, ffn_gen=4,
 # order, so the tokens themselves are not gated equal
 TP_LOGIT_TOL = 0.25
 TP_FIRST_RANK = 8
-RUN_NTP = dict(spec_k=2, spec_gen=8, shadow_contexts=4, shadow_rate=0.5,
+# (the shadow at rate 0.25, 2 shadow steps: it took 0.5, 4 steps and
+# about 25 s, before phase 5o)
+RUN_NTP = dict(spec_k=2, spec_gen=8, shadow_contexts=4, shadow_rate=0.25,
                sqnr_db=1.0, kl_rel=0.1)
+# the slab families at tp = 2 (phase 5o, in 5d's ranks after 5n), each at
+# full width and depth on its one-card run's prompts and engine geometry:
+# nemotron-nano-9b-sim on run E's 4 shortest prompts, 4 tokens;
+# recurrentgemma-2b on run F's 4 (past its window), 8 tokens; rwkv6-3b on
+# run H's 8 shortest, 8 tokens, then a self-qdq draft at k = 2 on 4 of
+# them, 4 tokens; whisper-tiny on run I's first 8 with their frames, 16
+# tokens; a planted fault on the first 4 requests of each family
+RUN_OTP = dict(nemo_requests=4, nemo_gen=4, rgemma_gen=8, rwkv_requests=8,
+               rwkv_gen=8, spec_k=2, spec_requests=4, spec_gen=4,
+               whisper_requests=8, whisper_gen=16, fault_requests=4)
+# phase 5o's prefill logits against the one-card run's (relative L2), by
+# family and activation format, each limit set between the sound readings
+# and a planted fault's (H100, PERF.md section 6).  With NVFP4 activations
+# (the served path) the RG-LRU hybrids and RWKV part from one card at full
+# depth (0.50-1.06) nearly as far as a fault (1.24-1.33): random weights
+# at full depth carry any change of summation order through the
+# quantizers.  Those two are gated here with BF16 activations, where TP
+# reads 0.032-0.059 (RG-LRU) and 0.20-0.34 (RWKV), the faults 1.23-1.29,
+# and their served path on a copy cut in depth (TP_SLAB_CUT below).
+# whisper-tiny: BF16 0.0067-0.0080 against 0.43-0.46, NVFP4 0-0.125
+# against 0.44-0.48
+TP_SLAB_TOL = {"rglru_hybrid": {"bf16": 0.25}, "rwkv6": {"bf16": 0.7},
+               "encdec": {"bf16": 0.1, "nvfp4": 0.3}}
+# phase 5o's gate of the served path (NVFP4 activations) where the full
+# depth decorrelates it: each RG-LRU and RWKV model cut in depth at full
+# width (nemotron-nano-9b-sim to one super-block of one RG-LRU layer and
+# one attention layer, recurrentgemma-2b to one of its own super-blocks,
+# rwkv6-3b to 2 layers), its prefill logits at tp = 2 against one card on
+# the same cut, and a planted fault (each rank's own amax at the row
+# sites) outside the limit.  Read on the H100 (PERF.md, section 6): sound
+# 0.033-0.045 (nemotron), 0.029-0.089 (recurrentgemma, its prompts past
+# the window), 0-0.080 (rwkv6; the readings move with the prompts); the
+# fault 0.237-0.247, 0.277-0.330, 0.296-0.361
+TP_SLAB_CUT = {"nemotron-nano-9b-sim": dict(n_layers=2, attn_period=2),
+               "recurrentgemma-2b": dict(n_layers=3),
+               "rwkv6-3b": dict(n_layers=2)}
+TP_CUT_TOL = 0.17
+# where the one-card logits may rank TP's first token, by family (in the
+# gated formats): sound RG-LRU 0-2, whisper 0, RWKV 0-16, whose BF16
+# logits part by 0.20-0.34 (the RG-LRU faults' tokens rank 5689-84785,
+# RWKV's 164-24464; whisper's 0-7, its fault caught by the logits alone)
+TP_SLAB_RANK = {"rglru_hybrid": TP_FIRST_RANK, "rwkv6": 64,
+                "encdec": TP_FIRST_RANK}
 # the rglru_hybrid family (the slab engine): nemotron-nano-9b-sim at full
 # width and depth takes run A's traffic (phase 5e); recurrentgemma-2b at
 # full size serves prompts longer than its window of 2048, so its ring
 # wraps in prefill and in decode (phase 5f)
 NEMO_ARCH = "nemotron-nano-9b-sim"
+# (16 tokens: it took 32 before phase 5o)
 RGEMMA = dict(arch="recurrentgemma-2b", requests=4, min_prompt=2100,
-              max_prompt=2600, gen=32)
+              max_prompt=2600, gen=16)
 # chunked prefill on run A's engine and traffic (phase 5g)
 RUN_G = dict(chunk=256)
 # the training path
@@ -422,8 +508,10 @@ NEMO_TRAIN = dict(layers=5, steps=3, batch=4, seq=512)
 # context; qwen2-vl-2b's M-RoPE over a 16 x 16 patch grid (phases 5h-5j);
 # their QAD (rwkv6 at 16 of its 32 layers: the full depth's training state
 # would come to about 70 GB; phases 6f, 6g)
-RWKV = dict(arch="rwkv6-3b", gen=32, one_slot=2, spec_k=3, spec_requests=8,
-            spec_gen=16)
+# (16 tokens, one request one slot at a time, the speculative run on 4
+# requests at 8 tokens: the script's time limit, with phase 5o)
+RWKV = dict(arch="rwkv6-3b", gen=16, one_slot=1, spec_k=3, spec_requests=4,
+            spec_gen=8)
 WHISPER = dict(arch="whisper-tiny", requests=16, min_prompt=4, max_prompt=192,
                gen=64, s_alloc=448, one_slot=4)
 QWEN_VL = dict(arch="qwen2-vl-2b", batch=2, seq=512, grid_at=16, grid=16,
@@ -433,8 +521,10 @@ VL_TRAIN = dict(steps=3, batch=4, seq=512)
 DATA_FREE = dict(batch=8, n_new=256, steps=2)
 NUMERICS = dict(steps=2)
 # calibration runs one batch (its MSE search took 52 s over two, 46 over
-# one): with the FP8 KV and speculative phases the script passed 700 s
-CALIB = dict(batches=1, batch=2, seq=512)
+# one): with the FP8 KV and speculative phases the script passed 700 s;
+# with phase 5o the MSE search takes every fourth tap (it took 28-38 s
+# over all 16)
+CALIB = dict(batches=1, batch=2, seq=512, mse_every=4)
 # one smoke QAD step on the card against the CPU, same weights and batch:
 # the forwards differ by bf16 GEMM summation order, which NVFP4 rounding
 # amplifies; loss and gradient norm within these relative tolerances, each
@@ -443,13 +533,19 @@ CALIB = dict(batches=1, batch=2, seq=512)
 STEP_TOL = {"loss": 2e-2, "grad_norm": 5e-2}
 # speculative decoding on acereason-7b with run A's traffic (phase 5l): the
 # draft length, the self-truncate draft's depth and the two-model draft's
-SPEC = dict(k=4, truncate_layers=14, two_model_layers=2)
+# (run A's 16 requests on 8 slots, so slots, pool blocks and the draft
+# mirror's blocks are reused; 8 of their 16 tokens: the script's time
+# limit, with phase 5o)
+SPEC = dict(k=4, truncate_layers=14, two_model_layers=2, requests=16, gen=8)
 # serving telemetry (phase 5m): the speculative run's draft length, depth,
 # requests and tokens; the shadow teacher's requests, tokens, rate and the
 # noise canary's scale; whisper-tiny's requests
+# (whisper's at 16 tokens, 4 shadow steps: it took 64, 16 shadow steps
+# and about 25 s, before phase 5o; the shadow's at 8 tokens, 2 shadow
+# steps a run: 16 took about 15 s a run)
 OBS = dict(spec_k=2, spec_depth=14, spec_requests=8, spec_gen=16,
-           shadow_requests=8, shadow_gen=16, shadow_rate=0.25, noise=0.3,
-           whisper_requests=8)
+           shadow_requests=8, shadow_gen=8, shadow_rate=0.25, noise=0.3,
+           whisper_requests=8, whisper_gen=16)
 # the drift gate's thresholds (tests/test_numerics_obs.py::THRESHOLDS)
 SHADOW_GATE = {"max_sqnr_drop_db": 1.0, "max_kl_increase": 0.05,
                "max_cos_drop": 0.02, "max_amax_rel": 0.1}
@@ -742,14 +838,15 @@ def k4_rank_check(tp, cfg):
     return out
 
 
-def tp_rank(tp, prompts, n_gen, contexts, moe_prompts):
+def tp_rank(tp, prompts, n_gen, contexts, moe_prompts, slab_runs):
     """One rank of phase 5d (runs in its own process): K4's wrapper held
     to its plain version (``k4_rank_check``); the seed-0 weights drawn on
     the card with the rank's own generator, only its tiles kept;
     the engine over them; run TP's traffic; one traced decode step on
     rank 0; then phase 5n in the same process: (c) and (d) on the same
     tiles (``tp_rank_spec_shadow``), (a) and (b) on qwen2-moe-a2.7b
-    (``tp_moe_rank``).  Returns host data only."""
+    (``tp_moe_rank``); then phase 5o, the slab families
+    (``tp_slab_rank``).  Returns host data only."""
     import torch
 
     from repro_torch import configs
@@ -799,6 +896,7 @@ def tp_rank(tp, prompts, n_gen, contexts, moe_prompts):
     gc.collect()
     torch.cuda.empty_cache()
     res["moe"] = tp_moe_rank(tp, moe_prompts)
+    res["slab"] = tp_slab_rank(tp, slab_runs)
     return res
 
 
@@ -1017,6 +1115,419 @@ def roll_experts(params):
                                          tensor_scale=roll(w.tensor_scale))
                      if isinstance(w, PackedNVFP4) else roll(w))
     return {**params, "layers": lay}
+
+
+def reversed_gather_tp(tp, width: int):
+    """A planted fault: ``tp``'s group, whose all-gather of a tensor
+    ``width`` wide along the gathered dim returns the ranks' parts in
+    reversed rank order (every other collective as it was)."""
+    import torch
+
+    from repro_torch.distributed.ctx import TP
+
+    class Reversed(TP):
+        def all_gather(self, x, dim=-1):
+            out = super().all_gather(x, dim)
+            if x.shape[dim] != width:
+                return out
+            return torch.cat(out.chunk(self.size, dim)[::-1], dim)
+    return Reversed(group=tp.group, rank=tp.rank, size=tp.size,
+                    device=tp.device)
+
+
+def local_amax_tp(tp):
+    """A planted fault: ``tp``'s group, whose max all-reduce returns each
+    rank's own value, so every row-parallel site's NVFP4 activation scale
+    comes from the rank's slice alone (every other collective as it was)."""
+    from repro_torch.distributed.ctx import TP
+
+    class Local(TP):
+        def all_reduce(self, x, op="sum"):
+            return x if op == "max" else super().all_reduce(x, op)
+    return Local(group=tp.group, rank=tp.rank, size=tp.size, device=tp.device)
+
+
+def slab_cut_prefills(tp, c, prompts, extras, engine) -> dict:
+    """Phase 5o's NVFP4 gate on a rank: ``c`` cut in depth to
+    ``TP_SLAB_CUT`` (full width, seed-0 weights) and each prompt's prefill
+    logits with NVFP4 activations (the served path) through the slab
+    engine: on one device over the whole weights ("one"), at tp = 2 over
+    the rank's tiles ("tp"), and at tp = 2 with a planted fault ("fault":
+    ``local_amax_tp``).  Host tensors, and the seconds it took."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+
+    t0 = time.perf_counter()
+    cc = dataclasses.replace(c, name=f"{c.name}-cut", **TP_SLAB_CUT[c.name])
+
+    def prefills(params_, mesh_, q):
+        e = Engine(cc, params_, q, device=tp.device, mesh=mesh_, **engine)
+        got = prefill_logits(e)
+        ids, _ = serve.run_workload(e, prompts, 1, extras)
+        return [got[i].cpu() for i in ids]
+    whole, q = serve.load_quantized(cc, SEED, "packed", tp.device)
+    out = {"one": prefills(whole, None, q)}
+    del whole
+    tiles, q = serve.load_quantized(cc, SEED, "packed", tp.device, tp=tp)
+    out["tp"] = prefills(tiles, tp, q)
+    out["fault"] = prefills(tiles, local_amax_tp(tp), q)
+    out["layers"] = cc.n_layers
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def contiguous_cross_qkv(params, full, tp):
+    """A planted fault: whisper's tiles ``params`` with the cross-attention's
+    ``x_wqkv`` and ``x_bqkv`` cut contiguously from ``full``, as a
+    ``FUSED_QKV`` that matched whole names only cut them: the rank's tile
+    then holds the wrong heads' rows."""
+    from repro_torch.core import nvfp4
+    dec = dict(params["dec_layers"])
+    for name in ("x_wqkv", "x_bqkv"):
+        w = full["dec_layers"][name]
+        dec[name] = (nvfp4.tp_tile(w, "column", tp.rank, tp.size)
+                     if isinstance(w, nvfp4.PackedNVFP4)
+                     else w.chunk(tp.size, -1)[tp.rank].contiguous())
+    return {**params, "dec_layers": dec}
+
+
+def leaf_bytes(specs, path: str = "") -> dict:
+    """{tree path: bytes} of a spec tree's leaves (paths as
+    ``tp_shard_report``'s ``state_leaves``)."""
+    from repro_torch.models import common
+    if isinstance(specs, dict):
+        return {k: v for name, sp in specs.items()
+                for k, v in leaf_bytes(sp, f"{path}.{name}" if path
+                                       else name).items()}
+    return {path: common.spec_bytes(specs)}
+
+
+def tp_slab_rank(tp, runs) -> dict:
+    """Phase 5o on a rank of 5d, after 5n: the slab families at full size,
+    each model's tiles drawn leaf by leaf on the card and freed before the
+    next.  ``runs``: part -> arch, prompts, extras, tokens, engine
+    geometry, the planted fault ("z": the RG-LRU's post-conv gather in
+    reversed rank order, "receptance": RWKV's, "x_wqkv": whisper's
+    cross-attention cut contiguously) and a speculative run.  Each run's
+    tokens, prefill logits, shard report, the whole state's bytes by leaf,
+    launches, collectives, memory and seconds; the fault's prefill logits
+    on the first requests; the speculative run's tokens, counts and
+    launches.  Host data only."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+    from repro_torch.spec import SpecEngine
+
+    res = {}
+    for part, run in runs.items():
+        t_part = time.perf_counter()
+        c = configs.get_config(run["arch"])
+        prompts, gen_n = run["prompts"], run["gen"]
+        extras = run["extras"] or [None] * len(prompts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, qcfg = serve.load_quantized(c, SEED, "packed", tp.device, tp=tp)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() / 1e9
+        eng = Engine(c, params, qcfg, device=tp.device, mesh=tp,
+                     **run["engine"])
+        del params
+        report = serve.tp_shard_report(eng)
+        pre = prefill_logits(eng)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        eng.mesh.reset_counts()
+        t0 = time.perf_counter()
+        rids, out = serve.run_workload(eng, prompts, gen_n, extras)
+        torch.cuda.synchronize()
+        r = dict(tokens=[out[i] for i in rids], pre=[pre[i].cpu() for i in rids],
+                 finished=len(out), stats=eng.stats(), report=report,
+                 whole_state=leaf_bytes(eng.state.specs),
+                 launches=dict(ops.launches), collectives=dict(eng.mesh.counts),
+                 wall=time.perf_counter() - t0, load_s=load_s,
+                 load_peak=load_peak, resident=resident,
+                 peak=torch.cuda.max_memory_allocated() / 1e9,
+                 drained=not eng.state.leaked(), slots=eng.n_slots)
+        del pre
+        # the first requests' prefill logits again with BF16 activations,
+        # and with the planted fault under both activation formats
+        n_f = RUN_OTP["fault_requests"]
+        bq = dataclasses.replace(qcfg, quantize_activations=False)
+
+        def prefills(params_, mesh_, q):
+            e = Engine(c, params_, q, device=tp.device, mesh=mesh_,
+                       **run["engine"])
+            got = prefill_logits(e)
+            ids, _ = serve.run_workload(e, prompts[:n_f], 1, extras[:n_f])
+            return [got[i].cpu() for i in ids]
+        r["pre_bf16"] = prefills(eng.params, tp, bq)
+        if run["fault"] == "x_wqkv":
+            full, _ = serve.load_quantized(c, SEED, "packed", tp.device)
+            fparams, fmesh = contiguous_cross_qkv(eng.params, full, tp), tp
+            del full
+        elif run["fault"]:
+            width = (c.d_rnn if run["fault"] == "z" else c.d_model) // tp.size
+            fparams, fmesh = eng.params, reversed_gather_tp(tp, width)
+        if run["fault"]:
+            gated = TP_SLAB_TOL[c.family]
+            if "nvfp4" in gated:
+                r["pre_fault"] = prefills(fparams, fmesh, qcfg)
+            r["pre_fault_bf16"] = prefills(fparams, fmesh, bq)
+            del fparams
+        if c.name in TP_SLAB_CUT:
+            r["cut"] = slab_cut_prefills(tp, c, prompts[:n_f], extras[:n_f],
+                                         run["engine"])
+        if run.get("spec"):
+            sp = run["spec"]
+            seng = SpecEngine(c, eng.params, qcfg, draft_k=sp["k"],
+                              draft="self-qdq", device=tp.device, mesh=tp,
+                              **run["engine"])
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            srids, sout = serve.run_workload(seng, prompts[:sp["requests"]],
+                                             sp["gen"])
+            torch.cuda.synchronize()
+            r["spec"] = dict(k=sp["k"], tokens=[sout[i] for i in srids],
+                             stats=seng.stats(), launches=dict(ops.launches),
+                             wall=time.perf_counter() - t0,
+                             drained=not seng.state.leaked())
+            del seng
+        del eng
+        r["seconds"] = time.perf_counter() - t_part
+        res[part] = r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def slab_prefill_controls(eng, prompts, extras) -> dict:
+    """Phase 5o's one-card control on the first requests: each prompt's
+    prefill logits through the static path (which the slab engine's
+    prefill equals bitwise) with BF16 activations ("bf16", the oracle of
+    5o's BF16 gate).  Host tensors."""
+    import numpy as np
+    import torch
+    q = dataclasses.replace(eng.sq, quantize_activations=False)
+    out = []
+    n = RUN_OTP["fault_requests"]
+    with torch.inference_mode():
+        for p, ex in zip(prompts[:n], (extras or [None] * n)[:n]):
+            batch = {"tokens": torch.from_numpy(p[None].astype(np.int64))
+                     .to(eng.device),
+                     **{k: torch.as_tensor(v, device=eng.device)[None]
+                        for k, v in (ex or {}).items()}}
+            lg, _ = eng.model.prefill(eng.cfg, eng.params, batch, q, None)
+            out.append(lg[0, -1].float().cpu())
+            del lg
+    return {"bf16": out}
+
+
+def slab_tp_sites(c, n_prefill: int, n_decode: int) -> dict:
+    """Launches of K1, K2 and K4 over a tp = 2 slab run of ``n_prefill``
+    prefills and ``n_decode`` decode steps on a rank: every quantized site
+    a K1; a packed site that splits a K4, one the rules keep whole (RWKV's
+    ts_w1 and dec_w1) a K2."""
+    from repro_torch.launch import specs
+    if c.family == "rglru_hybrid":
+        per_rec, per_attn, n_rec, n_attn = rec_sites(c, specs.serve_qconfig(c))
+        k1 = (per_rec * n_rec + per_attn * n_attn) * (n_prefill + n_decode)
+        return {"nvfp4_qdq": k1, "nvfp4_matmul_tp": k1, "nvfp4_matmul": 0}
+    if c.family == "rwkv6":
+        n = c.n_layers * (n_prefill + n_decode)
+        return {"nvfp4_qdq": 10 * n, "nvfp4_matmul_tp": 8 * n,
+                "nvfp4_matmul": 2 * n}
+    k1 = family_sites(c) * n_prefill + family_sites(c, True) * n_decode
+    return {"nvfp4_qdq": k1, "nvfp4_matmul_tp": k1, "nvfp4_matmul": 0}
+
+
+def phase_5o(ranks, oracles) -> dict:
+    """Phase 5o's lines, then its gates, from 5d's ranks: each slab run
+    against its one-card run (E, F, H, I): prefill logits within
+    ``TP_SLAB_TOL`` of its family and the planted fault outside it, each
+    first token among the one-card logits' top ``TP_FIRST_RANK``; the
+    ranks' tokens bitwise equal, the slots drained; the shard report (every
+    packed leaf split but those the rules keep whole, each split state
+    leaf's bytes half one card's, the whole ones one card's, the state's
+    total one card's pool); K1, K2 and K4 launches; the speculative run's
+    counts and streams.  Returns rank 0's launches of each run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+
+    ranks = [r["slab"] for r in ranks]
+    reads, out = {}, {}
+    for part, orc in oracles.items():
+        r0 = ranks[0][part]
+        st, rep = r0["stats"], r0["report"]
+        c = configs.get_config(orc["arch"])
+        n, gen_n = len(r0["tokens"]), len(r0["tokens"][0])
+        n_fwd = n + st["decode_steps"]
+        label = f"[engine 5o-{part}]"
+        print(f"{label} {c.name} full size, packed, tp={TP_SIZE} (gloo, one "
+              f"card), slab plan {'+'.join(orc['plan'])}: {n} requests "
+              f"({orc['what']}), gen {gen_n}, {r0['slots']} slots: wall "
+              f"{r0['wall']:.2f}s; ttft_p50_ms={st['ttft_p50_s'] * 1e3:.1f} "
+              f"decode_step_p50_ms={st['decode_step_p50_s'] * 1e3:.2f} "
+              f"decode_tok_s={st['decode_tok_s']:.1f}; collectives "
+              f"{r0['collectives']['calls'] / n_fwd:.1f} a forward "
+              f"({r0['collectives']['calls']} over {n_fwd} forwards, "
+              f"{r0['collectives']['seconds']:.2f}s on the host); state "
+              f"{rep['state_bytes_per_slot'] / 2**20:.3f} MiB a slot a rank "
+              f"({rep['state_bytes_per_slot_total'] / 2**20:.3f} one card's); "
+              f"{r0['seconds']:.1f}s", flush=True)
+        for i, rk in enumerate(ranks):
+            r = rk[part]
+            print(f"{label} rank {i}: {r['resident']:.2f} GB on the card "
+                  f"before; load+pack+cut {r['load_s']:.1f}s (peak "
+                  f"{r['load_peak']:.2f} GB), peak in the run {r['peak']:.2f} "
+                  f"GB, launches {r['launches']}", flush=True)
+        leaves = {k: (v["split"], v["bytes"])
+                  for k, v in rep["state_leaves"].items()}
+        print(f"{label} tp_shard_report (rank 0): "
+              f"{ {k: v for k, v in rep.items() if k != 'state_leaves'} }; "
+              f"state leaves (split, bytes): {leaves}", flush=True)
+        def rels(got, want):
+            return [rel_l2(p, q) for p, q in zip(got, want)]
+
+        def first_ranks(got, want):
+            """Where the one-card logits rank each of ``got``'s argmaxes."""
+            return [int((w.float() > w.float()[int(torch.argmax(g))]).sum())
+                    for g, w in zip(got, want)]
+        read = {"nvfp4": rels(r0["pre"], orc["pre"]),
+                "nvfp4_fault": rels(r0.get("pre_fault", []), orc["pre"]),
+                "nvfp4_ranks": first_ranks(r0["pre"], orc["pre"]),
+                "nvfp4_fault_ranks": first_ranks(r0.get("pre_fault", []),
+                                                 orc["pre"]),
+                "bf16": rels(r0["pre_bf16"], orc["bf16"]),
+                "bf16_fault": rels(r0.get("pre_fault_bf16", []), orc["bf16"]),
+                "bf16_ranks": first_ranks(r0["pre_bf16"], orc["bf16"]),
+                "bf16_fault_ranks": first_ranks(r0.get("pre_fault_bf16", []),
+                                                orc["bf16"])}
+        later = float(np.mean([np.mean(t[1:] == o[1:len(t)]) for t, o in
+                               zip(r0["tokens"], orc["tokens"])]))
+        tol = TP_SLAB_TOL[c.family]
+
+        def line(kind):
+            fault = read[f"{kind}_fault"]
+            return (" ".join(f"{x:.4g}" for x in read[kind])
+                    + (f"; planted fault ({orc['fault']}), the first "
+                       f"{len(fault)} requests: "
+                       + " ".join(f"{x:.4g}" for x in fault)
+                       + f" (first tokens ranked {read[f'{kind}_fault_ranks']})"
+                       if fault else "")
+                    + f"; first tokens ranked {read[f'{kind}_ranks']} in the "
+                    "one-card logits"
+                    + (f" (tolerance {tol[kind]}, ranks below "
+                       f"{TP_SLAB_RANK[c.family]})" if kind in tol
+                       else " (printed, not gated)"))
+        same = sum(int(t[0]) == int(o[0])
+                   for t, o in zip(r0["tokens"], orc["tokens"]))
+        print(f"{label} prefill logits rel_l2 vs the one-card run, NVFP4 "
+              f"activations (the served path): {line('nvfp4')}; first "
+              f"tokens equal on {same}/{n}, later tokens at {later:.3f} of "
+              "positions (printed)", flush=True)
+        print(f"{label} the first {len(read['bf16'])} requests with BF16 "
+              f"activations: {line('bf16')}", flush=True)
+        if "cut" in r0:
+            cut = r0["cut"]
+            read["cut"] = rels(cut["tp"], cut["one"])
+            read["cut_fault"] = rels(cut["fault"], cut["one"])
+            print(f"{label} cut to {cut['layers']} layers (full width), "
+                  f"NVFP4 activations, the first {len(cut['tp'])} requests "
+                  "against one card on the same cut: "
+                  + " ".join(f"{x:.4g}" for x in read["cut"])
+                  + "; planted fault (each rank's own amax at the row "
+                  "sites): " + " ".join(f"{x:.4g}" for x in read["cut_fault"])
+                  + f" (tolerance {TP_CUT_TOL}); {cut['seconds']:.1f}s",
+                  flush=True)
+        if "spec" in r0:
+            sp = r0["spec"]
+            ss = sp["stats"]
+            print(f"{label} speculative k={sp['k']} self-qdq on "
+                  f"{len(sp['tokens'])} requests, gen "
+                  f"{len(sp['tokens'][0])}: wall {sp['wall']:.2f}s, "
+                  f"acceptance {ss['acceptance_rate']}, drafted "
+                  f"{ss['drafted_tokens']}, accepted {ss['accepted_tokens']}, "
+                  f"rolled back {ss['rolled_back_tokens']}, verify steps "
+                  f"{ss['verify_steps']}; launches {sp['launches']}", flush=True)
+        reads[part] = (read, tol)
+    for part, orc in oracles.items():
+        read, tol = reads[part]
+        r0 = ranks[0][part]
+        c = configs.get_config(orc["arch"])
+        n = len(r0["tokens"])
+        want = slab_tp_sites(c, n, r0["stats"]["decode_steps"])
+        for i, rk in enumerate(ranks):
+            r = rk[part]
+            rp, ln = r["report"], r["launches"]
+            if (r["finished"] != n or not r["drained"]
+                    or any(len(t) != len(r0["tokens"][0]) for t in r["tokens"])):
+                fail(f"engine 5o-{part} rank {i}: {r['finished']} of {n} "
+                     "finished, or a slot was not released")
+            if any(not np.array_equal(a, b) for a, b in zip(r["tokens"],
+                                                             r0["tokens"])):
+                fail(f"engine 5o-{part}: rank {i}'s tokens differ from rank 0's")
+            leaves = rp["state_leaves"]
+            split = {k for k, v in leaves.items() if v["split"]}
+            if not (rp["packed_sharded"] == rp["packed_total"]
+                    - rp["packed_rule_whole"] > 0
+                    and set(leaves) - split == orc["whole"]
+                    and all(v["bytes"] * (TP_SIZE if v["split"] else 1)
+                            == r["whole_state"][k] for k, v in leaves.items())
+                    and rp["kv_pool_bytes_total"] == orc["pool_bytes"]):
+                fail(f"engine 5o-{part} rank {i}: shard report {rp}, the whole "
+                     f"state {r['whole_state']} (the one-card run's "
+                     f"{orc['pool_bytes']} B; whole by the rules: "
+                     f"{orc['whole']})")
+            if any(ln[k] != v for k, v in want.items()) \
+                    or ln["nvfp4_matmul_grouped"] or ln["paged_attention"]:
+                fail(f"engine 5o-{part} rank {i} launched {ln}, expected "
+                     f"{want} over {n} prefills and "
+                     f"{r0['stats']['decode_steps']} decode steps, no K3 or K7")
+            if "spec" in r:
+                sp, ss = r["spec"], r["spec"]["stats"]
+                plain = [t[:len(sp["tokens"][0])] for t in r["tokens"]]
+                if not (sp["drained"] and ss["drafted_tokens"]
+                        == ss["accepted_tokens"] + ss["rolled_back_tokens"] > 0
+                        and all(np.array_equal(a, b) for a, b in
+                                zip(sp["tokens"], plain))):
+                    fail(f"engine 5o-{part} spec rank {i}: {ss}; streams "
+                         f"{[t.tolist() for t in sp['tokens']]} against the "
+                         f"plain TP engine's {[t.tolist() for t in plain]}")
+        for kind, limit in tol.items():
+            if max(read[kind]) > limit:
+                fail(f"engine 5o-{part}: prefill logits ({kind} activations) "
+                     f"{max(read[kind])} from the one-card run's (tolerance "
+                     f"{limit})")
+            fault = read[f"{kind}_fault"]
+            if fault and min(fault) <= limit:
+                fail(f"engine 5o-{part}: a planted fault ({kind} activations) "
+                     f"reads {min(fault)}, within the tolerance {limit}")
+            if max(read[f"{kind}_ranks"]) >= TP_SLAB_RANK[c.family]:
+                fail(f"engine 5o-{part}: a first token ({kind} activations) "
+                     f"ranks {max(read[f'{kind}_ranks'])} in the one-card "
+                     "logits")
+        if "cut" in read:
+            if (max(read["cut"]) > TP_CUT_TOL
+                    or min(read["cut_fault"]) <= TP_CUT_TOL):
+                fail(f"engine 5o-{part}: the depth-cut copy's NVFP4 prefill "
+                     f"logits {read['cut']} from one card's, the planted "
+                     f"fault's {read['cut_fault']} (tolerance {TP_CUT_TOL})")
+        out[part] = r0["launches"]
+        if "spec" in r0:
+            out[f"{part}_spec"] = r0["spec"]["launches"]
+    print(f"[engine 5o] the slab families at tp={TP_SIZE}: "
+          f"{sum(r['seconds'] for r in ranks[0].values()):.1f}s in the ranks",
+          flush=True)
+    return out
 
 
 def shadow_oracle(dev, cfg, params, qcfg, contexts) -> list:
@@ -1379,6 +1890,19 @@ def family_sites(cfg, decode: bool = False) -> int:
     if cfg.family == "encdec":
         return 7 * cfg.n_layers + (0 if decode else 4 * cfg.n_enc_layers)
     return 5 * cfg.n_layers
+
+
+def rec_sites(c, qc):
+    """Quantized GEMM sites of one rglru_hybrid forward: (per recurrent
+    layer, per attention layer, recurrent layers, attention layers).  A
+    recurrent layer runs wx, wgate, w_a, w_i, wo and the MLP's three; an
+    attention layer its MLP, and wqkv and wo unless the recipe keeps
+    attention in BF16 (``models/rglru.py``)."""
+    from repro_torch.models import rglru
+    n_sb, n_rec, n_rem = rglru._counts(c)
+    per_rec = 8 if qc.quantizes("recurrent") else 3
+    per_attn = 3 + (2 if qc.quantizes("attn") else 0)
+    return per_rec, per_attn, n_sb * n_rec + n_rem, n_sb
 
 
 def vlm_pos3(n: int, start: int, side: int):
@@ -1829,8 +2353,9 @@ def phase_5l_ace(dev, cfg, params, qcfg, prompts, want, st_a) -> dict:
                      ("two-model", dict(draft_model=(dcfg, dparams, dqcfg)))):
         eng = SpecEngine(cfg, params, qcfg, draft_k=SPEC["k"], device=dev,
                          **kw, **ENGINE)
-        st, launches, _, eq, _ = spec_run(f"L {name}", eng, prompts,
-                                          RUN_A["gen"], want)
+        st, launches, _, eq, _ = spec_run(
+            f"L {name}", eng, prompts[:SPEC["requests"]], SPEC["gen"],
+            [w[:SPEC["gen"]] for w in want[:SPEC["requests"]]])
         if not all(eq):
             fail(f"engine L {name}: greedy streams differ from the plain "
                  f"engine's on {eq.count(False)} requests")
@@ -2133,13 +2658,13 @@ def phase_5m(dev, cfg, params, qcfg, a_prompts, b_prompts, b_out) -> dict:
               max_blocks_per_slot=WHISPER["s_alloc"] // bs)
     ops.reset_launches()
     r0, o0 = serve.run_workload(Engine(c, wparams, wqcfg, device=dev, **kw),
-                                wp, WHISPER["gen"], extras)
+                                wp, OBS["whisper_gen"], extras)
     out["e_off"] = dict(ops.launches)
     obs = Observability(metrics=True, trace=True)
     eng = Engine(c, wparams, wqcfg, device=dev, obs=obs, shadow_teacher=wteacher,
                  shadow_rate=OBS["shadow_rate"], **kw)
     ops.reset_launches()
-    rids_e, out_e = serve.run_workload(eng, wp, WHISPER["gen"], extras)
+    rids_e, out_e = serve.run_workload(eng, wp, OBS["whisper_gen"], extras)
     torch.cuda.synchronize()
     out["e_shadow"] = dict(ops.launches)
     if [out_e[r].tolist() for r in rids_e] != [o0[r].tolist() for r in r0]:
@@ -2151,7 +2676,7 @@ def phase_5m(dev, cfg, params, qcfg, a_prompts, b_prompts, b_out) -> dict:
     if not num["sampled_records"] or num["sqnr_db_min"] is None:
         fail(f"engine 5m-e: shadow records {num['sampled_records']}")
     kl = num["series"]["qad_live_kl"]
-    print(f"[engine 5m-e] {c.name}: {n} requests, {WHISPER['gen']} tokens, "
+    print(f"[engine 5m-e] {c.name}: {n} requests, {OBS['whisper_gen']} tokens, "
           f"traced ({len(obs.trace.events)} events) with the shadow "
           f"({eng.shadow_steps} steps, {eng.shadow_s / eng.shadow_steps:.3f} s "
           f"each): streams equal telemetry off; live KL "
@@ -2322,13 +2847,15 @@ def phase_5k(dev, row_inv) -> dict:
                 vfirst[r.rid] = logits[r.slot, 0].clone()
         return inner(logits, draft_toks, draft_probs, st_)
     seng._accept = accept
-    sst, slaunches, souts, eq, srids = spec_run("K spec", seng, prompts,
-                                                RUN_A["gen"], want)
+    n_s, g_s = RUN_KSPEC["requests"], RUN_KSPEC["gen"]
+    sst, slaunches, souts, eq, srids = spec_run(
+        "K spec", seng, prompts[:n_s], g_s, [w[:g_s] for w in want[:n_s]])
     if not sst["fp8"] or seng.proposer.data["k"].dtype != torch.float8_e4m3fn:
         fail("engine K spec: the pool or the draft pool is not FP8")
     first_eq = sum(int(o[0]) == int(w[0]) for o, w in zip(souts, want))
     vrel = [rel_l2(vfirst[a], first[b]) for a, b in zip(srids, rids)]
-    agree = float(np.mean([np.mean(o == w) for o, w in zip(souts, want)]))
+    agree = float(np.mean([np.mean(o == w[:g_s]) for o, w in
+                           zip(souts, want)]))
     print(f"[engine K spec] BF16 GEMM rows invariant across M = "
           f"{ENGINE['n_slots']} and {ENGINE['n_slots'] * 3} (phase 3l): "
           f"{invariant}; streams equal {sum(eq)}/{len(eq)} (gated: "
@@ -2679,10 +3206,11 @@ def load_full(arch, dev):
             torch.cuda.max_memory_allocated() / 1e9, resident)
 
 
-def phase_5h(dev) -> dict:
+def phase_5h(dev) -> tuple:
     """rwkv6-3b at full size on the slab engine: run A's arrivals, prompts
     of 64 k tokens (k = 1..8, each twice), 32 greedy tokens.  Returns the
-    run's launches."""
+    run's launches, the speculative run's and phase 5o's oracle (the
+    shortest prompts' prefill logits and streams, on the host)."""
     import numpy as np
     import torch
 
@@ -2758,16 +3286,30 @@ def phase_5h(dev) -> dict:
     if not all(eq):
         fail(f"engine H spec: greedy streams differ from the plain slab "
              f"engine's on {eq.count(False)} requests")
+    # phase 5o's oracle: the shortest prompts' prefill logits and streams
+    short = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
+    short = short[:RUN_OTP["rwkv_requests"]]
+    oracle = dict(
+        arch=RWKV["arch"], plan=eng.state_plan, what="run H's shortest",
+        prompts=[prompts[i] for i in short], extras=None,
+        gen=RUN_OTP["rwkv_gen"], engine=ENGINE, fault="receptance",
+        spec=dict(k=RUN_OTP["spec_k"], requests=RUN_OTP["spec_requests"],
+                  gen=RUN_OTP["spec_gen"]),
+        pre=[pre[rids[i]].cpu() for i in short],
+        tokens=[out[rids[i]] for i in short],
+        pool_bytes=eng.stats()["pool_bytes"], whole={"x_prev_tm", "x_prev_cm"},
+        **slab_prefill_controls(eng, [prompts[i] for i in short], None))
     del eng, eng1, seng, params
     print(f"[engine H] {time.perf_counter() - t_start:.1f}s", flush=True)
-    return launches, spec_launches
+    return launches, spec_launches, oracle
 
 
-def phase_5i(dev) -> dict:
+def phase_5i(dev) -> tuple:
     """whisper-tiny at full size on the slab engine: 16 requests, each with
     its own encoder frames [1500, 384], decoder prompts of 4..192 tokens,
     64 greedy tokens, 8 slots of 448 self-attention positions.  Returns
-    the run's launches."""
+    the run's launches and phase 5o's oracle (the first requests' prefill
+    logits and streams, on the host)."""
     import numpy as np
     import torch
 
@@ -2842,9 +3384,19 @@ def phase_5i(dev) -> dict:
           f"path on {n1}/{n1} requests; the 8-slot run's at {agree:.3f} of "
           f"positions (printed)", flush=True)
     trace_slab_step(eng, prompts, "whisper engine", extras)
+    # phase 5o's oracle: the first requests' prefill logits and streams
+    n_o = RUN_OTP["whisper_requests"]
+    oracle = dict(
+        arch=WHISPER["arch"], plan=eng.state_plan, what="run I's first",
+        prompts=prompts[:n_o], extras=extras[:n_o],
+        gen=RUN_OTP["whisper_gen"], engine=kw, fault="x_wqkv",
+        pre=[pre[r].cpu() for r in rids[:n_o]],
+        tokens=[out[r] for r in rids[:n_o]],
+        pool_bytes=eng.stats()["pool_bytes"], whole={"enc_out"},
+        **slab_prefill_controls(eng, prompts[:n_o], extras[:n_o]))
     del eng, eng1, params
     print(f"[engine I] {time.perf_counter() - t_start:.1f}s", flush=True)
-    return launches
+    return launches, oracle
 
 
 def phase_5j(dev) -> dict:
@@ -3106,6 +3658,12 @@ def main() -> int:
     from repro_torch.optim import AdamW, warmup_cosine
 
     t_start = time.perf_counter()
+
+    def elapsed(phase: str) -> None:
+        """The script's seconds as the phase starts (its time budget)."""
+        print(f"[chip_smoke] {time.perf_counter() - t_start:.1f}s at phase "
+              f"{phase}", flush=True)
+
     dev = torch.device("cuda")
     # plain f32 products in full f32; the QDQ replay's cuBLAS bf16 GEMMs
     # accumulate in f32 throughout, as the nvfp4_matmul kernel does
@@ -3113,6 +3671,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
+    elapsed("1")
     # ---- 1. the card ------------------------------------------------------
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -3121,6 +3680,7 @@ def main() -> int:
     print(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device={name} count={count}", flush=True)
 
+    elapsed("2")
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     _, log = _build.build()
@@ -3674,6 +4234,7 @@ def main() -> int:
     phase_3k(dev, gen, rows, err)
     row_inv = phase_3l(dev, gen)
 
+    elapsed("3h")
     # ---- 3h. the rglru_hybrid family's shapes (phases 5e-5f, 6e) ---------
     # K2 on one [layer, inner] slice of a weight stacked over two leading
     # axes and packed as PTQ packs blocks/rec (a tensor scale per slice),
@@ -3752,9 +4313,11 @@ def main() -> int:
           f"{BATCH * PROMPT}), rows bitwise equal; nvfp4_qdq row scope "
           f"bitwise at [{n_slots}, 1, K] ({len(rg_sites)} sites)", flush=True)
 
+    elapsed("3i")
     # ---- 3i. the shapes of rwkv6-3b, whisper-tiny and qwen2-vl-2b ---------
     phase_3i(dev, gen, rows, err, err_bound)
 
+    elapsed("4")
     # ---- 4. smoke model: card vs CPU on the same weights ------------------
     scfg = configs.get_smoke("acereason-7b")
     sparams, _ = serve.load_quantized(scfg, SEED, "packed", "cpu")
@@ -3817,6 +4380,7 @@ def main() -> int:
     # the slab families and M-RoPE at smoke size
     phase_4_families(dev)
 
+    elapsed("5")
     # ---- 5. the static serving path: acereason-7b, full width, packed -----
     scfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH)
     torch.cuda.reset_peak_memory_stats()
@@ -3942,6 +4506,7 @@ def main() -> int:
     serve_launches = launches
     torch.cuda.empty_cache()
 
+    elapsed("5b")
     # ---- 5b. the engine: full-size acereason-7b, packed --------------------
     from repro_torch.serve import Engine
 
@@ -4098,6 +4663,7 @@ def main() -> int:
     engine_b = dict(st=stb, wall=b_wall)
     del eng_b, eng_c
 
+    elapsed("5g")
     # ---- 5g. chunked prefill: run A's traffic, chunks of 256 ---------------
     # each chunk's activation amaxes cover the chunk (padding included), so
     # a request's prefill logits approximate exact prefill's, run A's
@@ -4177,10 +4743,12 @@ def main() -> int:
     del eng_g, g_pre, a_pre_all, scratch, pool1, ch, ex
     gc.collect()
 
+    elapsed("5l")
     # ---- 5l. speculative decoding on run A's loads and traffic ------------
     l_launches = phase_5l_ace(dev, cfg, params, pqcfg, a_prompts,
                               [a_out[r] for r in a_rids], engine_a["st"])
 
+    elapsed("5m")
     # ---- 5m. serving telemetry on run A's loads ----------------------------
     m5_launches = phase_5m(dev, cfg, params, pqcfg, a_prompts, b_prompts,
                            [b_out[r] for r in b_rids])
@@ -4196,6 +4764,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    elapsed("5c")
     # ---- 5c. MoE serving: full-size qwen2-moe-a2.7b through the engine ----
     from repro_torch.models import layers as mlayers
 
@@ -4393,129 +4962,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    elapsed("5k")
     # ---- 5k. FP8 KV: qwen2-moe-a2.7b under moe_hybrid; speculative on it --
     k_launches = phase_5k(dev, row_inv)
 
-    # ---- 5d. tensor-parallel serving: acereason-7b at tp = 2 -------------
-    # two ranks, two processes in a gloo group, share the card; the
-    # kernels are built (phase 2), this process holds no engine
-    from repro_torch.launch import mesh as tp_mesh
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    tp_prompts = a_prompts[:RUN_TP["requests"]]
-    t0 = time.perf_counter()
-    ranks = tp_mesh.spawn(tp_rank, TP_SIZE, tp_prompts, RUN_TP["gen"],
-                          shadow_ctx, k_launches["tp_oracle"]["prompts"],
-                          device="cuda", timeout=900)
-    tp_wall = time.perf_counter() - t0
-    r0 = ranks[0]
-    for i, r in enumerate(ranks):
-        for c in r["k4_check"]:
-            if not c["ok"] or not c.get("full_ok", True):
-                fail(f"nvfp4_matmul_tp on rank {i}, {c['site']} ({c['mode']}) "
-                     f"at M={c['m']}: max abs err {c['max_abs_err']} against "
-                     f"its plain version, {c.get('full_err')} against the "
-                     "full-K plain product")
-    k4_wrap_err = max(c["max_abs_err"] for r in ranks for c in r["k4_check"])
-    k4_full_err = max(c["full_err"] for r in ranks for c in r["k4_check"]
-                      if "full_err" in c)
-    err["nvfp4_matmul_tp"] = max(err["nvfp4_matmul_tp"], k4_wrap_err)
-    print(f"[kernel] nvfp4_matmul_tp wrapper on {TP_SIZE} ranks (gloo, one "
-          f"card): every rank's tile of wqkv, wg, wu (column) and wo, wd "
-          f"(row) at M in ({ENGINE['n_slots']}, {BATCH * PROMPT}) within K2's "
-          f"tolerance of nvfp4_matmul_tp_ref on the same inputs (max abs err "
-          f"{k4_wrap_err:.3g}); the row results within the summation bound of "
-          f"the full-K plain product (max abs err {k4_full_err:.3g})",
-          flush=True)
-    stt, rep0 = r0["stats"], r0["report"]
-    n_fwd = RUN_TP["requests"] + stt["decode_steps"]
-    print(f"[engine TP] {cfg.name} full size, packed, tp={TP_SIZE} (gloo, "
-          f"{TP_SIZE} processes on one card): {RUN_TP['requests']} requests "
-          f"(run A's first), gen {RUN_TP['gen']}, {ENGINE['n_slots']} slots, "
-          f"pool {ENGINE['n_blocks']}x{ENGINE['block_size']}, exact prefill: "
-          f"wall {r0['wall']:.2f}s (spawn to results {tp_wall:.1f}s), steps "
-          f"{stt['steps']}, decode steps {stt['decode_steps']}", flush=True)
-    print(f"[engine TP] ttft_p50_ms={stt['ttft_p50_s']*1e3:.1f} "
-          f"ttft_p95_ms={stt['ttft_p95_s']*1e3:.1f} "
-          f"decode_step_p50_ms={stt['decode_step_p50_s']*1e3:.2f} "
-          f"decode_step_p95_ms={stt['decode_step_p95_s']*1e3:.2f} "
-          f"decode_tok_s={stt['decode_tok_s']:.1f} e2e_tok_s={stt['e2e_tok_s']:.1f} "
-          f"collectives={r0['collectives']['calls']} "
-          f"({r0['collectives']['seconds']:.2f}s on the host)", flush=True)
-    for i, r in enumerate(ranks):
-        print(f"[engine TP] rank {i}: load+pack+cut {r['load_s']:.1f}s "
-              f"(peak {r['load_peak']:.2f} GB), peak in the run "
-              f"{r['peak']:.2f} GB, launches {r['launches']}", flush=True)
-    print(f"[engine TP] tp_shard_report (rank 0): {rep0}", flush=True)
-    pool_1 = engine_a["st"]["pool_bytes"]
-    for i, r in enumerate(ranks):
-        rp, ln = r["report"], r["launches"]
-        if r["finished"] != RUN_TP["requests"] or any(
-                len(t) != RUN_TP["gen"] for t in r["tokens"]):
-            fail(f"engine TP rank {i}: {r['finished']} of "
-                 f"{RUN_TP['requests']} requests finished")
-        if not r["drained"]:
-            fail(f"engine TP rank {i}: the pool did not drain")
-        if not (rp["packed_sharded"] == rp["packed_total"] > 0
-                and rp["kv_sharded"]
-                and rp["kv_pool_bytes_per_device"] * TP_SIZE == pool_1):
-            fail(f"engine TP rank {i}: shard report {rp} (single-device "
-                 f"pool {pool_1} B)")
-        if ln["nvfp4_matmul_tp"] != 5 * cfg.n_layers * n_fwd:
-            fail(f"engine TP rank {i} launched nvfp4_matmul_tp "
-                 f"{ln['nvfp4_matmul_tp']} times, expected 5 x "
-                 f"{cfg.n_layers} x {n_fwd} forwards")
-        if ln["nvfp4_matmul"] or ln["paged_attention"]:
-            fail(f"engine TP rank {i} launched K2 or K7 bare: {ln}")
-        if any(not np.array_equal(a, b) for a, b in zip(r["tokens"],
-                                                         r0["tokens"])):
-            fail(f"engine TP: rank {i}'s tokens differ from rank 0's")
-    tp_rel = [float((p.float() - q.float()).norm() / q.float().norm())
-              for p, q in zip(r0["pre"], a_pre)]
-    tp_agree = float(np.mean([np.mean(t == a_out[rid][: RUN_TP["gen"]])
-                              for t, rid in zip(r0["tokens"], a_rids)]))
-    print(f"[engine TP] prefill logits vs run A (one card) rel_l2: "
-          + " ".join(f"{x:.4g}" for x in tp_rel)
-          + f" (tolerance {LOGIT_TOL['nvfp4']}); tokens equal to run A's at "
-          f"{tp_agree:.3f} of positions (printed, not gated)", flush=True)
-    if max(tp_rel) > LOGIT_TOL["nvfp4"]:
-        fail(f"engine TP: prefill logits differ from one card's by {max(tp_rel)}")
-    tr = r0["trace"]
-    print(f"[trace] TP engine decode step, 8 slots, rank 0 (traced): "
-          f"wall_ms={tr['wall_ms']:.3f} device_busy_ms={tr['busy_ms']:.3f} "
-          f"idle_share={1 - tr['busy_ms'] / tr['wall_ms']:.3f} "
-          f"nvfp4_matmul_tp_ms={tr['k4_ms']:.3f} ({5 * cfg.n_layers} launches) "
-          f"collective_ms={tr['collective_ms']:.3f} ({tr['collectives']} "
-          f"collectives, host-staged); device ops: {tr['n_port']:.0f} of the "
-          f"port's kernels ({tr['n_qdq']:.0f} QDQ for {tr['qdq_calls']} QDQ "
-          f"calls; trace {tr['attempt']}), {tr['n_other']:.0f} others",
-          flush=True)
-    if tr["n_qdq"] != tr["qdq_calls"]:
-        fail(f"engine TP decode step: {tr['n_qdq']} QDQ kernels for "
-             f"{tr['qdq_calls']} QDQ calls")
-    for kname, ms in tr["top"]:
-        print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
-    tp_launches = [r["launches"] for r in ranks]
-    engine_tp = dict(st=stt, wall=r0["wall"], trace=tr, rel=tp_rel,
-                     agree=tp_agree)
-    n5_launches = phase_5n_spec_shadow(ranks, cfg, shadow_single)
-    n5_launches.update(phase_5n_moe(ranks, k_launches["tp_oracle"]))
-    del ranks, r0
-
+    elapsed("5e")
     # ---- 5e. the rglru_hybrid family through the slab engine ---------------
     from repro_torch.models import rglru
-
-    def rec_sites(c, qc):
-        """Quantized GEMM sites of one forward: (per recurrent layer, per
-        attention layer, recurrent layers, attention layers).  A recurrent
-        layer runs wx, wgate, w_a, w_i, wo and the MLP's three; an
-        attention layer its MLP, and wqkv and wo unless the recipe keeps
-        attention in BF16 (``models/rglru.py``)."""
-        n_sb, n_rec, n_rem = rglru._counts(c)
-        per_rec = 8 if qc.quantizes("recurrent") else 3
-        per_attn = 3 + (2 if qc.quantizes("attn") else 0)
-        return per_rec, per_attn, n_sb * n_rec + n_rem, n_sb
 
     # nemotron-nano-9b-sim at full width and depth, packed, the hybrid
     # recipe; run A's traffic on the slab plan (recurrent + dense_kv)
@@ -4629,10 +5083,19 @@ def main() -> int:
         fail(f"engine E: logits differ from serve_batch's by "
              f"{max(e_rel_p + e_rel_d)}")
     trace_slab_step(eng_e, e_prompts, "nemotron engine")
+    # phase 5o's oracle: the shortest prompts' prefill logits and streams
+    n_o = RUN_OTP["nemo_requests"]
+    slab_oracles = {"a": dict(
+        arch=NEMO_ARCH, plan=eng_e.state_plan, what="run E's shortest",
+        prompts=e_prompts[:n_o], extras=None, gen=RUN_OTP["nemo_gen"],
+        engine=ENGINE, fault="z", pre=[e_pre[r].cpu() for r in e_rids[:n_o]],
+        tokens=[e_out[r] for r in e_rids[:n_o]], pool_bytes=ste["pool_bytes"],
+        whole=set(), **slab_prefill_controls(eng_e, e_prompts[:n_o], None))}
     del eng_e, e_first, e_pre, nparams
     gc.collect()
     torch.cuda.empty_cache()
 
+    elapsed("5f")
     # ---- 5f. recurrentgemma-2b at full size: the window ring wraps ---------
     rcfg = configs.get_config(RGEMMA["arch"])
     rparams, rqcfg = serve.load_quantized(rcfg, SEED, "packed", dev)
@@ -4644,7 +5107,7 @@ def main() -> int:
     eng_f = Engine(rcfg, rparams, rqcfg, device=dev,
                    n_slots=RGEMMA["requests"], block_size=bs,
                    max_blocks_per_slot=f_mb)
-    f_first = first_decode_logits(eng_f)
+    f_first, f_pre = first_decode_logits(eng_f), prefill_logits(eng_f)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -4711,17 +5174,140 @@ def main() -> int:
         fail(f"engine F: first decode step logits differ from serve_batch's "
              f"by {max(f_rel)}")
     phase_5f_rows(dev, rcfg, rparams, rqcfg, f_prompts, f_mb, f_want)
-    del eng_f, eng_1, f_first, rparams
+    slab_oracles["b"] = dict(
+        arch=RGEMMA["arch"], plan=eng_f.state_plan,
+        what="run F's, past the window", prompts=f_prompts, extras=None,
+        gen=RUN_OTP["rgemma_gen"], engine=dict(
+            n_slots=RGEMMA["requests"], block_size=bs, max_blocks_per_slot=f_mb),
+        fault=None, pre=[f_pre[r].cpu() for r in f_rids],
+        tokens=[f_out[r] for r in f_rids], pool_bytes=stf["pool_bytes"],
+        whole={"blocks.kv.k", "blocks.kv.v"},
+        **slab_prefill_controls(eng_f, f_prompts, None))
+    del eng_f, eng_1, f_first, f_pre, rparams
     gc.collect()
     torch.cuda.empty_cache()
 
+    elapsed("5h-5j")
     # ---- 5h-5j. rwkv6-3b and whisper-tiny on the slab engine, qwen2-vl-2b --
-    h_launches, h_spec_launches = phase_5h(dev)
-    i_launches = phase_5i(dev)
+    h_launches, h_spec_launches, slab_oracles["c"] = phase_5h(dev)
+    i_launches, slab_oracles["d"] = phase_5i(dev)
     j_launches = phase_5j(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
+    elapsed("5d")
+    # ---- 5d. tensor-parallel serving: acereason-7b at tp = 2 -------------
+    # two ranks, two processes in a gloo group, share the card; the
+    # kernels are built (phase 2), this process holds no engine
+    from repro_torch.launch import mesh as tp_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_prompts = a_prompts[:RUN_TP["requests"]]
+    t0 = time.perf_counter()
+    slab_runs = {p: {k: o.get(k) for k in ("arch", "prompts", "extras",
+                                            "gen", "engine", "fault", "spec")}
+                 for p, o in slab_oracles.items()}
+    ranks = tp_mesh.spawn(tp_rank, TP_SIZE, tp_prompts, RUN_TP["gen"],
+                          shadow_ctx, k_launches["tp_oracle"]["prompts"],
+                          slab_runs, device="cuda", timeout=1000)
+    tp_wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for i, r in enumerate(ranks):
+        for c in r["k4_check"]:
+            if not c["ok"] or not c.get("full_ok", True):
+                fail(f"nvfp4_matmul_tp on rank {i}, {c['site']} ({c['mode']}) "
+                     f"at M={c['m']}: max abs err {c['max_abs_err']} against "
+                     f"its plain version, {c.get('full_err')} against the "
+                     "full-K plain product")
+    k4_wrap_err = max(c["max_abs_err"] for r in ranks for c in r["k4_check"])
+    k4_full_err = max(c["full_err"] for r in ranks for c in r["k4_check"]
+                      if "full_err" in c)
+    err["nvfp4_matmul_tp"] = max(err["nvfp4_matmul_tp"], k4_wrap_err)
+    print(f"[kernel] nvfp4_matmul_tp wrapper on {TP_SIZE} ranks (gloo, one "
+          f"card): every rank's tile of wqkv, wg, wu (column) and wo, wd "
+          f"(row) at M in ({ENGINE['n_slots']}, {BATCH * PROMPT}) within K2's "
+          f"tolerance of nvfp4_matmul_tp_ref on the same inputs (max abs err "
+          f"{k4_wrap_err:.3g}); the row results within the summation bound of "
+          f"the full-K plain product (max abs err {k4_full_err:.3g})",
+          flush=True)
+    stt, rep0 = r0["stats"], r0["report"]
+    n_fwd = RUN_TP["requests"] + stt["decode_steps"]
+    print(f"[engine TP] {cfg.name} full size, packed, tp={TP_SIZE} (gloo, "
+          f"{TP_SIZE} processes on one card): {RUN_TP['requests']} requests "
+          f"(run A's first), gen {RUN_TP['gen']}, {ENGINE['n_slots']} slots, "
+          f"pool {ENGINE['n_blocks']}x{ENGINE['block_size']}, exact prefill: "
+          f"wall {r0['wall']:.2f}s (spawn to results {tp_wall:.1f}s), steps "
+          f"{stt['steps']}, decode steps {stt['decode_steps']}", flush=True)
+    print(f"[engine TP] ttft_p50_ms={stt['ttft_p50_s']*1e3:.1f} "
+          f"ttft_p95_ms={stt['ttft_p95_s']*1e3:.1f} "
+          f"decode_step_p50_ms={stt['decode_step_p50_s']*1e3:.2f} "
+          f"decode_step_p95_ms={stt['decode_step_p95_s']*1e3:.2f} "
+          f"decode_tok_s={stt['decode_tok_s']:.1f} e2e_tok_s={stt['e2e_tok_s']:.1f} "
+          f"collectives={r0['collectives']['calls']} "
+          f"({r0['collectives']['seconds']:.2f}s on the host)", flush=True)
+    for i, r in enumerate(ranks):
+        print(f"[engine TP] rank {i}: load+pack+cut {r['load_s']:.1f}s "
+              f"(peak {r['load_peak']:.2f} GB), peak in the run "
+              f"{r['peak']:.2f} GB, launches {r['launches']}", flush=True)
+    print(f"[engine TP] tp_shard_report (rank 0): {rep0}", flush=True)
+    pool_1 = engine_a["st"]["pool_bytes"]
+    for i, r in enumerate(ranks):
+        rp, ln = r["report"], r["launches"]
+        if r["finished"] != RUN_TP["requests"] or any(
+                len(t) != RUN_TP["gen"] for t in r["tokens"]):
+            fail(f"engine TP rank {i}: {r['finished']} of "
+                 f"{RUN_TP['requests']} requests finished")
+        if not r["drained"]:
+            fail(f"engine TP rank {i}: the pool did not drain")
+        if not (rp["packed_sharded"] == rp["packed_total"] > 0
+                and rp["kv_sharded"]
+                and rp["kv_pool_bytes_per_device"] * TP_SIZE == pool_1):
+            fail(f"engine TP rank {i}: shard report {rp} (single-device "
+                 f"pool {pool_1} B)")
+        if ln["nvfp4_matmul_tp"] != 5 * cfg.n_layers * n_fwd:
+            fail(f"engine TP rank {i} launched nvfp4_matmul_tp "
+                 f"{ln['nvfp4_matmul_tp']} times, expected 5 x "
+                 f"{cfg.n_layers} x {n_fwd} forwards")
+        if ln["nvfp4_matmul"] or ln["paged_attention"]:
+            fail(f"engine TP rank {i} launched K2 or K7 bare: {ln}")
+        if any(not np.array_equal(a, b) for a, b in zip(r["tokens"],
+                                                         r0["tokens"])):
+            fail(f"engine TP: rank {i}'s tokens differ from rank 0's")
+    tp_rel = [float((p.float() - q.float()).norm() / q.float().norm())
+              for p, q in zip(r0["pre"], a_pre)]
+    tp_agree = float(np.mean([np.mean(t == a_out[rid][: RUN_TP["gen"]])
+                              for t, rid in zip(r0["tokens"], a_rids)]))
+    print(f"[engine TP] prefill logits vs run A (one card) rel_l2: "
+          + " ".join(f"{x:.4g}" for x in tp_rel)
+          + f" (tolerance {LOGIT_TOL['nvfp4']}); tokens equal to run A's at "
+          f"{tp_agree:.3f} of positions (printed, not gated)", flush=True)
+    if max(tp_rel) > LOGIT_TOL["nvfp4"]:
+        fail(f"engine TP: prefill logits differ from one card's by {max(tp_rel)}")
+    tr = r0["trace"]
+    print(f"[trace] TP engine decode step, 8 slots, rank 0 (traced): "
+          f"wall_ms={tr['wall_ms']:.3f} device_busy_ms={tr['busy_ms']:.3f} "
+          f"idle_share={1 - tr['busy_ms'] / tr['wall_ms']:.3f} "
+          f"nvfp4_matmul_tp_ms={tr['k4_ms']:.3f} ({5 * cfg.n_layers} launches) "
+          f"collective_ms={tr['collective_ms']:.3f} ({tr['collectives']} "
+          f"collectives, host-staged); device ops: {tr['n_port']:.0f} of the "
+          f"port's kernels ({tr['n_qdq']:.0f} QDQ for {tr['qdq_calls']} QDQ "
+          f"calls; trace {tr['attempt']}), {tr['n_other']:.0f} others",
+          flush=True)
+    if tr["n_qdq"] != tr["qdq_calls"]:
+        fail(f"engine TP decode step: {tr['n_qdq']} QDQ kernels for "
+             f"{tr['qdq_calls']} QDQ calls")
+    for kname, ms in tr["top"]:
+        print(f"[trace]   {ms:8.3f} ms  {kname[:110]}")
+    tp_launches = [r["launches"] for r in ranks]
+    engine_tp = dict(st=stt, wall=r0["wall"], trace=tr, rel=tp_rel,
+                     agree=tp_agree)
+    n5_launches = phase_5n_spec_shadow(ranks, cfg, shadow_single)
+    n5_launches.update(phase_5n_moe(ranks, k_launches["tp_oracle"]))
+    o5_launches = phase_5o(ranks, slab_oracles)
+    del ranks, r0, slab_oracles
+
+    elapsed("7")
     # ---- 7. timings, after the serving paths (the profiler's hooks stay out
     # of the host-bound decode loop) and before the training paths, which
     # then run without phase 3's tensors resident --------------------------
@@ -4772,6 +5358,7 @@ def main() -> int:
     print(f"[chip_smoke] resident before the training paths: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
 
+    elapsed("6")
     # ---- 6. the training path: full-size olmo-1b QAD, remat "full" --------
     tcfg = configs.get_config(TRAIN["arch"])
     n_params = tcfg.n_params()
@@ -4913,6 +5500,7 @@ def main() -> int:
         fail(f"the remat steps launched {remat_launches}, expected "
              f"{want_q} QDQ and 6 KL")
 
+    elapsed("6b")
     # ---- 6b. MoE QAD: qwen2-moe-a2.7b at full width, 4 of its 24 layers ---
     # through train.train with the config cut in depth here (the package
     # keeps its configs): the training state of all 24 layers (14.3 B
@@ -5009,6 +5597,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    elapsed("6c")
     # ---- 6c. data-free QAD: olmo-1b from the teacher's own tokens --------
     from repro_torch.data import generated
     tmodel = get_model(tcfg)
@@ -5071,6 +5660,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    elapsed("6d")
     # ---- 6d. the numerics plane and calibration: olmo-1b ----------------
     import tempfile
 
@@ -5172,9 +5762,10 @@ def main() -> int:
     calib = {}
     for method in ("max", "percentile", "mse"):
         t0 = time.perf_counter()
-        amax = ptq.calibrate_activations(taps, cbatches, sites, method)
+        m_sites = sites[::CALIB["mse_every"]] if method == "mse" else sites
+        amax = ptq.calibrate_activations(taps, cbatches, m_sites, method)
         calib[method] = dict(s=time.perf_counter() - t0,
-                             amax=[amax[s] for s in sites])
+                             amax=[amax[s] for s in m_sites])
         if not all(math.isfinite(a) and a > 0 for a in amax.values()):
             fail(f"calibration ({method}) gave {amax}")
         print(f"[calib] {method}: {calib[method]['s']:.2f}s; amax by layer "
@@ -5187,6 +5778,7 @@ def main() -> int:
     del cparams, cbatches
     gc.collect()
     torch.cuda.empty_cache()
+    elapsed("6e")
     # ---- 6e. QAD on nemotron-nano-9b-sim: full width, one super-block ----
     # through train.train with the config cut in depth here: 56 layers'
     # training state (18.4 B parameters) does not fit one card
@@ -5284,6 +5876,7 @@ def main() -> int:
     train_total = {k: sum(p.get(k, 0) for p in train_paths.values())
                    for k in ops.launches}
 
+    elapsed("8")
     # ---- 8. the kernels line, the card, the result ------------------------
     def spec_paths(name):
         """A kernel's launches on the paths of phases 5k, 5l and 5m."""
@@ -5309,7 +5902,9 @@ def main() -> int:
                    "engine_h_rwkv6": h_launches[name],
                    "engine_i_whisper": i_launches[name],
                    "static_j_qwen2vl": j_launches[name],
-                   **spec_paths(name)}
+                   **spec_paths(name),
+                   **{f"engine_5o_{p}_rank0": n[name]
+                      for p, n in o5_launches.items()}}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "max_abs_err": err[name],
@@ -5344,7 +5939,9 @@ def main() -> int:
                    "static_j_qwen2vl": j_launches["nvfp4_qdq"],
                    **spec_paths("nvfp4_qdq"),
                    **{f"engine_5n_{p}_rank0": n["nvfp4_qdq"]
-                      for p, n in n5_launches.items()}}
+                      for p, n in n5_launches.items()},
+                   **{f"engine_5o_{p}_rank0": n["nvfp4_qdq"]
+                      for p, n in o5_launches.items()}}
         return {"name": "nvfp4_qdq", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/nvfp4_qdq.cu",
                 "replaces": "src/repro/kernels/nvfp4_qdq.py:44",
@@ -5450,11 +6047,14 @@ def main() -> int:
                 "wrapper": "src/repro_torch/kernels/nvfp4_matmul.py",
                 "replaces": "src/repro/kernels/nvfp4_matmul.py:318",
                 "launches": tp_launches[0]["nvfp4_matmul_tp"]
-                + sum(n["nvfp4_matmul_tp"] for n in n5_launches.values()),
+                + sum(n["nvfp4_matmul_tp"] for n in n5_launches.values())
+                + sum(n["nvfp4_matmul_tp"] for n in o5_launches.values()),
                 "launches_by_path": {
                     "engine_tp_rank0": tp_launches[0]["nvfp4_matmul_tp"],
                     **{f"engine_5n_{p}_rank0": n["nvfp4_matmul_tp"]
-                       for p, n in n5_launches.items()}},
+                       for p, n in n5_launches.items()},
+                    **{f"engine_5o_{p}_rank0": n["nvfp4_matmul_tp"]
+                       for p, n in o5_launches.items()}},
                 "max_abs_err": err["nvfp4_matmul_tp"],
                 "max_err_over_bound": err_bound["nvfp4_matmul_tp"],
                 "ms": sum(r["ms"] for r in dec),

@@ -50,7 +50,8 @@ TP_ONLY = {"batch": (), "vocab": (MODEL,), "mlp": (MODEL,), "qkv": (MODEL,),
            "heads": (MODEL,), "kv": (MODEL,), "expert": (MODEL,),
            "rnn": (MODEL,), "headdim": (MODEL,), "embed": (), "seq": (),
            "layers": (), "inner": (), "none": ()}
-# leaves whose N dim is the fused [q heads | k heads | v heads] projection
+# leaves whose N dim is the fused [q heads | k heads | v heads] projection:
+# every leaf whose name ends so (whisper's cross-attention "x_wqkv" too)
 FUSED_QKV = ("wqkv", "bqkv")
 # the MoE expert stacks [E, K, N]: split on E ("expert", ``moe_shard="ep"``)
 # or on the FFN dim ("mlp", ``moe_shard="tp"``)
@@ -141,23 +142,52 @@ def device_bytes(tree) -> int:
     return total
 
 
+def _fused(name: str) -> bool:
+    """Is the leaf at tree path ``name`` a fused QKV projection?"""
+    return name.rsplit(".", 1)[-1].endswith(FUSED_QKV)
+
+
+def _kv_local(n_heads: int, n_kv: int, size: int, name: str = "") -> int:
+    """The KV heads a rank holds: its share where they divide the group,
+    the one KV head of MQA replicated; raises otherwise (GQA stays
+    aligned only so)."""
+    if n_heads % size or (n_kv % size and n_kv != 1):
+        raise NotImplementedError(
+            f"{name or 'wqkv'}: {n_heads} query and {n_kv} KV heads do not "
+            f"split over {size} ranks (GQA stays aligned only when the KV "
+            "heads divide the group, or one KV head is replicated)")
+    return n_kv // size if n_kv % size == 0 else n_kv
+
+
+def local_heads(n_heads: int, n_kv: int, size: int) -> tuple[int, int]:
+    """(query heads, KV heads) of a rank's fused QKV tile over ``size``
+    ranks: the layout ``shard_params`` cuts, and the models read."""
+    return n_heads // size, _kv_local(n_heads, n_kv, size)
+
+
 def _qkv_rows(n_heads: int, n_kv: int, head_dim: int, size: int,
               name: str) -> torch.Tensor:
     """The order of the fused QKV projection's N rows that puts rank r's
-    q heads, then its k heads, then its v heads in its contiguous tile."""
-    if n_heads % size or n_kv % size:
-        raise NotImplementedError(
-            f"{name}: {n_heads} query and {n_kv} KV heads do not split "
-            f"over {size} ranks (GQA stays aligned only when the KV heads "
-            "divide the group)")
-    qh, kh = n_heads // size, n_kv // size
+    q heads, then its k heads, then its v heads in its contiguous tile
+    (an MQA head's rows in every rank's tile)."""
+    kh = _kv_local(n_heads, n_kv, size, name)
+    qh = n_heads // size
     q0, k0, v0 = 0, n_heads * head_dim, (n_heads + n_kv) * head_dim
     rows = []
     for r in range(size):
+        kr = 0 if kh == n_kv else r
         rows += [torch.arange(q0 + r * qh * head_dim, q0 + (r + 1) * qh * head_dim),
-                 torch.arange(k0 + r * kh * head_dim, k0 + (r + 1) * kh * head_dim),
-                 torch.arange(v0 + r * kh * head_dim, v0 + (r + 1) * kh * head_dim)]
+                 torch.arange(k0 + kr * kh * head_dim, k0 + (kr + 1) * kh * head_dim),
+                 torch.arange(v0 + kr * kh * head_dim, v0 + (kr + 1) * kh * head_dim)]
     return torch.cat(rows)
+
+
+def _fused_tile(heads: tuple, size: int) -> int:
+    """The N width of a rank's fused QKV tile: its query heads and its
+    KV heads (the whole one of MQA)."""
+    n_heads, n_kv, head_dim = heads
+    qh, kh = local_heads(n_heads, n_kv, size)
+    return (qh + 2 * kh) * head_dim
 
 
 def _cut(t: torch.Tensor, axis: int, rank: int, size: int) -> torch.Tensor:
@@ -190,18 +220,29 @@ def _axis(parts: tuple) -> int | None:
 
 
 def _is_tile(name: str, held: tuple, full: tuple, axis: int | None,
-             size: int) -> bool:
+             size: int, tile_n: int | None = None) -> bool:
     """False for a leaf held whole, True for one held as its tile on
-    ``axis``; any other shape raises (a wrongly cut leaf must not pass)."""
+    ``axis`` (``tile_n`` wide there: a fused QKV tile with a replicated
+    KV head); any other shape raises (a wrongly cut leaf must not pass)."""
     if held == full:
         return False
     if axis is not None:
         tile = list(full)
-        tile[axis] //= size
+        tile[axis] = tile_n if tile_n is not None else tile[axis] // size
         if held == tuple(tile):
             return True
     raise ValueError(f"{name or 'leaf'}: shape {held} is neither the whole "
                      f"{full} nor its tile over {size} ranks")
+
+
+def _tile_n(name: str, heads: tuple | None, axis: int | None, n_axis: int,
+            size: int) -> int | None:
+    """A fused QKV leaf's tile width where it splits on its N dim
+    (``n_axis``: -2 of packed codes, -1 of a dense weight or bias), or
+    None for an even cut."""
+    if heads and axis == n_axis and _fused(name):
+        return _fused_tile(heads, size)
+    return None
 
 
 def shard_leaf(spec: ParamSpec, leaf, rank: int, size: int, rules: Rules,
@@ -212,29 +253,29 @@ def shard_leaf(spec: ParamSpec, leaf, rank: int, size: int, rules: Rules,
     shape than the whole or the tile raises.
 
     ``heads``: (n_heads, n_kv_heads, head_dim) of the config; the fused
-    QKV leaves (``wqkv``, ``bqkv``) are regrouped by head first."""
-    fused = name.rsplit(".", 1)[-1] in FUSED_QKV
+    QKV leaves (``_fused``) are regrouped by head first."""
     if isinstance(leaf, PackedNVFP4):
         axis = _axis(resolve_packed(spec, size, rules, name))
+        tile_n = _tile_n(name, heads, axis, -2, size)
         if axis is None or _is_tile(name, tuple(leaf.codes.shape),
-                                    _stored(spec), axis, size):
+                                    _stored(spec), axis, size, tile_n):
             return leaf
         if axis == -1:
             return nvfp4.tp_tile(leaf, "row", rank, size)
         if axis != -2:
             return _cut_packed(leaf, axis, rank, size)
         rows = (_qkv_rows(*heads, size, name).to(leaf.codes.device)
-                if fused and heads else None)
+                if tile_n is not None else None)
         return nvfp4.tp_tile(leaf, "column", rank, size, rows)
     axis = _axis(resolve(spec, size, rules, name))
+    tile_n = _tile_n(name, heads, axis, -1, size)
     if axis is None or _is_tile(name, tuple(leaf.shape), tuple(spec.shape),
-                                axis, size):
+                                axis, size, tile_n):
         return leaf
-    axis %= leaf.ndim
-    if fused and heads and axis == leaf.ndim - 1:
-        leaf = leaf.index_select(axis, _qkv_rows(*heads, size, name).to(
+    if tile_n is not None:
+        leaf = leaf.index_select(-1, _qkv_rows(*heads, size, name).to(
             leaf.device))
-    return _cut(leaf, axis, rank, size)
+    return _cut(leaf, axis % leaf.ndim, rank, size)
 
 
 def shard_params(params, specs, tp, rules: Rules, heads: tuple | None = None):
@@ -250,16 +291,24 @@ def shard_params(params, specs, tp, rules: Rules, heads: tuple | None = None):
     return walk(specs, params, "")
 
 
-def shard_counts(specs, params, size: int, rules: Rules) -> dict:
+def shard_counts(specs, params, size: int, rules: Rules,
+                 heads: tuple | None = None, state=None) -> dict:
     """Packed leaves, packed leaves this rank holds as tiles (read from the
     shapes held: column- and row-parallel weights must not silently
-    replicate), and the tree's bytes over the group: a tile counts
-    ``size`` times, a packed leaf's replicated tensor scale once.  The MoE
-    expert stacks (``EXPERT_STACKS``) are counted apart too: how many, how
-    many held as tiles (on E or on the FFN dim), and their bytes on this
-    rank."""
-    out = {"packed_total": 0, "packed_sharded": 0, "weight_bytes_total": 0,
-           "expert_total": 0, "expert_sharded": 0, "expert_bytes": 0}
+    replicate), packed leaves the rules keep whole (no dim of theirs maps
+    to the group), and the tree's bytes over the group: a tile counts as
+    the whole leaf, a replicated leaf once.  The MoE expert stacks
+    (``EXPERT_STACKS``) are counted apart too: how many, how many held as
+    tiles (on E or on the FFN dim), and their bytes on this rank.
+
+    ``heads``: as ``shard_leaf`` takes it (a fused QKV tile may hold a
+    replicated KV head).  ``state``: (slot-state specs, the rank's slab
+    tree), each leaf counted as split or whole (``local_specs``'s shape,
+    or the whole spec's): "state_leaves" {path: {"split", "bytes"}},
+    "state_total", "state_sharded"."""
+    out = {"packed_total": 0, "packed_sharded": 0, "packed_rule_whole": 0,
+           "weight_bytes_total": 0, "expert_total": 0, "expert_sharded": 0,
+           "expert_bytes": 0}
 
     def walk(sp, pr, path):
         if isinstance(sp, dict):
@@ -269,24 +318,83 @@ def shard_counts(specs, params, size: int, rules: Rules) -> dict:
         with warnings.catch_warnings():        # warned when it was cut
             warnings.simplefilter("ignore")
             if isinstance(pr, PackedNVFP4):
-                split = _is_tile(path, tuple(pr.codes.shape), _stored(sp),
-                                 _axis(resolve_packed(sp, size, rules, path)),
-                                 size)
+                axis = _axis(resolve_packed(sp, size, rules, path))
+                tile_n = _tile_n(path, heads, axis, -2, size)
+                held = tuple(pr.codes.shape)
+                split = _is_tile(path, held, _stored(sp), axis, size, tile_n)
                 out["packed_total"] += 1
                 out["packed_sharded"] += split
+                out["packed_rule_whole"] += not any(
+                    MODEL in rules.axes_for(a) for a in sp.axes)
                 tiles = pr.codes.numel() + pr.scales.numel()   # 1 B each
                 nbytes = tiles + pr.tensor_scale.numel() * 4
-                out["weight_bytes_total"] += (tiles * (size if split else 1)
+                whole = (tiles // held[-2] * _stored(sp)[-2] if tile_n
+                         else tiles * (size if split else 1))
+                out["weight_bytes_total"] += (whole
                                               + pr.tensor_scale.numel() * 4)
             else:
+                axis = _axis(resolve(sp, size, rules, path))
+                tile_n = _tile_n(path, heads, axis, -1, size)
                 split = _is_tile(path, tuple(pr.shape), tuple(sp.shape),
-                                 _axis(resolve(sp, size, rules, path)), size)
+                                 axis, size, tile_n)
                 nbytes = pr.numel() * pr.element_size()
-                out["weight_bytes_total"] += nbytes * (size if split else 1)
+                out["weight_bytes_total"] += (
+                    nbytes // pr.shape[-1] * sp.shape[-1] if tile_n
+                    else nbytes * (size if split else 1))
         if path.rsplit(".", 1)[-1] in EXPERT_STACKS:
             out["expert_total"] += 1
             out["expert_sharded"] += split
             out["expert_bytes"] += nbytes
 
     walk(specs, params, "")
+    if state is not None:
+        out.update(_state_counts(*state, size, rules))
     return out
+
+
+def local_shape(spec: ParamSpec, size: int, rules: Rules,
+                name: str = "") -> tuple:
+    """A slot-state leaf's shape on one rank: its first dim that the rules
+    split over the group and that divides, cut ``size`` ways; a head's dim
+    ("headdim") is never cut (head-local attention holds whole heads)."""
+    rules = Rules({**rules.table, "headdim": ()})
+    parts = resolve(spec, size, rules, name)
+    return tuple(d // size if p == MODEL else d
+                 for d, p in zip(spec.shape, parts))
+
+
+def local_specs(specs, size: int, rules: Rules):
+    """A slot-state spec tree at each leaf's local shape (``local_shape``):
+    the slabs one rank allocates."""
+    def walk(sp, path):
+        if isinstance(sp, dict):
+            return {k: walk(v, f"{path}.{k}" if path else k)
+                    for k, v in sp.items()}
+        return dataclasses.replace(sp, shape=local_shape(sp, size, rules,
+                                                         path))
+    return walk(specs, "")
+
+
+def _state_counts(specs, data, size: int, rules: Rules) -> dict:
+    """Each slab leaf split (held at its local shape) or whole, and its
+    bytes on this rank; any other shape raises."""
+    leaves = {}
+
+    def walk(sp, d, path):
+        if isinstance(sp, dict):
+            for k in sp:
+                walk(sp[k], d[k], f"{path}.{k}" if path else k)
+            return
+        with warnings.catch_warnings():        # warned when it was cut
+            warnings.simplefilter("ignore")
+            loc = local_shape(sp, size, rules, path)
+        held = tuple(d.shape)
+        if held not in (tuple(sp.shape), loc):
+            raise ValueError(f"state {path}: shape {held} is neither the "
+                             f"whole {tuple(sp.shape)} nor its tile {loc}")
+        leaves[path] = {"split": held != tuple(sp.shape),
+                        "bytes": d.numel() * d.element_size()}
+
+    walk(specs, data, "")
+    return {"state_leaves": leaves, "state_total": len(leaves),
+            "state_sharded": sum(v["split"] for v in leaves.values())}

@@ -53,19 +53,25 @@ token for token against the plain engine's on the same workload, and a
 
 ``--tp N`` serves the engine tensor-parallel over N ranks, one process
 each (``launch.mesh.spawn``, a gloo group), on ``--device``: every rank
-cuts its tiles of the weights and of the KV pool, the packed GEMMs run
-K4, and rank 0 prints.  Each rank checks its outputs against the
-single-device ``serve_batch`` on the full weights (with ``--speculative``
-against the plain engine under the same ``--tp``).  MoE configs split
+cuts its tiles of the weights and of the KV pool or the state slabs,
+the packed GEMMs run K4, and rank 0 prints.  Each rank checks its
+outputs against the single-device ``serve_batch`` on the full weights
+(with ``--speculative`` against the plain engine under the same
+``--tp``).  MoE configs split
 their experts (E, or each expert's FFN dim under ``moe_shard="tp"``),
-an FP8 pool its pages and scales by KV head; ``--speculative``,
-``--draft``, ``--adaptive-k`` and ``--shadow-rate`` compose with it:
+an FP8 pool its pages and scales by KV head; the slab families
+(``rwkv6-3b``, ``whisper-tiny`` with each request's frames,
+``nemotron-nano-9b-sim``, ``recurrentgemma-2b``) their state slabs by
+head or channel; ``--speculative``, ``--draft``, ``--adaptive-k`` and
+``--shadow-rate`` compose with it:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch qwen1.5-0.5b --weight-format packed --engine --tp 2
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch arctic-480b --weight-format packed --engine --tp 2 \
         --speculative 2 --shadow-rate 0.5
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch rwkv6-3b --weight-format packed --engine --tp 2
 
 Telemetry (engine mode): ``--obs metrics`` (counters, gauges, latency
 histograms, dispatch counts) or ``--obs trace`` (also the request
@@ -312,27 +318,37 @@ def build_engine(cfg, params, qcfg, args, mesh=None):
 
 
 def tp_shard_report(eng) -> dict:
-    """How the engine's packed weights and KV pool sharded (the
-    reference's keys, then the port's MoE and FP8 ones).
+    """How the engine's packed weights and serve state sharded (the
+    reference's keys, then the port's MoE, FP8 and slab ones).
     ``packed_total`` / ``packed_sharded`` count ``PackedNVFP4`` leaves and
     those cut into tiles (column- and row-parallel layers must not
-    silently replicate); ``kv_sharded`` says the pool pages split on the
-    KV-head dim.  ``experts_sharded``: every MoE expert stack is held as
-    a tile (on E or on its FFN dim), ``expert_bytes_per_device`` their
+    silently replicate), ``packed_rule_whole`` those the rules keep whole
+    (no dim of theirs maps to the group: RWKV's ``dec_w1`` and
+    ``ts_w1``); ``kv_sharded`` says the pool pages, or a slab leaf, split
+    over the group.  ``experts_sharded``: every MoE expert stack is held
+    as a tile (on E or on its FFN dim), ``expert_bytes_per_device`` their
     bytes on this rank; ``fp8_scales_sharded``: an FP8 pool's f32 scale
-    planes split on the KV-head dim with its pages.  Byte counts are per
-    device and over the whole group."""
+    planes split on the KV-head dim with its pages.  A slab engine adds
+    ``state_sharded`` (its split leaves), ``state_leaves`` ({path:
+    {"split", "bytes"}} on this rank) and ``state_bytes_per_slot``.  Byte
+    counts are per device and over the whole group (a replicated leaf
+    once)."""
     from ..distributed import sharding
 
+    cfg = eng.cfg
     size = eng.mesh.size if eng.mesh else 1
-    counts = sharding.shard_counts(eng.model.param_specs(eng.cfg), eng.params,
-                                   size, eng.rules)
+    slab = eng.pool is None
+    counts = sharding.shard_counts(
+        eng.model.param_specs(cfg), eng.params, size, eng.rules,
+        heads=(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim),
+        state=(eng.state.specs, eng.state.data) if slab else None)
     sst = eng.state.stats()
-    pool = eng.pool.data
-    return {
+    out = {
         "packed_total": counts["packed_total"],
         "packed_sharded": counts["packed_sharded"],
-        "kv_sharded": eng.pool.n_shards > 1,
+        "packed_rule_whole": counts["packed_rule_whole"],
+        "kv_sharded": (counts["state_sharded"] > 0 if slab
+                       else eng.pool.n_shards > 1),
         "weight_bytes_per_device": sharding.device_bytes(eng.params),
         "weight_bytes_total": counts["weight_bytes_total"],
         "kv_pool_bytes_per_device": sst["pool_bytes_per_device"],
@@ -340,10 +356,16 @@ def tp_shard_report(eng) -> dict:
         "experts_sharded": (counts["expert_sharded"]
                             == counts["expert_total"] > 0),
         "expert_bytes_per_device": counts["expert_bytes"],
-        "fp8_scales_sharded": (eng.pool.fp8 and size > 1 and all(
-            pool[k].shape[3] * size == eng.cfg.n_kv_heads
+        "fp8_scales_sharded": (not slab and eng.pool.fp8 and size > 1 and all(
+            eng.pool.data[k].shape[3] * size == cfg.n_kv_heads
             for k in ("k_scale", "v_scale"))),
     }
+    if slab:
+        out.update({k: counts[k] for k in ("state_sharded", "state_total",
+                                            "state_leaves")})
+        out.update({k: sst[k] for k in ("state_bytes_per_slot",
+                                        "state_bytes_per_slot_total")})
+    return out
 
 
 def enc_frames(cfg, n: int, seed: int) -> list[np.ndarray]:
@@ -395,17 +417,26 @@ def run_engine(cfg, params, qcfg, args, mesh=None) -> dict:
         tp_rep = tp_shard_report(eng)
         say(f"[engine] tp={mesh.size}: "
             f"packed-sharded={tp_rep['packed_sharded']}/"
-            f"{tp_rep['packed_total']} kv-sharded={tp_rep['kv_sharded']} "
+            f"{tp_rep['packed_total'] - tp_rep['packed_rule_whole']}"
+            + (f" (+{tp_rep['packed_rule_whole']} whole by the rules)"
+               if tp_rep["packed_rule_whole"] else "")
+            + f" kv-sharded={tp_rep['kv_sharded']} "
             f"weights/device={tp_rep['weight_bytes_per_device']/2**20:.2f}"
             f"MiB (total {tp_rep['weight_bytes_total']/2**20:.2f}MiB) "
             f"kv-pool/device={tp_rep['kv_pool_bytes_per_device']/2**20:.2f}"
             f"MiB"
+            + (f" state-sharded={tp_rep['state_sharded']}/"
+               f"{tp_rep['state_total']} state/slot/device="
+               f"{tp_rep['state_bytes_per_slot']/2**20:.3f}MiB (total "
+               f"{tp_rep['state_bytes_per_slot_total']/2**20:.3f}MiB)"
+               if eng.pool is None else "")
             + (f" experts-sharded={tp_rep['experts_sharded']} "
                f"experts/device={tp_rep['expert_bytes_per_device']/2**20:.2f}"
                f"MiB" if cfg.n_experts else "")
             + (f" fp8-scales-sharded={tp_rep['fp8_scales_sharded']}"
-               if eng.pool.fp8 else ""))
-        tp_ok = tp_rep["packed_sharded"] == tp_rep["packed_total"]
+               if eng.pool is not None and eng.pool.fp8 else ""))
+        tp_ok = tp_rep["packed_sharded"] == (tp_rep["packed_total"]
+                                             - tp_rep["packed_rule_whole"])
         if not tp_ok:
             say("[engine] FAIL: packed leaves left replicated under TP")
     prompts = mixed_prompts(args.requests, args.min_prompt, args.max_prompt,

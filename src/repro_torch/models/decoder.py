@@ -28,7 +28,8 @@ a shared expert behind a sigmoid gate (Qwen1.5-MoE) or a dense residual
 FFN (Arctic); under TP both are ordinary column- and row-parallel sites
 and the gate [d, 1] stays whole.  The slab engine's per-row decode (``_block_slots``) and
 the paged engine's chunked prefill (``prefill_chunk_paged``) are here
-too.  FP8 KV (the ``moe_hybrid`` recipe, ``_kv_fp8``): the dense cache
+too; under TP the slab decode's attention layers attend their local KV
+heads, or an MQA config's one KV head, replicated on every rank.  FP8 KV (the ``moe_hybrid`` recipe, ``_kv_fp8``): the dense cache
 and the pool hold E4M3 K and V with f32 scales per (position, head), so
 under TP a rank's KV heads carry their own scales;
 ``prefill`` attends its prompt's BF16 KV and stores it quantized, the
@@ -49,8 +50,7 @@ from __future__ import annotations
 import torch
 
 from ..core.qconfig import QuantConfig
-from ..distributed import ctx
-from ..core.nvfp4 import PackedNVFP4
+from ..distributed import ctx, sharding
 from ..obs import numerics as obs_numerics
 from . import attention as attn
 from . import common, layers
@@ -144,13 +144,11 @@ def unembed(cfg, params):
 # ---------------------------------------------------------------------------
 
 
-def _local_heads(cfg, p) -> tuple[int, int]:
-    """(query heads, KV heads) of this rank: the full counts scaled by the
-    local QKV tile's share of the fused projection's width."""
-    w = p["wqkv"]
-    n = w.codes.shape[-2] if isinstance(w, PackedNVFP4) else w.shape[-1]
-    shards = cfg.qkv_dim // n
-    return cfg.n_heads // shards, cfg.n_kv_heads // shards
+def _local_heads(cfg) -> tuple[int, int]:
+    """(query heads, KV heads) of this rank's fused QKV tile: the query
+    heads split evenly over the active group, and the rank's share of the
+    KV heads or, under MQA, the one KV head replicated."""
+    return sharding.local_heads(cfg.n_heads, cfg.n_kv_heads, ctx.tp_size())
 
 
 def _rope(cfg, x, pos):
@@ -168,7 +166,7 @@ def _qkv(qcfg, cfg, p, h, pos):
     """The layer's q, k, v [B, S, heads, hd] (this rank's heads), q and k
     rotated to positions ``pos``."""
     hd = cfg.head_dim
-    nh, nkv = _local_heads(cfg, p)
+    nh, nkv = _local_heads(cfg)
     qkv = layers.qdense(qcfg, "attn", h, p["wqkv"], p.get("bqkv"),
                         parallelism="column")
     q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)

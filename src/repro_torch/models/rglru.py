@@ -35,12 +35,24 @@ state.  The serve state:
 ``prefill`` pads the attention KV of a windowless config to ``s_max``,
 as ``cache_specs`` sizes it; the reference returns the prompt's length
 there, and its decode then writes past the end (``ROADMAP.md`` C).
+
+Under a tensor-parallel context (``distributed.ctx``) ``params`` holds
+this rank's tiles, and every width comes from them: ``wx`` and ``wgate``
+are column-parallel (the rank's slice of ``d_rnn``), so the conv, ``lam``
+and the conv and ``h`` state are local slices; ``w_a`` and ``w_i`` split
+on their output dim and take the whole post-conv ``z``, all-gathered once
+a layer, while ``b = beta * i * z`` stays on the local slice; ``wo`` and
+the MLP's ``wd`` are row-parallel.  The attention layers are the
+decoder's (local query heads; the local KV heads, or an MQA config's one
+KV head replicated), the embedding vocab-parallel and the logits
+all-gathered.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.qconfig import QuantConfig
+from ..distributed import ctx
 from . import common, decoder, layers
 from .decoder import _norm_specs, run_norm
 
@@ -136,11 +148,14 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _lru_gates(qcfg, p, z):
-    """(a, b) of h_t = a_t h_{t-1} + b_t, f32, from the conv output z."""
-    r = torch.sigmoid(layers.qdense(qcfg, "recurrent", z, p["w_a"])
-                      .to(torch.float32))
-    i = torch.sigmoid(layers.qdense(qcfg, "recurrent", z, p["w_i"])
-                      .to(torch.float32))
+    """(a, b) of h_t = a_t h_{t-1} + b_t, f32, from the conv output z
+    (this rank's slice of it under TP: the gates' GEMMs take the whole z,
+    gathered, and give the rank's slice)."""
+    zf = ctx.current().all_gather(z, -1) if ctx.tp_size() > 1 else z
+    r = torch.sigmoid(layers.qdense(qcfg, "recurrent", zf, p["w_a"],
+                                    parallelism="column").to(torch.float32))
+    i = torch.sigmoid(layers.qdense(qcfg, "recurrent", zf, p["w_i"],
+                                    parallelism="column").to(torch.float32))
     log_a = -C_LRU * _softplus(p["lam"].to(torch.float32)) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-12, 1.0))
@@ -186,8 +201,9 @@ def _rec_block(qcfg, cfg, p, x, mode, state_sl):
     """One recurrent layer; ``state_sl`` {"conv" [B, W-1, dr], "h"
     [B, 1, dr] f32} in decode.  Returns (x, its new state)."""
     h_in = run_norm(cfg, p["ln1"], x)
-    z = layers.qdense(qcfg, "recurrent", h_in, p["wx"])
-    gate = layers.qdense(qcfg, "recurrent", h_in, p["wgate"])
+    z = layers.qdense(qcfg, "recurrent", h_in, p["wx"], parallelism="column")
+    gate = layers.qdense(qcfg, "recurrent", h_in, p["wgate"],
+                         parallelism="column")
     z, conv_state = _causal_conv(z, p["conv_w"], p["conv_b"],
                                  state_sl["conv"] if mode == "decode" else None)
     a, b = _lru_gates(qcfg, p, z)
@@ -198,7 +214,7 @@ def _rec_block(qcfg, cfg, p, x, mode, state_sl):
         hh = _lru_scan(a, b)
         h_last = hh[:, -1:]
     y = hh.to(x.dtype) * layers.gelu(gate)
-    x = x + layers.qdense(qcfg, "recurrent", y, p["wo"])
+    x = x + layers.qdense(qcfg, "recurrent", y, p["wo"], parallelism="row")
     h2 = run_norm(cfg, p["ln2"], x)
     x = x + layers.swiglu_mlp(qcfg, h2, p["wg"], p["wu"], p["wd"])
     return x, {"conv": conv_state, "h": h_last.to(torch.float32)}
@@ -222,8 +238,8 @@ def _rec_stack(qcfg, cfg, stacked, x, mode, states):
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, batch):
-    return params["embed"][batch["tokens"]]
+def _embed(cfg, params, batch):
+    return decoder.embed_tokens(cfg, params, batch["tokens"])
 
 
 def _positions(x, offset=0):
@@ -232,8 +248,7 @@ def _positions(x, offset=0):
 
 
 def _head(qcfg, cfg, params, x):
-    x = run_norm(cfg, params["final_norm"], x)
-    return layers.qdense(qcfg, "lm_head", x, unembed(cfg, params))
+    return decoder._lm_head(qcfg, cfg, params, x)
 
 
 def _rem(qcfg, cfg, params, x, mode, states=None):
@@ -248,7 +263,7 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
     """Teacher-forcing forward: [B, S] tokens -> [B, S, V] logits, or the
     final-normed hidden states with ``output="hidden"``; the super-blocks
     run under ``cfg.remat`` when grad is on."""
-    x = _embed(params, batch)
+    x = _embed(cfg, params, batch)
     pos = _positions(x)
 
     def body(qc):
@@ -267,10 +282,10 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
     return _head(qcfg, cfg, params, x)
 
 
-def cache_specs(cfg, batch_size, s_max):
+def cache_specs(cfg, batch_size, s_max, n_kv: int | None = None):
     """Specs of the serve state: the recurrent layers' conv and h, the
     attention layers' KV (at most ``window`` positions for a windowed
-    config)."""
+    config) of ``n_kv`` KV heads (all of the config's by default)."""
     P = common.ParamSpec
     n_sb, n_rec, n_rem = _counts(cfg)
     dr, w = cfg.d_rnn, cfg.conv_width
@@ -283,7 +298,8 @@ def cache_specs(cfg, batch_size, s_max):
                        (*lead_axes, "batch", "none", "rnn"),
                        dtype=torch.float32, init="zeros")}
 
-    kv_shape = (n_sb, batch_size, s_alloc, cfg.n_kv_heads, cfg.head_dim)
+    kv_shape = (n_sb, batch_size, s_alloc, n_kv or cfg.n_kv_heads,
+                cfg.head_dim)
     kv_axes = ("layers", "batch", "seq", "kv", "headdim")
     c = {"blocks": {"rec": rec_specs((n_sb, n_rec), ("layers", "inner")),
                     "kv": {"k": P(kv_shape, kv_axes, init="zeros"),
@@ -306,12 +322,13 @@ def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
     attention KV is a ring of ``window`` positions (the last ones, ring-
     aligned, or the prompt's and zeros), or without a window the prompt's
     kv padded to ``s_max`` positions."""
-    x = _embed(params, batch)
+    x = _embed(cfg, params, batch)
     b, s = batch["tokens"].shape
     pos = _positions(x)
     s_alloc = cfg.window or max(s_max or s, s)
+    n_kv = decoder._local_heads(cfg)[1]
     kv = common.zeros_from_specs(
-        cache_specs(cfg, b, s_alloc)["blocks"]["kv"], x.device)
+        cache_specs(cfg, b, s_alloc, n_kv)["blocks"]["kv"], x.device)
 
     def body(qc):
         def fn(carry, inp):
@@ -335,7 +352,7 @@ def decode_step(cfg, params, cache, batch, qcfg: QuantConfig):
     """One-token decode: batch["tokens"] [B, 1] at ``cache["pos"]``.  The
     attention KV is written IN PLACE; the recurrent state is new.
     Returns (logits [B, 1, V], the cache with ``pos`` advanced)."""
-    x = _embed(params, batch)
+    x = _embed(cfg, params, batch)
     pos_idx = cache["pos"]
     pos = torch.full((x.shape[0], 1), pos_idx, dtype=torch.int64,
                      device=x.device)
@@ -375,7 +392,7 @@ def decode_step_slots(cfg, params, state, batch, lens, active, qcfg):
     (``decoder._block_slots``).  Returns (logits [n_slots, 1, V], the new
     state): inactive slots keep theirs bit for bit, and ``state`` itself
     is not written."""
-    x = _embed(params, batch)
+    x = _embed(cfg, params, batch)
 
     def body(qc):
         def fn(carry, inp):

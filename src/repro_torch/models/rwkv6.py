@@ -27,13 +27,25 @@ WKV state S [B, H, N, N] (f32).  ``decode_step_slots`` steps the engine's
 slots at independent positions (the recurrence has none) and returns new
 tensors through ``common.merge_slot_state``: inactive slots keep theirs
 bit for bit.
+
+Under a tensor-parallel context (``distributed.ctx``) ``params`` holds
+this rank's tiles, and the head count comes from them: ``wr``, ``wk``,
+``wv`` and ``wg`` are column-parallel (the rank's heads), ``w0``, ``u``,
+``ln_x`` and ``dec_w2`` are local slices, the token shift's ddlerp
+(``ts_w1``, ``ts_w2``, ``dec_w1``) stays whole and replicated, the group
+norm stays head-local and ``wo`` is row-parallel; the state ``S`` holds
+the rank's heads and the shift carries stay whole.  In the channel mix
+``cm_wr`` is column-parallel and ``cm_wv``'s row-parallel output is the
+whole width, so the receptance is all-gathered before the product.  The
+embedding is vocab-parallel and the logits all-gathered.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.qconfig import QuantConfig
-from . import common, layers
+from ..distributed import ctx
+from . import common, decoder, layers
 from .decoder import _norm_specs, run_norm
 
 CHUNK = 64
@@ -171,18 +183,25 @@ def _wkv_chunked(r, k, v, w, u, s0):
 
 def _time_mix(qcfg, cfg, p, x, state, mode):
     """``state``: {"x_prev_tm" [B, 1, d], "S" [B, H, N, N]} or None
-    (training).  Returns (y, the new state)."""
-    b, s, d = x.shape
-    h, n = _n_heads(cfg), cfg.rwkv_head_dim
+    (training); H and the projections' width are this rank's under TP.
+    Returns (y, the new state)."""
+    b, s, _ = x.shape
+    n = cfg.rwkv_head_dim
+    h = _n_heads(cfg) // ctx.tp_size()
+    d = h * n
     xp = _token_shift(x, state["x_prev_tm"] if mode == "decode" else None)
     mixed = _ddlerp(qcfg, p, x, xp)
     xr, xk, xv, xw, xg = (mixed[:, :, i] for i in range(5))
 
     f32 = torch.float32
-    r = layers.qdense(qcfg, "recurrent", xr, p["wr"]).to(f32)
-    k = layers.qdense(qcfg, "recurrent", xk, p["wk"]).to(f32)
-    v = layers.qdense(qcfg, "recurrent", xv, p["wv"]).to(f32)
-    g = layers.qdense(qcfg, "recurrent", xg, p["wg"])
+
+    def col(xi, w):
+        return layers.qdense(qcfg, "recurrent", xi, w, parallelism="column")
+
+    r = col(xr, p["wr"]).to(f32)
+    k = col(xk, p["wk"]).to(f32)
+    v = col(xv, p["wv"]).to(f32)
+    g = col(xg, p["wg"])
     dec = (p["w0"].to(f32)
            + torch.tanh(layers.qdense(qcfg, "recurrent", xw, p["dec_w1"])
                         .to(f32)) @ p["dec_w2"].to(f32))
@@ -190,7 +209,7 @@ def _time_mix(qcfg, cfg, p, x, state, mode):
 
     rs, ks, vs, ws = (t.reshape(b, s, h, n) for t in (r, k, v, w))
     u = p["u"].to(f32).reshape(h, n)
-    s0 = (state["S"] if state is not None
+    s0 = (state["S"] if mode == "decode"      # prefill: a zero state
           else torch.zeros((b, h, n, n), dtype=f32, device=x.device))
     if mode == "decode":
         kv = ks[:, 0, :, :, None] * vs[:, 0, :, None, :]
@@ -206,7 +225,7 @@ def _time_mix(qcfg, cfg, p, x, state, mode):
     of = (out - mu) * torch.rsqrt(var + 1e-5)
     of = of.reshape(b, s, d) * p["ln_x"].to(f32)
     y = of.to(x.dtype) * layers.silu(g)
-    y = layers.qdense(qcfg, "recurrent", y, p["wo"])
+    y = layers.qdense(qcfg, "recurrent", y, p["wo"], parallelism="row")
     return y, {"x_prev_tm": x[:, -1:], "S": s_fin}
 
 
@@ -216,10 +235,14 @@ def _channel_mix(qcfg, p, x, state, mode):
     mu = p["cm_mu"].to(x.dtype)
     xk = x + dx * mu[0]
     xr = x + dx * mu[1]
-    r = torch.sigmoid(layers.qdense(qcfg, "mlp", xr, p["cm_wr"])
+    r = torch.sigmoid(layers.qdense(qcfg, "mlp", xr, p["cm_wr"],
+                                    parallelism="column")
                       .to(torch.float32)).to(x.dtype)
-    hk = torch.square(torch.relu(layers.qdense(qcfg, "mlp", xk, p["cm_wk"])))
-    y = r * layers.qdense(qcfg, "mlp", hk, p["cm_wv"])
+    if ctx.tp_size() > 1:                      # this rank's receptance
+        r = ctx.current().all_gather(r, -1)
+    hk = torch.square(torch.relu(layers.qdense(qcfg, "mlp", xk, p["cm_wk"],
+                                               parallelism="column")))
+    y = r * layers.qdense(qcfg, "mlp", hk, p["cm_wv"], parallelism="row")
     return y, {"x_prev_cm": x[:, -1:]}
 
 
@@ -238,8 +261,7 @@ def _block(qcfg, cfg, p, x, state, mode):
 
 
 def _head(qcfg, cfg, params, x):
-    x = run_norm(cfg, params["final_norm"], x)
-    return layers.qdense(qcfg, "lm_head", x, unembed(cfg, params))
+    return decoder._lm_head(qcfg, cfg, params, x)
 
 
 def apply(cfg, params, batch, qcfg: QuantConfig,
@@ -247,7 +269,7 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
     """Teacher-forcing forward: [B, S] tokens -> [B, S, V] logits, or the
     final-normed hidden states with ``output="hidden"``; the layers run
     under ``cfg.remat`` when grad is on."""
-    x = params["embed"][batch["tokens"]]
+    x = decoder.embed_tokens(cfg, params, batch["tokens"])
 
     def body(qc):
         def fn(carry, inp):
@@ -301,7 +323,7 @@ def _scan_state(cfg, params, x, qcfg, state, mode):
 def decode_step(cfg, params, cache, batch, qcfg: QuantConfig):
     """One-token decode: batch["tokens"] [B, 1].  Returns (logits
     [B, 1, V], a new state with ``pos`` advanced)."""
-    x = params["embed"][batch["tokens"]]
+    x = decoder.embed_tokens(cfg, params, batch["tokens"])
     x, new = _scan_state(cfg, params, x, qcfg, cache, "decode")
     new["pos"] = cache["pos"] + 1
     return _head(qcfg, cfg, params, x), new
@@ -319,7 +341,7 @@ def decode_step_slots(cfg, params, state, batch, lens, active, qcfg):
     the protocol's sake); inactive slots keep their state bit for bit, and
     ``state`` itself is not written."""
     del lens
-    x = params["embed"][batch["tokens"]]
+    x = decoder.embed_tokens(cfg, params, batch["tokens"])
     x, new = _scan_state(cfg, params, x, qcfg, state, "decode")
     specs = slot_state_specs(cfg, batch["tokens"].shape[0], 0)
     return (_head(qcfg, cfg, params, x),
@@ -330,7 +352,7 @@ def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
     """Prompt pass from a zero state: (last-token logits [B, 1, V], the
     serve state).  The prompt's length must suit the chunked WKV (at most
     ``CHUNK`` tokens or a multiple of ``CHUNK``)."""
-    x = params["embed"][batch["tokens"]]
+    x = decoder.embed_tokens(cfg, params, batch["tokens"])
     b, s = batch["tokens"].shape
     cache = init_cache(cfg, b, s_max or s, x.device)
     x, new = _scan_state(cfg, params, x, qcfg, cache, "prefill")

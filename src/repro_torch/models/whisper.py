@@ -15,6 +15,16 @@ step, as the reference does.  ``decode_step`` writes the self-attention
 KV in place; the slab engine's ``decode_step_slots`` writes each active
 slot's row at its own position into new tensors, and ``enc_out`` is
 never written after prefill.
+
+Under a tensor-parallel context (``distributed.ctx``) ``params`` holds
+this rank's tiles: the fused ``wqkv`` and cross-attention ``x_wqkv``
+tiles (and their biases) are regrouped by head and column-parallel, so
+attention is head-local and the self-attention KV holds the rank's
+heads; ``wo``, ``x_wo`` and the MLP's ``wd`` are row-parallel, their
+biases added once after the sum.  The encoder runs under TP at admission
+and ``enc_out`` stays whole.  The embedding is vocab-parallel where the
+vocabulary divides the group and the logits are then all-gathered;
+whisper-tiny's 51865 does not divide, so its embedding stays whole.
 """
 from __future__ import annotations
 
@@ -22,7 +32,7 @@ import torch
 
 from ..core.qconfig import QuantConfig
 from . import attention as attn
-from . import common, layers
+from . import common, decoder, layers
 from .decoder import _norm_specs, run_norm
 
 
@@ -83,8 +93,18 @@ def unembed(cfg, params):
 # ---------------------------------------------------------------------------
 
 
-def _split_qkv(cfg, qkv):
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+def _qkv(qcfg, cfg, p, h, prefix=""):
+    """The fused projection's output [.., (q | k | v) of this rank's heads]
+    and the rank's (query, KV) head counts."""
+    w = p[prefix + "wqkv"]
+    qkv = layers.qdense(qcfg, "attn", h, w, p[prefix + "bqkv"],
+                        parallelism="column")
+    return qkv, decoder._local_heads(cfg)
+
+
+def _split_qkv(cfg, qkv, heads):
+    hd = cfg.head_dim
+    nh, nkv = heads
     q, k, v = torch.split(qkv, [nh * hd, nkv * hd, nkv * hd], dim=-1)
     return (attn.split_heads(q, nh, hd), attn.split_heads(k, nkv, hd),
             attn.split_heads(v, nkv, hd))
@@ -93,15 +113,14 @@ def _split_qkv(cfg, qkv):
 def _out(qcfg, p, out, prefix=""):
     b, s = out.shape[:2]
     return layers.qdense(qcfg, "attn", out.reshape(b, s, -1),
-                         p[prefix + "wo"])
+                         p[prefix + "wo"], parallelism="row")
 
 
 def _self_attention(qcfg, cfg, p, h, causal, mode="train", cache_sl=None,
                     pos_idx=None):
     """Returns (out, the prompt's kv in prefill mode, else None); decode
     writes ``cache_sl`` in place at ``pos_idx``."""
-    q, k, v = _split_qkv(cfg, layers.qdense(qcfg, "attn", h, p["wqkv"],
-                                            p["bqkv"]))
+    q, k, v = _split_qkv(cfg, *_qkv(qcfg, cfg, p, h))
     new = None
     if mode == "decode":
         attn.cache_update_layer(cache_sl, k, v, pos_idx)
@@ -115,18 +134,17 @@ def _self_attention(qcfg, cfg, p, h, causal, mode="train", cache_sl=None,
 
 def _cross_attention(qcfg, cfg, p, h, enc_kv):
     """``enc_kv``: {"k", "v"} [B, enc_seq, H, hd] from the encoder's output;
-    the queries take the first third of ``x_wqkv``'s output, as the
-    reference does."""
-    hd, nh = cfg.head_dim, cfg.n_heads
-    qkv = layers.qdense(qcfg, "attn", h, p["x_wqkv"], p["x_bqkv"])
+    the queries take the first third of ``x_wqkv``'s output (its first
+    ``H hd`` features of the rank's tile), as the reference does."""
+    hd = cfg.head_dim
+    qkv, (nh, _) = _qkv(qcfg, cfg, p, h, "x_")
     q = attn.split_heads(qkv[..., : nh * hd], nh, hd)
     out = attn.blockwise_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
     return _out(qcfg, p, out, "x_")
 
 
 def _cross_kv(qcfg, cfg, p, enc_out):
-    _, k, v = _split_qkv(cfg, layers.qdense(qcfg, "attn", enc_out,
-                                            p["x_wqkv"], p["x_bqkv"]))
+    _, k, v = _split_qkv(cfg, *_qkv(qcfg, cfg, p, enc_out, "x_"))
     return {"k": k, "v": v}
 
 
@@ -170,16 +188,15 @@ def _dec_block(qcfg, cfg, p, x, enc_out, mode, cache_sl, pos_idx):
     return x + _mlp(qcfg, p, h), new
 
 
-def _embed(params, tokens, pe_rows):
+def _embed(cfg, params, tokens, pe_rows):
     """Token embeddings plus the sinusoidal rows ``pe_rows`` [S or B, d]
     (f32, rounded to the embedding's dtype)."""
-    x = params["embed"][tokens]
+    x = decoder.embed_tokens(cfg, params, tokens)
     return x + pe_rows.to(x.dtype)
 
 
 def _head(qcfg, cfg, params, x):
-    x = run_norm(cfg, params["final_norm"], x)
-    return layers.qdense(qcfg, "lm_head", x, unembed(cfg, params))
+    return decoder._lm_head(qcfg, cfg, params, x)
 
 
 def apply(cfg, params, batch, qcfg: QuantConfig,
@@ -189,7 +206,7 @@ def apply(cfg, params, batch, qcfg: QuantConfig,
     states with ``output="hidden"``."""
     enc_out = encode(cfg, params, batch["enc_frames"], qcfg)
     s = batch["tokens"].shape[1]
-    x = _embed(params, batch["tokens"],
+    x = _embed(cfg, params, batch["tokens"],
                layers.sinusoidal_pos(s, cfg.d_model, enc_out.device))
 
     def body(qc):
@@ -232,7 +249,7 @@ def prefill(cfg, params, batch, qcfg: QuantConfig, s_max: int | None = None):
     ``s_max`` positions)."""
     enc_out = encode(cfg, params, batch["enc_frames"], qcfg)
     b, s = batch["tokens"].shape
-    x = _embed(params, batch["tokens"],
+    x = _embed(cfg, params, batch["tokens"],
                layers.sinusoidal_pos(s, cfg.d_model, enc_out.device))
 
     def body(qc):
@@ -259,7 +276,7 @@ def decode_step(cfg, params, cache, batch, qcfg: QuantConfig):
     pos_idx = cache["pos"]
     pe = layers.sinusoidal_pos(cache["k"].shape[2], cfg.d_model,
                                cache["k"].device)
-    x = _embed(params, batch["tokens"], pe[pos_idx:pos_idx + 1])
+    x = _embed(cfg, params, batch["tokens"], pe[pos_idx:pos_idx + 1])
     enc_out = cache["enc_out"]
 
     def body(qc):
@@ -287,8 +304,7 @@ def _self_attention_slots(qcfg, cfg, p, h, lens, active, cache_sl):
     position ``lens[b]`` and attends its first ``lens[b] + 1`` positions,
     row for row the static decode path.  Returns (out, the new cache
     layer: new tensors)."""
-    q, k, v = _split_qkv(cfg, layers.qdense(qcfg, "attn", h, p["wqkv"],
-                                            p["bqkv"]))
+    q, k, v = _split_qkv(cfg, *_qkv(qcfg, cfg, p, h))
     new = attn.cache_update_slots(cache_sl, k, v, lens, active)
     out = attn.decode_attend(q, new, lens + 1)
     return _out(qcfg, p, out), new
@@ -302,7 +318,7 @@ def decode_step_slots(cfg, params, state, batch, lens, active, qcfg):
     are dropped, ``enc_out`` is only read); ``state`` is not written."""
     pe = layers.sinusoidal_pos(state["k"].shape[2], cfg.d_model,
                                state["k"].device)
-    x = _embed(params, batch["tokens"], pe[lens][:, None])
+    x = _embed(cfg, params, batch["tokens"], pe[lens][:, None])
     enc_out = state["enc_out"]
 
     def body(qc):

@@ -56,9 +56,13 @@ expert stacks take dequantize-then-multiply and the attention the
 gather-then-attend two-step.  MoE configs split their experts (on E, or
 on each expert's FFN dim) and route on the all-gathered router logits
 (``layers.moe_ffn``); an FP8 pool splits its pages and scale planes by
-KV head; the shadow teacher's tiles are cut by the same rules.
-Slab-state configs under TP raise ``NotImplementedError`` (the next
-slice).
+KV head; the shadow teacher's tiles are cut by the same rules.  The slab
+families hold their tiles of the state slabs (``SlabState``): the RG-LRU
+hybrids' recurrence by channel (an MQA window ring whole), RWKV's WKV
+state by head, whisper's self-attention KV by head; whisper's encoder
+runs under TP at admission and its ``enc_out`` stays whole.  A config
+whose heads, ``d_ff`` or ``d_rnn`` do not split over the group raises
+``NotImplementedError`` naming the dim (``_check_tp``).
 
 FP8 KV (the ``moe_hybrid`` recipe): the pool (or the exact prefill's
 dense cache) holds E4M3 K and V with f32 scales, and K7 reads the FP8
@@ -99,6 +103,7 @@ import time
 import numpy as np
 import torch
 
+from ..core.nvfp4 import BLOCK
 from ..core.qconfig import BF16
 from ..distributed import ctx
 from ..distributed import sharding
@@ -877,21 +882,28 @@ class Engine:
 
 
 def _check_tp(cfg, size: int) -> None:
-    """Refuse what tensor parallelism does not serve yet (the slab
-    families), and configs whose column-parallel dims do not divide the
-    group (a row site's input must then be feature-sharded).  An MoE
-    config's shared expert is such a site, and under ``moe_shard="tp"`` its
-    experts' FFN dim; expert stacks whose E (under "ep") and FFN dim both
-    fail to divide stay whole on every rank."""
-    if cfg.family != "decoder":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (slab state) under tensor "
-            "parallelism is the next slice of the port (per-family sharding "
-            "of the recurrent state)")
-    dims = [("wqkv (query heads)", cfg.n_heads),
-            ("wqkv (KV heads)", cfg.n_kv_heads)]
+    """Refuse, before any collective, a config whose dims do not split
+    over the group as its family's tiles need, naming the dim: every
+    family's query heads and ``d_ff`` (column-parallel, and a row site's
+    input must then be feature-sharded); the decoder's KV heads (its paged
+    pool splits by KV head) and an encoder-decoder's; an RG-LRU hybrid's
+    KV heads unless there is one (MQA: replicated), and its ``d_rnn`` in
+    whole 16-value blocks a rank (the row-parallel ``wo``); RWKV's heads.
+    An MoE config's shared expert is a column site too, and under
+    ``moe_shard="tp"`` its experts' FFN dim; expert stacks whose E (under
+    "ep") and FFN dim both fail to divide stay whole on every rank."""
+    why = ("head-local attention needs whole query and KV heads on every "
+           "rank, and a row-parallel GEMM an input split over the ranks")
+    if cfg.family == "rwkv6":
+        dims = [("wr/wk/wv/wg (heads)", cfg.d_model // cfg.rwkv_head_dim)]
+        why = ("the WKV state and its group norm are head-local, and a "
+               "row-parallel GEMM needs an input split over the ranks")
+    else:
+        dims = [("wqkv (query heads)", cfg.n_heads)]
+        if not (cfg.family == "rglru_hybrid" and cfg.n_kv_heads == 1):
+            dims.append(("wqkv (KV heads)", cfg.n_kv_heads))
     if not cfg.n_experts or cfg.moe_dense_residual:
-        dims.append(("wg/wu (d_ff)", cfg.d_ff))
+        dims.append(("the FFN (d_ff)", cfg.d_ff))
     if cfg.n_experts and cfg.shared_d_ff:
         dims.append(("sh_wg/sh_wu (shared_d_ff)", cfg.shared_d_ff))
     if cfg.n_experts and cfg.moe_shard == "tp":
@@ -900,6 +912,10 @@ def _check_tp(cfg, size: int) -> None:
         if n % size:
             raise NotImplementedError(
                 f"{cfg.name}: {leaf} = {n} does not split over {size} "
-                "ranks (head-local attention needs whole query and KV heads "
-                "on every rank, and a row-parallel GEMM an input split "
-                "over the ranks)")
+                f"ranks ({why})")
+    if cfg.family == "rglru_hybrid" and cfg.d_rnn % (size * BLOCK):
+        raise NotImplementedError(
+            f"{cfg.name}: wx/wgate/wo (d_rnn) = {cfg.d_rnn} does not split "
+            f"over {size} ranks in whole {BLOCK}-value blocks (the "
+            "recurrence is channel-local, and its row-parallel wo needs "
+            "whole NVFP4 blocks on every rank)")

@@ -8,11 +8,16 @@ engine over the cache architectures a config's state plan
     lives in the pool's tensors and is written in place.
   * ``SlabState``: every other supported plan, per-slot constant-size
     state slabs (recurrent state with a window ring or a dense KV, the
-    encoder-decoder's dense self-KV and encoder output).  The slot index is the state address; decode is the
-    model's batched ``decode_step_slots``.  The state tree is never
-    written in place: every write makes new tensors, so a tree the
-    backend handed out (``snapshot``) stays as it was, and
-    ``restore_select`` is an exact gather from such trees.
+    encoder-decoder's dense self-KV and encoder output).  The slot index
+    is the state address; decode is the model's batched
+    ``decode_step_slots``.  The state tree is never written in place:
+    every write makes new tensors, so a tree the backend handed out
+    (``snapshot``) stays as it was, and ``restore_select`` is an exact
+    gather from such trees.  Under tensor parallelism each rank holds
+    its tile of every slab leaf (``distributed.sharding.local_specs``):
+    split on "rnn" (the RG-LRU conv and ``h``), "heads" (RWKV's ``S``) or
+    "kv" (a dense KV), whole otherwise (an MQA ring, the token-shift
+    carries, ``enc_out``).
 
 The backend answers the contract the engine and scheduler program
 against: admission_check / can_reserve / reserve / release, write_prefill,
@@ -23,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..distributed import sharding
 from ..models import common, decoder
 from ..models.registry import get_model, serve_capabilities
 from .paged_kv import PagedKVPool, PoolExhausted, PrefixCache
@@ -102,6 +108,17 @@ def slab_restore_select(specs, snaps: list, sel):
         out = m[sel.to(m.device), rows]            # [n_slots, ...]
         return torch.movedim(out, 0, ax)
     return common.tree_map(one, specs, *snaps)
+
+
+def slab_specs(cfg, n_slots: int, s_alloc: int, mesh=None, rules=None):
+    """The slot-state specs one device allocates: the model's whole
+    ``slot_state_specs``, or with ``mesh`` (a ``distributed.ctx.TP``) each
+    leaf at its tile on this rank under ``rules``."""
+    specs = get_model(cfg).slot_state_specs(cfg, n_slots, s_alloc)
+    if mesh is None:
+        return specs
+    return sharding.local_specs(specs, mesh.size,
+                                rules or sharding.make_rules())
 
 
 def slab_bytes_per_slot(specs, n_slots: int) -> int:
@@ -336,21 +353,20 @@ class SlabState:
     and generation, by the slab's ``s_alloc`` positions.  ``snapshot`` is
     a reference to the state tree, which nothing writes in place;
     ``restore_select`` gathers each slot's state from a chain of them.
+    Under a mesh ``specs`` are the whole state's and ``data`` holds this
+    rank's tiles (``local``), which the rank's forwards read and write.
     """
 
     def __init__(self, engine, cfg, *, n_slots, s_alloc, plan):
-        if engine.mesh is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: slab state under tensor parallelism is the "
-                "next slice of the port (per-family sharding of the "
-                "recurrent state)")
         self.eng = engine
         self.cfg = cfg
         self.kinds = tuple(plan)
         self.model = get_model(cfg)
         self.n_slots = n_slots
         self.specs = self.model.slot_state_specs(cfg, n_slots, s_alloc)
-        self.data = common.zeros_from_specs(self.specs, engine.device)
+        self.local = slab_specs(cfg, n_slots, s_alloc, engine.mesh,
+                                engine.rules)
+        self.data = common.zeros_from_specs(self.local, engine.device)
         # a finite dense KV bounds admission; recurrent slabs and window
         # rings are O(1) per slot whatever the sequence length
         self.dense_bound = s_alloc if "dense_kv" in self.kinds else None
@@ -435,8 +451,13 @@ class SlabState:
         return sum(self.in_use), self.n_slots
 
     def stats(self) -> dict:
+        """Occupancy and bytes; ``pool_bytes`` and
+        ``state_bytes_per_slot_total`` are the whole state's (one card's),
+        ``pool_bytes_per_device`` and ``state_bytes_per_slot`` this rank's
+        tiles."""
         used = sum(self.in_use)
         nbytes = _tree_nbytes(self.data)
+        whole = common.spec_bytes(self.specs)
         return {
             "state_backend": "slab",
             "state_kinds": list(self.kinds),
@@ -446,9 +467,11 @@ class SlabState:
             "utilization": used / max(self.n_slots, 1),
             "peak_utilization": self.peak_used / max(self.n_slots, 1),
             "fp8": False,
-            "pool_bytes": nbytes,
+            "pool_bytes": whole,
             "pool_bytes_per_device": nbytes,
-            "state_bytes_per_slot": slab_bytes_per_slot(self.specs,
+            "state_bytes_per_slot": slab_bytes_per_slot(self.local,
                                                         self.n_slots),
+            "state_bytes_per_slot_total": slab_bytes_per_slot(self.specs,
+                                                              self.n_slots),
             "state_dense_bound": self.dense_bound,
         }

@@ -229,7 +229,10 @@ class SlabDraftProposer:
         self.psq = self.dsq = dataclasses.replace(sq, act_scope="row")
         self.params = params
         self.specs = self.model.slot_state_specs(cfg, engine.n_slots, s_alloc)
-        self.data = common.zeros_from_specs(self.specs, self.device)
+        # under a mesh the rank's tiles of the draft's state
+        self.data = common.zeros_from_specs(
+            state_mod.slab_specs(cfg, engine.n_slots, s_alloc, engine.mesh,
+                                 engine.rules), self.device)
         self._snaps: list = []
 
     def _step(self, lens, active, toks, st, tok_idx):

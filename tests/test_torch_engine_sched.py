@@ -412,17 +412,20 @@ def test_engine_raises_on_unported_plans_and_options(loaded):
     with pytest.raises(ValueError, match="paged-KV state plan"):
         Engine(configs.get_smoke("rwkv6-3b"), params={}, prefill_mode="paged",
                prefix_cache=True, device="cpu")
-    # FP8 KV and speculative decoding serve under tensor parallelism; slab
-    # plans under it are refused (the next slice), the speculative engine's
-    # too, and a mesh that is not a TP context
+    # FP8 KV, speculative decoding and the slab plans serve under tensor
+    # parallelism; a slab config whose heads do not split over the group is
+    # refused (the speculative engine's too), and a mesh that is not a TP
+    # context
     from repro_torch.distributed.ctx import TP
     from repro_torch.serve import engine as engine_mod
     from repro_torch.spec import SpecEngine
     assert engine_mod._check_tp(configs.get_smoke("arctic-480b"), 2) is None
+    assert engine_mod._check_tp(configs.get_smoke("rwkv6-3b"), 2) is None
     tp2 = TP(group=None, rank=0, size=2, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="next slice"):
+    tp4 = TP(group=None, rank=0, size=4, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="heads"):
         SpecEngine(configs.get_smoke("rwkv6-3b"), {"embed": torch.zeros(1)},
-                   mesh=tp2, device="cpu")
+                   mesh=tp4, device="cpu")
     with pytest.raises(TypeError, match="TP"):
         SpecEngine(cfg, params, qcfg, mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="TP"):

@@ -541,8 +541,10 @@ def test_family_dispatch_and_refusals():
     """``get_model`` gives the rglru module for ``rglru_hybrid`` (and the
     rwkv6, whisper and decoder modules for the other families, M-RoPE's
     qwen2-vl included); a dense-KV slab refuses a request that cannot
-    fit; the family under tensor parallelism is refused (the next slice),
-    while FP8 KV and MoE (arctic-480b) pass the tensor-parallel check."""
+    fit; the family passes the tensor-parallel check at tp = 2 (served,
+    ``test_torch_tp_slab_rglru.py``), and it refuses a ``d_rnn`` that does
+    not split in whole 16-value blocks, naming it; FP8 KV and MoE
+    (arctic-480b) pass the check."""
     from repro_torch.models import decoder, rwkv6, whisper
     cfg = configs.get_smoke(NEMO)
     assert get_model(cfg) is rglru
@@ -559,8 +561,9 @@ def test_family_dispatch_and_refusals():
     with pytest.raises(ValueError, match="capacity=16"):
         eng.submit(np.arange(4, 14, dtype=np.int32), 8)
     from repro_torch.serve import engine as engine_mod
-    with pytest.raises(NotImplementedError, match="rglru_hybrid.*next slice"):
-        engine_mod._check_tp(cfg, 2)
+    assert engine_mod._check_tp(cfg, 2) is None
+    with pytest.raises(NotImplementedError, match="nemotron.*d_rnn"):
+        engine_mod._check_tp(dataclasses.replace(cfg, d_rnn=48), 2)
     assert engine_mod._check_tp(arctic, 2) is None
 
 

@@ -381,9 +381,10 @@ def test_tp_refusals():
     """What TP does not serve raises before any collective: the fused
     tier forced on, KV heads that do not divide the group, an MoE
     config's shared expert or (under ``moe_shard="tp"``) expert FFN dim
-    that does not divide it, a slab family, rules without a mesh.  MoE
-    and FP8-KV configs that divide are served
-    (``test_torch_tp_serve.py``)."""
+    that does not divide it, a slab family's heads that do not divide it
+    (rwkv6 smoke's 2 at tp = 4), rules without a mesh.  MoE and FP8-KV
+    configs that divide are served (``test_torch_tp_serve.py``), and so
+    are the slab families (``test_torch_tp_slab_*.py``)."""
     cfg = configs.get_smoke(ARCH)
     params, qcfg = serve.load_quantized(cfg, 0, "packed", "cpu")
     with pytest.raises(ValueError, match="single-device"):
@@ -406,8 +407,8 @@ def test_tp_refusals():
     with pytest.raises(NotImplementedError, match="moe_d_ff"):
         Engine(acfg, {"embed": torch.zeros(1)}, device="cpu",
                mesh=_cpu_tp(0, 2), **ENGINE)
-    with pytest.raises(NotImplementedError, match="rwkv6"):
+    with pytest.raises(NotImplementedError, match="rwkv6.*heads"):
         Engine(configs.get_smoke("rwkv6-3b"), {"embed": torch.zeros(1)},
-               device="cpu", mesh=_cpu_tp(0, 2), **ENGINE)
+               device="cpu", mesh=_cpu_tp(0, 4), **ENGINE)
     # a single-device engine is untouched by the TP code: fused on
     assert Engine(cfg, params, qcfg, device="cpu", **ENGINE).fused

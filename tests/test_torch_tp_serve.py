@@ -35,8 +35,9 @@ the tp = 4 one in another.  Parity levels, as each test names them:
     single-device shadow on the same contexts (``SHADOW_TOL``: SQNR 0.5
     dB, amax and hidden MSE rel 1e-2, live KL rel 5e-2), the same record
     on both ranks, tokens with the shadow on equal to those with it off;
-  * the refusals that stay: slab plans under a mesh (the plain and the
-    speculative engine), ``fused_kernels="on"`` with a mesh.
+  * the refusals that stay: a slab config whose heads do not divide the
+    group (the plain and the speculative engine), ``fused_kernels="on"``
+    with a mesh.
 """
 import dataclasses
 import os
@@ -634,16 +635,17 @@ def test_tp_serve_cli_spec_and_shadow():
 
 
 def test_tp_refusals_that_stay():
-    """Raised before any collective: a slab plan under a mesh (the plain
-    and the speculative engine, naming the next slice), the fused tier
-    forced on with a mesh."""
+    """Raised before any collective: a slab config whose heads do not
+    split over the group (rwkv6 smoke's 2 at tp = 4: the plain and the
+    speculative engine, naming the heads), the fused tier forced on with
+    a mesh."""
     rcfg = configs.get_smoke("rwkv6-3b")
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="heads"):
         Engine(rcfg, {"embed": torch.zeros(1)}, device="cpu",
-               mesh=_cpu_tp(0, 2))
-    with pytest.raises(NotImplementedError, match="next slice"):
+               mesh=_cpu_tp(0, 4))
+    with pytest.raises(NotImplementedError, match="heads"):
         SpecEngine(rcfg, {"embed": torch.zeros(1)}, device="cpu",
-                   mesh=_cpu_tp(0, 2))
+                   mesh=_cpu_tp(0, 4))
     cfg = configs.get_smoke("arctic-480b")
     params, qcfg = serve.load_quantized(cfg, 0, "packed", "cpu")
     with pytest.raises(ValueError, match="single-device"):
