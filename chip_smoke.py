@@ -14,7 +14,7 @@ Phases (every failure exits nonzero):
      prefill); the KL forward and backward (tolerances below) at the
      olmo-1b training shape (T = 8 * 512, V = 50304), at a full
      acereason-7b vocabulary (T = 1024, V = 152064), at MoE QAD's
-     (T = 4 * 512, V = 151936) and data-free QAD's (T = 8 * 256, V = 50304)
+     (T = 4 * 512, V = 151936) and data-free QAD's (T = 8 * 128, V = 50304)
      shapes, with a ragged V, a
      masked-out row and identical logits; ``paged_attention`` (tolerance
      below) at the engine's acereason-7b shapes (decode: 8 slots against
@@ -277,6 +277,31 @@ Phases (every failure exits nonzero):
      under each of remat "none", "dots" and "full" from one host copy of
      the state: the updated student and moments bitwise equal, the step ms
      and peak memory of each, "full"'s peak at most 75% of "none"'s;
+  6h. (after phase 6, its state freed from the card) QAD on a (2, 2) data x
+     model mesh: one spawn of four gloo ranks sharing the card, each
+     rank running ``launch.train.train_on_mesh`` (what ``train(mesh=(2,
+     2), rules=...)`` runs in every rank).  Run 1: ``fsdp_tp`` on olmo-1b
+     at full size, phase 6's ``TRAIN`` settings (4 steps of 8 x 512, an
+     eval after each): each step's train loss and eval KL beside phase 6's,
+     the update (final - initial student) against phase 6's by relative
+     L2 (phase 6's final student read from a host file with
+     ``torch.load(mmap=True)``, each rank cutting its own shards); the
+     planted fault (each rank's own activation amax, no maximum over the
+     data group) at full depth, step 1's loss (the KL at the initial
+     weights: a forward alone) against phase 6's.  Run 2, in the ranks
+     before run 1: ``fsdp_only``, ``tp_only``, ``dp_only`` and the fault
+     (under ``fsdp_tp``) for one step each on a copy cut to 4 of the 16
+     layers at full width, each against a one-card step on the cut run
+     in the parent before the spawn: the loss, the update and AdamW's
+     first moment.  Gates: finite metrics, every rank's equal; the leaves
+     a group replicates bitwise equal on its ranks; each rank's stored
+     student, teacher and moments its partition factors' share; K1, K5
+     and K6 launches per rank as ``mesh_launches`` predicts from the
+     code; each reading within ``MESH_TOL`` of one card, the faults
+     outside (at full depth on the step-1 loss, on the cut on the update
+     and the layers' moment).  Printed: each group's collectives a step
+     and their host seconds, the step ms, the bytes and the peak GB a
+     rank, the card line;
   6b. MoE QAD: ``launch.train.train`` on ``qwen2-moe-a2.7b`` at full width
      (d_model 2048, 60 experts top-4 of d_ff 1408, a shared expert of
      5632, vocab 151936) and 4 of its 24 layers (the config cut in depth
@@ -284,9 +309,9 @@ Phases (every failure exits nonzero):
      after each: K1, K5 and K6 launch counts, finite metrics, a changed
      student, the step ms against a bound from the active parameters; a
      traced step;
-  6c. data-free QAD: olmo-1b's BF16 teacher generates 8 x 256 tokens from
+  6c. data-free QAD: olmo-1b's BF16 teacher generates 8 x 128 tokens from
      BOS (``data.generated``, temperature 1, top_p 1), and 2 QAD steps of
-     8 x 256 train on them: tokens in the vocabulary after the BOS id, a
+     8 x 128 train on them: tokens in the vocabulary after the BOS id, a
      finite KL, a changed student, the generation's tok/s;
   6d. the numerics plane: 2 olmo-1b steps through ``train.train`` with
      ``numerics=True, metrics_out=...`` and 2 without, and the probe-free
@@ -331,8 +356,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -369,7 +396,7 @@ LOGIT_TOL = {"bf16_act": 5e-2, "nvfp4": 0.5}
 #    output dtype of the plain version's f32 value, plus 4 f32 ulps of
 #    (p_s + p_t) |g| for the two expf.
 KL_SHAPES = {"train": (8 * 512, 50304), "acereason_row": (1024, 152064),
-             "moe_train": (4 * 512, 151936), "data_free": (8 * 256, 50304),
+             "moe_train": (4 * 512, 151936), "data_free": (8 * 128, 50304),
              "nemo_train": (4 * 512, 131072)}
 # paged attention (K7) against its plain version: within one bf16 ulp of
 # the larger of the two values plus this absolute term.  The two sum the
@@ -494,6 +521,26 @@ RGEMMA = dict(arch="recurrentgemma-2b", requests=4, min_prompt=2100,
 RUN_G = dict(chunk=256)
 # the training path
 TRAIN = dict(arch="olmo-1b", steps=4, lr=1e-5, batch=8, seq=512)
+# the training mesh (phase 6h): one spawn of 4 gloo ranks sharing the card
+# as a (2, 2) data x model mesh; run 1 is fsdp_tp on full-size olmo-1b
+# (TRAIN's steps), run 2 the other three rules for one step each on a copy
+# cut to 4 of its 16 layers (dp_only holds the whole state on every rank:
+# four full replicas and their activations do not fit beside each other)
+MESH_TRAIN = dict(shape=(2, 2), cut_layers=4,
+                  rules=("fsdp_only", "tp_only", "dp_only"))
+# phase 6h's limits against one card (relative), read on the H100
+# (PERF.md section 6): run 1's step-1 train loss (sound 1.36e-3, the
+# planted fault, each rank's own activation amax, 4.09e-3) and every
+# step's (sound up to 7.7e-3: the runs part as they train), its update
+# (final - initial student, relative L2: sound 0.465; Adam's first step
+# moves a weight by about lr sign(g), below a bf16 ulp of most weights,
+# so a rounding tie or a tiny gradient's sign flips an element); on the
+# cut copy the loss (sound 0 without and 1.2e-3 with a model split, the
+# fault 1.39e-3: it does not part there), the update (sound 0.020 and
+# 0.334, the fault 0.714) and the layers' first moment, AdamW's m after
+# the step (sound 0.0028 and 0.052, the fault 0.35-0.36)
+MESH_TOL = {"step1_loss": 2.5e-3, "loss": 0.02, "full_update": 0.6,
+            "cut_loss": 5e-3, "update": 0.5, "moment": 0.15}
 # MoE QAD (qwen2-moe-a2.7b at full width, cut in depth), data-free QAD from
 # the teacher's own tokens, the numerics runs and activation calibration
 MOE_TRAIN = dict(layers=4, steps=3, batch=4, seq=512)
@@ -518,7 +565,8 @@ QWEN_VL = dict(arch="qwen2-vl-2b", batch=2, seq=512, grid_at=16, grid=16,
                prompt=480)
 RWKV_TRAIN = dict(layers=16, steps=3, batch=4, seq=512)
 VL_TRAIN = dict(steps=3, batch=4, seq=512)
-DATA_FREE = dict(batch=8, n_new=256, steps=2)
+# (128 new tokens: 256 took 13.6-24.2 s of generation, before phase 6h)
+DATA_FREE = dict(batch=8, n_new=128, steps=2)
 NUMERICS = dict(steps=2)
 # calibration runs one batch (its MSE search took 52 s over two, 46 over
 # one): with the FP8 KV and speculative phases the script passed 700 s;
@@ -3639,6 +3687,373 @@ def phase_6g(dev) -> dict:
     return launches
 
 
+def local_amax_mesh(mesh):
+    """A planted fault: ``mesh`` whose data group's max all-reduce returns
+    each rank's own value, so every activation's NVFP4 tensor scale comes
+    from the rank's rows alone (every other collective as it was)."""
+    from repro_torch.distributed.ctx import TP
+
+    class Local(TP):
+        def all_reduce(self, x, op="sum"):
+            return x if op == "max" else super().all_reduce(x, op)
+    d = mesh.data
+    return dataclasses.replace(mesh, data=Local(
+        group=d.group, rank=d.rank, size=d.size, device=d.device))
+
+
+def flat_paths(tree, path: str = "") -> dict:
+    """{dotted path: leaf} of a nested dict (empty dicts dropped)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flat_paths(tree[k], f"{path}.{k}" if path else k))
+        return out
+    return {path: tree}
+
+
+def leaf_digest(x):
+    """Two int64 sums over a tensor's bits (plain, and weighted by position)
+    that equal bitwise-equal tensors' and, in practice, only theirs."""
+    import torch
+    d = x.contiguous().view(torch.int16 if x.element_size() == 2
+                            else torch.int32).reshape(-1).to(torch.int64)
+    w = torch.arange(d.numel(), device=d.device) % 65521 + 1
+    return torch.stack([d.sum(), (d * w).sum()])
+
+
+def replicas_differ(mesh, state, places) -> list:
+    """The leaves of the student and the moments whose stored shard is not
+    bitwise equal on the ranks that hold the same piece (checked over the
+    data group where the leaf does not split over data, and over the model
+    group where it does not split over model)."""
+    bad = []
+    for name, tree in (("student", state.student), ("m", state.opt_state.m),
+                       ("v", state.opt_state.v)):
+        pls = flat_paths(places)
+        for path, x in flat_paths(tree).items():
+            pl = pls[path]
+            dg = leaf_digest(x)
+            for tp, split in ((mesh.data, pl.data_dim),
+                              (mesh.model, pl.model_dim)):
+                if split is None and tp.size > 1:
+                    every = tp.all_gather(dg[None], 0)
+                    if not bool((every == every[0]).all()):
+                        bad.append(f"{name}.{path}")
+    return bad
+
+
+def shard_rel_l2(mesh, cfg, specs, places, rules, mine, ref, base=None):
+    """The relative L2 over the whole model, and by leaf, of a tree of this
+    rank's stored shards ``mine`` (less ``base``, shards too) against a
+    one-card tree of whole leaves ``ref`` on the host (less ``base``),
+    each rank cutting its own shards of ``ref``: each shard's sums
+    weighted by 1 / its replication, summed over every rank."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    sp, pl, ref = flat_paths(specs), flat_paths(places), flat_paths(ref)
+    base = flat_paths(base) if base is not None else {}
+    paths, sums = [], []
+    for path, x in flat_paths(mine).items():
+        r = sharding.shard_tensor(sp[path], ref[path], mesh, rules, path,
+                                  heads).to(mesh.device).float()
+        u = x.float()
+        if path in base:
+            u, r = u - base[path].float(), r - base[path].float()
+        w = 1.0 / sharding.replication(pl[path], mesh.shape)
+        paths.append(path)
+        sums.append(w * torch.stack([torch.sum((u - r) ** 2),
+                                     torch.sum(r * r)]))
+        del r, u
+    sums = mesh.world.all_reduce(torch.stack(sums)).cpu()
+    total = sums.sum(0)
+    return (float(torch.sqrt(total[0] / total[1])),
+            {p: float(torch.sqrt(v[0] / v[1])) for p, v in zip(paths, sums)})
+
+
+def mesh_train_run(mesh, cfg, rule, steps, one_file, log, fault=None,
+                   evaluate=True) -> dict:
+    """One run of the training mesh's path on this rank:
+    ``launch.train.train_on_mesh`` (``TRAIN``'s batch, lr and seed, an eval
+    after each step unless ``evaluate`` is off); its history and report,
+    the update's relative L2 against the one-card run in ``one_file``
+    (when given), the leaves whose replicas differ, the seconds."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    state, hist, rep = train.train_on_mesh(
+        mesh if fault is None else fault(mesh), cfg, rule, steps=steps,
+        lr=TRAIN["lr"], batch=TRAIN["batch"], seq=TRAIN["seq"],
+        eval_every=1 if evaluate else 0, seed=SEED, log=log)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    specs = get_model(cfg).param_specs(cfg)
+    table = sharding.make_rules(rule)
+    places = sharding.placements(specs, mesh.shape, table)
+    out = dict(history=hist, report=rep, seconds=secs, layers=cfg.n_layers,
+               rule=rule, fault=fault is not None, evaluate=evaluate,
+               replicas_differ=replicas_differ(mesh, state, places),
+               update_rel=None, moment_rel=None)
+    if one_file is not None:
+        # the update (final - initial, the initial weights the teacher's)
+        # and, where the file holds it, AdamW's first moment
+        one = torch.load(one_file, mmap=True, weights_only=True)
+        out["update_rel"], out["update_leaves"] = shard_rel_l2(
+            mesh, cfg, specs, places, table, state.student, one["student"],
+            state.teacher)
+        if "m" in one:
+            out["moment_rel"], out["moment_leaves"] = shard_rel_l2(
+                mesh, cfg, specs, places, table, state.opt_state.m, one["m"])
+        del one
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_fault_loss(mesh, cfg) -> dict:
+    """The planted fault at full depth: the seed-0 student's KL at its
+    initial weights on step 1's batch (what step 1's train loss is: a
+    forward alone, the eval step) on ``mesh`` with each rank's own
+    activation amax (``local_amax_mesh``), under ``fsdp_tp``; its
+    launches and seconds."""
+    import torch
+
+    from repro_torch.core import qad
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamW
+
+    t0 = time.perf_counter()
+    model, rules = get_model(cfg), sharding.make_rules("fsdp_tp")
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED)
+    with torch.no_grad():
+        state = qad.init_state_on_mesh(model, cfg, gen, AdamW(), mesh, rules)
+    batch = make_batch(DataConfig(cfg.vocab_size, TRAIN["seq"], TRAIN["batch"],
+                                  seed=SEED), 0, device=mesh.device)
+    ops.reset_launches()
+    ev = qad.make_eval_step(model, cfg, specs.recipe_qconfig(cfg),
+                            mesh=local_amax_mesh(mesh), rules=rules)(state,
+                                                                     batch)
+    out = dict(loss=float(ev["kl"]), launches=dict(ops.launches),
+               seconds=time.perf_counter() - t0)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_rank(mesh, tcfg, ccut, full_file, cut_file) -> dict:
+    """One rank of phase 6h (its own process): run 2 first (each rule and
+    the planted fault, ``local_amax_mesh``, on the copy ``ccut`` cut in
+    depth, one step each against the parent's one-card step on the cut);
+    then run 1, ``fsdp_tp`` on full-size olmo-1b for ``TRAIN``'s steps
+    against phase 6's update; then the fault at full depth
+    (``mesh_fault_loss``).  Host data only."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    quiet = lambda msg: None
+    log = ((lambda msg: print(f"[train-mesh] rank 0: {msg}", flush=True))
+           if mesh.rank == 0 else quiet)
+    runs = {}
+    for rule in MESH_TRAIN["rules"]:
+        runs[f"cut/{rule}"] = mesh_train_run(mesh, ccut, rule, 1, cut_file,
+                                             quiet, evaluate=False)
+    runs["cut/fault"] = mesh_train_run(mesh, ccut, "fsdp_tp", 1, cut_file,
+                                       quiet, local_amax_mesh, evaluate=False)
+    runs["full"] = mesh_train_run(mesh, tcfg, "fsdp_tp", TRAIN["steps"],
+                                  full_file, log)
+    return {"runs": runs, "full_fault": mesh_fault_loss(mesh, tcfg),
+            "coords": mesh.coords}
+
+
+def mesh_launches(layers: int, steps: int, evaluate: bool) -> dict:
+    """K1, K5 and K6 launches a rank of a mesh run should count: the
+    student's 10 QDQs a layer a forward, twice a train step under remat
+    "full", once each of the two eval batches after every step (when it
+    evaluates); one KL forward a step and an eval batch, one KL backward
+    a step."""
+    evals = 2 * steps if evaluate else 0
+    return {"nvfp4_qdq": 10 * layers * (2 * steps + evals),
+            "kl_loss": steps + evals, "kl_loss_bwd": steps}
+
+
+def phase_6h(dev, tcfg, p6_hist, full_file, work) -> dict:
+    """Phase 6h in the parent: the one-card step on the cut copy (the
+    oracle of run 2, written to ``work``), the spawn of the (2, 2) mesh's
+    four ranks (``train_mesh_rank``), then every gate and the readings."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    ccut = dataclasses.replace(tcfg, n_layers=MESH_TRAIN["cut_layers"])
+    get_config = configs.get_config
+    configs.get_config = lambda name: ccut if name == tcfg.name else get_config(name)
+    try:
+        cstate, chist = train.train(tcfg.name, smoke=False, steps=1,
+                                    lr=TRAIN["lr"], batch=TRAIN["batch"],
+                                    seq=TRAIN["seq"], eval_every=1, seed=SEED,
+                                    device=dev, log=lambda msg: None)
+    finally:
+        configs.get_config = get_config
+    cut_file = os.path.join(work, "cut_state.pt")
+    torch.save({"student": to_host(cstate.student),
+                "m": to_host(cstate.opt_state.m)}, cut_file)
+    cut_loss = chist[0]["loss"]
+    del cstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    oracle_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    ranks = launch_mesh.spawn_mesh(train_mesh_rank, MESH_TRAIN["shape"], tcfg,
+                                   ccut, full_file, cut_file, device=dev,
+                                   timeout=900)
+    spawn_s = time.perf_counter() - t0
+    card = card_line()
+    r0 = ranks[0]["runs"]
+    full = r0["full"]
+    # every rank reports the same global metrics (its own step times)
+    metrics = lambda run: ([{k: v for k, v in h.items() if k != "step_s"}
+                            for h in run["history"]], run["report"]["loss"])
+    for r in ranks:
+        for key in r0:
+            if metrics(r["runs"][key]) != metrics(r0[key]):
+                fail(f"phase 6h {key}: rank {r['coords']}'s metrics differ "
+                     "from rank 0's")
+        if r["full_fault"]["loss"] != ranks[0]["full_fault"]["loss"]:
+            fail(f"phase 6h: rank {r['coords']}'s full-depth fault loss "
+                 "differs from rank 0's")
+    hist = full["history"]
+    loss_rel = [abs(h["loss"] - p["loss"]) / abs(p["loss"])
+                for h, p in zip(hist, p6_hist)]
+    print(f"[train-mesh] card {card}; (2, 2) mesh of 4 gloo ranks, fsdp_tp, "
+          f"{tcfg.name} full size ({tcfg.n_layers} layers, remat "
+          f"{tcfg.remat}), {TRAIN['steps']} steps of {TRAIN['batch']} x "
+          f"{TRAIN['seq']}", flush=True)
+    print("[train-mesh] train loss (phase 6): "
+          + " ".join(f"{h['loss']:.7g} ({p['loss']:.7g})"
+                     for h, p in zip(hist, p6_hist))
+          + "; rel " + " ".join(f"{x:.3g}" for x in loss_rel), flush=True)
+    print("[train-mesh] eval KL (phase 6): "
+          + " ".join(f"{h['kl']:.7g} ({p['kl']:.7g})"
+                     for h, p in zip(hist, p6_hist)), flush=True)
+    print(f"[train-mesh] update (final - initial) relative L2 against phase "
+          f"6's: {full['update_rel']:.4g}; by leaf " + " ".join(
+              f"{k} {v:.3g}" for k, v in full["update_leaves"].items()),
+          flush=True)
+    ff = ranks[0]["full_fault"]
+    fault_rel = abs(ff["loss"] - p6_hist[0]["loss"]) / abs(p6_hist[0]["loss"])
+    print(f"[train-mesh] full depth, planted fault (each rank's own "
+          f"activation amax): KL at the initial weights on step 1's batch "
+          f"(step 1's train loss) {ff['loss']:.7g}, rel {fault_rel:.3g} from "
+          f"phase 6's (sound {loss_rel[0]:.3g}); {ff['seconds']:.1f} s",
+          flush=True)
+    for key in [k for k in r0 if k.startswith("cut/")]:
+        run = r0[key]
+        rel = abs(run["report"]["loss"][0] - cut_loss) / abs(cut_loss)
+        run["loss_rel"] = rel
+        print(f"[train-mesh] cut to {ccut.n_layers} layers, {key[4:]}"
+              f"{' (planted fault, fsdp_tp)' if run['fault'] else ''}: loss "
+              f"{run['report']['loss'][0]:.7g} (one card {cut_loss:.7g}), "
+              f"rel {rel:.3g}; update rel L2 {run['update_rel']:.4g}; first "
+              f"moment rel L2 {run['moment_rel']:.4g}; {run['seconds']:.1f} s; "
+              "by leaf, update " + " ".join(
+                  f"{k} {v:.3g}" for k, v in run["update_leaves"].items())
+              + ", moment " + " ".join(
+                  f"{k} {v:.3g}" for k, v in run["moment_leaves"].items()),
+              flush=True)
+    # the readings: collectives, bytes, step ms, peaks
+    for key in r0:
+        run = r0[key]
+        last = run["report"]["collectives"][-1]
+        gb = {p: held / 1e9 for p, (held, _) in run["report"]["bytes"].items()}
+        print(f"[train-mesh] {key} ({run['rule']}, {run['layers']} layers) "
+              "rank 0: collectives a step "
+              + ", ".join(f"{g} {c['calls']} ({c['seconds']:.3f} host s)"
+                          for g, c in last.items())
+              + "; step ms " + " ".join(f"{x * 1e3:.1f}" for x in
+                                        run["report"]["step_s"])
+              + "; stored GB student {student:.3f} teacher {teacher:.3f} "
+              "moments {moments:.3f}".format(**gb)
+              + "; peak GB a rank " + " ".join(
+                  f"{r['runs'][key]['report'].get('peak_gb', math.nan):.2f}"
+                  for r in ranks)
+              + f"; launches {run['report']['launches']}", flush=True)
+    # the gates: metrics, replicas, bytes, launches, loss and update
+    for key in r0:
+        for r in ranks:
+            run = r["runs"][key]
+            for h in run["history"] + [{"loss": x}
+                                       for x in run["report"]["loss"]]:
+                if not all(math.isfinite(v) for v in h.values()):
+                    fail(f"phase 6h {key}: non-finite metrics {h}")
+            if run["replicas_differ"]:
+                fail(f"phase 6h {key}: replicated leaves differ on rank "
+                     f"{r['coords']}: {run['replicas_differ'][:4]}")
+            for part, (held, share) in run["report"]["bytes"].items():
+                if held != share:
+                    fail(f"phase 6h {key}: rank {r['coords']} stores {held} B "
+                         f"of the {part}, its partition factors' share is "
+                         f"{share}")
+            want = mesh_launches(run["layers"], len(run["report"]["loss"]),
+                                 run["evaluate"])
+            got = {k: run["report"]["launches"][k] for k in want}
+            if got != want:
+                fail(f"phase 6h {key}: rank {r['coords']} launched {got}, "
+                     f"expected {want}")
+    for r in ranks:
+        # the fault's forward: the student's QDQs once, one KL forward
+        want = {"nvfp4_qdq": 10 * tcfg.n_layers, "kl_loss": 1, "kl_loss_bwd": 0}
+        got = {k: r["full_fault"]["launches"][k] for k in want}
+        if got != want or not math.isfinite(r["full_fault"]["loss"]):
+            fail(f"phase 6h full-depth fault: rank {r['coords']} launched "
+                 f"{got} (expected {want}), loss {r['full_fault']['loss']}")
+    # the layers' first moment (the embedding's gradient sums its rows'
+    # tokens in another order on one card: printed, not gated)
+    for key in [k for k in r0 if k.startswith("cut/")]:
+        r0[key]["layers_moment"] = max(
+            v for k, v in r0[key]["moment_leaves"].items()
+            if k.startswith("layers."))
+    sound = [r0[k] for k in r0 if k.startswith("cut/") and not r0[k]["fault"]]
+    fault = r0["cut/fault"]
+    for run in sound:
+        if (run["loss_rel"] > MESH_TOL["cut_loss"]
+                or run["update_rel"] > MESH_TOL["update"]
+                or run["layers_moment"] > MESH_TOL["moment"]):
+            fail(f"phase 6h cut {run['rule']}: loss rel {run['loss_rel']:.3g}, "
+                 f"update {run['update_rel']:.3g}, layers' moment "
+                 f"{run['layers_moment']:.3g} outside {MESH_TOL}")
+    if (fault["update_rel"] <= MESH_TOL["update"]
+            or fault["layers_moment"] <= MESH_TOL["moment"]):
+        fail(f"phase 6h: the planted fault on the cut reads update "
+             f"{fault['update_rel']:.3g}, layers' moment "
+             f"{fault['layers_moment']:.3g}, inside the limits {MESH_TOL}")
+    if loss_rel[0] > MESH_TOL["step1_loss"] or fault_rel <= MESH_TOL["step1_loss"]:
+        fail(f"phase 6h run 1: step-1 loss rel {loss_rel[0]:.3g}, the planted "
+             f"fault's {fault_rel:.3g}, against {MESH_TOL['step1_loss']}")
+    if max(loss_rel) > MESH_TOL["loss"] or full["update_rel"] > MESH_TOL["full_update"]:
+        fail(f"phase 6h run 1: loss rel {max(loss_rel):.3g}, update rel "
+             f"{full['update_rel']:.3g} outside {MESH_TOL}")
+    secs = time.perf_counter() - t_phase
+    print(f"[train-mesh] phase 6h: {secs:.1f} s (one-card cut oracle "
+          f"{oracle_s:.1f} s, the spawn {spawn_s:.1f} s; run 1 "
+          f"{full['seconds']:.1f} s in the ranks); card {card}", flush=True)
+    return {"seconds": secs, "launches": full["report"]["launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5379,6 +5794,12 @@ def main() -> int:
     t_train = time.perf_counter() - t0
     train_launches = dict(ops.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # phase 6h's oracle: this run's history, and its final student in a
+    # host file the mesh's ranks map (each reads its own shards)
+    p6_hist = list(hist)
+    mesh_work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    p6_file = os.path.join(mesh_work, "phase6_student.pt")
+    torch.save({"student": to_host(state.student)}, p6_file)
     n_evals = 2 * TRAIN["steps"]              # two eval batches per step
     per_forward = 10 * tcfg.n_layers          # 5 activations + 5 weights
     # under remat the backward reruns each layer's forward: every QDQ of
@@ -5499,6 +5920,16 @@ def main() -> int:
     if remat_launches["nvfp4_qdq"] != want_q or remat_launches["kl_loss"] != 6:
         fail(f"the remat steps launched {remat_launches}, expected "
              f"{want_q} QDQ and 6 KL")
+
+    elapsed("6h")
+    # ---- 6h. the training mesh: QAD on a (2, 2) data x model mesh of four
+    # gloo ranks sharing the card, under the reference's four rules ------
+    try:
+        phase_6h(dev, tcfg, p6_hist, p6_file, mesh_work)
+    finally:
+        shutil.rmtree(mesh_work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     elapsed("6b")
     # ---- 6b. MoE QAD: qwen2-moe-a2.7b at full width, 4 of its 24 layers ---
@@ -5662,8 +6093,6 @@ def main() -> int:
 
     elapsed("6d")
     # ---- 6d. the numerics plane and calibration: olmo-1b ----------------
-    import tempfile
-
     from repro_torch.core import ptq
     from repro_torch.core.qconfig import BF16
     from repro_torch.obs import export as obs_export

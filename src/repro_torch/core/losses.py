@@ -16,17 +16,34 @@ teacher and the NVFP4 student, temperature 1:
     port's QAD step uses.
 
 Every loss takes a float mask (1 = real token) and returns the mean over
-real tokens.
+real tokens.  On a training mesh a data rank holds some of the batch's
+rows: the plain losses take ``denom``, the real tokens of the whole batch
+(``global_denominator``), and return this rank's share of the mean, the
+sum over the data group being the mean (a mean of per-rank means is
+wrong wherever the ranks' counts differ).
 """
 from __future__ import annotations
 
 import torch
 
+from ..distributed import ctx
+
 _F32 = torch.float32
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    denom = torch.clamp_min(torch.sum(mask), 1.0)
+def global_denominator(mask: torch.Tensor) -> torch.Tensor | None:
+    """A masked mean's denominator on a training mesh: the real tokens of
+    every data rank's rows (at least 1); None off a mesh, where each loss
+    counts its own mask."""
+    if ctx.data() is None:
+        return None
+    return torch.clamp_min(ctx.data_sum(torch.sum(mask)), 1.0)
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                 denom: torch.Tensor | None = None) -> torch.Tensor:
+    if denom is None:
+        denom = torch.clamp_min(torch.sum(mask), 1.0)
     return torch.sum(x * mask) / denom
 
 
@@ -46,32 +63,37 @@ def kl_per_token(teacher_logits: torch.Tensor,
 
 
 def kl_from_logits(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
+                   mask: torch.Tensor,
+                   denom: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token KL(p_t || p_s), in f32."""
-    return _masked_mean(kl_per_token(teacher_logits, student_logits), mask)
+    return _masked_mean(kl_per_token(teacher_logits, student_logits), mask,
+                        denom)
 
 
 def mse_from_logits(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor,
+                    denom: torch.Tensor | None = None) -> torch.Tensor:
     """MSE on logits (paper Table 8 ablation)."""
     d = teacher_logits.to(_F32) - student_logits.to(_F32)
-    return _masked_mean(torch.mean(d * d, -1), mask)
+    return _masked_mean(torch.mean(d * d, -1), mask, denom)
 
 
 def ce_from_logits(logits: torch.Tensor, labels: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
+                   mask: torch.Tensor,
+                   denom: torch.Tensor | None = None) -> torch.Tensor:
     """Next-token cross entropy (the QAT objective)."""
     lf = logits.to(_F32)
     lse = torch.logsumexp(lf, -1)
     ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    return _masked_mean(lse - ll, mask)
+    return _masked_mean(lse - ll, mask, denom)
 
 
 def top1_agreement(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
+                   mask: torch.Tensor,
+                   denom: torch.Tensor | None = None) -> torch.Tensor:
     """Fraction of tokens where the student's argmax is the teacher's."""
     agree = torch.argmax(teacher_logits, -1) == torch.argmax(student_logits, -1)
-    return _masked_mean(agree.to(_F32), mask)
+    return _masked_mean(agree.to(_F32), mask, denom)
 
 
 # ---------------------------------------------------------------------------

@@ -21,18 +21,38 @@ With ``qcfg.numerics`` on, the step also returns ``metrics["numerics"]``:
 the student's per-layer quantization-error probes, the per-layer
 teacher-student hidden divergence and the per-layer gradient norms
 (``obs.numerics``); the step's state is bitwise the same as without.
+
+On a data x model training mesh (``mesh``: this rank's
+``distributed.ctx.Mesh``, ``rules``: a ``sharding.make_rules`` table)
+the state holds this rank's stored shards (``init_state_on_mesh``,
+``shard_state``; the moments stored like their parameters).  A step
+takes the global batch and keeps its data rank's rows
+(``sharding.batch_rows``); gathers the student's and the teacher's
+shards over the data group into model tiles (ZeRO-3: between steps only
+the shards live); runs the loss under ``ctx.use_mesh``, where every
+masked mean is global (this rank's masked sum over the whole batch's
+count, ``losses.global_denominator``) and the collectives are
+differentiated; sums the tiles' gradients over the data group, each rank
+keeping its shard's (``sharding.reduce_to_shards``); and updates the
+shards with the clip norm and the update norm over the whole mesh, every
+element counted once (``optim.adamw.ShardedNorm``).  The metrics are the
+global values, the same on every rank.  The eval step takes the same
+global means.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..distributed import ctx, sharding
 from ..kernels import ops
+from ..models import common
 from ..models.common import tree_leaves, tree_map
 from ..obs import numerics as obs_numerics
-from ..optim.adamw import AdamW, global_norm
+from ..optim.adamw import AdamW, ShardedNorm, global_norm
 from . import losses
 from .qconfig import BF16, QuantConfig
 
@@ -63,11 +83,57 @@ def init_state(model, cfg, gen: torch.Generator, opt: AdamW,
                       opt_state=opt.init(params))
 
 
+def _heads(cfg) -> tuple:
+    return (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+
+
+def init_state_on_mesh(model, cfg, gen: torch.Generator, opt: AdamW, mesh,
+                       rules, with_teacher: bool = True) -> TrainState:
+    """``init_state`` on a training mesh: every leaf drawn from ``gen`` as
+    ``init_state`` draws it (leaf by leaf, one whole leaf alive at a
+    time) and cut to this rank's stored shard, so the shards are slices
+    of the one-device draw, bitwise."""
+    specs = model.param_specs(cfg)
+
+    def keep(path, spec, w):
+        return sharding.shard_tensor(spec, w, mesh, rules, path,
+                                     _heads(cfg)).clone()
+
+    params = common.init_params(specs, gen, mesh.device, leaf_fn=keep)
+    teacher = tree_map(torch.clone, params) if with_teacher else None
+    return TrainState(step=torch.zeros((), dtype=torch.int32,
+                                       device=mesh.device),
+                      student=params, teacher=teacher,
+                      opt_state=opt.init(params))
+
+
+def shard_state(state: TrainState, model, cfg, mesh, rules) -> TrainState:
+    """This rank's stored shards of a whole ``TrainState`` (a bridged
+    reference state, or a one-device one)."""
+    specs = model.param_specs(cfg)
+    cut = lambda tree: tree_map(torch.clone, sharding.tree_shards(
+        tree, specs, mesh, rules, _heads(cfg)))
+    return TrainState(step=state.step, student=cut(state.student),
+                      teacher=None if state.teacher is None
+                      else cut(state.teacher),
+                      opt_state=type(state.opt_state)(
+                          *(cut(t) for t in state.opt_state)))
+
+
+def gather_params(shards, model, cfg, mesh, rules):
+    """Whole parameters on every rank from a tree of stored shards (the
+    fused QKV's rows in their order)."""
+    specs = model.param_specs(cfg)
+    places = sharding.placements(specs, mesh.shape, rules)
+    return sharding.gather_full(shards, specs, places, mesh, rules,
+                                _heads(cfg))
+
+
 def _flat_kl(t_logits: torch.Tensor, s_logits: torch.Tensor,
-             mask: torch.Tensor) -> torch.Tensor:
+             mask: torch.Tensor, denom=None) -> torch.Tensor:
     v = s_logits.shape[-1]
     return ops.kl_loss(t_logits.reshape(-1, v), s_logits.reshape(-1, v),
-                       mask.reshape(-1))
+                       mask.reshape(-1), denom)
 
 
 def make_loss_fn(model, cfg, qcfg: QuantConfig, qad: QADConfig):
@@ -76,9 +142,13 @@ def make_loss_fn(model, cfg, qcfg: QuantConfig, qad: QADConfig):
 
     def loss_fn(student, teacher, batch):
         mask = batch["mask"].to(torch.float32)
+        denom = losses.global_denominator(mask)
         temp = qad.temperature
 
         if qad.use_chunked_loss and qad.loss == "kl":
+            if denom is not None:
+                raise NotImplementedError(
+                    "the chunked KL on a training mesh (ROADMAP A.4c)")
             h_s = model.apply(cfg, student, batch, qcfg, output="hidden")
             with torch.no_grad():
                 h_t = model.apply(cfg, teacher, batch, BF16, output="hidden")
@@ -103,12 +173,12 @@ def make_loss_fn(model, cfg, qcfg: QuantConfig, qad: QADConfig):
             s_logits = model.apply(cfg, student, batch, qcfg)
         metrics = {}
         if qad.loss in ("ce", "kl+ce"):
-            ce = losses.ce_from_logits(s_logits, batch["labels"], mask)
+            ce = losses.ce_from_logits(s_logits, batch["labels"], mask, denom)
             metrics["ce"] = ce.detach()
         else:
             with torch.no_grad():
-                metrics["ce"] = losses.ce_from_logits(s_logits.detach(),
-                                                      batch["labels"], mask)
+                metrics["ce"] = losses.ce_from_logits(
+                    s_logits.detach(), batch["labels"], mask, denom)
         if qad.loss == "ce":                       # QAT
             if tape is not None:
                 metrics["numerics"] = _numerics_metrics(s_aux, None, mask)
@@ -129,20 +199,20 @@ def make_loss_fn(model, cfg, qcfg: QuantConfig, qad: QADConfig):
             t_in, s_in = t_logits, s_logits
         if qad.loss == "mse":
             with torch.no_grad():
-                kl = _flat_kl(t_in, s_in.detach(), mask)
+                kl = _flat_kl(t_in, s_in.detach(), mask, denom)
         else:
-            kl = _flat_kl(t_in, s_in, mask)
+            kl = _flat_kl(t_in, s_in, mask, denom)
         metrics["kl"] = kl.detach()
         with torch.no_grad():
             metrics["top1_agree"] = losses.top1_agreement(
-                t_logits, s_logits.detach(), mask)
+                t_logits, s_logits.detach(), mask, denom)
         if tape is not None:
             metrics["numerics"] = _numerics_metrics(s_aux, t_aux, mask)
 
         if qad.loss == "kl":                       # QAD
             return kl, metrics
         if qad.loss == "mse":                      # Table 8 ablation
-            mse = losses.mse_from_logits(t_logits, s_logits, mask)
+            mse = losses.mse_from_logits(t_logits, s_logits, mask, denom)
             metrics["mse"] = mse.detach()
             return mse, metrics
         if qad.loss == "kl+ce":
@@ -197,11 +267,15 @@ def value_and_grad(loss_fn, student, teacher, batch):
 
 
 def make_train_step(model, cfg, qcfg: QuantConfig, opt: AdamW,
-                    qad: QADConfig | None = None) -> Callable:
+                    qad: QADConfig | None = None, mesh=None,
+                    rules=None) -> Callable:
     """The training step: the loss's gradient, one AdamW update
-    (``AdamW.apply``: the update added leaf by leaf)."""
+    (``AdamW.apply``: the update added leaf by leaf); on ``mesh`` under
+    ``rules``, over this rank's shards (the module docstring)."""
     qad = qad or QADConfig()
     loss_fn = make_loss_fn(model, cfg, qcfg, qad)
+    if mesh is not None:
+        return _make_mesh_step(model, cfg, qcfg, opt, loss_fn, mesh, rules)
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         loss, metrics, grads = value_and_grad(loss_fn, state.student,
@@ -222,20 +296,116 @@ def make_train_step(model, cfg, qcfg: QuantConfig, opt: AdamW,
     return step
 
 
+class _MeshPlan(NamedTuple):
+    specs: Any
+    places: Any                 # a ``sharding.Placement`` tree
+    norm: ShardedNorm
+
+
+def _mesh_plan(model, cfg, mesh, rules) -> _MeshPlan:
+    specs = model.param_specs(cfg)
+    places = sharding.placements(specs, mesh.shape, rules)
+    weights = tuple(1.0 / sharding.replication(pl, mesh.shape)
+                    for pl in tree_leaves(places))
+    return _MeshPlan(specs, places, ShardedNorm(weights, ctx.world_sum))
+
+
+def _tile_amaxes(tiles, plan: _MeshPlan, qcfg: QuantConfig, mesh,
+                 rules) -> dict:
+    """The tensor amax of every quantized weight tile split over the model
+    group (each layer's slice of a stacked leaf apart), max-reduced over
+    the group in one collective: ``ctx.use_mesh``'s table, read by
+    ``QuantConfig.q_weight`` in the forward and its recompute."""
+    tp = ctx.model_group(mesh, rules)
+    if tp is None or not (qcfg.enabled and qcfg.quantize_weights):
+        return {}
+    keys, amaxes = [], []
+    for sp, pl, t in zip(tree_leaves(plan.specs), tree_leaves(plan.places),
+                         tree_leaves(tiles)):
+        if pl.model_dim is None or not qcfg.quantizes(sp.kind):
+            continue
+        a = torch.abs(t.detach().to(torch.float32))
+        if sp.axes[0] == "layers":
+            keys += [ctx.tile_key(t[i]) for i in range(t.shape[0])]
+            amaxes.append(torch.amax(a, dim=tuple(range(1, t.ndim))))
+        else:
+            keys.append(ctx.tile_key(t))
+            amaxes.append(torch.amax(a)[None])
+        del a
+    if not keys:
+        return {}
+    return dict(zip(keys, tp.all_reduce(torch.cat(amaxes), "max")))
+
+
+def _make_mesh_step(model, cfg, qcfg, opt, loss_fn, mesh, rules) -> Callable:
+    if qcfg.numerics:
+        raise NotImplementedError(
+            "the numerics probes on a training mesh (ROADMAP A.4c)")
+    plan = _mesh_plan(model, cfg, mesh, rules)
+
+    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        with torch.no_grad():
+            student = sharding.gather_tiles(state.student, plan.places, mesh)
+            teacher = (None if state.teacher is None else
+                       sharding.gather_tiles(state.teacher, plan.places, mesh))
+            amaxes = _tile_amaxes(student, plan, qcfg, mesh, rules)
+        with ctx.use_mesh(mesh, rules, amaxes):
+            rows = sharding.batch_rows(batch, mesh)
+            loss, metrics, grads = value_and_grad(loss_fn, student, teacher,
+                                                  rows)
+            del student, teacher, amaxes
+            with torch.no_grad():
+                grads = sharding.reduce_to_shards(grads, plan.places, mesh)
+                metrics = {k: ctx.data_sum(v) for k, v in metrics.items()}
+                metrics.update(loss=ctx.data_sum(loss),
+                               grad_norm=global_norm(grads, plan.norm))
+                student, opt_state, metrics["update_norm"] = opt.apply(
+                    grads, state.opt_state, state.student, state.step,
+                    plan.norm)
+        return TrainState(step=state.step + 1, student=student,
+                          teacher=state.teacher, opt_state=opt_state), metrics
+
+    return step
+
+
 def make_eval_step(model, cfg, qcfg: QuantConfig,
-                   qad: QADConfig | None = None) -> Callable:
+                   qad: QADConfig | None = None, mesh=None,
+                   rules=None) -> Callable:
     """Validation step: KL against the teacher and CE against the labels
-    (paper Table 1), with top-1 agreement."""
+    (paper Table 1), with top-1 agreement.  ``eval_step(state, batch)``
+    takes a batch, or a list of batches and returns a list of results;
+    on ``mesh``, over this rank's shards and rows, the global means, the
+    tiles gathered once for a list."""
+    plan = _mesh_plan(model, cfg, mesh, rules) if mesh is not None else None
+
+    def tiles(tree):
+        if plan is None or tree is None:
+            return tree
+        return sharding.gather_tiles(tree, plan.places, mesh)
+
+    def one(student, teacher, batch) -> dict:
+        if plan is not None:
+            batch = sharding.batch_rows(batch, mesh)
+        mask = batch["mask"].to(torch.float32)
+        denom = losses.global_denominator(mask)
+        s_logits = model.apply(cfg, student, batch, qcfg)
+        out = {"ce": losses.ce_from_logits(s_logits, batch["labels"], mask,
+                                           denom)}
+        if teacher is not None:
+            t_logits = model.apply(cfg, teacher, batch, BF16)
+            out["kl"] = _flat_kl(t_logits, s_logits, mask, denom)
+            out["top1_agree"] = losses.top1_agreement(t_logits, s_logits,
+                                                      mask, denom)
+        return {k: ctx.data_sum(v) for k, v in out.items()}
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch) -> dict:
-        mask = batch["mask"].to(torch.float32)
-        s_logits = model.apply(cfg, state.student, batch, qcfg)
-        out = {"ce": losses.ce_from_logits(s_logits, batch["labels"], mask)}
-        if state.teacher is not None:
-            t_logits = model.apply(cfg, state.teacher, batch, BF16)
-            out["kl"] = _flat_kl(t_logits, s_logits, mask)
-            out["top1_agree"] = losses.top1_agreement(t_logits, s_logits, mask)
-        return out
+    def eval_step(state: TrainState, batch):
+        batches = batch if isinstance(batch, list) else [batch]
+        student, teacher = tiles(state.student), tiles(state.teacher)
+        with (ctx.use_mesh(mesh, rules,
+                           _tile_amaxes(student, plan, qcfg, mesh, rules))
+              if plan is not None else contextlib.nullcontext()):
+            out = [one(student, teacher, b) for b in batches]
+        return out if isinstance(batch, list) else out[0]
 
     return eval_step

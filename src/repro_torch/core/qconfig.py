@@ -6,7 +6,15 @@ NVFP4, which stay BF16.
 the CUDA kernel for a tensor on the card, the plain version on the CPU,
 with a straight-through gradient.  The op takes the ``act_scope``'s amax
 itself (on the card: in the same launch); only under tensor parallelism
-is the amax a torch reduction, all-reduced over the group before the op.
+or on a training mesh is the amax a torch reduction, max-reduced over the
+groups that split the tensor before the op.  On a training mesh
+(``distributed.ctx.use_mesh``) a tensor-scope amax is the whole global
+activation's, as GSPMD computes it in the reference: an activation's is
+max-reduced over the data group (the batch is split) and, at a
+row-parallel site, over the model group (the features are split); a
+dense weight's over the model group where it is a model tile (under FSDP
+the tile is gathered over the data group before the step; the step takes
+every tile's amax in one collective, ``ctx.tile_amax``).
 Both compute the reference's jitted
 form of the QDQ (divisions by constants as reciprocal multiplications),
 for weights as for activations: the reference's training step quantizes
@@ -25,6 +33,7 @@ from typing import Literal
 import torch
 import torch.nn.functional as F
 
+from ..distributed import ctx
 from ..kernels import nvfp4_qdq as _qdq
 from ..kernels import ops
 from ..obs import numerics as obs_numerics
@@ -93,12 +102,18 @@ class QuantConfig:
         of a tensor split over the group (its features, or an MoE slab's
         experts), so the scope's amax is the maximum over the group, what
         the reference computes on the whole activation, and a probe's
-        sums are the group's."""
+        sums are the group's.  On a training mesh a tensor-scope amax is
+        also max-reduced over the data group."""
         if not (self.quantizes(kind) and self.quantize_activations):
             return x
         amax = None
-        if tp is not None:
-            amax = tp.all_reduce(_qdq.scope_amax(x, self.act_scope), "max")
+        dp = ctx.data() if self.act_scope == "tensor" else None
+        if tp is not None or dp is not None:
+            amax = _qdq.scope_amax(x.detach(), self.act_scope)
+            if dp is not None:
+                amax = ctx.data_max(amax)
+            if tp is not None:
+                amax = tp.all_reduce(amax, "max")
         tape = obs_numerics.active() if self.numerics else None
         if tape is not None:
             probe_amax = amax
@@ -112,7 +127,10 @@ class QuantConfig:
 
     def q_weight(self, w: torch.Tensor, kind: Kind,
                  contract_axis: int = 0) -> torch.Tensor:
-        """Fake-quantize a DENSE weight, blocked along the contraction axis."""
+        """Fake-quantize a DENSE weight, blocked along the contraction
+        axis.  On a training mesh a weight's model tile takes the tensor
+        amax of the whole weight, the model group's maximum
+        (``ctx.tile_amax``); elsewhere its own."""
         if isinstance(w, nvfp4.PackedNVFP4):
             raise TypeError("q_weight expects a dense tensor; packed weights "
                             "go through resolve_weight / layers.qeinsum")
@@ -122,7 +140,7 @@ class QuantConfig:
         if tape is not None:
             wm = torch.movedim(w, contract_axis % w.ndim, -1)
             tape.put(f"{kind}.w", obs_numerics.quant_error_stats(wm))
-        return _fq_axis(w, contract_axis)
+        return _fq_axis(w, contract_axis, ctx.tile_amax(w))
 
     def resolve_weight(self, w, kind: Kind, contract_axis: int = 0):
         """GEMM-ready weight: packed leaves pass through, dense leaves get
@@ -157,9 +175,12 @@ def _fq_lastdim(x: torch.Tensor, tensor_amax: torch.Tensor | None = None,
     return ops.nvfp4_qdq(x, tensor_amax, scope=scope)
 
 
-def _fq_axis(w: torch.Tensor, axis: int) -> torch.Tensor:
-    """QDQ blocked along ``axis`` (moved last, QDQ'd, moved back)."""
+def _fq_axis(w: torch.Tensor, axis: int,
+             tensor_amax: torch.Tensor | None = None) -> torch.Tensor:
+    """QDQ blocked along ``axis`` (moved last, QDQ'd, moved back), with
+    the tensor's own amax or ``tensor_amax``."""
     axis = axis % w.ndim
     if axis == w.ndim - 1:
-        return _fq_lastdim(w)
-    return torch.movedim(_fq_lastdim(torch.movedim(w, axis, -1)), -1, axis)
+        return _fq_lastdim(w, tensor_amax)
+    return torch.movedim(_fq_lastdim(torch.movedim(w, axis, -1), tensor_amax),
+                         -1, axis)

@@ -1,14 +1,26 @@
 """Logical-axis sharding rules with a divisibility fallback, and each
 rank's tiles (port of ``repro.distributed.sharding``: ``make_rules``'s
-``tp_only`` table, ``resolve``, ``resolve_packed``, the warn-once fallback,
-``device_bytes`` and ``shard_params``).
+four tables, ``resolve``, ``resolve_packed``, the warn-once fallback,
+``ShapeOnlyMesh``, ``partition_factor``, ``device_bytes``,
+``shard_params``, and the counterparts of ``tree_shardings`` and
+``batch_specs_to_shardings`` for the training mesh).
 
 Parameters carry logical axis names (``ParamSpec.axes``); the rules map a
-name to the mesh's "model" axis or to nothing.  ``resolve`` gives, per
-dim, "model" where that dim splits over the group and None where it stays
-whole, dropping "model" where the group's size does not divide the dim
-(and warning once per parameter: a silently replicated weight is how TP
-regressions hide).  ``resolve_packed`` does the same for a
+name to mesh axes.  Two forms of ``resolve``:
+
+  * over a named mesh shape (``ShapeOnlyMesh``, or any object with
+    ``shape`` and ``axis_names``): the reference's, letter for letter.
+    Per dim, the greedy largest prefix of the rule's axes whose product
+    divides the dim, a mesh axis used once per spec; the result is the
+    ``PartitionSpec``'s entries as a tuple (None, one axis name, or a
+    tuple of names).  ``partition_factor`` prices it.
+  * over a tensor-parallel group's ``size`` (an int; the serving engine's
+    form): per dim, "model" where that dim splits over the group and None
+    where it stays whole, dropping "model" where the size does not
+    divide the dim.
+
+Each drop warns once per parameter: a silently replicated weight is how
+TP regressions hide.  ``resolve_packed`` does the same for a
 ``PackedNVFP4`` leaf, whose contraction axis is stored last: the output
 dim N splits as a dense dim does (column-parallel), and the packed K dim
 splits only in whole 16-element blocks with no K padding (row-parallel).
@@ -30,10 +42,22 @@ E does not divide the group and the FFN dim does): the gate and up stacks
 column-parallel, the down stack's packed K in whole blocks only.  The
 router [d, E] splits on E.  An FP8 KV pool's pages and f32 scale planes
 split on the KV-head dim, by the same "kv" rule.
+
+The training mesh (``distributed.ctx.Mesh``, data x model ranks): a
+leaf's ``Placement`` names the dim its data axis splits and the dim the
+model axis splits.  ``tree_shards`` cuts each rank's stored shard: the
+model tile ``shard_leaf`` cuts (the fused QKV regrouped by head), then
+the data rank's slice of it (ZeRO-3: only the stored shards live between
+steps).  ``gather_tiles`` all-gathers the shards over the data group back
+into model tiles before a forward, ``gather_full`` the whole leaves.
+``batch_rows`` is a data rank's rows of the global batch
+(``fault.host_batch_slices``).  ``constrain`` has no counterpart, as
+``ctx.cst`` has none: no activation is resharded implicitly.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Mapping
 
@@ -41,15 +65,12 @@ import torch
 
 from ..core import nvfp4
 from ..core.nvfp4 import BLOCK, PackedNVFP4
-from ..models.common import ParamSpec, tree_leaves
+from ..models.common import ParamSpec, tree_leaves, tree_map
 
 MODEL = "model"
-# ``make_rules(mesh, "tp_only")``'s table: weights replicated except the
-# tensor-parallel dims (serving at low batch); the data axis has size 1
-TP_ONLY = {"batch": (), "vocab": (MODEL,), "mlp": (MODEL,), "qkv": (MODEL,),
-           "heads": (MODEL,), "kv": (MODEL,), "expert": (MODEL,),
-           "rnn": (MODEL,), "headdim": (MODEL,), "embed": (), "seq": (),
-           "layers": (), "inner": (), "none": ()}
+DATA = "data"
+POD = "pod"
+RULE_MODES = ("fsdp_tp", "fsdp_only", "tp_only", "dp_only")
 # leaves whose N dim is the fused [q heads | k heads | v heads] projection:
 # every leaf whose name ends so (whisper's cross-attention "x_wqkv" too)
 FUSED_QKV = ("wqkv", "bqkv")
@@ -66,31 +87,121 @@ class Rules:
         return tuple(self.table.get(name, ()))
 
 
-def make_rules() -> Rules:
-    """The ``tp_only`` rules (the reference's ``fsdp_tp`` training mesh is
-    a later slice of the port)."""
-    return Rules(TP_ONLY)
+def make_rules(mode: str = "tp_only", mesh=None) -> Rules:
+    """The reference's tables: ``fsdp_tp`` (weights on "model" along their
+    tensor-parallel dim and on the data axes along ``embed``, the batch on
+    the data axes), ``fsdp_only`` (every weight dim and the batch on the
+    data axes), ``tp_only`` (weights replicated but the tensor-parallel
+    dims; the serving engine's) and ``dp_only`` (only the batch split).
+    The data axes are ("pod", "data") where ``mesh`` has a "pod" axis."""
+    names = tuple(getattr(mesh, "axis_names", ()) or ())
+    dp = (POD, DATA) if POD in names else (DATA,)
+    tp = (MODEL,)
+    if mode == "fsdp_tp":
+        table = {
+            "batch": dp, "embed": dp,
+            "vocab": tp, "mlp": tp, "qkv": tp, "heads": tp, "kv": tp,
+            "expert": tp, "rnn": tp, "headdim": tp,
+            "seq": (), "layers": (), "inner": (), "none": (),
+        }
+    elif mode == "fsdp_only":
+        table = {"batch": dp, "embed": dp, "vocab": dp, "mlp": dp,
+                 "qkv": dp, "heads": dp, "kv": dp, "expert": dp, "rnn": dp,
+                 "headdim": dp, "seq": (), "layers": (), "inner": (),
+                 "none": ()}
+    elif mode == "tp_only":
+        table = {"batch": dp,
+                 "vocab": tp, "mlp": tp, "qkv": tp, "heads": tp, "kv": tp,
+                 "expert": tp, "rnn": tp, "headdim": tp,
+                 "embed": (), "seq": (), "layers": (), "inner": (),
+                 "none": ()}
+    elif mode == "dp_only":
+        table = {"batch": dp, "embed": (), "vocab": (), "mlp": (), "qkv": (),
+                 "heads": (), "kv": (), "expert": (), "rnn": (), "headdim": (),
+                 "seq": (), "layers": (), "inner": (), "none": ()}
+    else:
+        raise ValueError(mode)
+    return Rules(table)
+
+
+class ShapeOnlyMesh:
+    """A mesh of names and sizes only (``shape``, ``axis_names``), for the
+    sharding arithmetic: ``resolve`` and ``partition_factor`` never touch a
+    device or a process group."""
+
+    def __init__(self, shape: Mapping[str, int]):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+
+
+def partition_factor(parts: tuple, mesh) -> int:
+    """How many ways the mesh-form ``resolve``'s entries split a tensor."""
+    f = 1
+    for entry in parts:
+        if entry is None:
+            continue
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            f *= int(mesh.shape[a])
+    return f
 
 
 _FALLBACK_WARNED: set = set()
 
 
-def _warn_fallback(param: str, ax_name: str, dim: int, size: int) -> None:
-    """Warn once per (param, logical axis, group size) when a dim that the
-    rules would split stays whole."""
-    key = (param, ax_name, size)
+def _warn_fallback(param: str, ax_name: str, dim: int, sizes) -> None:
+    """Warn once per (param, logical axis, dropped axis sizes) when a dim
+    that the rules would split stays whole on some mesh axes (``sizes``:
+    an int, the group's size on "model", or {axis: size})."""
+    if isinstance(sizes, int):
+        sizes = {MODEL: sizes}
+    key = (param, ax_name, tuple(sorted(sizes.items())))
     if key in _FALLBACK_WARNED:
         return
     _FALLBACK_WARNED.add(key)
     warnings.warn(
         f"sharding fallback: param {param!r} dim {dim} (logical axis "
-        f"{ax_name!r}) drops mesh axes {{'model': {size}}} — stays "
-        "replicated on them", RuntimeWarning, stacklevel=3)
+        f"{ax_name!r}) drops mesh axes {sizes} — stays replicated on them",
+        RuntimeWarning, stacklevel=3)
 
 
-def resolve(spec: ParamSpec, size: int, rules: Rules, name: str = "") -> tuple:
-    """Per dim, "model" where the dim splits ``size`` ways, else None (the
-    first dim that wants the axis and divides takes it)."""
+def _assign_axes(dim: int, want: list, mesh, divides=None) -> tuple:
+    """The greedy largest prefix of ``want`` whose product divides ``dim``
+    (``divides(prod)`` in its place for the packed K dim)."""
+    for k in range(len(want), 0, -1):
+        cand = tuple(want[:k])
+        prod = math.prod(int(mesh.shape[a]) for a in cand)
+        if divides(prod) if divides is not None else dim % prod == 0:
+            return cand
+    return ()
+
+
+def _entry(assigned: tuple):
+    """A ``PartitionSpec`` entry: one axis name, a tuple of names, or None."""
+    return assigned[0] if len(assigned) == 1 else (assigned or None)
+
+
+def _resolve_mesh(spec: ParamSpec, mesh, rules: Rules, name: str) -> tuple:
+    used: set = set()
+    out = []
+    for dim, ax_name in zip(spec.shape, spec.axes):
+        want = [a for a in rules.axes_for(ax_name) if a not in used]
+        assigned = _assign_axes(dim, want, mesh)
+        if len(assigned) < len(want):
+            _warn_fallback(name or f"{spec.axes}{spec.shape}", ax_name, dim,
+                           {a: int(mesh.shape[a])
+                            for a in want[len(assigned):]})
+        out.append(_entry(assigned))
+        used.update(assigned)
+    return tuple(out)
+
+
+def resolve(spec: ParamSpec, size, rules: Rules, name: str = "") -> tuple:
+    """Per dim, where it splits.  ``size`` an int (a tensor-parallel
+    group): "model" where the dim splits ``size`` ways, else None (the
+    first dim that wants the axis and divides takes it).  ``size`` a mesh
+    (``ShapeOnlyMesh``): the reference's ``PartitionSpec`` entries."""
+    if not isinstance(size, int):
+        return _resolve_mesh(spec, size, rules, name)
     used, out = False, []
     for dim, ax_name in zip(spec.shape, spec.axes):
         want = MODEL in rules.axes_for(ax_name) and not used and size > 1
@@ -103,12 +214,48 @@ def resolve(spec: ParamSpec, size: int, rules: Rules, name: str = "") -> tuple:
     return tuple(out)
 
 
-def resolve_packed(spec: ParamSpec, size: int, rules: Rules,
+def _resolve_packed_mesh(spec: ParamSpec, mesh, rules: Rules,
+                         name: str) -> tuple:
+    ax = spec.contract_axis % len(spec.shape)
+    k = spec.shape[ax]
+    kp = k + (-k) % BLOCK
+    used: set = set()
+    parts = []
+    pname = name or f"{spec.axes}{spec.shape}"
+    for i, (dim, ax_name) in enumerate(zip(spec.shape, spec.axes)):
+        if i == ax:
+            continue
+        want = [a for a in rules.axes_for(ax_name) if a not in used]
+        assigned = _assign_axes(dim, want, mesh)
+        if len(assigned) < len(want):
+            _warn_fallback(pname, ax_name, dim, {
+                a: int(mesh.shape[a]) for a in want[len(assigned):]})
+        parts.append(assigned)
+        used.update(assigned)
+    want_k = [a for a in rules.axes_for(spec.axes[ax]) if a not in used]
+
+    def div_k(prod: int) -> bool:
+        return (k == kp and (kp // 2) % prod == 0
+                and (kp // BLOCK) % prod == 0)
+
+    k_assigned = _assign_axes(kp, want_k, mesh, divides=div_k)
+    if len(k_assigned) < len(want_k):
+        _warn_fallback(pname, f"{spec.axes[ax]} (packed K)", k, {
+            a: int(mesh.shape[a]) for a in want_k[len(k_assigned):]})
+    codes = (*[_entry(a) for a in parts], _entry(k_assigned))
+    return codes, codes, ()
+
+
+def resolve_packed(spec: ParamSpec, size, rules: Rules,
                    name: str = "") -> tuple:
     """Per stored dim of a ``PackedNVFP4`` leaf (the non-contraction dims
-    in order, then K), "model" or None; codes and scales share it and the
-    tensor scale is replicated.  K splits only when every shard owns
-    whole 16-element blocks and K is not padded."""
+    in order, then K), "model" or None over a group of ``size``; codes and
+    scales share it and the tensor scale is replicated.  K splits only
+    when every shard owns whole 16-element blocks and K is not padded.
+    ``size`` a mesh: the reference's (codes, scales, tensor_scale)
+    ``PartitionSpec`` entries."""
+    if not isinstance(size, int):
+        return _resolve_packed_mesh(spec, size, rules, name)
     ax = spec.contract_axis % len(spec.shape)
     k = spec.shape[ax]
     kp = k + (-k) % BLOCK
@@ -398,3 +545,150 @@ def _state_counts(specs, data, size: int, rules: Rules) -> dict:
     walk(specs, data, "")
     return {"state_leaves": leaves, "state_total": len(leaves),
             "state_sharded": sum(v["split"] for v in leaves.values())}
+
+
+# ---------------------------------------------------------------------------
+# the training mesh: each rank's stored shards (the counterparts of
+# ``tree_shardings`` and ``batch_specs_to_shardings``)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where one leaf lies on a data x model mesh: the dim the data axis
+    splits and the dim the model axis splits (None where it stays whole),
+    and the ``partition_factor``: the ranks that hold distinct pieces."""
+    data_dim: int | None
+    model_dim: int | None
+    factor: int
+
+
+def placement(spec: ParamSpec, shape: Mapping[str, int], rules: Rules,
+              name: str = "") -> Placement:
+    """A leaf's ``Placement`` on a runtime mesh of ``shape``
+    ({"data": D, "model": M}), by the mesh form of ``resolve``."""
+    mesh = ShapeOnlyMesh(shape)
+    parts = resolve(spec, mesh, rules, name)
+    dims = {DATA: None, MODEL: None}
+    for i, entry in enumerate(parts):
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None:
+                dims[a] = i
+    return Placement(dims[DATA], dims[MODEL], partition_factor(parts, mesh))
+
+
+def placements(specs, shape: Mapping[str, int], rules: Rules):
+    """A ``Placement`` for every leaf of a spec tree (its dotted path the
+    warn-once key)."""
+    def walk(sp, path):
+        if isinstance(sp, dict):
+            return {k: walk(v, f"{path}.{k}" if path else k)
+                    for k, v in sp.items()}
+        return placement(sp, shape, rules, path)
+    return walk(specs, "")
+
+
+def replication(pl: Placement, shape: Mapping[str, int]) -> int:
+    """How many ranks of the mesh hold the same shard of a leaf."""
+    return math.prod(shape.values()) // pl.factor
+
+
+def shard_tensor(spec: ParamSpec, leaf: torch.Tensor, mesh, rules: Rules,
+                 name: str = "", heads: tuple | None = None) -> torch.Tensor:
+    """Rank ``mesh``'s stored shard of one dense leaf: its model tile
+    (``shard_leaf``: the fused QKV regrouped by head), then the data
+    rank's slice of the tile along the placement's data dim."""
+    shape, c = mesh.shape, mesh.coords
+    pl = placement(spec, shape, rules, name)
+    if pl.model_dim is not None and shape[MODEL] > 1:
+        axis = _axis(resolve(spec, shape[MODEL], rules, name))
+        if axis is None or axis % len(spec.shape) != pl.model_dim:
+            raise ValueError(f"{name or 'leaf'}: the model dim {pl.model_dim} "
+                             f"of the mesh's resolve is not the group's {axis}")
+        leaf = shard_leaf(spec, leaf, c[MODEL], shape[MODEL], rules, name,
+                          heads)
+    if pl.data_dim is not None and shape[DATA] > 1:
+        leaf = _cut(leaf, pl.data_dim, c[DATA], shape[DATA])
+    return leaf
+
+
+def tree_shards(params, specs, mesh, rules: Rules, heads: tuple | None = None):
+    """Rank ``mesh``'s stored shard of every leaf of ``params`` (whole
+    leaves: ``shard_tensor``)."""
+    def walk(sp, pr, path):
+        if isinstance(sp, dict):
+            return {k: walk(sp[k], pr[k], f"{path}.{k}" if path else k)
+                    for k in pr}
+        return shard_tensor(sp, pr, mesh, rules, path, heads)
+    return walk(specs, params, "")
+
+
+def gather_tiles(shards, places, mesh):
+    """The model tiles of a tree of stored shards: each leaf all-gathered
+    over the data group along its data dim (the shard itself where the
+    leaf does not split over data)."""
+    def one(x, pl):
+        if pl.data_dim is None or mesh.data.size == 1:
+            return x
+        return mesh.data.all_gather(x, pl.data_dim)
+    return tree_map(one, shards, places)
+
+
+def reduce_to_shards(tile_grads, places, mesh):
+    """Gradients of the model tiles summed over the data group, each rank
+    keeping its stored shard: the data rank's slice where the leaf splits
+    over data (the f32 sum of every rank's slice, in rank order), the
+    whole sum where it is replicated there (every rank the same bits)."""
+    dp = mesh.data
+
+    def one(g, pl):
+        if dp.size == 1:
+            return g
+        if pl.data_dim is None:
+            return dp.all_reduce(g)
+        return dp.reduce_scatter(g, pl.data_dim)
+    return tree_map(one, tile_grads, places)
+
+
+def gather_full(shards, specs, places, mesh, rules: Rules,
+                heads: tuple | None = None):
+    """Whole leaves from a tree of stored shards, on every rank: the model
+    tiles (``gather_tiles``) all-gathered over the model group, the fused
+    QKV's rows put back in their order."""
+    tiles = gather_tiles(shards, places, mesh)
+    tp = mesh.model
+
+    def walk(sp, x, pl, path):
+        if isinstance(sp, dict):
+            return {k: walk(sp[k], x[k], pl[k], f"{path}.{k}" if path else k)
+                    for k in x}
+        if pl.model_dim is None or tp.size == 1:
+            return x
+        full = tp.all_gather(x, pl.model_dim)
+        if heads and _fused(path) and pl.model_dim == len(sp.shape) - 1:
+            rows = _qkv_rows(*heads, tp.size, path).to(full.device)
+            full = full.index_select(-1, torch.argsort(rows))
+        return full
+    return walk(specs, tiles, places, "")
+
+
+def batch_rows(batch: dict, mesh) -> dict:
+    """A data rank's rows of the global batch (every tensor's leading
+    dim): ``fault.host_batch_slices`` over the data group."""
+    from .fault import host_batch_slices
+
+    lo, hi = host_batch_slices(next(iter(batch.values())).shape[0],
+                               mesh.shape[DATA])[mesh.coords[DATA]]
+    return {k: v[lo:hi] for k, v in batch.items()}
+
+
+def stored_share(tree, specs, places) -> tuple[int, int]:
+    """(bytes a rank holds of a tree of stored shards, the bytes it should
+    hold: each leaf's whole size in its stored dtype over the leaf's
+    partition factor)."""
+    held = share = 0
+    for leaf, sp, pl in zip(tree_leaves(tree), tree_leaves(specs),
+                            tree_leaves(places)):
+        held += leaf.numel() * leaf.element_size()
+        share += math.prod(sp.shape) * leaf.element_size() // pl.factor
+    return held, share

@@ -99,36 +99,40 @@ class _KLLoss(torch.autograd.Function):
     reaches the student logits only."""
 
     @staticmethod
-    def forward(ctx, t, s, mask):
+    def forward(ctx, t, s, mask, denom):
         if s.device.type == "cpu":
             kl, z_t, z_s = _kl.plain_fwd(t, s)
         else:
             kl, z_t, z_s = _kl.launch_fwd(t, s)
             launches["kl_loss"] += 1
         maskf = mask.to(torch.float32)
-        denom = torch.clamp_min(torch.sum(maskf), 1.0)
-        ctx.save_for_backward(t, s, maskf, z_t, z_s)
+        if denom is None:
+            denom = torch.clamp_min(torch.sum(maskf), 1.0)
+        ctx.save_for_backward(t, s, maskf, z_t, z_s, denom)
         return torch.sum(kl * maskf) / denom
 
     @staticmethod
     def backward(ctx, g):
-        t, s, maskf, z_t, z_s = ctx.saved_tensors
-        denom = torch.clamp_min(torch.sum(maskf), 1.0)
+        t, s, maskf, z_t, z_s, denom = ctx.saved_tensors
         g_tok = (g * maskf / denom).to(torch.float32)
         if s.device.type == "cpu":
             ds = _kl.plain_bwd(t, s, z_t, z_s, g_tok)
         else:
             ds = _kl.launch_bwd(t, s, z_t, z_s, g_tok)
             launches["kl_loss_bwd"] += 1
-        return None, ds, None
+        return None, ds, None, None
 
 
 def kl_loss(t_logits: torch.Tensor, s_logits: torch.Tensor,
-            mask: torch.Tensor) -> torch.Tensor:
+            mask: torch.Tensor,
+            denom: torch.Tensor | None = None) -> torch.Tensor:
     """Masked-mean token KL(p_t || p_s) for [T, V] logits and a [T] mask
-    (flatten the batch first); differentiable in ``s_logits`` only."""
+    (flatten the batch first); differentiable in ``s_logits`` only.
+    ``denom``: the mean's denominator (a training mesh's count over every
+    data rank: ``losses.global_denominator``), by default the mask's."""
     _note("kl_loss")
-    return _KLLoss.apply(t_logits.detach(), s_logits, mask.detach())
+    return _KLLoss.apply(t_logits.detach(), s_logits, mask.detach(),
+                         None if denom is None else denom.detach())
 
 
 def nvfp4_matmul(x: torch.Tensor, packed: PackedNVFP4,

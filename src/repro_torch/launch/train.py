@@ -22,6 +22,18 @@ Prometheus text beside it (``PATH`` with a ``.prom`` extension).
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 2 \
         --numerics --metrics-out m.json
 
+On a data x model mesh (``--mesh DxM --rules R``, ``train(mesh=(D, M),
+rules=R)``) ``train`` spawns D x M ranks (gloo processes; on the card
+they share it, every collective through host memory) and each runs
+``train_on_mesh``: the same loop over its stored shards under one of the
+reference's four sharding rules (``fsdp_tp``, ``fsdp_only``, ``tp_only``,
+``dp_only``), rank 0 printing.  It takes the dense decoder only, without
+``--ckpt-dir``, ``--numerics`` / ``--metrics-out`` or the chunked loss:
+each of those is refused with one line naming ROADMAP A.4c.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --mesh 2x2 --rules fsdp_tp --steps 2
+
 Runs on ``cuda`` unless given ``--device cpu`` / ``device="cpu"``, and
 raises without a card.
 """
@@ -30,6 +42,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 import time
 
 import torch
@@ -38,12 +51,16 @@ from .. import configs
 from ..checkpoint import CheckpointManager
 from ..core import qad as qad_mod
 from ..data import DataConfig, eval_batches, make_batch
+from ..distributed import sharding
 from ..distributed.fault import StragglerMonitor
+from ..kernels import ops
 from ..models import get_model
+from ..models.common import tree_leaves
 from ..obs import export as obs_export
 from ..obs.metrics import MetricsRegistry
 from ..obs.numerics import NumericsRecorder
 from ..optim import AdamW, warmup_cosine
+from . import mesh as launch_mesh
 from . import specs
 from .serve import resolve_device
 
@@ -67,19 +84,169 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _run(step_fn, eval_fn, holder: list, dcfg, evals, start, steps,
+         eval_every, batch, seq, log, device, recorder=None,
+         metrics_out=None, registry=None, mgr=None):
+    """The training loop: (state, history); ``eval_every=0`` runs no eval
+    and records no history.  The state is taken out of ``holder`` (a
+    one-element list), so that no caller's name keeps the initial state
+    alive beside the trained one."""
+    state = holder.pop()
+    mon = StragglerMonitor()
+    history = []
+    for i in range(start, steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, make_batch(dcfg, i, device=device))
+        _sync(device)
+        dt = time.perf_counter() - t0
+        action = mon.feed(dt)
+        if action:
+            log(f"[fault] straggler monitor: {action} at step {i}")
+        if eval_every and ((i + 1) % eval_every == 0 or i == steps - 1):
+            ev = eval_fn(state, evals)
+            m = {k: float(torch.mean(torch.stack([e[k] for e in ev])))
+                 for k in ev[0]}
+            m["step"] = i + 1
+            m["loss"] = float(metrics["loss"])
+            m["step_s"] = dt
+            history.append(m)
+            log(f"[train] step {i+1} " +
+                " ".join(f"{k}={v:.4f}" for k, v in m.items() if k != "step"))
+            if recorder is not None:
+                recorder.record(metrics.get("numerics") or {})
+                recorder.series_point("qad_train_kl", i + 1, m.get("kl"))
+                recorder.series_point("qad_train_top1", i + 1,
+                                      m.get("top1_agree"))
+                if metrics_out:
+                    obs_export.write_training_metrics(
+                        metrics_out, i + 1, registry, recorder=recorder,
+                        tokens=(i + 1) * batch * seq, evals=m)
+                    log(f"[train] wrote {metrics_out} (+ .prom)")
+            if mgr is not None:
+                mgr.save(i + 1, state, metrics=m)
+    return state, history
+
+
+def check_mesh(cfg, rules: str, method: str = "qad", ckpt_dir=None,
+               numerics: bool = False, metrics_out=None) -> None:
+    """Refuse, with one line naming the ROADMAP item, what a training mesh
+    does not run yet."""
+    if rules not in sharding.RULE_MODES:
+        raise ValueError(f"unknown sharding rules {rules!r}: one of "
+                         f"{', '.join(sharding.RULE_MODES)}")
+    if cfg.family != "decoder" or cfg.n_experts or cfg.mrope_sections:
+        raise NotImplementedError(
+            f"{cfg.name}: training on a mesh takes the dense decoder only; "
+            "the MoE, slab and VLM families wait for ROADMAP A.4c")
+    if ckpt_dir:
+        raise NotImplementedError(
+            "checkpoint resume on a training mesh waits for ROADMAP A.4c")
+    if numerics or metrics_out:
+        raise NotImplementedError(
+            "the numerics probes on a training mesh wait for ROADMAP A.4c")
+    if method == "qad_chunked":
+        raise NotImplementedError(
+            "the chunked KL on a training mesh waits for ROADMAP A.4c")
+
+
+def train_on_mesh(mesh, cfg, rules: str = "fsdp_tp", steps: int = 200,
+                  lr: float = 1e-3, method: str = "qad", batch: int = 8,
+                  seq: int = 64, eval_every: int = 50, seed: int = 0,
+                  domains: tuple = ("math", "code", "prose"), log=print):
+    """One rank of ``train(mesh=...)``: ``train``'s loop over this rank's
+    stored shards of ``cfg`` on ``mesh`` (a ``distributed.ctx.Mesh``)
+    under the ``rules`` table.  Returns (state, history, report); every
+    rank's history is the same.  The report: ``launches`` (the kernel
+    counters, reset at the start), ``collectives`` (each step's calls and
+    host seconds by group), ``bytes`` (the stored student, teacher and
+    moments, and each one's share by the partition factors), each step's
+    ``loss`` and ``step_s`` and, on the card, ``peak_gb``."""
+    check_mesh(cfg, rules, method)
+    device = mesh.device
+    model = get_model(cfg)
+    table = sharding.make_rules(rules)
+    qcfg = specs.recipe_qconfig(cfg)
+    qadcfg = make_method_qad(method)
+    opt = AdamW(lr=warmup_cosine(lr, steps // 10, steps), clip_norm=1.0)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    with torch.no_grad():
+        state = qad_mod.init_state_on_mesh(model, cfg, gen, opt, mesh, table)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, seed=seed, domains=domains)
+    step_fn = qad_mod.make_train_step(model, cfg, qcfg, opt, qadcfg,
+                                      mesh=mesh, rules=table)
+    eval_fn = qad_mod.make_eval_step(model, cfg, qcfg, qadcfg,
+                                     mesh=mesh, rules=table)
+    evals = eval_batches(dcfg, 2, device=device) if eval_every else []
+    counts, step_s, losses = [], [], []
+
+    def timed(state, b):
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        _sync(device)
+        step_s.append(time.perf_counter() - t0)
+        counts.append(mesh.counts())
+        losses.append(float(metrics["loss"]))
+        return state, metrics
+
+    ops.reset_launches()
+    holder = [state]
+    del state
+    state, history = _run(timed, eval_fn, holder, dcfg, evals, 0, steps,
+                          eval_every, batch, seq, log, device)
+    specs_ = model.param_specs(cfg)
+    places = sharding.placements(specs_, mesh.shape, table)
+    report = {"launches": dict(ops.launches), "collectives": counts,
+              "loss": losses, "step_s": step_s, "bytes": {
+                  "student": sharding.stored_share(state.student, specs_,
+                                                   places),
+                  "teacher": sharding.stored_share(state.teacher, specs_,
+                                                   places),
+                  "moments": tuple(map(sum, zip(*(
+                      sharding.stored_share(t, specs_, places)
+                      for t in state.opt_state))))}}
+    if device.type == "cuda":
+        report["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    return state, history, report
+
+
+def _train_rank(mesh, cfg, kwargs) -> dict:
+    """A rank of ``train(mesh=...)``: its history and report (rank 0
+    prints)."""
+    log = print if mesh.rank == 0 else (lambda msg: None)
+    _, history, report = train_on_mesh(mesh, cfg, log=log, **kwargs)
+    return {"history": history, "report": report}
+
+
 def train(arch: str, smoke: bool = True, steps: int = 200, lr: float = 1e-3,
           method: str = "qad", batch: int = 8, seq: int = 64,
           ckpt_dir: str | None = None, eval_every: int = 50,
           seed: int = 0, domains: tuple = ("math", "code", "prose"),
           numerics: bool = False, metrics_out: str | None = None,
-          log=print, device="cuda"):
+          log=print, device="cuda", mesh: tuple | None = None,
+          rules: str = "fsdp_tp"):
     """Train for ``steps`` steps; returns (state, history).  Each history
     entry holds one eval (mean over 2 held-out batches) with the step, the
     train loss and the step's wall time ``step_s``.  ``numerics``: probes
     on the train step, recorded at every eval; ``metrics_out``: a
-    snapshot written there at every eval."""
+    snapshot written there at every eval.
+
+    ``mesh`` = (data, model): spawn data x model ranks on ``device`` under
+    ``rules``; returns (the ranks' results, history): each result is
+    ``{"history", "report"}`` (``train_on_mesh``), the history rank 0's."""
     device = resolve_device(device)
     cfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
+    if mesh is not None:
+        check_mesh(cfg, rules, method, ckpt_dir, numerics, metrics_out)
+        kwargs = dict(rules=rules, steps=steps, lr=lr, method=method,
+                      batch=batch, seq=seq, eval_every=eval_every, seed=seed,
+                      domains=domains)
+        ranks = launch_mesh.spawn_mesh(_train_rank, tuple(mesh), cfg, kwargs,
+                                       device=device)
+        return ranks, ranks[0]["history"]
     model = get_model(cfg)
     qcfg = specs.recipe_qconfig(cfg)
     qadcfg = make_method_qad(method)
@@ -111,38 +278,11 @@ def train(arch: str, smoke: bool = True, steps: int = 200, lr: float = 1e-3,
             start, state = restored
             log(f"[train] resumed from step {start}")
 
-    mon = StragglerMonitor()
-    history = []
-    for i in range(start, steps):
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, make_batch(dcfg, i, device=device))
-        _sync(device)
-        dt = time.perf_counter() - t0
-        action = mon.feed(dt)
-        if action:
-            log(f"[fault] straggler monitor: {action} at step {i}")
-        if (i + 1) % eval_every == 0 or i == steps - 1:
-            ev = [eval_fn(state, eb) for eb in evals]
-            m = {k: float(torch.mean(torch.stack([e[k] for e in ev])))
-                 for k in ev[0]}
-            m["step"] = i + 1
-            m["loss"] = float(metrics["loss"])
-            m["step_s"] = dt
-            history.append(m)
-            log(f"[train] step {i+1} " +
-                " ".join(f"{k}={v:.4f}" for k, v in m.items() if k != "step"))
-            if recorder is not None:
-                recorder.record(metrics.get("numerics") or {})
-                recorder.series_point("qad_train_kl", i + 1, m.get("kl"))
-                recorder.series_point("qad_train_top1", i + 1,
-                                      m.get("top1_agree"))
-                if metrics_out:
-                    obs_export.write_training_metrics(
-                        metrics_out, i + 1, registry, recorder=recorder,
-                        tokens=(i + 1) * batch * seq, evals=m)
-                    log(f"[train] wrote {metrics_out} (+ .prom)")
-            if mgr is not None:
-                mgr.save(i + 1, state, metrics=m)
+    holder = [state]
+    del state
+    state, history = _run(step_fn, eval_fn, holder, dcfg, evals, start,
+                          steps, eval_every, batch, seq, log, device,
+                          recorder, metrics_out, registry, mgr)
     if mgr is not None:
         mgr.wait()
     return state, history
@@ -169,15 +309,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write a repro.obs.metrics/v1 snapshot here at "
                     "every eval interval (implies --numerics)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="train on a data x model mesh of gloo ranks "
+                    "(e.g. 2x2)")
+    ap.add_argument("--rules", default="fsdp_tp", choices=sharding.RULE_MODES,
+                    help="the sharding rules on --mesh")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _, history = train(args.arch, args.smoke, args.steps, args.lr,
-                       args.method, args.batch, args.seq, args.ckpt_dir,
-                       numerics=args.numerics or bool(args.metrics_out),
-                       metrics_out=args.metrics_out, device=args.device)
+    mesh = (tuple(int(v) for v in args.mesh.lower().split("x"))
+            if args.mesh else None)
+    try:
+        _, history = train(args.arch, args.smoke, args.steps, args.lr,
+                           args.method, args.batch, args.seq, args.ckpt_dir,
+                           numerics=args.numerics or bool(args.metrics_out),
+                           metrics_out=args.metrics_out, device=args.device,
+                           mesh=mesh, rules=args.rules)
+    except NotImplementedError as e:
+        print(f"[train] unsupported: {e}", file=sys.stderr)
+        sys.exit(1)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(history, f, indent=1)

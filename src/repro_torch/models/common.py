@@ -245,7 +245,11 @@ def scan_layers(body_fn, carry, stacked_params, stacked_xs, qcfg,
     ``remat`` ("none" | "full" | "dots", the config's ``remat``) runs each
     layer under rematerialization (``_rematerialized``); it changes memory
     and time, never values.  Without grad (the teacher's forward, evals,
-    serving) nothing is kept for a backward, so no layer is wrapped.
+    serving) nothing is kept for a backward, so no layer is wrapped.  On
+    a training mesh the recompute runs the layer's forward collectives
+    again (its amax maxima and row sums), in the same order on every rank;
+    torch's early-stopping recompute ends at the last tensor the backward
+    needs, so a layer's last row sum does not run again.
 
     Numerics probes: when ``qcfg.numerics`` is on and a tape is installed,
     each layer's probes are taken in a scope of their own and merged into

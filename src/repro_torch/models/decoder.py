@@ -22,7 +22,9 @@ tile (head-local attention, the KV cache and pool hold the local KV
 heads), the embedding is vocab-parallel (the local rows looked up, the
 rest masked, the sum over the group exact since each token has one
 nonzero term), and ``_lm_head`` all-gathers the local logits to the full
-vocabulary on every rank.  The paged forwards of the engine write the pool
+vocabulary on every rank; under grad (training on a mesh) both go
+through ``ctx``'s autograd collectives, so the embedding's gradient
+reaches each rank's own rows and the logits' its own vocabulary tile.  The paged forwards of the engine write the pool
 in place too.  A MoE layer (``n_experts``) runs ``layers.moe_ffn`` with
 a shared expert behind a sigmoid gate (Qwen1.5-MoE) or a dense residual
 FFN (Arctic); under TP both are ordinary column- and row-parallel sites
@@ -266,7 +268,7 @@ def embed_tokens(cfg, params, tokens):
     mine = (local >= 0) & (local < v_local)
     rows = table[torch.where(mine, local, torch.zeros_like(local))]
     rows = torch.where(mine[..., None], rows, torch.full_like(rows, -0.0))
-    return tp.all_reduce(rows)
+    return ctx.reduce_from_model(rows, tp)
 
 
 def _embed_inputs(cfg, params, batch):
@@ -292,7 +294,7 @@ def _lm_head(qcfg, cfg, params, x):
     logits = layers.qdense(qcfg, "lm_head", x, unembed(cfg, params),
                            parallelism="column")
     if logits.shape[-1] != cfg.vocab_size:      # this rank's vocab tile
-        logits = ctx.current().all_gather(logits, -1)
+        logits = ctx.gather_from_model(logits, ctx.current(), -1)
     return logits
 
 

@@ -29,7 +29,11 @@ stays replicated, as in the reference: its input is all-gathered along
 the features and the weight dequantized and multiplied, with no sum
 afterwards.  Column weights always split under TP: the engine admits a
 config only when its heads, KV heads and d_ff divide the group, and a
-column split needs no more.
+column split needs no more.  Under grad (training on a mesh) a column
+site's input passes ``ctx.copy_to_model`` and a row site's sum is
+``ctx.reduce_from_model``, so each gradient is reduced where its forward
+was not; a dense weight tile's QDQ takes the whole weight's amax there
+(``ctx.tile_amax``).
 
 Every dispatch is counted (``qeinsum_dispatch_total{backend}`` and its
 analytic weight bytes) into the recorder an engine step installs
@@ -161,6 +165,8 @@ def qeinsum(qcfg: QuantConfig, kind: str, eq: str, x: torch.Tensor, w,
     tp = ctx.current()
     if tp is not None and eq == _DENSE_EQ and parallelism == "row":
         return _qeinsum_row(qcfg, kind, x, w, quantize_act, tp)
+    if tp is not None and eq == _DENSE_EQ and parallelism == "column":
+        x = ctx.copy_to_model(x, tp)
     xq = qcfg.q_act(x, kind) if quantize_act else x
     wr = qcfg.resolve_weight(w, kind, contract_axis)
     _probe_packed(qcfg, kind, wr, tp if parallelism else None)
@@ -192,7 +198,7 @@ def _qeinsum_row(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,
     packed = isinstance(wr, PackedNVFP4)
     if (wr.k if packed else wr.shape[0]) != x.shape[-1]:
         # replicated (no whole-block split): gather the features, no sum
-        x = tp.all_gather(x, -1)
+        x = ctx.gather_from_model(x, tp, -1)
         xq = qcfg.q_act(x, kind) if quantize_act else x
         _probe_packed(qcfg, kind, wr)
         _note_gemm("dequant" if packed else "dense", wr)
@@ -206,7 +212,8 @@ def _qeinsum_row(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,
     _note_gemm("dequant" if packed else "dense", wr)
     wd = ops.dequant_weight(wr, 0, xq.dtype) if packed else wr
     part = xq.to(torch.float32) @ wd.to(torch.float32)
-    return tp.all_reduce(part).to(torch.promote_types(xq.dtype, wd.dtype))
+    return ctx.reduce_from_model(part, tp).to(
+        torch.promote_types(xq.dtype, wd.dtype))
 
 
 def qdense(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,

@@ -32,10 +32,24 @@ class AdamWState(NamedTuple):
     v: Any
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt(sum of squares) over every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(_F32)))
-                          for x in tree_leaves(tree)))
+@dataclasses.dataclass(frozen=True)
+class ShardedNorm:
+    """A global norm over a training mesh's stored shards: each leaf's sum
+    of squares times its weight (1 / the ranks holding the same shard, in
+    ``tree_leaves`` order), the weighted sum summed over every rank by
+    ``reduce``, so each element counts once."""
+    weights: tuple
+    reduce: Callable
+
+    def total(self, sq: list) -> torch.Tensor:
+        return self.reduce(sum(w * s for w, s in zip(self.weights, sq)))
+
+
+def global_norm(tree, norm: ShardedNorm | None = None) -> torch.Tensor:
+    """sqrt(sum of squares) over every leaf, in f32 (over the mesh with
+    ``norm``)."""
+    sq = [torch.sum(torch.square(x.to(_F32))) for x in tree_leaves(tree)]
+    return torch.sqrt(sum(sq) if norm is None else norm.total(sq))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,13 +67,15 @@ class AdamW:
         z = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
         return AdamWState(m=tree_map(z, params), v=tree_map(z, params))
 
-    def _coefficients(self, grads, step: torch.Tensor):
+    def _coefficients(self, grads, step: torch.Tensor,
+                      norm: ShardedNorm | None = None):
         """(clip scale or None, bias corrections bc1 and bc2, lr) of a step
-        at int32 ``step``, all f32 tensors on the gradients' device."""
+        at int32 ``step``, all f32 tensors on the gradients' device; the
+        clip norm over the mesh with ``norm``."""
         dev = tree_leaves(grads)[0].device
         scale = None
         if self.clip_norm:
-            gn = global_norm(grads)
+            gn = global_norm(grads, norm)
             scale = torch.clamp(self.clip_norm / torch.clamp_min(gn, 1e-12),
                                 max=1.0)
         t = (step + 1).to(device=dev, dtype=_F32)
@@ -81,15 +97,17 @@ class AdamW:
             u = u + self.weight_decay * p.to(_F32)
         return -lr * u, m32.to(m.dtype), v32.to(v.dtype)
 
-    def update(self, grads, state: AdamWState, params, step: torch.Tensor):
+    def update(self, grads, state: AdamWState, params, step: torch.Tensor,
+               norm: ShardedNorm | None = None):
         """(updates in f32, new state) for gradients at int32 ``step``."""
-        c = self._coefficients(grads, step)
+        c = self._coefficients(grads, step, norm)
         out = tree_map(lambda g, m, v, p: self._leaf(g, m, v, p, *c), grads,
                        state.m, state.v, params)
         pick = lambda i: tree_map(lambda o: o[i], out)
         return pick(0), AdamWState(m=pick(1), v=pick(2))
 
-    def apply(self, grads, state: AdamWState, params, step: torch.Tensor):
+    def apply(self, grads, state: AdamWState, params, step: torch.Tensor,
+              norm: ShardedNorm | None = None):
         """``update`` and the add, leaf by leaf and in slices of a leaf:
         (new parameters, new state, global norm of the updates).  The new
         parameters and moments are bitwise what ``update`` followed by
@@ -104,8 +122,12 @@ class AdamW:
         (the old one stays: the update is functional), not the new state
         plus f32 copies of the largest leaf's update and its moments, as a
         donated, fused update in the reference's jitted step needs no
-        more."""
-        c = self._coefficients(grads, step)
+        more.
+
+        ``norm``: the trees are a training mesh's stored shards (the
+        moments stored like their parameters); the clip norm and the
+        updates' norm are taken over the mesh (``ShardedNorm``)."""
+        c = self._coefficients(grads, step, norm)
         sq = []
 
         def one(g, m, v, p):
@@ -133,7 +155,8 @@ class AdamW:
             return new_p, new_m, new_v
 
         new_p, new_m, new_v = walk(grads, state.m, state.v, params)
-        return new_p, AdamWState(m=new_m, v=new_v), torch.sqrt(sum(sq))
+        total = sum(sq) if norm is None else norm.total(sq)
+        return new_p, AdamWState(m=new_m, v=new_v), torch.sqrt(total)
 
 
 def warmup_cosine(peak_lr: float, warmup: int, total: int,

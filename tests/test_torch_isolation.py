@@ -43,7 +43,9 @@ def test_port_sources_import_no_jax():
             PORT / "models" / "rglru.py", PORT / "serve" / "state.py",
             PORT / "models" / "rwkv6.py", PORT / "models" / "whisper.py",
             PORT / "spec" / "__init__.py", PORT / "spec" / "proposer.py",
-            PORT / "spec" / "engine.py"} <= set(files)
+            PORT / "spec" / "engine.py", PORT / "distributed" / "fault.py",
+            PORT / "optim" / "compression.py", PORT / "core" / "qad.py",
+            PORT / "launch" / "train.py"} <= set(files)
     bad = {(str(f.relative_to(SRC)), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert not bad, bad
@@ -61,7 +63,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.rglru, repro_torch.serve.state, "
             "repro_torch.models.rwkv6, repro_torch.models.whisper, "
             "repro_torch.spec, repro_torch.spec.proposer, "
-            "repro_torch.spec.engine; "
+            "repro_torch.spec.engine, repro_torch.distributed.fault, "
+            "repro_torch.optim.compression, repro_torch.core.qad; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -103,6 +106,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         SpecEngine(cfg, {"embed": torch.zeros(1)})
     with pytest.raises(RuntimeError, match="CUDA"):
         train.train("rwkv6-3b", steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train("olmo-1b", steps=1, mesh=(2, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--steps", "1", "--mesh", "2x2", "--rules", "tp_only"])
     assert train.build_parser().parse_args([]).device == "cuda"
 
 
