@@ -86,7 +86,7 @@ Phases (every failure exits nonzero):
      times per decode step, first tokens equal single-request
      ``serve_batch``'s, and the first decode step's logits agree with the
      same engine with ``fused_kernels="off"``; a traced decode step.  Run
-     B: 16 requests sharing a 256-token prefix with suffixes of 16..128
+     B: 8 requests sharing a 256-token prefix with suffixes of 16..128
      tokens, paged prefill, on-demand paging and the prefix cache; tokens
      bitwise equal to the same workload with the cache off;
   5c. MoE serving: the engine over packed weights of ``qwen2-moe-a2.7b``
@@ -96,7 +96,7 @@ Phases (every failure exits nonzero):
      forward and K7 24 times per decode step, and the prefill logits and
      the first decode step's logits (on the fused run's first token) agree
      with the same engine with ``fused_kernels="off"`` on the first 8
-     requests; the dropped fraction at prefill; a traced decode step.  Run M-B: 8 requests sharing a 256-token prefix, 8 tokens each,
+     requests; the dropped fraction at prefill; a traced decode step.  Run M-B: 4 requests sharing a 256-token prefix, 8 tokens each,
      paged prefill (token dispatch, K3 at M = 16), prefix cache on against
      off: tokens bitwise equal;
   5d. tensor-parallel serving: the engine over packed weights of
@@ -182,7 +182,7 @@ Phases (every failure exits nonzero):
      draft (seed 99), each run's streams equal to run A's token for token,
      the pool drained, accepted + rolled back = drafted, acceptance and
      tokens a round printed; rwkv6-3b (inside 5h) with a self-qdq draft at
-     k = 3 on 4 requests, 8 tokens, its streams equal to run H's;
+     k = 3 on 2 requests, 8 tokens, its streams equal to run H's;
   5m. serving telemetry (``repro_torch.obs``) on 5l's loads: (a) run A's
      traffic through three engines, telemetry off, metrics, metrics and
      trace, one warm-up each, then stepped in lockstep (their order
@@ -244,8 +244,8 @@ Phases (every failure exits nonzero):
      host before the spawn, which runs after 5j): (a) nemotron-nano-9b-sim
      on run E's 4 shortest prompts, 4 tokens; (b) recurrentgemma-2b on run
      F's 4 prompts past its window (its one KV head, and so its ring,
-     whole on both ranks), 8 tokens; (c) rwkv6-3b on run H's 8 shortest,
-     8 tokens, then a self-qdq ``SpecEngine`` at k = 2 on 4 of them, 4
+     whole on both ranks), 8 tokens; (c) rwkv6-3b on run H's 4 shortest,
+     8 tokens, then a self-qdq ``SpecEngine`` at k = 2 on 2 of them, 4
      tokens; (d) whisper-tiny on run I's first 8 with their frames, 16
      tokens.  Gates: every request finishes and every slot is released,
      the ranks' tokens bitwise equal; the first 4 requests' prefill logits
@@ -272,7 +272,7 @@ Phases (every failure exits nonzero):
   6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
      (16 layers, d_model 2048, vocab 50304) under its config's
      rematerialization (``remat="full"``: the student's QDQ runs twice a
-     step), 4 QAD steps of batch 8 x 512 tokens with an eval after each,
+     step), 2 QAD steps of batch 8 x 512 tokens with an eval after each,
      the launch counters read around it; a traced step; then one step
      under each of remat "none", "dots" and "full" from one host copy of
      the state: the updated student and moments bitwise equal, the step ms
@@ -281,8 +281,9 @@ Phases (every failure exits nonzero):
      model mesh: one spawn of four gloo ranks sharing the card, each
      rank running ``launch.train.train_on_mesh`` (what ``train(mesh=(2,
      2), rules=...)`` runs in every rank).  Run 1: ``fsdp_tp`` on olmo-1b
-     at full size, phase 6's ``TRAIN`` settings (4 steps of 8 x 512, an
-     eval after each): each step's train loss and eval KL beside phase 6's,
+     at full size, phase 6's ``TRAIN`` settings (2 steps of 8 x 512, an
+     eval after the last): each step's train loss and the eval KL beside
+     phase 6's,
      the update (final - initial student) against phase 6's by relative
      L2 (phase 6's final student read from a host file with
      ``torch.load(mmap=True)``, each rank cutting its own shards); the
@@ -293,7 +294,21 @@ Phases (every failure exits nonzero):
      (under ``fsdp_tp``) for one step each on a copy cut to 4 of the 16
      layers at full width, each against a one-card step on the cut run
      in the parent before the spawn: the loss, the update and AdamW's
-     first moment.  Gates: finite metrics, every rank's equal; the leaves
+     first moment.  On the same cut under ``fsdp_tp``: a step with the
+     numerics probes and a checkpoint (``--ckpt-dir``; its probes against
+     the parent's cut step, run with the probes on, within
+     ``MESH_NUMERICS_TOL``, every rank's snapshot equal), a run resumed
+     from that checkpoint for step 2 against an uninterrupted 2-step run
+     (bitwise on every rank), the checkpoint restored on one card by
+     ``train()`` after the spawn (each rank's shards of it bitwise the
+     rank's own), and ``qad_chunked`` against a one-card chunked step.
+     MoE: qwen2-moe-a2.7b at full width cut to 2 layers (``MESH_MOE``),
+     one step under ``fsdp_tp`` with the experts on E, one with
+     ``moe_shard="tp"`` (their FFN dim), and the planted fault (each
+     rank's own expert-stack amax), against a one-card step on the cut:
+     the loss, the update and the layers' first moment within
+     ``MESH_MOE_TOL``, the fault outside on the last two.  Gates: finite
+     metrics, every rank's equal; the leaves
      a group replicates bitwise equal on its ranks; each rank's stored
      student, teacher and moments its partition factors' share; K1, K5
      and K6 launches per rank as ``mesh_launches`` predicts from the
@@ -351,6 +366,7 @@ Exits 2 without printing a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -361,6 +377,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -408,7 +425,9 @@ ENGINE = dict(n_slots=8, block_size=16, max_blocks_per_slot=34, n_blocks=272)
 # the engine's paged-prefill chunk: rows a GEMM sees per chunk
 CHUNK = 16
 RUN_A = dict(requests=16, min_prompt=64, max_prompt=512, gen=16)
-RUN_B = dict(requests=16, prefix=256, min_suffix=16, max_suffix=128, gen=8)
+# (run B takes 8 requests, M-B 4: the script's time limit, with phase 6h's
+# MoE and checkpoint runs; 16 and 8 before)
+RUN_B = dict(requests=8, prefix=256, min_suffix=16, max_suffix=128, gen=8)
 # fused (K7) against unfused (gather + attend) decode: the first decode
 # step's logits per request, relative L2.  The attention outputs differ by
 # f32 summation order only, which moves a rare bf16 output by one ulp; the
@@ -436,7 +455,7 @@ RUN_M_OFF = dict(requests=8, gen=4)
 # a request is admitted into a slot, its pool blocks and its draft
 # mirror's that a finished one released
 RUN_KSPEC = dict(requests=16, gen=8)
-RUN_MB = dict(requests=8, prefix=256, min_suffix=16, max_suffix=128, gen=8)
+RUN_MB = dict(requests=4, prefix=256, min_suffix=16, max_suffix=128, gen=8)
 # tensor-parallel serving (acereason-7b, full size): two ranks share the
 # card; run A's first 8 requests, 16 tokens each
 TP_SIZE = 2
@@ -449,7 +468,8 @@ RUN_TP = dict(requests=8, gen=16)
 # record of each as a context, then the shadow on at rate 0.25 (all in 5d's
 # ranks)
 # (8 and 4 tokens keep the script well inside its time limit on a slow
-# host), and a planted fault on the first 4 requests
+# host; (a) needs every one of the 8 slots busy at a decode step, which it
+# traces), and a planted fault on the first 4 requests
 RUN_KTP = dict(requests=8, gen=8, ffn_requests=4, ffn_gen=4,
                fault_requests=4)
 # phase 5n (a) and (b)'s prefill logits against one card's (relative L2),
@@ -473,8 +493,10 @@ RUN_NTP = dict(spec_k=2, spec_gen=8, shadow_contexts=4, shadow_rate=0.25,
 # run H's 8 shortest, 8 tokens, then a self-qdq draft at k = 2 on 4 of
 # them, 4 tokens; whisper-tiny on run I's first 8 with their frames, 16
 # tokens; a planted fault on the first 4 requests of each family
-RUN_OTP = dict(nemo_requests=4, nemo_gen=4, rgemma_gen=8, rwkv_requests=8,
-               rwkv_gen=8, spec_k=2, spec_requests=4, spec_gen=4,
+# (rwkv6 on 4 requests and its draft on 2: 8 and 4 before phase 6h's MoE
+# runs)
+RUN_OTP = dict(nemo_requests=4, nemo_gen=4, rgemma_gen=8, rwkv_requests=4,
+               rwkv_gen=8, spec_k=2, spec_requests=2, spec_gen=4,
                whisper_requests=8, whisper_gen=16, fault_requests=4)
 # phase 5o's prefill logits against the one-card run's (relative L2), by
 # family and activation format, each limit set between the sound readings
@@ -520,7 +542,9 @@ RGEMMA = dict(arch="recurrentgemma-2b", requests=4, min_prompt=2100,
 # chunked prefill on run A's engine and traffic (phase 5g)
 RUN_G = dict(chunk=256)
 # the training path
-TRAIN = dict(arch="olmo-1b", steps=4, lr=1e-5, batch=8, seq=512)
+# (2 steps: phase 6h's run 1 repeats them on the mesh at 8-10 s a step;
+# it took 4 before phase 6h's MoE and checkpoint runs)
+TRAIN = dict(arch="olmo-1b", steps=2, lr=1e-5, batch=8, seq=512)
 # the training mesh (phase 6h): one spawn of 4 gloo ranks sharing the card
 # as a (2, 2) data x model mesh; run 1 is fsdp_tp on full-size olmo-1b
 # (TRAIN's steps), run 2 the other three rules for one step each on a copy
@@ -541,6 +565,34 @@ MESH_TRAIN = dict(shape=(2, 2), cut_layers=4,
 # the step (sound 0.0028 and 0.052, the fault 0.35-0.36)
 MESH_TOL = {"step1_loss": 2.5e-3, "loss": 0.02, "full_update": 0.6,
             "cut_loss": 5e-3, "update": 0.5, "moment": 0.15}
+# phase 6h's runs of the three options on the 4-layer cut (all fsdp_tp):
+# the chunked KL for one step against a one-card qad_chunked step; the
+# numerics probes on one step (an eval after it, a checkpoint written)
+# against the one-card cut oracle's own probes (run with them on), within
+# MESH_NUMERICS_TOL by stat; a run resumed from that checkpoint for step 2
+# against an uninterrupted 2-step run with the probes off (bitwise), and
+# the checkpoint restored on one card against the gathered shards
+# (bitwise)
+# (the card's activations follow the mesh's other products: a tensor's
+# amax, its largest element, moved by 4.4% at one site on the cut, and
+# the scales' use and the clip fraction with it, on an H100; these
+# limits were set after that reading, PERF.md section 6)
+MESH_NUMERICS_TOL = {"sqnr_db": ("abs", 0.5), "amax": ("rel", 0.1),
+                     "clip_frac": ("abs", 1e-2), "scale_util": ("abs", 2e-2),
+                     "hidden_cos": ("abs", 1e-3), "hidden_mse": ("rel", 5e-2),
+                     "grad_norm": ("rel", 5e-2)}
+# MoE QAD on the mesh: qwen2-moe-a2.7b at full width cut to 2 of its 24
+# layers (1.77 B weights: 21 GB of state, about 5.3 GB stored a rank under
+# fsdp_tp beside each rank's gathered tiles, gradient and activations),
+# one step of 4 x 512 under fsdp_tp with the experts on E (30 a rank) and
+# with moe_shard="tp" set here (704 FFN columns a rank), and the planted
+# fault (each rank's own expert-stack amax, under "ep"), each against one
+# card's step on the same cut run in the parent before the spawn.  Limits
+# read on an H100 (PERF.md section 6): sound update 0.421, layers'
+# first moment 0.162-0.165, the fault's 0.692 and 0.384; the loss (sound
+# 1.2e-4-9.5e-4, the fault 1.26e-3) does not part, as on the dense cut
+MESH_MOE = dict(layers=2, batch=4, seq=512)
+MESH_MOE_TOL = {"loss": 5e-3, "update": 0.55, "moment": 0.25}
 # MoE QAD (qwen2-moe-a2.7b at full width, cut in depth), data-free QAD from
 # the teacher's own tokens, the numerics runs and activation calibration
 MOE_TRAIN = dict(layers=4, steps=3, batch=4, seq=512)
@@ -557,7 +609,7 @@ NEMO_TRAIN = dict(layers=5, steps=3, batch=4, seq=512)
 # would come to about 70 GB; phases 6f, 6g)
 # (16 tokens, one request one slot at a time, the speculative run on 4
 # requests at 8 tokens: the script's time limit, with phase 5o)
-RWKV = dict(arch="rwkv6-3b", gen=16, one_slot=1, spec_k=3, spec_requests=4,
+RWKV = dict(arch="rwkv6-3b", gen=16, one_slot=1, spec_k=3, spec_requests=2,
             spec_gen=8)
 WHISPER = dict(arch="whisper-tiny", requests=16, min_prompt=4, max_prompt=192,
                gen=64, s_alloc=448, one_slot=4)
@@ -3772,13 +3824,55 @@ def shard_rel_l2(mesh, cfg, specs, places, rules, mine, ref, base=None):
             {p: float(torch.sqrt(v[0] / v[1])) for p, v in zip(paths, sums)})
 
 
+def state_digests(state) -> dict:
+    """``leaf_digest`` of every leaf of a ``TrainState``'s student, teacher
+    and moments, by path (host lists)."""
+    trees = (("student", state.student), ("teacher", state.teacher),
+             ("m", state.opt_state.m), ("v", state.opt_state.v))
+    return {f"{name}.{path}": leaf_digest(x).tolist()
+            for name, tree in trees for path, x in flat_paths(tree).items()}
+
+
+@contextlib.contextmanager
+def own_expert_amax():
+    """A planted fault: ``core.qad._tile_amaxes`` whose expert-stack
+    entries hold each rank's own tile's amax (no maximum over the model
+    group)."""
+    import torch
+
+    from repro_torch.core import qad
+    from repro_torch.distributed import ctx, sharding
+
+    keep = qad._tile_amaxes
+
+    def faulty(tiles, plan, qcfg, mesh, rules):
+        table = keep(tiles, plan, qcfg, mesh, rules)
+        for name in sharding.EXPERT_STACKS:
+            t = tiles["layers"][name]
+            for i in range(t.shape[0]):
+                key = ctx.tile_key(t[i])
+                if key in table:
+                    table[key] = torch.amax(torch.abs(t[i].float()))
+        return table
+    qad._tile_amaxes = faulty
+    try:
+        yield
+    finally:
+        qad._tile_amaxes = keep
+
+
 def mesh_train_run(mesh, cfg, rule, steps, one_file, log, fault=None,
-                   evaluate=True) -> dict:
+                   eval_every=0, batch=None, seq=None, tile_fault=False,
+                   **opts) -> dict:
     """One run of the training mesh's path on this rank:
-    ``launch.train.train_on_mesh`` (``TRAIN``'s batch, lr and seed, an eval
-    after each step unless ``evaluate`` is off); its history and report,
-    the update's relative L2 against the one-card run in ``one_file``
-    (when given), the leaves whose replicas differ, the seconds."""
+    ``launch.train.train_on_mesh`` (``TRAIN``'s batch, lr and seed unless
+    ``batch``/``seq`` are given, an eval every ``eval_every`` steps and
+    after the last, none at 0; ``opts`` passed on: ``method``,
+    ``ckpt_dir``, ``numerics``); its history and report, the update's
+    relative L2 against the one-card run in ``one_file`` (when given),
+    the leaves whose replicas differ, the digests of this rank's final
+    shards, the seconds.  ``fault`` wraps the mesh; ``tile_fault`` plants
+    ``own_expert_amax``."""
     import torch
 
     from repro_torch.distributed import sharding
@@ -3786,19 +3880,22 @@ def mesh_train_run(mesh, cfg, rule, steps, one_file, log, fault=None,
     from repro_torch.models import get_model
 
     t0 = time.perf_counter()
-    state, hist, rep = train.train_on_mesh(
-        mesh if fault is None else fault(mesh), cfg, rule, steps=steps,
-        lr=TRAIN["lr"], batch=TRAIN["batch"], seq=TRAIN["seq"],
-        eval_every=1 if evaluate else 0, seed=SEED, log=log)
+    with own_expert_amax() if tile_fault else contextlib.nullcontext():
+        state, hist, rep = train.train_on_mesh(
+            mesh if fault is None else fault(mesh), cfg, rule, steps=steps,
+            lr=TRAIN["lr"], batch=batch or TRAIN["batch"],
+            seq=seq or TRAIN["seq"], eval_every=eval_every, seed=SEED,
+            log=log, **opts)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     specs = get_model(cfg).param_specs(cfg)
     table = sharding.make_rules(rule)
     places = sharding.placements(specs, mesh.shape, table)
     out = dict(history=hist, report=rep, seconds=secs, layers=cfg.n_layers,
-               rule=rule, fault=fault is not None, evaluate=evaluate,
+               remat=cfg.remat, rule=rule, fault=fault is not None or tile_fault,
+               moe=bool(cfg.n_experts),
                replicas_differ=replicas_differ(mesh, state, places),
-               update_rel=None, moment_rel=None)
+               digests=state_digests(state), update_rel=None, moment_rel=None)
     if one_file is not None:
         # the update (final - initial, the initial weights the teacher's)
         # and, where the file holds it, AdamW's first moment
@@ -3851,13 +3948,18 @@ def mesh_fault_loss(mesh, cfg) -> dict:
     return out
 
 
-def train_mesh_rank(mesh, tcfg, ccut, full_file, cut_file) -> dict:
+def train_mesh_rank(mesh, tcfg, ccut, full_file, cut_file, work,
+                    mcut=None) -> dict:
     """One rank of phase 6h (its own process): run 2 first (each rule and
     the planted fault, ``local_amax_mesh``, on the copy ``ccut`` cut in
     depth, one step each against the parent's one-card step on the cut);
-    then run 1, ``fsdp_tp`` on full-size olmo-1b for ``TRAIN``'s steps
-    against phase 6's update; then the fault at full depth
-    (``mesh_fault_loss``).  Host data only."""
+    the three options on the cut under ``fsdp_tp`` (the probes with a
+    checkpoint, a resume from it and an uninterrupted run, the chunked
+    KL); MoE QAD on ``mcut`` (experts on E, on their FFN dim, the planted
+    expert-amax fault) against the parent's one-card step files in
+    ``work``; then run 1, ``fsdp_tp`` on full-size olmo-1b for
+    ``TRAIN``'s steps against phase 6's update; then the fault at full
+    depth (``mesh_fault_loss``).  Host data only."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3868,24 +3970,202 @@ def train_mesh_rank(mesh, tcfg, ccut, full_file, cut_file) -> dict:
     runs = {}
     for rule in MESH_TRAIN["rules"]:
         runs[f"cut/{rule}"] = mesh_train_run(mesh, ccut, rule, 1, cut_file,
-                                             quiet, evaluate=False)
+                                             quiet)
     runs["cut/fault"] = mesh_train_run(mesh, ccut, "fsdp_tp", 1, cut_file,
-                                       quiet, local_amax_mesh, evaluate=False)
+                                       quiet, local_amax_mesh)
+    ckpt = os.path.join(work, "mesh_ckpt")
+    runs["cut/fsdp_tp"] = mesh_train_run(mesh, ccut, "fsdp_tp", 1, cut_file,
+                                         quiet, eval_every=1, numerics=True,
+                                         ckpt_dir=ckpt)
+    runs["ckpt/resumed"] = mesh_train_run(mesh, ccut, "fsdp_tp", 2, None,
+                                          quiet, ckpt_dir=ckpt)
+    runs["ckpt/straight"] = mesh_train_run(mesh, ccut, "fsdp_tp", 2, None,
+                                           quiet)
+    runs["chunked"] = mesh_train_run(
+        mesh, ccut, "fsdp_tp", 1, os.path.join(work, "chunked_state.pt"),
+        quiet, method="qad_chunked")
+    if mcut is not None:
+        moe_file = os.path.join(work, "moe_state.pt")
+        moe = dict(batch=MESH_MOE["batch"], seq=MESH_MOE["seq"])
+        runs["moe/ep"] = mesh_train_run(mesh, mcut, "fsdp_tp", 1, moe_file,
+                                        quiet, **moe)
+        runs["moe/tp"] = mesh_train_run(
+            mesh, dataclasses.replace(mcut, moe_shard="tp"), "fsdp_tp", 1,
+            moe_file, quiet, **moe)
+        runs["moe/fault"] = mesh_train_run(mesh, mcut, "fsdp_tp", 1,
+                                           moe_file, quiet, tile_fault=True,
+                                           **moe)
+    # run 1 evaluates after its last step (phase 6 after each)
     runs["full"] = mesh_train_run(mesh, tcfg, "fsdp_tp", TRAIN["steps"],
-                                  full_file, log)
+                                  full_file, log,
+                                  eval_every=TRAIN["steps"])
     return {"runs": runs, "full_fault": mesh_fault_loss(mesh, tcfg),
             "coords": mesh.coords}
 
 
-def mesh_launches(layers: int, steps: int, evaluate: bool) -> dict:
+def mesh_launches(layers: int, steps: int, n_evals: int,
+                  moe: bool = False, chunked: bool = False,
+                  remat: str = "full") -> dict:
     """K1, K5 and K6 launches a rank of a mesh run should count: the
-    student's 10 QDQs a layer a forward, twice a train step under remat
-    "full", once each of the two eval batches after every step (when it
-    evaluates); one KL forward a step and an eval batch, one KL backward
-    a step."""
-    evals = 2 * steps if evaluate else 0
-    return {"nvfp4_qdq": 10 * layers * (2 * steps + evals),
-            "kl_loss": steps + evals, "kl_loss_bwd": steps}
+    student's QDQs a layer a forward (10 in olmo-1b's; 15 in a
+    qwen2-moe layer, as phase 6b counts them), twice a train step under
+    remat "full", once each of the two eval batches at each of its
+    ``n_evals`` evals; one KL forward a step and an eval batch, one KL
+    backward a step (the chunked KL of ``qad_chunked`` is plain torch:
+    no KL kernel in its steps)."""
+    evals = 2 * n_evals
+    per = 15 if moe else 10
+    kl = 0 if chunked else steps
+    fwd = 1 if remat == "none" else 2
+    return {"nvfp4_qdq": per * layers * (fwd * steps + evals),
+            "kl_loss": kl + evals, "kl_loss_bwd": kl}
+
+
+def cut_tree(cut, specs, tree, head: str):
+    """A ``TrainState`` tree's shards by ``cut`` (``core.qad.
+    shard_cutter``: ``head`` the checkpoint path's first names)."""
+    names = tuple(head.split("/"))
+    out = {}
+    for path, x in flat_paths(tree).items():
+        node, keys = out, path.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = cut(names + tuple(keys), x)
+    return out
+
+
+def layers_moment(run) -> float:
+    """The largest first-moment relative L2 over the layer stack's leaves
+    (the embedding's gradient sums its rows' tokens in another order)."""
+    return max(v for k, v in run["moment_leaves"].items()
+               if k.startswith("layers."))
+
+
+def numerics_gaps(mine: dict, want: dict) -> dict:
+    """Each stat's largest gap (``MESH_NUMERICS_TOL``'s kind) between two
+    snapshots' per-layer numerics; raises unless they hold the same
+    sites and stats."""
+    if sorted(mine) != sorted(want):
+        fail(f"phase 6h numerics: the mesh's sites {sorted(mine)[:4]}... are "
+             f"not one card's {sorted(want)[:4]}...")
+    gaps = {}
+    for site, stats in want.items():
+        if sorted(mine[site]) != sorted(stats):
+            fail(f"phase 6h numerics: {site} holds {sorted(mine[site])}, one "
+                 f"card {sorted(stats)}")
+        for k, v in stats.items():
+            kind, _ = MESH_NUMERICS_TOL[k]
+            g = abs(mine[site][k] - v)
+            if kind == "rel":
+                g /= max(abs(v), 1e-30)
+            if g >= gaps.get(k, (0.0, ""))[0]:
+                gaps[k] = (g, site)
+    return gaps
+
+
+def mesh_options_gates(ranks, ccut, khist, one_numerics, restored,
+                       restored_step, restore_s) -> None:
+    """Phase 6h's gates and lines of the three options on the cut: the
+    chunked KL against one card's, the probes (every rank's summary equal,
+    each stat within ``MESH_NUMERICS_TOL`` of one card's) and their cost,
+    the resume (bitwise the uninterrupted run on every rank) and the
+    checkpoint restored on one card (bitwise the gathered shards)."""
+    r0 = ranks[0]["runs"]
+    ck = r0["chunked"]
+    k_rel = abs(ck["report"]["loss"][0] - khist[0]["loss"]) / abs(khist[0]["loss"])
+    k_mom = layers_moment(ck)
+    print(f"[train-mesh] cut, qad_chunked (fsdp_tp, the vocabulary split over "
+          f"the model group): loss {ck['report']['loss'][0]:.7g} (one card "
+          f"{khist[0]['loss']:.7g}), rel {k_rel:.3g}; update rel L2 "
+          f"{ck['update_rel']:.4g}; layers' first moment rel L2 {k_mom:.4g}; "
+          f"step ms {ck['report']['step_s'][0] * 1e3:.1f}", flush=True)
+    if (k_rel > MESH_TOL["cut_loss"] or ck["update_rel"] > MESH_TOL["update"]
+            or k_mom > MESH_TOL["moment"]):
+        fail(f"phase 6h chunked: loss rel {k_rel:.3g}, update "
+             f"{ck['update_rel']:.3g}, moment {k_mom:.3g} outside {MESH_TOL}")
+    # the probes
+    num = r0["cut/fsdp_tp"]["report"]["numerics"]
+    for r in ranks:
+        if r["runs"]["cut/fsdp_tp"]["report"]["numerics"] != num:
+            fail(f"phase 6h numerics: rank {r['coords']}'s snapshot differs "
+                 "from rank 0's")
+    gaps = numerics_gaps(num["per_layer"], one_numerics)
+    on_ms = r0["cut/fsdp_tp"]["report"]["step_s"][0] * 1e3
+    off_ms = r0["ckpt/straight"]["report"]["step_s"][0] * 1e3
+    print(f"[train-mesh] cut, numerics probes (fsdp_tp, step 1): every rank's "
+          f"snapshot equal ({len(num['per_layer'])} per-layer sites, SQNR min "
+          f"{num['sqnr_db_min']:.3f} dB); largest gap to one card by stat "
+          + ", ".join(f"{k} {v:.3g} ({site})"
+                      for k, (v, site) in sorted(gaps.items()))
+          + f" (limits {MESH_NUMERICS_TOL}); step ms with the probes "
+          f"{on_ms:.1f}, without {off_ms:.1f} (x{on_ms / off_ms:.2f})",
+          flush=True)
+    for k, (g, site) in gaps.items():
+        if g > MESH_NUMERICS_TOL[k][1]:
+            fail(f"phase 6h numerics: {k} at {site} parts from one card's "
+                 f"by {g:.3g}")
+    # the resume and the checkpoint
+    for r in ranks:
+        runs = r["runs"]
+        if runs["ckpt/resumed"]["report"]["start"] != 1:
+            fail(f"phase 6h resume: rank {r['coords']} resumed from step "
+                 f"{runs['ckpt/resumed']['report']['start']}, not 1")
+        bad = [k for k, v in runs["ckpt/straight"]["digests"].items()
+               if runs["ckpt/resumed"]["digests"][k] != v]
+        if bad:
+            fail(f"phase 6h resume: rank {r['coords']}'s step 2 differs from "
+                 f"the uninterrupted run's in {bad[:4]}")
+    for r in ranks:
+        mine = r["runs"]["cut/fsdp_tp"]["digests"]
+        bad = [k for k, v in mine.items() if restored[tuple(
+            r["coords"].values())].get(k) != v]
+        if restored_step != 1 or bad:
+            fail(f"phase 6h checkpoint: one card restored step "
+                 f"{restored_step}; rank {r['coords']}'s shards of it differ "
+                 f"from the rank's own in {bad[:4]}")
+    res = r0["ckpt/resumed"]
+    print(f"[train-mesh] cut, checkpoint: step 1 written by rank 0 (the "
+          f"whole state gathered, {r0['cut/fsdp_tp']['seconds']:.1f} s for "
+          f"the run), resumed on every rank ({res['seconds']:.1f} s for the "
+          f"resume and step 2): step 2 bitwise the uninterrupted run's "
+          f"(probes off) on every rank; restored on one card in "
+          f"{restore_s:.1f} s: each rank's shards of it (cut on one card) "
+          "bitwise the rank's own", flush=True)
+
+
+def mesh_moe_gates(ranks, mcut, mhist) -> None:
+    """Phase 6h's MoE runs against one card's step on the cut: the loss,
+    the update and the layers' first moment within ``MESH_MOE_TOL``, the
+    planted fault outside on the update and the moment."""
+    r0 = ranks[0]["runs"]
+    read = {}
+    for key in ("moe/ep", "moe/tp", "moe/fault"):
+        run = r0[key]
+        rel = abs(run["report"]["loss"][0] - mhist[0]["loss"]) / abs(mhist[0]["loss"])
+        read[key] = dict(loss=rel, update=run["update_rel"],
+                         moment=layers_moment(run))
+        c = run["report"]["collectives"][-1]
+        print(f"[train-mesh] {mcut.name} at full width, {mcut.n_layers} of 24 "
+              f"layers, {MESH_MOE['batch']} x {MESH_MOE['seq']}, fsdp_tp, "
+              f"{key[4:]}{' (planted fault: each rank own expert amax)' if run['fault'] else ''}: "
+              f"loss {run['report']['loss'][0]:.7g} (one card "
+              f"{mhist[0]['loss']:.7g}), rel {rel:.3g}; update rel L2 "
+              f"{run['update_rel']:.4g}; layers' first moment rel L2 "
+              f"{read[key]['moment']:.4g}; step ms "
+              f"{run['report']['step_s'][0] * 1e3:.1f} ({run['seconds']:.1f} "
+              "s for the run); collectives "
+              + ", ".join(f"{g} {v['calls']} ({v['seconds']:.3f} host s)"
+                          for g, v in c.items())
+              + "; by leaf, update " + " ".join(
+                  f"{k} {v:.3g}" for k, v in run["update_leaves"].items()),
+              flush=True)
+    for key in ("moe/ep", "moe/tp"):
+        if any(read[key][k] > MESH_MOE_TOL[k] for k in MESH_MOE_TOL):
+            fail(f"phase 6h {key}: {read[key]} outside {MESH_MOE_TOL}")
+    if not (read["moe/fault"]["update"] > MESH_MOE_TOL["update"]
+            and read["moe/fault"]["moment"] > MESH_MOE_TOL["moment"]):
+        fail(f"phase 6h MoE planted fault reads {read['moe/fault']}, inside "
+             f"{MESH_MOE_TOL}")
 
 
 def phase_6h(dev, tcfg, p6_hist, full_file, work) -> dict:
@@ -3895,33 +4175,88 @@ def phase_6h(dev, tcfg, p6_hist, full_file, work) -> dict:
     import torch
 
     from repro_torch import configs
+    from repro_torch.core import qad
+    from repro_torch.distributed import sharding
     from repro_torch.launch import mesh as launch_mesh
     from repro_torch.launch import train
+    from repro_torch.models import get_model
 
     t_phase = time.perf_counter()
     ccut = dataclasses.replace(tcfg, n_layers=MESH_TRAIN["cut_layers"])
-    get_config = configs.get_config
-    configs.get_config = lambda name: ccut if name == tcfg.name else get_config(name)
-    try:
-        cstate, chist = train.train(tcfg.name, smoke=False, steps=1,
-                                    lr=TRAIN["lr"], batch=TRAIN["batch"],
-                                    seq=TRAIN["seq"], eval_every=1, seed=SEED,
-                                    device=dev, log=lambda msg: None)
-    finally:
-        configs.get_config = get_config
+    mcut = dataclasses.replace(configs.get_config(MOE_ARCH),
+                               n_layers=MESH_MOE["layers"])
+
+    def one_card(c, file, **kw):
+        """``train.train`` on the cut config ``c`` for one step (an eval
+        after it): its state's student and first moment saved to ``file``
+        in ``work``, its history."""
+        get_config = configs.get_config
+        configs.get_config = lambda name: c if name == c.name else get_config(name)
+        try:
+            st, h = train.train(c.name, smoke=False, steps=1, lr=TRAIN["lr"],
+                                eval_every=1, seed=SEED, device=dev,
+                                log=lambda msg: None, **kw)
+        finally:
+            configs.get_config = get_config
+        torch.save({"student": to_host(st.student),
+                    "m": to_host(st.opt_state.m)}, os.path.join(work, file))
+        del st
+        gc.collect()
+        torch.cuda.empty_cache()
+        return h
+
+    # the oracles: the cut's step with the probes on (its state is the
+    # probe-free step's), its chunked-KL step, the MoE cut's step
+    snap_file = os.path.join(work, "cut_numerics.json")
+    chist = one_card(ccut, "cut_state.pt", batch=TRAIN["batch"],
+                     seq=TRAIN["seq"], numerics=True, metrics_out=snap_file)
+    with open(snap_file) as f:
+        one_numerics = json.load(f)["numerics"]["per_layer"]
+    khist = one_card(ccut, "chunked_state.pt", batch=TRAIN["batch"],
+                     seq=TRAIN["seq"], method="qad_chunked")
+    mhist = one_card(mcut, "moe_state.pt", batch=MESH_MOE["batch"],
+                     seq=MESH_MOE["seq"])
     cut_file = os.path.join(work, "cut_state.pt")
-    torch.save({"student": to_host(cstate.student),
-                "m": to_host(cstate.opt_state.m)}, cut_file)
     cut_loss = chist[0]["loss"]
-    del cstate
-    gc.collect()
-    torch.cuda.empty_cache()
     oracle_s = time.perf_counter() - t_phase
     t0 = time.perf_counter()
     ranks = launch_mesh.spawn_mesh(train_mesh_rank, MESH_TRAIN["shape"], tcfg,
-                                   ccut, full_file, cut_file, device=dev,
-                                   timeout=900)
+                                   ccut, full_file, cut_file, work, mcut,
+                                   device=dev, timeout=900)
     spawn_s = time.perf_counter() - t0
+    # the mesh's checkpoint of the cut's step 1, restored by the one-card
+    # train() (nothing left to run)
+    t0 = time.perf_counter()
+    get_config = configs.get_config
+    configs.get_config = lambda name: ccut if name == ccut.name else get_config(name)
+    try:
+        rstate, _ = train.train(ccut.name, smoke=False, steps=1,
+                                lr=TRAIN["lr"], batch=TRAIN["batch"],
+                                seq=TRAIN["seq"], eval_every=0, seed=SEED,
+                                ckpt_dir=os.path.join(work, "mesh_ckpt"),
+                                device=dev, log=lambda msg: None)
+    finally:
+        configs.get_config = get_config
+    restored = {}
+    specs = get_model(ccut).param_specs(ccut)
+    rules = sharding.make_rules("fsdp_tp")
+    for d in range(MESH_TRAIN["shape"][0]):
+        for m in range(MESH_TRAIN["shape"][1]):
+            at = types.SimpleNamespace(
+                shape=dict(zip(("data", "model"), MESH_TRAIN["shape"])),
+                coords={"data": d, "model": m})
+            cut = qad.shard_cutter(get_model(ccut), ccut, at, rules)
+            restored[(d, m)] = state_digests(type(rstate)(
+                step=rstate.step, opt_state=type(rstate.opt_state)(
+                    *(cut_tree(cut, specs, t, "opt_state/x")
+                      for t in rstate.opt_state)),
+                student=cut_tree(cut, specs, rstate.student, "student"),
+                teacher=cut_tree(cut, specs, rstate.teacher, "teacher")))
+    restored_step = int(rstate.step)
+    del rstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    restore_s = time.perf_counter() - t0
     card = card_line()
     r0 = ranks[0]["runs"]
     full = r0["full"]
@@ -3936,20 +4271,22 @@ def phase_6h(dev, tcfg, p6_hist, full_file, work) -> dict:
         if r["full_fault"]["loss"] != ranks[0]["full_fault"]["loss"]:
             fail(f"phase 6h: rank {r['coords']}'s full-depth fault loss "
                  "differs from rank 0's")
-    hist = full["history"]
-    loss_rel = [abs(h["loss"] - p["loss"]) / abs(p["loss"])
-                for h, p in zip(hist, p6_hist)]
+    # each step's train loss (phase 6 evaluates after each step, run 1
+    # after its last)
+    losses = full["report"]["loss"]
+    loss_rel = [abs(h - p["loss"]) / abs(p["loss"])
+                for h, p in zip(losses, p6_hist)]
     print(f"[train-mesh] card {card}; (2, 2) mesh of 4 gloo ranks, fsdp_tp, "
           f"{tcfg.name} full size ({tcfg.n_layers} layers, remat "
           f"{tcfg.remat}), {TRAIN['steps']} steps of {TRAIN['batch']} x "
           f"{TRAIN['seq']}", flush=True)
     print("[train-mesh] train loss (phase 6): "
-          + " ".join(f"{h['loss']:.7g} ({p['loss']:.7g})"
-                     for h, p in zip(hist, p6_hist))
+          + " ".join(f"{h:.7g} ({p['loss']:.7g})"
+                     for h, p in zip(losses, p6_hist))
           + "; rel " + " ".join(f"{x:.3g}" for x in loss_rel), flush=True)
-    print("[train-mesh] eval KL (phase 6): "
-          + " ".join(f"{h['kl']:.7g} ({p['kl']:.7g})"
-                     for h, p in zip(hist, p6_hist)), flush=True)
+    print(f"[train-mesh] eval KL after step {TRAIN['steps']} (phase 6): "
+          f"{full['history'][-1]['kl']:.7g} ({p6_hist[-1]['kl']:.7g})",
+          flush=True)
     print(f"[train-mesh] update (final - initial) relative L2 against phase "
           f"6's: {full['update_rel']:.4g}; by leaf " + " ".join(
               f"{k} {v:.3g}" for k, v in full["update_leaves"].items()),
@@ -4009,7 +4346,8 @@ def phase_6h(dev, tcfg, p6_hist, full_file, work) -> dict:
                          f"of the {part}, its partition factors' share is "
                          f"{share}")
             want = mesh_launches(run["layers"], len(run["report"]["loss"]),
-                                 run["evaluate"])
+                                 len(run["history"]), run["moe"],
+                                 key == "chunked", run["remat"])
             got = {k: run["report"]["launches"][k] for k in want}
             if got != want:
                 fail(f"phase 6h {key}: rank {r['coords']} launched {got}, "
@@ -4024,9 +4362,7 @@ def phase_6h(dev, tcfg, p6_hist, full_file, work) -> dict:
     # the layers' first moment (the embedding's gradient sums its rows'
     # tokens in another order on one card: printed, not gated)
     for key in [k for k in r0 if k.startswith("cut/")]:
-        r0[key]["layers_moment"] = max(
-            v for k, v in r0[key]["moment_leaves"].items()
-            if k.startswith("layers."))
+        r0[key]["layers_moment"] = layers_moment(r0[key])
     sound = [r0[k] for k in r0 if k.startswith("cut/") and not r0[k]["fault"]]
     fault = r0["cut/fault"]
     for run in sound:
@@ -4047,8 +4383,11 @@ def phase_6h(dev, tcfg, p6_hist, full_file, work) -> dict:
     if max(loss_rel) > MESH_TOL["loss"] or full["update_rel"] > MESH_TOL["full_update"]:
         fail(f"phase 6h run 1: loss rel {max(loss_rel):.3g}, update rel "
              f"{full['update_rel']:.3g} outside {MESH_TOL}")
+    mesh_options_gates(ranks, ccut, khist, one_numerics, restored,
+                       restored_step, restore_s)
+    mesh_moe_gates(ranks, mcut, mhist)
     secs = time.perf_counter() - t_phase
-    print(f"[train-mesh] phase 6h: {secs:.1f} s (one-card cut oracle "
+    print(f"[train-mesh] phase 6h: {secs:.1f} s (one-card oracles "
           f"{oracle_s:.1f} s, the spawn {spawn_s:.1f} s; run 1 "
           f"{full['seconds']:.1f} s in the ranks); card {card}", flush=True)
     return {"seconds": secs, "launches": full["report"]["launches"]}

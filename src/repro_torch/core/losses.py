@@ -113,8 +113,26 @@ def _chunks(w: torch.Tensor, n_chunks: int) -> list[torch.Tensor]:
     return list(torch.split(w, v // n_chunks, dim=1))
 
 
-def _kl_scan(ht, wt, hs, ws, n_chunks):
-    """Per-token KL and the two logsumexps, streamed over vocab chunks."""
+def _combine_lse(tp, m, l, *rest):
+    """A streamed log-sum-exp's running (max, sum) and sums scaled like
+    its sum (``rest``), each rank's over its vocabulary tile, combined
+    over the model group ``tp``: every rank's values all-gathered, each
+    rescaled to the group's max and added in rank order (the same bits on
+    every rank)."""
+    every = tp.all_gather(torch.stack([m, l, *rest])[None], 0)
+    top = torch.amax(every[:, 0], 0)
+    out = [torch.zeros_like(l) for _ in range(1 + len(rest))]
+    for r in range(every.shape[0]):
+        corr = torch.exp(every[r, 0] - top)
+        for i in range(len(out)):
+            out[i] = out[i] + every[r, 1 + i] * corr
+    return (top, *out)
+
+
+def _kl_scan(ht, wt, hs, ws, n_chunks, tp=None):
+    """Per-token KL and the two logsumexps, streamed over vocab chunks
+    (with ``tp``: over this rank's vocabulary tile, then combined over
+    the model group)."""
     lead = ht.shape[:-1]
     m_t = torch.full(lead, -torch.inf, dtype=_F32, device=ht.device)
     m_s = torch.full(lead, -torch.inf, dtype=_F32, device=ht.device)
@@ -133,6 +151,9 @@ def _kl_scan(ht, wt, hs, ws, n_chunks):
             torch.exp(s - m_s2[..., None]), -1)
         acc = acc * corr_t + torch.sum(e_t * (t - s), -1)
         m_t, m_s = m_t2, m_s2
+    if tp is not None:
+        m_t, l_t, acc = _combine_lse(tp, m_t, l_t, acc)
+        m_s, l_s = _combine_lse(tp, m_s, l_s)
     z_t = m_t + torch.log(l_t)
     z_s = m_s + torch.log(l_s)
     return acc / l_t - z_t + z_s, z_t, z_s
@@ -140,16 +161,18 @@ def _kl_scan(ht, wt, hs, ws, n_chunks):
 
 class _ChunkedKL(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ht, wt, hs, ws, mask, n_chunks):
-        kl, z_t, z_s = _kl_scan(ht, wt, hs, ws, n_chunks)
-        ctx.save_for_backward(ht, wt, hs, ws, mask, z_t, z_s)
+    def forward(ctx, ht, wt, hs, ws, mask, n_chunks, denom, tp):
+        kl, z_t, z_s = _kl_scan(ht, wt, hs, ws, n_chunks, tp)
+        if denom is None:
+            denom = torch.clamp_min(torch.sum(mask), 1.0)
+        ctx.save_for_backward(ht, wt, hs, ws, mask, z_t, z_s, denom)
         ctx.n_chunks = n_chunks
-        return _masked_mean(kl, mask)
+        return _masked_mean(kl, mask, denom)
 
     @staticmethod
     def backward(ctx, g):
-        ht, wt, hs, ws, mask, z_t, z_s = ctx.saved_tensors
-        gt = (g * mask / torch.clamp_min(torch.sum(mask), 1.0)).to(_F32)
+        ht, wt, hs, ws, mask, z_t, z_s, denom = ctx.saved_tensors
+        gt = (g * mask / denom).to(_F32)
         hsf = hs.reshape(-1, hs.shape[-1])
         dhs = torch.zeros_like(hs)
         dws = []
@@ -162,14 +185,21 @@ class _ChunkedKL(torch.autograd.Function):
             dhs = dhs + ds @ wsc.T
             dws.append((hsf.T @ ds.reshape(-1, ds.shape[-1])).to(ws.dtype))
         # the teacher's inputs are constants (QAD stops the teacher's
-        # gradient anyway)
-        return None, None, dhs, torch.cat(dws, 1), None, None
+        # gradient anyway); under a vocabulary split ``dhs`` is this rank's
+        # columns' share, summed over the group by the caller's
+        # ``ctx.copy_to_model``
+        return None, None, dhs, torch.cat(dws, 1), None, None, None, None
 
 
-def chunked_kl_loss(ht, wt, hs, ws, mask, n_chunks: int = 16) -> torch.Tensor:
-    """Mean token KL(p_t || p_s) fused with both unembedding GEMMs."""
+def chunked_kl_loss(ht, wt, hs, ws, mask, n_chunks: int = 16, denom=None,
+                    tp=None) -> torch.Tensor:
+    """Mean token KL(p_t || p_s) fused with both unembedding GEMMs.  On a
+    training mesh: ``denom`` the whole batch's real tokens
+    (``global_denominator``; this rank's share of the mean is returned),
+    and ``tp`` the model group where ``wt`` and ``ws`` hold this rank's
+    vocabulary tile (the streamed log-sum-exps combined over it)."""
     return _ChunkedKL.apply(ht.detach(), wt.detach(), hs, ws, mask.detach(),
-                            n_chunks)
+                            n_chunks, denom, tp)
 
 
 # ---------------------------------------------------------------------------

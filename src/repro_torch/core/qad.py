@@ -37,7 +37,12 @@ keeping its shard's (``sharding.reduce_to_shards``); and updates the
 shards with the clip norm and the update norm over the whole mesh, every
 element counted once (``optim.adamw.ShardedNorm``).  The metrics are the
 global values, the same on every rank.  The eval step takes the same
-global means.
+global means.  The chunked KL combines its streamed log-sum-exps over
+the model group where the unembedding's vocabulary splits over it; the
+numerics probes' partial sums are reduced once a step
+(``obs.numerics.reduce_on_mesh``), the per-layer gradient norms among
+them.  ``gather_state`` and ``shard_cutter`` move a whole ``TrainState``
+in and out of a rank's shards (a checkpoint in the one-device format).
 """
 from __future__ import annotations
 
@@ -129,6 +134,48 @@ def gather_params(shards, model, cfg, mesh, rules):
                                 _heads(cfg))
 
 
+def gather_state(state: TrainState, model, cfg, mesh, rules,
+                 keep: bool = True) -> TrainState | None:
+    """The whole ``TrainState`` on the host from this rank's stored shards
+    (a collective: every rank calls it), leaf by leaf; None on a rank that
+    does not ``keep`` it (a checkpoint is written by rank 0 alone)."""
+    specs = model.param_specs(cfg)
+    places = sharding.placements(specs, mesh.shape, rules)
+    host = (lambda t: t.cpu()) if keep else (lambda t: None)
+
+    def whole(tree):
+        return sharding.gather_full(tree, specs, places, mesh, rules,
+                                    _heads(cfg), leaf_fn=host)
+    out = TrainState(step=state.step.cpu(), student=whole(state.student),
+                     teacher=None if state.teacher is None
+                     else whole(state.teacher),
+                     opt_state=type(state.opt_state)(
+                         *(whole(t) for t in state.opt_state)))
+    return out if keep else None
+
+
+def shard_cutter(model, cfg, mesh, rules) -> Callable:
+    """``cut(path, whole)``: this rank's stored shard of one whole leaf of
+    a ``TrainState`` at checkpoint path ``path`` (``("student", "layers",
+    "wqkv")``, ``("opt_state", "m", ...)``; the step passes whole), for
+    ``CheckpointManager.restore``."""
+    specs = model.param_specs(cfg)
+
+    def cut(path: tuple, whole: torch.Tensor) -> torch.Tensor:
+        if path[0] in ("student", "teacher"):
+            names = path[1:]
+        elif path[0] == "opt_state":
+            names = path[2:]
+        else:
+            return whole
+        sp = specs
+        for k in names:
+            sp = sp[k]
+        return sharding.shard_tensor(sp, whole, mesh, rules, ".".join(names),
+                                     _heads(cfg)).clone()
+    return cut
+
+
 def _flat_kl(t_logits: torch.Tensor, s_logits: torch.Tensor,
              mask: torch.Tensor, denom=None) -> torch.Tensor:
     v = s_logits.shape[-1]
@@ -146,9 +193,6 @@ def make_loss_fn(model, cfg, qcfg: QuantConfig, qad: QADConfig):
         temp = qad.temperature
 
         if qad.use_chunked_loss and qad.loss == "kl":
-            if denom is not None:
-                raise NotImplementedError(
-                    "the chunked KL on a training mesh (ROADMAP A.4c)")
             h_s = model.apply(cfg, student, batch, qcfg, output="hidden")
             with torch.no_grad():
                 h_t = model.apply(cfg, teacher, batch, BF16, output="hidden")
@@ -157,8 +201,12 @@ def make_loss_fn(model, cfg, qcfg: QuantConfig, qad: QADConfig):
             # the same lm_head quantization as the plain path
             h_s = qcfg.q_act(h_s, "lm_head")
             w_s = qcfg.q_weight(w_s, "lm_head", contract_axis=0)
-            kl = losses.chunked_kl_loss(h_t, w_t, h_s, w_s, mask,
-                                        qad.loss_chunks)
+            # on a mesh whose rules put "vocab" on the model axis each rank
+            # holds V/m columns of the unembedding: the log-sum-exps are
+            # combined over the model group, the hidden's gradient summed
+            tp = ctx.current() if w_s.shape[-1] != cfg.vocab_size else None
+            kl = losses.chunked_kl_loss(h_t, w_t, ctx.copy_to_model(h_s, tp),
+                                        w_s, mask, qad.loss_chunks, denom, tp)
             return kl, {"kl": kl.detach()}
 
         # numerics probes (obs.numerics): with qcfg.numerics on, a local
@@ -300,6 +348,7 @@ class _MeshPlan(NamedTuple):
     specs: Any
     places: Any                 # a ``sharding.Placement`` tree
     norm: ShardedNorm
+    shape: dict                 # the mesh's {"data": D, "model": M}
 
 
 def _mesh_plan(model, cfg, mesh, rules) -> _MeshPlan:
@@ -307,7 +356,8 @@ def _mesh_plan(model, cfg, mesh, rules) -> _MeshPlan:
     places = sharding.placements(specs, mesh.shape, rules)
     weights = tuple(1.0 / sharding.replication(pl, mesh.shape)
                     for pl in tree_leaves(places))
-    return _MeshPlan(specs, places, ShardedNorm(weights, ctx.world_sum))
+    return _MeshPlan(specs, places, ShardedNorm(weights, ctx.world_sum),
+                     dict(mesh.shape))
 
 
 def _tile_amaxes(tiles, plan: _MeshPlan, qcfg: QuantConfig, mesh,
@@ -337,10 +387,17 @@ def _tile_amaxes(tiles, plan: _MeshPlan, qcfg: QuantConfig, mesh,
     return dict(zip(keys, tp.all_reduce(torch.cat(amaxes), "max")))
 
 
+def _layer_grad_partials(grads, plan: _MeshPlan) -> torch.Tensor:
+    """[n_layers] f32: this rank's share of each layer's squared gradient
+    norm, every stored shard weighted by 1 / its replication (summed over
+    the mesh, each element counts once)."""
+    places = tree_leaves(plan.places["layers"])
+    return sum(torch.sum(torch.square(g.to(torch.float32)).reshape(
+        g.shape[0], -1), -1) / sharding.replication(pl, plan.shape)
+        for g, pl in zip(tree_leaves(grads["layers"]), places))
+
+
 def _make_mesh_step(model, cfg, qcfg, opt, loss_fn, mesh, rules) -> Callable:
-    if qcfg.numerics:
-        raise NotImplementedError(
-            "the numerics probes on a training mesh (ROADMAP A.4c)")
     plan = _mesh_plan(model, cfg, mesh, rules)
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
@@ -356,9 +413,17 @@ def _make_mesh_step(model, cfg, qcfg, opt, loss_fn, mesh, rules) -> Callable:
             del student, teacher, amaxes
             with torch.no_grad():
                 grads = sharding.reduce_to_shards(grads, plan.places, mesh)
+                num = metrics.pop("numerics", None)
                 metrics = {k: ctx.data_sum(v) for k, v in metrics.items()}
                 metrics.update(loss=ctx.data_sum(loss),
                                grad_norm=global_norm(grads, plan.norm))
+                if num is not None:
+                    # the step's probes, reduced over the mesh at once
+                    if isinstance(grads, dict) and "layers" in grads:
+                        num["layers.grad"] = obs_numerics.grad_partials(
+                            _layer_grad_partials(grads, plan))
+                    metrics["numerics"] = obs_numerics.reduce_on_mesh(num,
+                                                                      mesh)
                 student, opt_state, metrics["update_norm"] = opt.apply(
                     grads, state.opt_state, state.student, state.step,
                     plan.norm)

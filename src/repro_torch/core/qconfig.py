@@ -136,11 +136,13 @@ class QuantConfig:
                             "go through resolve_weight / layers.qeinsum")
         if not (self.quantizes(kind) and self.quantize_weights):
             return w
+        amax = ctx.tile_amax(w)
         tape = obs_numerics.active() if self.numerics else None
         if tape is not None:
             wm = torch.movedim(w, contract_axis % w.ndim, -1)
-            tape.put(f"{kind}.w", obs_numerics.quant_error_stats(wm))
-        return _fq_axis(w, contract_axis, ctx.tile_amax(w))
+            tape.put(f"{kind}.w", obs_numerics.quant_error_stats(
+                wm, amax, over=obs_numerics.MODEL if amax is not None else 0))
+        return _fq_axis(w, contract_axis, amax)
 
     def resolve_weight(self, w, kind: Kind, contract_axis: int = 0):
         """GEMM-ready weight: packed leaves pass through, dense leaves get

@@ -19,7 +19,9 @@ FSDP, the weights' ``embed`` dims).  ``use_mesh`` enters it around a
 step: ``current()`` is then the model group where the rules cut weights
 over it (what the serving call sites read), and ``data()`` the data group,
 over which ``core.qconfig.q_act`` max-reduces an activation's tensor amax
-and ``core.losses`` sums a masked mean's count.
+and ``core.losses`` sums a masked mean's count.  A weight tile's amax is
+the step's table's (``tile_amax``); a view of a split tile that the
+table does not hold raises rather than take its own amax.
 
 ``cst`` has no counterpart: no activation is resharded implicitly.  Every
 change of layout is a collective the model code names (the row-parallel
@@ -278,6 +280,8 @@ def local_mesh(device) -> Mesh:
 
 
 _MESH: list = []
+# depth of ``data_replicated`` regions (a global MoE dispatch on a mesh)
+_REPLICATED: list = []
 
 
 def model_group(mesh: Mesh, rules) -> TP | None:
@@ -296,7 +300,8 @@ def use_mesh(mesh: Mesh, rules, tile_amax: dict | None = None):
     ``data()`` is its data group.  ``tile_amax``: the step's weight tiles'
     tensor amaxes over the model group, by tile (``tile_key``), taken in
     one collective before the forward."""
-    _MESH.append((mesh, tile_amax or {}))
+    table = tile_amax or {}
+    _MESH.append((mesh, table, {k[0] for k in table}))
     try:
         with maybe_use(model_group(mesh, rules)):
             yield
@@ -310,22 +315,52 @@ def mesh() -> Mesh | None:
 
 
 def data() -> TP | None:
-    """The training mesh's data group, or None off a training mesh."""
-    return _MESH[-1][0].data if _MESH else None
+    """The training mesh's data group, or None off a training mesh and
+    inside ``data_replicated``."""
+    return _MESH[-1][0].data if _MESH and not _REPLICATED else None
+
+
+@contextlib.contextmanager
+def data_replicated():
+    """A stretch of a mesh step whose tensors are the same on every data
+    rank (the MoE's global dispatch gathers the batch's tokens first):
+    ``data()`` is None inside, so no amax is max-reduced and no probe is
+    summed over the data group (which would count each element D times)."""
+    _REPLICATED.append(True)
+    try:
+        yield
+    finally:
+        _REPLICATED.pop()
 
 
 def tile_key(w: torch.Tensor) -> tuple:
-    """A weight tile's key in ``use_mesh``'s amax table: its storage
-    address and shape (a layer's slice of a stacked tile is a view)."""
-    return (w.data_ptr(), tuple(w.shape))
+    """A weight tile's key in ``use_mesh``'s amax table: its storage, its
+    first element's address and its element count (a layer's slice of a
+    stacked tile is a view; a transposed or reshaped view of a tile, the
+    tied unembedding ``embed.T``, holds the same elements and the same
+    key)."""
+    return (w.untyped_storage().data_ptr(), w.data_ptr(), w.numel())
 
 
 def tile_amax(w: torch.Tensor) -> torch.Tensor | None:
     """The model group's amax of weight tile ``w`` from the step's table;
     None off a training mesh and for a weight the table does not hold
     (one the rules keep whole over the model group: its own amax is the
-    whole weight's)."""
-    return _MESH[-1][1].get(tile_key(w)) if _MESH else None
+    whole weight's).  A view of a split tile that is not the tile, or a
+    layer's slice of it (a narrowed or offset piece), raises: its own
+    amax would silently stand in for the whole weight's."""
+    if not _MESH:
+        return None
+    _, table, storages = _MESH[-1]
+    key = tile_key(w)
+    got = table.get(key)
+    if got is None and key[0] in storages:
+        raise ValueError(
+            f"a weight of shape {tuple(w.shape)} is a view of a tile split "
+            "over the model group but not one the step's amax table holds "
+            "(a narrowed or offset piece): its own amax is not the whole "
+            "weight's")
+    return got
 
 
 def _over(tp: TP | None, x: torch.Tensor, op: str) -> torch.Tensor:

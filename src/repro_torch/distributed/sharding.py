@@ -651,25 +651,29 @@ def reduce_to_shards(tile_grads, places, mesh):
 
 
 def gather_full(shards, specs, places, mesh, rules: Rules,
-                heads: tuple | None = None):
-    """Whole leaves from a tree of stored shards, on every rank: the model
-    tiles (``gather_tiles``) all-gathered over the model group, the fused
-    QKV's rows put back in their order."""
-    tiles = gather_tiles(shards, places, mesh)
-    tp = mesh.model
+                heads: tuple | None = None, leaf_fn=None):
+    """Whole leaves from a tree of stored shards, on every rank: each
+    leaf's model tile (its shard all-gathered over the data group, as
+    ``gather_tiles`` does) all-gathered over the model group, the fused
+    QKV's rows put back in their order.  Leaf by leaf: ``leaf_fn`` (say,
+    a copy to the host, or None on the ranks that do not keep it) takes
+    each whole leaf as it is made, so one whole leaf at a time is alive
+    on the device."""
+    dp, tp = mesh.data, mesh.model
 
     def walk(sp, x, pl, path):
         if isinstance(sp, dict):
             return {k: walk(sp[k], x[k], pl[k], f"{path}.{k}" if path else k)
                     for k in x}
-        if pl.model_dim is None or tp.size == 1:
-            return x
-        full = tp.all_gather(x, pl.model_dim)
-        if heads and _fused(path) and pl.model_dim == len(sp.shape) - 1:
-            rows = _qkv_rows(*heads, tp.size, path).to(full.device)
-            full = full.index_select(-1, torch.argsort(rows))
-        return full
-    return walk(specs, tiles, places, "")
+        if pl.data_dim is not None and dp.size > 1:
+            x = dp.all_gather(x, pl.data_dim)
+        if pl.model_dim is not None and tp.size > 1:
+            x = tp.all_gather(x, pl.model_dim)
+            if heads and _fused(path) and pl.model_dim == len(sp.shape) - 1:
+                rows = _qkv_rows(*heads, tp.size, path).to(x.device)
+                x = x.index_select(-1, torch.argsort(rows))
+        return x if leaf_fn is None else leaf_fn(x)
+    return walk(specs, shards, places, "")
 
 
 def batch_rows(batch: dict, mesh) -> dict:

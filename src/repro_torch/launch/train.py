@@ -27,12 +27,19 @@ rules=R)``) ``train`` spawns D x M ranks (gloo processes; on the card
 they share it, every collective through host memory) and each runs
 ``train_on_mesh``: the same loop over its stored shards under one of the
 reference's four sharding rules (``fsdp_tp``, ``fsdp_only``, ``tp_only``,
-``dp_only``), rank 0 printing.  It takes the dense decoder only, without
-``--ckpt-dir``, ``--numerics`` / ``--metrics-out`` or the chunked loss:
-each of those is refused with one line naming ROADMAP A.4c.
+``dp_only``), rank 0 printing, with the same options: ``--ckpt-dir``
+(rank 0 writes the gathered state in the one-device format, every rank
+restores its shards, so checkpoints move between a mesh and one device
+both ways), ``--numerics`` / ``--metrics-out`` (every rank's probes the
+same; rank 0 writes) and every ``--method``.  It takes the dense and MoE
+decoders; the slab and VLM families are refused with one line naming
+ROADMAP A.4c.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --mesh 2x2 --rules fsdp_tp --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --mesh 2x2 --rules fsdp_tp --arch qwen2-moe-a2.7b --steps 2 \
+        --method qad_chunked --numerics --ckpt-dir ckpt
 
 Runs on ``cuda`` unless given ``--device cpu`` / ``device="cpu"``, and
 raises without a card.
@@ -127,46 +134,94 @@ def _run(step_fn, eval_fn, holder: list, dcfg, evals, start, steps,
     return state, history
 
 
-def check_mesh(cfg, rules: str, method: str = "qad", ckpt_dir=None,
-               numerics: bool = False, metrics_out=None) -> None:
+def _probes(qcfg, on: bool) -> tuple:
+    """(registry, recorder, the train step's policy): the numerics probes'
+    recorder and the policy with ``numerics`` on, or (None, None, qcfg)."""
+    if not on:
+        return None, None, qcfg
+    registry = MetricsRegistry()
+    return (registry, NumericsRecorder(registry),
+            dataclasses.replace(qcfg, numerics=True))
+
+
+def check_mesh(cfg, rules: str) -> None:
     """Refuse, with one line naming the ROADMAP item, what a training mesh
-    does not run yet."""
+    does not run yet: the slab and VLM families."""
     if rules not in sharding.RULE_MODES:
         raise ValueError(f"unknown sharding rules {rules!r}: one of "
                          f"{', '.join(sharding.RULE_MODES)}")
-    if cfg.family != "decoder" or cfg.n_experts or cfg.mrope_sections:
+    if cfg.family != "decoder" or cfg.mrope_sections:
         raise NotImplementedError(
-            f"{cfg.name}: training on a mesh takes the dense decoder only; "
-            "the MoE, slab and VLM families wait for ROADMAP A.4c")
-    if ckpt_dir:
-        raise NotImplementedError(
-            "checkpoint resume on a training mesh waits for ROADMAP A.4c")
-    if numerics or metrics_out:
-        raise NotImplementedError(
-            "the numerics probes on a training mesh wait for ROADMAP A.4c")
-    if method == "qad_chunked":
-        raise NotImplementedError(
-            "the chunked KL on a training mesh waits for ROADMAP A.4c")
+            f"{cfg.name}: training on a mesh takes the dense and MoE "
+            "decoders; the slab and VLM families wait for ROADMAP A.4c")
+
+
+class MeshCheckpoints:
+    """``train``'s checkpoints on a training mesh, in the one-device
+    format: ``save`` gathers the whole state from every rank's shards (a
+    collective) and rank 0 writes it (async, keep-k); ``restore_latest``
+    gives every rank its own shards of the newest valid step."""
+
+    def __init__(self, directory: str, mesh, model, cfg, rules):
+        self.mgr = CheckpointManager(directory)
+        self.mesh, self.model, self.cfg, self.rules = mesh, model, cfg, rules
+
+    def save(self, step: int, state, metrics: dict | None = None) -> None:
+        keep = self.mesh.rank == 0
+        whole = qad_mod.gather_state(state, self.model, self.cfg, self.mesh,
+                                     self.rules, keep)
+        if keep:
+            self.mgr.save(step, whole, metrics)
+
+    def _world_max(self, v: float) -> float:
+        world = self.mesh.world
+        if world.size == 1:
+            return v
+        return float(world.all_reduce(torch.tensor([v], device=world.device),
+                                      "max")[0])
+
+    def wait(self) -> None:
+        """Rank 0's write done, and every rank past it (a later run may
+        restore what it wrote)."""
+        self.mgr.wait()
+        self._world_max(0.0)
+
+    def restore_latest(self, shards):
+        """Rank 0 picks the newest valid step, every rank restores it."""
+        mine = self.mgr.latest_step() if self.mesh.rank == 0 else None
+        step = int(self._world_max(-1.0 if mine is None else float(mine)))
+        if step < 0:
+            return None
+        return step, self.mgr.restore(step, shards, qad_mod.shard_cutter(
+            self.model, self.cfg, self.mesh, self.rules))
 
 
 def train_on_mesh(mesh, cfg, rules: str = "fsdp_tp", steps: int = 200,
                   lr: float = 1e-3, method: str = "qad", batch: int = 8,
                   seq: int = 64, eval_every: int = 50, seed: int = 0,
-                  domains: tuple = ("math", "code", "prose"), log=print):
+                  domains: tuple = ("math", "code", "prose"), log=print,
+                  ckpt_dir: str | None = None, numerics: bool = False,
+                  metrics_out: str | None = None):
     """One rank of ``train(mesh=...)``: ``train``'s loop over this rank's
     stored shards of ``cfg`` on ``mesh`` (a ``distributed.ctx.Mesh``)
-    under the ``rules`` table.  Returns (state, history, report); every
-    rank's history is the same.  The report: ``launches`` (the kernel
-    counters, reset at the start), ``collectives`` (each step's calls and
-    host seconds by group), ``bytes`` (the stored student, teacher and
-    moments, and each one's share by the partition factors), each step's
-    ``loss`` and ``step_s`` and, on the card, ``peak_gb``."""
-    check_mesh(cfg, rules, method)
+    under the ``rules`` table, with ``train``'s checkpoint resume
+    (``MeshCheckpoints``), numerics probes (every rank's the same; rank 0
+    writes ``metrics_out``) and methods.  Returns (state, history,
+    report); every rank's history is the same.  The report: ``launches``
+    (the kernel counters, reset at the start), ``collectives`` (each
+    step's calls and host seconds by group), ``bytes`` (the stored
+    student, teacher and moments, and each one's share by the partition
+    factors), each step's ``loss`` and ``step_s``, ``start`` (the step
+    resumed from), ``numerics`` (the recorder's summary, with the probes
+    on) and, on the card, ``peak_gb``."""
+    check_mesh(cfg, rules)
     device = mesh.device
     model = get_model(cfg)
     table = sharding.make_rules(rules)
     qcfg = specs.recipe_qconfig(cfg)
     qadcfg = make_method_qad(method)
+    registry, recorder, train_qcfg = _probes(qcfg,
+                                             numerics or bool(metrics_out))
     opt = AdamW(lr=warmup_cosine(lr, steps // 10, steps), clip_norm=1.0)
     gen = torch.Generator(device=device).manual_seed(seed)
     if device.type == "cuda":
@@ -175,11 +230,19 @@ def train_on_mesh(mesh, cfg, rules: str = "fsdp_tp", steps: int = 200,
         state = qad_mod.init_state_on_mesh(model, cfg, gen, opt, mesh, table)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                       global_batch=batch, seed=seed, domains=domains)
-    step_fn = qad_mod.make_train_step(model, cfg, qcfg, opt, qadcfg,
+    step_fn = qad_mod.make_train_step(model, cfg, train_qcfg, opt, qadcfg,
                                       mesh=mesh, rules=table)
     eval_fn = qad_mod.make_eval_step(model, cfg, qcfg, qadcfg,
                                      mesh=mesh, rules=table)
     evals = eval_batches(dcfg, 2, device=device) if eval_every else []
+    mgr = (MeshCheckpoints(ckpt_dir, mesh, model, cfg, table)
+           if ckpt_dir else None)
+    start = 0
+    if mgr is not None:
+        restored = mgr.restore_latest(state)
+        if restored is not None:
+            start, state = restored
+            log(f"[train] resumed from step {start}")
     counts, step_s, losses = [], [], []
 
     def timed(state, b):
@@ -195,8 +258,12 @@ def train_on_mesh(mesh, cfg, rules: str = "fsdp_tp", steps: int = 200,
     ops.reset_launches()
     holder = [state]
     del state
-    state, history = _run(timed, eval_fn, holder, dcfg, evals, 0, steps,
-                          eval_every, batch, seq, log, device)
+    state, history = _run(timed, eval_fn, holder, dcfg, evals, start, steps,
+                          eval_every, batch, seq, log, device, recorder,
+                          metrics_out if mesh.rank == 0 else None, registry,
+                          mgr)
+    if mgr is not None:
+        mgr.wait()
     specs_ = model.param_specs(cfg)
     places = sharding.placements(specs_, mesh.shape, table)
     report = {"launches": dict(ops.launches), "collectives": counts,
@@ -207,7 +274,9 @@ def train_on_mesh(mesh, cfg, rules: str = "fsdp_tp", steps: int = 200,
                                                    places),
                   "moments": tuple(map(sum, zip(*(
                       sharding.stored_share(t, specs_, places)
-                      for t in state.opt_state))))}}
+                      for t in state.opt_state))))},
+              "start": start,
+              "numerics": recorder.summary() if recorder is not None else None}
     if device.type == "cuda":
         report["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     return state, history, report
@@ -240,10 +309,11 @@ def train(arch: str, smoke: bool = True, steps: int = 200, lr: float = 1e-3,
     device = resolve_device(device)
     cfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
     if mesh is not None:
-        check_mesh(cfg, rules, method, ckpt_dir, numerics, metrics_out)
+        check_mesh(cfg, rules)
         kwargs = dict(rules=rules, steps=steps, lr=lr, method=method,
                       batch=batch, seq=seq, eval_every=eval_every, seed=seed,
-                      domains=domains)
+                      domains=domains, ckpt_dir=ckpt_dir, numerics=numerics,
+                      metrics_out=metrics_out)
         ranks = launch_mesh.spawn_mesh(_train_rank, tuple(mesh), cfg, kwargs,
                                        device=device)
         return ranks, ranks[0]["history"]
@@ -251,12 +321,7 @@ def train(arch: str, smoke: bool = True, steps: int = 200, lr: float = 1e-3,
     qcfg = specs.recipe_qconfig(cfg)
     qadcfg = make_method_qad(method)
 
-    registry = recorder = None
-    train_qcfg = qcfg
-    if numerics:
-        registry = MetricsRegistry()
-        recorder = NumericsRecorder(registry)
-        train_qcfg = dataclasses.replace(qcfg, numerics=True)
+    registry, recorder, train_qcfg = _probes(qcfg, numerics)
 
     opt = AdamW(lr=warmup_cosine(lr, steps // 10, steps), clip_norm=1.0)
     gen = torch.Generator(device=device).manual_seed(seed)

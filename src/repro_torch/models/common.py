@@ -304,8 +304,8 @@ def _probe_scoped(fn, tape):
 
 def _merge_probes(layers: list) -> dict:
     """Key-union merge of per-layer probe dicts into ``[n_layers]`` f32
-    series (the stack of each stat along a new leading axis).  A site
-    missing from a layer (the BF16 segments record no quant probes) is
+    series (a mesh's partial sums f64; the stack of each stat along a new
+    leading axis).  A site missing from a layer (the BF16 segments record no quant probes) is
     NaN for that layer, so every series keeps the length ``n_layers``."""
     sites = sorted({s for d in layers for s in d})
     out = {}
@@ -315,10 +315,12 @@ def _merge_probes(layers: list) -> dict:
         for st in stats:
             first = next(d[site][st] for d in layers
                          if site in d and st in d[site])
-            parts = [d[site][st].to(torch.float32)
+            # f32, or f64 for a training mesh's partial sums and counts
+            dt = torch.float64 if first.dtype == torch.float64 else torch.float32
+            parts = [d[site][st].to(dt)
                      if site in d and st in d[site]
                      else torch.full(first.shape, float("nan"),
-                                     dtype=torch.float32, device=first.device)
+                                     dtype=dt, device=first.device)
                      for d in layers]
             out[site][st] = torch.stack(parts)
     return out

@@ -16,7 +16,11 @@ along E before the softmax (every rank routes and drops alike) and each
 rank runs its tiles of the expert stacks (``_expert_ffn``): its E/n
 experts, whose outputs are all-gathered along E before the combine, or
 every expert's slice of the FFN dim, the down projection's f32 partials
-summed over the group.
+summed over the group.  Under grad (MoE QAD on a training mesh) these
+are ``ctx``'s autograd collectives, the whole slab entering the split
+products through ``copy_to_model``; one global capacity domain gathers
+every data rank's tokens first, so the slots are the whole batch's, and
+per-row dispatch reports the batch's aux.
 
 Under an active tensor-parallel context (``distributed.ctx``) a dense
 GEMM site names its ``parallelism``.  A column site takes the whole
@@ -204,6 +208,12 @@ def _qeinsum_row(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,
         _note_gemm("dequant" if packed else "dense", wr)
         return _matmul(xq, ops.dequant_weight(wr, 0, xq.dtype)
                        if packed else wr)
+    if (not packed and x.shape[-1] % BLOCK and qcfg.quantize_weights
+            and qcfg.quantizes(kind)):
+        raise NotImplementedError(
+            f"a {kind} row-parallel site's {x.shape[-1]} features a rank cut "
+            f"its {BLOCK}-element NVFP4 blocks: a dense tile's QDQ would "
+            "block across the cut")
     xq = qcfg.q_act(x, kind, tp) if quantize_act else x
     _probe_packed(qcfg, kind, wr, tp)
     if packed and wr.ndim == 2 and qcfg.packed_backend in ("auto", "grouped"):
@@ -418,17 +428,44 @@ def moe_ffn(qcfg, cfg, x, router_w, wg, wu, wd):
     """
     dispatch = getattr(cfg, "moe_dispatch", "global")
     b, s, d = x.shape
+    dp = ctx.data()
     if dispatch == "token":
         if qcfg.act_scope == "token":
             qcfg = dataclasses.replace(qcfg, act_scope="row")
         out, aux = _moe_dispatch_local(qcfg, cfg, x.reshape(b * s, 1, d),
                                        router_w, wg, wu, wd)
-        return out.reshape(b, s, d), aux
+        return out.reshape(b, s, d), _data_mean(aux, b * s)
     if dispatch == "local":
-        return _moe_dispatch_local(qcfg, cfg, x, router_w, wg, wu, wd)
+        out, aux = _moe_dispatch_local(qcfg, cfg, x, router_w, wg, wu, wd)
+        return out, _data_mean(aux, b)
+    if dp is not None and dp.size > 1:
+        # one capacity domain over the whole batch, as GSPMD sorts it: the
+        # data ranks' tokens gathered, every rank dispatching them alike
+        # (its own tokens' slots are the reference's); a token of another
+        # rank gets no gradient here, so the gather's backward keeps this
+        # rank's rows and each expert's gradient its own tokens' share
+        xs = ctx.gather_from_model(x, dp, 0)
+        with ctx.data_replicated():
+            out, aux = _moe_dispatch_flat(qcfg, cfg, xs.reshape(-1, d),
+                                          router_w, wg, wu, wd)
+        return out.reshape(-1, s, d).narrow(0, dp.rank * b, b), aux
     out, aux = _moe_dispatch_flat(qcfg, cfg, x.reshape(b * s, d), router_w,
                                   wg, wu, wd)
     return out.reshape(b, s, d), aux
+
+
+def _data_mean(aux: dict, rows: int) -> dict:
+    """Per-row dispatch's aux on a training mesh: each stat's mean over
+    every data rank's rows (one collective; the ranks' row counts
+    weigh their means), so every rank reports the batch's."""
+    dp = ctx.data()
+    if dp is None or dp.size == 1:
+        return aux
+    n = torch.tensor(float(rows), device=aux["moe_dropped_frac"].device)
+    tot = ctx.data_sum(torch.stack([aux["moe_dropped_frac"] * n,
+                                    aux["moe_router_entropy"] * n, n]))
+    return {"moe_dropped_frac": tot[0] / tot[2],
+            "moe_router_entropy": tot[1] / tot[2]}
 
 
 def _expert_layout(cfg, wg) -> str | None:
@@ -456,6 +493,10 @@ def _expert_ffn(qcfg, cfg, xe, wg, wu, wd):
     down projection row-parallel (``_expert_down_tp``)."""
     layout = _expert_layout(cfg, wg)
     tp = ctx.current()
+    if layout is not None:
+        # the whole slab enters split products: its gradient is the sum of
+        # every rank's (its experts', or its FFN columns')
+        xe = ctx.copy_to_model(xe, tp)
     xq = qcfg.q_act(xe, "mlp")
     if layout == "ep":
         e_loc = wg.shape[0]
@@ -481,7 +522,7 @@ def _expert_ffn(qcfg, cfg, xe, wg, wu, wd):
         h = qcfg.q_act(h, "mlp", tp)
         y = qdense(qcfg, "mlp", h, wd, contract_axis=1, quantize_act=False,
                    parallelism="expert")
-        return tp.all_gather(y, -3)
+        return ctx.gather_from_model(y, tp, -3)
     h = qcfg.q_act(h, "mlp")
     return qdense(qcfg, "mlp", h, wd, contract_axis=1, quantize_act=False)
 
@@ -493,11 +534,19 @@ def _expert_down_tp(qcfg, h, wd, tp):
     f32 partials summed over the group.  Where blocks cross the cut, the
     hidden is all-gathered and quantized whole; a replicated ``wd`` (its
     packed K could not split) then runs whole with no sum, a split one on
-    the rank's features of the quantized hidden."""
+    the rank's features of the quantized hidden, or, where its dense tile
+    is fake-quantized at run time (training), gathered whole too."""
     f_loc = h.shape[-1]
-    whole = (wd.k if isinstance(wd, PackedNVFP4) else wd.shape[-2]) != f_loc
+    packed = isinstance(wd, PackedNVFP4)
+    whole = (wd.k if packed else wd.shape[-2]) != f_loc
     if whole or f_loc % BLOCK:
-        hq = qcfg.q_act(tp.all_gather(h, -1), "mlp")
+        hq = qcfg.q_act(ctx.gather_from_model(h, tp, -1), "mlp")
+        if not (whole or packed) and qcfg.quantize_weights:
+            # a dense tile fake-quantized at run time (training on a mesh)
+            # would take blocks across its cut: the stack is gathered and
+            # quantized whole, and every rank runs the whole product
+            wd = ctx.gather_from_model(wd, tp, -2)
+            whole = True
         if whole:
             return qdense(qcfg, "mlp", hq, wd, contract_axis=1,
                           quantize_act=False)
@@ -505,12 +554,12 @@ def _expert_down_tp(qcfg, h, wd, tp):
     else:
         hq = qcfg.q_act(h, "mlp", tp)
     wr = qcfg.resolve_weight(wd, "mlp", 1)
-    packed = isinstance(wr, PackedNVFP4)
     _probe_packed(qcfg, "mlp", wr, tp)
     _note_gemm("dequant" if packed else "dense", wr)
     w = ops.dequant_weight(wr, 1, hq.dtype) if packed else wr
     part = _moe_einsum(hq, w, torch.float32)
-    return tp.all_reduce(part).to(torch.promote_types(hq.dtype, w.dtype))
+    return ctx.reduce_from_model(part, tp).to(
+        torch.promote_types(hq.dtype, w.dtype))
 
 
 def _top_k(gates: torch.Tensor, k: int):
@@ -530,11 +579,15 @@ def _route(qcfg, cfg, x, router_w):
     r, n, _ = x.shape
     e, k = cfg.n_experts, cfg.experts_per_tok
     dev = x.device
-    logits = qdense(qcfg, "router", x, router_w)
-    if logits.shape[-1] != e:
+    if router_w.shape[-1] != e:
         # the router's E split over the group: every rank gathers every
-        # expert's logit, so every rank routes (and drops) alike
-        logits = ctx.current().all_gather(logits, -1)
+        # expert's logit, so every rank routes (and drops) alike; the
+        # tokens' gradient sums every rank's experts'
+        tp = ctx.current()
+        logits = ctx.gather_from_model(
+            qdense(qcfg, "router", ctx.copy_to_model(x, tp), router_w), tp, -1)
+    else:
+        logits = qdense(qcfg, "router", x, router_w)
     gates = torch.softmax(logits.to(torch.float32), -1)              # [R,N,E]
     topw, topi = _top_k(gates, k)                                    # [R,N,k]
     topw = topw / torch.clamp_min(torch.sum(topw, -1, keepdim=True), 1e-9)
@@ -593,13 +646,46 @@ def _combine(ye: torch.Tensor, plan) -> torch.Tensor:
     return out
 
 
+class _Dispatch(torch.autograd.Function):
+    """The expert slots' tokens: forward ``xe[r, slot] = x[r, buf_tok[r,
+    slot]]``; backward each token's gradient as the sum of its kept
+    choices' slots' gradients in the plan's order (the slots' order),
+    added in the gradient's dtype: what the indexing's own backward sums
+    on the CPU, but a gather, with no atomics, so the card gives every
+    rank the same bits.  An empty slot holds token 0 and a dropped choice
+    no slot; neither reaches the combine, so their gradients are zero and
+    are left out."""
+
+    @staticmethod
+    def forward(ctx, x, buf_tok, dst, keep):
+        ctx.save_for_backward(dst, keep)
+        return torch.take_along_dim(x, buf_tok[:, :, None], 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        dst, keep = ctx.saved_tensors
+        r, n, k = dst.shape
+        slot = torch.where(keep, dst, 0).reshape(r, n * k, 1)
+        got = torch.take_along_dim(g, slot, 1).reshape(r, n, k, -1)
+        got = torch.where(keep[..., None], got, torch.zeros_like(got))
+        dx = got[:, :, 0]
+        for j in range(1, k):
+            dx = dx + got[:, :, j]
+        return dx, None, None, None
+
+
+def _dispatch(x: torch.Tensor, buf_tok: torch.Tensor, plan) -> torch.Tensor:
+    """x [R, N, d] -> the expert slots' tokens [R, E * cap, d]."""
+    return _Dispatch.apply(x, buf_tok, plan[0], plan[1])
+
+
 def _moe_dispatch_local(qcfg, cfg, x, router_w, wg, wu, wd):
     """Per-batch-row dispatch: each row of x [B, S, d] is its own capacity
     domain; the expert slabs are [B, E, cap, d]."""
     b, s, d = x.shape
     e = cfg.n_experts
     buf_tok, plan, cap, aux = _route(qcfg, cfg, x, router_w)
-    xe = torch.take_along_dim(x, buf_tok[:, :, None], 1).reshape(b, e, cap, d)
+    xe = _dispatch(x, buf_tok, plan).reshape(b, e, cap, d)
     ye = _expert_ffn(qcfg, cfg, xe, wg, wu, wd)
     out = _combine(ye.reshape(b, e * cap, d), plan)
     return out.to(x.dtype), aux
@@ -611,7 +697,7 @@ def _moe_dispatch_flat(qcfg, cfg, xf, router_w, wg, wu, wd):
     t, d = xf.shape
     e = cfg.n_experts
     buf_tok, plan, cap, aux = _route(qcfg, cfg, xf[None], router_w)
-    xe = xf[buf_tok[0]].reshape(e, cap, d)
+    xe = _dispatch(xf[None], buf_tok, plan).reshape(e, cap, d)
     ye = _expert_ffn(qcfg, cfg, xe, wg, wu, wd)
     out = _combine(ye.reshape(1, e * cap, d), plan)[0]
     return out.to(xf.dtype), aux

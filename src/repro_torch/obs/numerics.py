@@ -19,6 +19,16 @@ series (NaN for layers a site does not occur in: the BF16 segments of a
 selective recipe); under rematerialization only the original forward
 records, the recompute in the backward does not.
 
+On a training mesh (``distributed.ctx.use_mesh``) a probe puts its
+partial sums on the tape instead (``part/...``: the signal, noise, clip
+and block-scale sums and their counts, the local amax; the hidden
+divergence's masked sums; each tagged ``over/<bits>`` with the groups
+that split its tensor: 1 the data group, 2 the model group), and the
+step reduces every site of every layer at once (``reduce_on_mesh``): one
+all-gather over the model group and one over the data group a step, each
+rank adding the gathered values in rank order, so every rank's stats are
+the same bits.
+
 Host side, ``NumericsRecorder`` aggregates the drained dicts into a
 ``MetricsRegistry`` as ``layer=``-labeled gauges and histograms plus
 chart-ready ``(step, value)`` series.  ``python -m repro_torch.obs.numerics
@@ -26,14 +36,22 @@ A.json B.json`` diffs two exported snapshots (see ``obs.compare``).
 """
 from __future__ import annotations
 
+import functools
+import operator
 from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 from ..core import nvfp4
+from ..distributed import ctx
 
 _tape = None
+# the tags of a partial probe on a training mesh: the groups its tensor
+# splits over (bits), and the prefix of its partial sums
+OVER = "over/"
+PART = "part/"
+DATA, MODEL = 1, 2
 
 
 def active():
@@ -114,14 +132,52 @@ def _group_stats(tp, sums: list, counts: list, amax: torch.Tensor) -> tuple:
             torch.amax(every[:, -1]).to(torch.float32))
 
 
-def _mean(total: torch.Tensor, count: int) -> torch.Tensor:
+def _mean(total: torch.Tensor, count) -> torch.Tensor:
     """The mean as the jitted reference takes it: the sum times the f32
-    reciprocal of the count."""
+    reciprocal of the count (an int, or a tensor of counts: a mesh's
+    per-layer series)."""
+    if isinstance(count, torch.Tensor):
+        return total * torch.reciprocal(count.to(torch.float32))
     return total * float(np.float32(1.0) / np.float32(count))
 
 
+def mesh_over(tp=None) -> int:
+    """The groups an activation probe's tensor splits over on a training
+    mesh: its rows over the data group (none inside
+    ``ctx.data_replicated``), its features over ``tp`` at a row-split
+    site.  (A weight's model tile splits over the model group alone: its
+    data ranks hold the same tile.)"""
+    over = MODEL if tp is not None and tp.size > 1 else 0
+    if ctx.data() is not None and ctx.data().size > 1:
+        over |= DATA
+    return over
+
+
+def _partial(over: int, sums: dict, amax: torch.Tensor) -> dict:
+    """A probe's partial form on a training mesh: its sums (0-d f64), its
+    local amax and its ``over`` tag."""
+    out = {f"{PART}{k}": torch.as_tensor(v, dtype=torch.float64,
+                                          device=amax.device)
+           for k, v in sums.items()}
+    out[f"{PART}amax"] = amax.to(torch.float32)
+    out[f"{OVER}{over}"] = torch.zeros((), device=amax.device)
+    return out
+
+
+def _quant_stats(sig, noise, n_clip, s_sum, n, n_s, amax) -> dict:
+    sqnr_db = 10.0 * (torch.log10(torch.clamp_min(sig, 1e-30))
+                      - torch.log10(torch.clamp_min(noise, 1e-30)))
+    return {
+        "sqnr_db": sqnr_db,
+        "amax": amax,
+        "clip_frac": _mean(n_clip, n),
+        "scale_util": _mean(s_sum, n_s) / nvfp4.E4M3_MAX,
+    }
+
+
 @torch.no_grad()
-def quant_error_stats(x: torch.Tensor, tensor_amax=None, tp=None) -> dict:
+def quant_error_stats(x: torch.Tensor, tensor_amax=None, tp=None,
+                      over: int | None = None) -> dict:
     """NVFP4 quantization-error stats for ``x``, blocked along the last dim.
 
     Returns 0-d f32 tensors:
@@ -143,7 +199,8 @@ def quant_error_stats(x: torch.Tensor, tensor_amax=None, tp=None) -> dict:
     tensor split over the group; the signal, noise and clip sums, the
     counts and the block scales' sum are the group's, the amax its max,
     so the stats are those of the whole tensor (up to the order of the
-    f32 sums).
+    f32 sums).  On a training mesh the partial form instead
+    (``reduce_on_mesh``), tagged ``over`` (default: ``mesh_over(tp)``).
     """
     xf = x.detach().to(torch.float32)
     k = xf.shape[-1]
@@ -161,17 +218,16 @@ def quant_error_stats(x: torch.Tensor, tensor_amax=None, tp=None) -> dict:
     xb = torch.abs(xf).reshape(*xf.shape[:-1], xf.shape[-1] // nvfp4.BLOCK,
                                nvfp4.BLOCK)
     clipped = (xb > cap[..., None]).to(torch.float32)
+    amax = torch.amax(torch.abs(xf))
+    if ctx.mesh() is not None:
+        return _partial(mesh_over(tp) if over is None else over, {
+            "sig": sig, "noise": noise, "clip": torch.sum(clipped),
+            "scale": torch.sum(scales.block), "n": clipped.numel(),
+            "n_scale": scales.block.numel()}, amax)
     (sig, noise, n_clip, s_sum), (n, n_s), amax = _group_stats(
         tp, [sig, noise, torch.sum(clipped), torch.sum(scales.block)],
-        [clipped.numel(), scales.block.numel()], torch.amax(torch.abs(xf)))
-    sqnr_db = 10.0 * (torch.log10(torch.clamp_min(sig, 1e-30))
-                      - torch.log10(torch.clamp_min(noise, 1e-30)))
-    return {
-        "sqnr_db": sqnr_db,
-        "amax": amax,
-        "clip_frac": _mean(n_clip, n),
-        "scale_util": _mean(s_sum, n_s) / nvfp4.E4M3_MAX,
-    }
+        [clipped.numel(), scales.block.numel()], amax)
+    return _quant_stats(sig, noise, n_clip, s_sum, n, n_s, amax)
 
 
 @torch.no_grad()
@@ -199,18 +255,90 @@ def hidden_divergence(h_t: torch.Tensor, h_s: torch.Tensor,
     ``h_t`` / ``h_s``: stacked per-layer hiddens ``[L, B, S, d]`` (the
     ``layers.hidden`` probe merged by ``scan_layers``); ``mask`` ``[B, S]``
     float, 1 = real token.  Returns ``[L]`` f32 series: the masked mean
-    of the per-token cosine similarity and of the per-dim MSE.
+    of the per-token cosine similarity and of the per-dim MSE.  On a
+    training mesh (a data rank's rows) the masked sums and the count, for
+    ``reduce_on_mesh``.
     """
     t = h_t.to(torch.float32)
     s = h_s.to(torch.float32)
     m = mask.to(torch.float32)[None]                          # [1, B, S]
-    denom = torch.clamp_min(torch.sum(m, dim=(1, 2)), 1.0)    # [1]
     dot = torch.sum(t * s, -1)
     nt = torch.sqrt(torch.clamp_min(torch.sum(t * t, -1), 1e-12))
     ns = torch.sqrt(torch.clamp_min(torch.sum(s * s, -1), 1e-12))
-    cos = torch.sum((dot / (nt * ns)) * m, dim=(1, 2)) / denom
-    mse = torch.sum(torch.mean((t - s) ** 2, -1) * m, dim=(1, 2)) / denom
-    return {"hidden_cos": cos, "hidden_mse": mse}
+    cos = torch.sum((dot / (nt * ns)) * m, dim=(1, 2))
+    mse = torch.sum(torch.mean((t - s) ** 2, -1) * m, dim=(1, 2))
+    count = torch.sum(m, dim=(1, 2)).expand(cos.shape)
+    if ctx.mesh() is not None:
+        over = mesh_over()
+        return {f"{PART}cos": cos.to(torch.float64),
+                f"{PART}mse": mse.to(torch.float64),
+                f"{PART}count": count.to(torch.float64),
+                f"{OVER}{over}": torch.zeros_like(cos)}
+    return _divergence(cos, mse, count)
+
+
+def _divergence(cos, mse, count) -> dict:
+    denom = torch.clamp_min(count, 1.0)
+    return {"hidden_cos": cos / denom, "hidden_mse": mse / denom}
+
+
+def grad_partials(sq: torch.Tensor) -> dict:
+    """The per-layer gradient norms' partial form on a training mesh:
+    this rank's [n_layers] sums of squares of its stored shards, each
+    weighted by 1 / its replication, summed over every rank."""
+    return {f"{PART}sq": sq.to(torch.float64),
+            f"{OVER}{DATA | MODEL}": torch.zeros_like(sq)}
+
+
+def _over_bits(stats: dict) -> int | None:
+    """A partial site's ``over`` bits (None for a final one)."""
+    bits = [int(k[len(OVER):]) for k in stats if k.startswith(OVER)]
+    return functools.reduce(operator.or_, bits) if bits else None
+
+
+def reduce_on_mesh(aux: dict, mesh) -> dict:
+    """A mesh step's probes (``{site: {stat: tensor}}``, partial sites
+    tagged ``over/<bits>``) as their final stats, the same bits on every
+    rank: each group's partial sums all-gathered in one call (f64) and
+    added in rank order, their amaxes maxed; then each site's stats from
+    its sums (the one-device formulas).  Sites with no tag pass."""
+    parts = {site: st for site, st in aux.items()
+             if _over_bits(st) is not None}
+    for tp, bit in ((mesh.model, MODEL), (mesh.data, DATA)):
+        if tp.size == 1:
+            continue
+        sel = [(site, k) for site, st in sorted(parts.items())
+               if _over_bits(st) & bit
+               for k in sorted(st) if k.startswith(PART)]
+        if not sel:
+            continue
+        vals = [parts[site][k] for site, k in sel]
+        flat = torch.cat([v.reshape(-1).to(torch.float64) for v in vals])
+        every = tp.all_gather(flat[None], 0)
+        total = every[0]
+        for r in range(1, every.shape[0]):
+            total = total + every[r]
+        top = torch.amax(every, 0)
+        i = 0
+        for (site, k), v in zip(sel, vals):
+            n = v.numel()
+            got = top if k == f"{PART}amax" else total
+            parts[site][k] = got[i:i + n].reshape(v.shape).to(v.dtype)
+            i += n
+    out = dict(aux)
+    for site, st in parts.items():
+        p = {k[len(PART):]: v for k, v in st.items() if k.startswith(PART)}
+        if "sq" in p:
+            out[site] = {"grad_norm": torch.sqrt(p["sq"]).to(torch.float32)}
+        elif "cos" in p:
+            out[site] = _divergence(*(p[k].to(torch.float32)
+                                      for k in ("cos", "mse", "count")))
+        else:
+            f32 = {k: v.to(torch.float32) for k, v in p.items()}
+            out[site] = _quant_stats(f32["sig"], f32["noise"], f32["clip"],
+                                     f32["scale"], p["n"], p["n_scale"],
+                                     f32["amax"])
+    return out
 
 
 def _host(v) -> np.ndarray:

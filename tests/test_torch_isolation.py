@@ -45,7 +45,10 @@ def test_port_sources_import_no_jax():
             PORT / "spec" / "__init__.py", PORT / "spec" / "proposer.py",
             PORT / "spec" / "engine.py", PORT / "distributed" / "fault.py",
             PORT / "optim" / "compression.py", PORT / "core" / "qad.py",
-            PORT / "launch" / "train.py"} <= set(files)
+            PORT / "launch" / "train.py", PORT / "checkpoint" / "manager.py",
+            PORT / "core" / "losses.py", PORT / "core" / "qconfig.py",
+            PORT / "models" / "layers.py", PORT / "models" / "decoder.py",
+            PORT / "models" / "common.py"} <= set(files)
     bad = {(str(f.relative_to(SRC)), root) for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert not bad, bad
@@ -64,7 +67,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.rwkv6, repro_torch.models.whisper, "
             "repro_torch.spec, repro_torch.spec.proposer, "
             "repro_torch.spec.engine, repro_torch.distributed.fault, "
-            "repro_torch.optim.compression, repro_torch.core.qad; "
+            "repro_torch.optim.compression, repro_torch.core.qad, "
+            "repro_torch.checkpoint.manager, repro_torch.core.losses, "
+            "repro_torch.core.qconfig, repro_torch.models.decoder, "
+            "repro_torch.models.common; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=str(SRC))

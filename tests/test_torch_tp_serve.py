@@ -57,6 +57,7 @@ from repro_torch.distributed.ctx import TP
 from repro_torch.launch import mesh as tp_mesh
 from repro_torch.launch import serve
 from repro_torch.models import decoder, get_model
+from repro_torch.models.common import tree_leaves
 from repro_torch.obs import numerics as obs_numerics
 from repro_torch.serve import Engine
 from repro_torch.spec import SpecEngine
@@ -91,6 +92,13 @@ SPEC_RUNS = {
 TILE_CASES = {"ep-packed": ("ep", "packed"), "ep-qdq": ("ep", "qdq"),
               "tp-packed": ("tp", "packed")}
 TILE_LEAVES = ("router", "moe_wg", "moe_wu", "moe_wd")
+# name -> (config, a self-qdq draft of it) of the "qdq" weight tile checks
+QDQ_TILE_CASES = {
+    "acereason": (lambda: configs.get_smoke("acereason-7b"), False),
+    "acereason-self-qdq": (lambda: configs.get_smoke("acereason-7b"), True),
+    "arctic-ep": (lambda: _moe_cfg("arctic-ep")[0], False),
+    "arctic-tp48": (lambda: _moe_cfg("arctic-tp48-qdq")[0], False),
+}
 # an FP8 pool (arctic smoke: 2 KV heads of 16) of 6 blocks of 8
 POOL_BLOCKS, POOL_BS = 6, 8
 # the shadow's contexts and its tolerances (test_torch_obs.py's)
@@ -337,10 +345,37 @@ def _rank_probes(tp) -> dict:
             for k, v in st.items()}
 
 
+def _qdq_tiles(tp, cfg, draft: bool) -> dict:
+    """A rank's ``"qdq"`` weights loaded tile by tile (``load_quantized(...,
+    tp=)``; with ``draft``, a self-qdq draft of them) against its slices
+    of the one-device ``"qdq"`` weights: the dense quantized leaves, those
+    split over the group, and whether every leaf is bitwise its slice."""
+    from repro_torch.spec import proposer
+    tiles, qcfg = serve.load_quantized(cfg, 0, "qdq", "cpu", tp=tp)
+    if draft:
+        _, tiles = proposer.self_draft_model(cfg, tiles, "qdq")
+    whole, _ = serve.load_quantized(cfg, 0, "qdq", "cpu")
+    specs = get_model(cfg).param_specs(cfg)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cut = sharding.shard_params(whole, specs, tp, sharding.make_rules(),
+                                    (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim))
+    out = {"quantized": 0, "split": 0, "equal": True}
+    for sp, t, c, w in zip(*(tree_leaves(x) for x in (specs, tiles, cut,
+                                                       whole))):
+        if qcfg.quantizes(sp.kind):
+            out["quantized"] += 1
+            out["split"] += tuple(t.shape) != tuple(w.shape)
+        out["equal"] &= torch.equal(t, c)
+    return out
+
+
 def _rank2(tp) -> dict:
-    """Every tp = 2 check of a rank: the probe reductions, the MoE runs,
-    the speculative runs, the shadow."""
-    out = {"moe": {}, "spec": {}, "probes": _rank_probes(tp)}
+    """Every tp = 2 check of a rank: the probe reductions, the "qdq" weight
+    tiles, the MoE runs, the speculative runs, the shadow."""
+    out = {"moe": {}, "spec": {}, "probes": _rank_probes(tp),
+           "qdq_tiles": {name: _qdq_tiles(tp, make(), draft)
+                         for name, (make, draft) in QDQ_TILE_CASES.items()}}
     for name in MOE_RUNS:
         cfg, fmt = _moe_cfg(name)
         # the tile-by-tile loader on one run, the engine's own cut on the rest
@@ -429,6 +464,21 @@ def runs(tmp_path_factory):
 
 
 # ---------------------------------------------------------------- tests
+
+
+@pytest.mark.parametrize("case", sorted(QDQ_TILE_CASES))
+def test_qdq_weight_tiles_are_slices_of_one_device_qdq(runs, case):
+    """Bitwise (ROADMAP C.9): each rank's fake-quantized tile of every
+    dense quantized weight (acereason smoke's "qdq" load, a self-qdq draft
+    of it, arctic smoke's expert stacks on E and on their FFN dim) equals
+    its slice of the one-device fake-quantized weight: the loader
+    quantizes each whole leaf, with the whole weight's amax, before it
+    cuts the rank's tile, and serving fake-quantizes no weight at run
+    time."""
+    for r in runs["tp2"]:
+        got = r["qdq_tiles"][case]
+        assert got["equal"], (case, got)
+        assert got["quantized"] > 0 and got["split"] > 0, (case, got)
 
 
 @pytest.mark.parametrize("case", sorted(TILE_CASES))

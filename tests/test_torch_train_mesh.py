@@ -38,7 +38,18 @@ and cut to each rank's shards.  Parity levels, as each test names them:
   * **bitwise**, every leaf a group replicates equal on its ranks, and
     every rank's metrics equal;
   * **bitwise**, each rank's shards of the seed's draw on the mesh equal
-    its slices of the one-device draw.
+    its slices of the one-device draw;
+  * **tolerance**, ``qad_chunked`` under ``fsdp_tp`` and ``tp_only`` (the
+    vocabulary split over the model group) against the reference's mesh
+    ``qad_chunked`` step and the port's own mesh ``qad`` step;
+  * **bitwise** across ranks and **tolerance** against one device, the
+    numerics probes of a (2, 2) step (``NUMERICS_RTOL``), the state
+    bitwise the probes-off step's; the ``--metrics-out`` snapshot valid;
+  * **bitwise**, checkpoint resume through ``train_on_mesh``: a run
+    resumed after step 1 equals the uninterrupted one; the mesh's
+    checkpoint restored by the one-device ``train()`` equals the gathered
+    shards; a one-device checkpoint restored on the mesh gives each rank
+    its slices.
 """
 import dataclasses
 import os
@@ -51,6 +62,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.bridge import params_from_numpy
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import qad
 from repro_torch.distributed import ctx, sharding
 from repro_torch.distributed.ctx import TP
@@ -58,6 +70,7 @@ from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import specs, train
 from repro_torch.models import get_model
 from repro_torch.models.common import tree_map
+from repro_torch.obs import validate
 from repro_torch.optim import AdamW, warmup_cosine
 
 ARCH = "olmo-1b"
@@ -73,6 +86,17 @@ METRICS = ("loss", "kl", "ce", "top1_agree")
 CASES = {**{r: (r, "ones", False) for r in RULES},
          "ragged": ("fsdp_tp", "ragged", False),
          "fault": ("fsdp_tp", "ones", True)}
+# the chunked KL (``qad_chunked``) where the unembedding's vocabulary
+# splits over the model group, against the reference's mesh step on it
+CHUNKED = {f"chunked/{r}": r for r in ("fsdp_tp", "tp_only")}
+# the numerics probes' limits against one device, relative, read on this
+# CPU: the probes' sums run in other orders (sound up to 4.8e-5, the
+# hidden MSE); the gradient norms are those of the mesh's gradient, which
+# parts from one device's as the first moment does (sound 1.3e-4)
+NUMERICS_RTOL = {"grad_norm": 1e-3, "other": 1e-4}
+# train_on_mesh's runs of the checkpoint and probe tests: 2 steps, an
+# eval (and a checkpoint) after each
+RUN = dict(steps=2, batch=B, seq=S, eval_every=1, lr=LR)
 
 
 def _batch_np(vocab: int, mask: str):
@@ -126,7 +150,8 @@ def _reference(out_path: str) -> None:
 
     def record(name, new, m):
         for k in METRICS:
-            res[f"{name}/{k}"] = f32(m[k])
+            if k in m:
+                res[f"{name}/{k}"] = f32(m[k])
         for k, v in _flat(new.student).items():
             res[f"{name}/student/{k}"] = f32(v)
         for k, v in _flat(new.opt_state.m).items():
@@ -151,6 +176,18 @@ def _reference(out_path: str) -> None:
                 teacher=jax.device_put(state.teacher, shard_p),
                 opt_state=state.opt_state)
             record(name, *jax.jit(step)(st, batch(mask)))
+    chunked = jqad.make_train_step(model, cfg, qc, opt, jqad.QADConfig(
+        loss="kl", use_chunked_loss=True))
+    for name, rule in CHUNKED.items():
+        rules = jshd.make_rules(mesh, rule)
+        shard_p = jshd.tree_shardings(model.param_specs(cfg), mesh, rules)
+        with jctx.use(mesh, rules):
+            st = jqad.TrainState(
+                step=state.step,
+                student=jax.device_put(state.student, shard_p),
+                teacher=jax.device_put(state.teacher, shard_p),
+                opt_state=state.opt_state)
+            record(name, *jax.jit(chunked)(st, batch("ones")))
     np.savez(out_path, **res)
 
 
@@ -206,22 +243,71 @@ def local_amax(mesh):
         group=d.group, rank=d.rank, size=d.size, device=d.device))
 
 
-def _port_rank(mesh, params_np: dict) -> dict:
+def _numpy_tree(tree) -> dict:
+    """{site: {stat: f32 numpy}} of a ``metrics["numerics"]`` dict."""
+    return {site: {k: v.float().numpy() for k, v in st.items()}
+            for site, st in tree.items()}
+
+
+def _mesh_runs(mesh, dirs: dict) -> dict:
+    """``train_on_mesh`` (fsdp_tp, ``RUN``) three times: with the probes on
+    and a checkpoint after each step (``dirs["a"]``, rank 0 writing the
+    snapshot ``dirs["metrics"]``); without the probes for 1 step, then
+    resumed for the second (``dirs["b"]``); resumed from the one-device
+    checkpoint of step 1 (``dirs["one"]``) with nothing left to run.
+    Each rank's final shards, its report's numerics and, on rank 0, the
+    whole state of run a gathered to the host."""
+    cfg = configs.get_smoke(ARCH)
+    model, rules = get_model(cfg), sharding.make_rules("fsdp_tp")
+    quiet = lambda msg: None
+    a, _, rep = train.train_on_mesh(mesh, cfg, "fsdp_tp", **RUN, log=quiet,
+                                    ckpt_dir=dirs["a"], numerics=True,
+                                    metrics_out=dirs["metrics"])
+    train.train_on_mesh(mesh, cfg, "fsdp_tp", **{**RUN, "steps": 1},
+                        log=quiet, ckpt_dir=dirs["b"])
+    b, _, rep_b = train.train_on_mesh(mesh, cfg, "fsdp_tp", **RUN, log=quiet,
+                                      ckpt_dir=dirs["b"])
+    one, _, rep_one = train.train_on_mesh(mesh, cfg, "fsdp_tp",
+                                          **{**RUN, "steps": 1}, log=quiet,
+                                          ckpt_dir=dirs["one"])
+    # the one-device checkpoint, cut on this rank, for the comparison
+    opt = AdamW(lr=warmup_cosine(LR, 0, 1), clip_norm=1.0)
+    like = qad.init_state(model, cfg, torch.Generator().manual_seed(0), opt,
+                          device="cpu")
+    whole = CheckpointManager(dirs["one"]).restore(1, like)
+    cut = qad.shard_state(whole, model, cfg, mesh, rules)
+    leaves = lambda st: {f"{t}/{k}": v.float().numpy() for t, tree in (
+        ("student", st.student), ("teacher", st.teacher),
+        ("m", st.opt_state.m), ("v", st.opt_state.v))
+        for k, v in _flat(tree).items()}
+    gathered = qad.gather_state(a, model, cfg, mesh, rules, mesh.rank == 0)
+    return {"a": leaves(a), "b": leaves(b), "starts": (
+                rep["start"], rep_b["start"], rep_one["start"]),
+            "steps": (int(a.step), int(b.step), int(one.step)),
+            "one": leaves(one), "one_cut": leaves(cut),
+            "numerics": rep["numerics"],
+            "gathered": None if gathered is None else leaves(gathered)}
+
+
+def _port_rank(mesh, params_np: dict, dirs: dict) -> dict:
     """Every case on one rank: the metrics, this rank's stored shards and,
     on rank 0, the whole updated student."""
     torch.set_num_threads(1)
     out = {}
-    for name, (rule, mask, fault) in CASES.items():
+    for name, (rule, mask, fault) in {
+            **CASES, **{k: (r, "ones", False) for k, r in CHUNKED.items()}
+            }.items():
         cfg, model, qcfg, opt, whole, batch = _setup(params_np, mask)
         rules = sharding.make_rules(rule)
         state = qad.shard_state(whole, model, cfg, mesh, rules)
-        step = qad.make_train_step(model, cfg, qcfg, opt, mesh=(
+        method = qad.QADConfig(loss="kl", use_chunked_loss=name in CHUNKED)
+        step = qad.make_train_step(model, cfg, qcfg, opt, method, mesh=(
             local_amax(mesh) if fault else mesh), rules=rules)
         new, m = step(state, batch)
         full = qad.gather_params(new.student, model, cfg, mesh, rules)
         full_m = qad.gather_params(new.opt_state.m, model, cfg, mesh, rules)
         out[name] = {
-            "metrics": {k: float(m[k]) for k in METRICS},
+            "metrics": {k: float(m[k]) for k in METRICS if k in m},
             "shards": {k: v.float().numpy() for k, v in
                        _flat(new.student).items()},
             "moments": {k: v.numpy() for k, v in _flat(new.opt_state.m).items()},
@@ -245,15 +331,39 @@ def _port_rank(mesh, params_np: dict) -> dict:
             torch.equal(a, b) for tree in ("student", "teacher")
             for a, b in zip(_flat(getattr(drawn, tree)).values(),
                             _flat(getattr(cut, tree)).values()))
+    # the numerics probes on one fsdp_tp step, and the state beside them
+    cfg, model, qcfg, opt, whole, batch = _setup(params_np, "ones")
+    rules = sharding.make_rules("fsdp_tp")
+    state = qad.shard_state(whole, model, cfg, mesh, rules)
+    new, m = qad.make_train_step(model, cfg, dataclasses.replace(
+        qcfg, numerics=True), opt, mesh=mesh, rules=rules)(state, batch)
+    out["numerics"] = {"probes": _numpy_tree(m["numerics"]),
+                       "metrics": {k: float(m[k]) for k in METRICS},
+                       "shards": {k: v.float().numpy() for k, v in
+                                  _flat(new.student).items()}}
+    out["runs"] = _mesh_runs(mesh, dirs)
     out["coords"] = mesh.coords
     return out
 
 
 @pytest.fixture(scope="module")
-def port(jref):
+def spawned(jref, tmp_path_factory):
+    """The port's one spawn, after a one-device run has written its
+    checkpoint of step 1; the ranks' results and the directories."""
     params_np = {k: v for k, v in jref.items() if k.startswith("params/")}
-    return launch_mesh.spawn_mesh(_port_rank, SHAPE, params_np, device="cpu",
-                                  timeout=600)
+    root = tmp_path_factory.mktemp("mesh_ckpt")
+    dirs = {k: str(root / k) for k in ("a", "b", "one")}
+    dirs["metrics"] = str(root / "m.json")
+    train.train(ARCH, **{**RUN, "steps": 1}, ckpt_dir=dirs["one"],
+                device="cpu", log=lambda msg: None)
+    ranks = launch_mesh.spawn_mesh(_port_rank, SHAPE, params_np, dirs,
+                                   device="cpu", timeout=600)
+    return ranks, dirs
+
+
+@pytest.fixture(scope="module")
+def port(spawned):
+    return spawned[0]
 
 
 def _rel_l2(got, want) -> float:
@@ -386,18 +496,174 @@ def test_one_by_one_mesh_equals_one_device_step(jref):
         assert all(torch.equal(ev[k], ew[k]) for k in ew)
 
 
+@pytest.mark.parametrize("rule", list(CHUNKED.values()))
+def test_chunked_kl_step_matches_reference_mesh_step(port, jref, rule):
+    """Tolerance: ``qad_chunked`` under a rule that splits the vocabulary
+    over the model group (the log-sum-exps combined over it, the global
+    denominator) against the reference's mesh ``qad_chunked`` step: the
+    loss within SCALAR_RTOL, the first moment within MOMENT_TOL and each
+    leaf's update within UPDATE_TOL; and against the port's own mesh
+    ``qad`` step under the rule (the KL kernel's): the loss within
+    SCALAR_RTOL."""
+    name = f"chunked/{rule}"
+    got = port[0][name]
+    e = {k: abs(got["metrics"][k] - float(jref[f"{name}/{k}"]))
+         / abs(float(jref[f"{name}/{k}"])) for k in ("loss", "kl")}
+    init = {k: jref[f"params/{k}"] for k in got["student"]}
+    upd = max(_rel_l2(got["student"][k] - init[k],
+                      jref[f"{name}/student/{k}"] - init[k])
+              for k in got["student"])
+    mom = max(_rel_l2(got["m"][k], jref[f"{name}/m/{k}"]) for k in got["m"])
+    plain = (abs(got["metrics"]["loss"] - port[0][rule]["metrics"]["loss"])
+             / abs(port[0][rule]["metrics"]["loss"]))
+    print(f"[mesh] {name}: {e}; moment {mom:.4g}, update {upd:.4g}; "
+          f"against the port's qad step {plain:.3g}")
+    assert max(e.values()) <= SCALAR_RTOL
+    assert mom <= MOMENT_TOL and upd <= UPDATE_TOL
+    assert plain <= SCALAR_RTOL
+    for r in port:
+        assert r[name]["metrics"] == got["metrics"]
+
+
+def _one_device_numerics(jref) -> dict:
+    params_np = {k: v for k, v in jref.items() if k.startswith("params/")}
+    cfg, model, qcfg, opt, state, batch = _setup(params_np, "ones")
+    _, m = qad.make_train_step(model, cfg, dataclasses.replace(
+        qcfg, numerics=True), opt)(state, batch)
+    return {site: {k: v.float().numpy() for k, v in st.items()}
+            for site, st in m["numerics"].items()}
+
+
+def test_mesh_numerics_match_one_device_and_every_rank(port, jref):
+    """Bitwise across ranks and tolerance against one device: the probes
+    of a (2, 2) fsdp_tp step (every site's SQNR, amax, clip fraction and
+    scale use by layer, the hidden cosine and MSE, the per-layer gradient
+    norms) are the same bits on every rank, and within NUMERICS_RTOL of
+    the port's one-device step on the same global batch (held to the
+    reference's in ``test_torch_numerics.py``); the state is bitwise the
+    state of the same step with the probes off."""
+    want = _one_device_numerics(jref)
+    got = port[0]["numerics"]["probes"]
+    assert sorted(got) == sorted(want)
+    worst = {}
+    for site, stats in want.items():
+        assert sorted(got[site]) == sorted(stats), site
+        for k, v in stats.items():
+            g = got[site][k]
+            assert np.array_equal(np.isnan(g), np.isnan(v)), (site, k)
+            fin = ~np.isnan(v)
+            err = np.abs(g[fin] - v[fin]) / np.maximum(np.abs(v[fin]), 1e-30)
+            worst[f"{site}/{k}"] = float(err.max()) if err.size else 0.0
+    for kind, lim in NUMERICS_RTOL.items():
+        mine = {k: v for k, v in worst.items()
+                if (k.endswith("/grad_norm")) == (kind == "grad_norm")}
+        print(f"[mesh] numerics against one device, {kind}: largest "
+              f"{max(mine.values()):.3g} ({max(mine, key=mine.get)})")
+        assert max(mine.values()) <= lim, mine
+    for r in port:
+        for site, stats in got.items():
+            for k, v in stats.items():
+                np.testing.assert_array_equal(
+                    r["numerics"]["probes"][site][k], v)
+        assert r["numerics"]["metrics"] == r["fsdp_tp"]["metrics"]
+        for k, v in r["numerics"]["shards"].items():
+            np.testing.assert_array_equal(v, r["fsdp_tp"]["shards"][k])
+
+
+def test_mesh_snapshot_valid_and_the_same_on_every_rank(spawned):
+    """Bitwise across ranks: ``train_on_mesh``'s numerics summary (the
+    snapshot's ``numerics`` section) at its last eval; rank 0's
+    ``--metrics-out`` snapshot and its ``.prom`` pass the validator."""
+    ranks, dirs = spawned
+    summary = ranks[0]["runs"]["numerics"]
+    assert summary["sampled_records"] == RUN["steps"]
+    assert summary["per_layer"]
+    for r in ranks:
+        assert r["runs"]["numerics"] == summary
+    import json
+    with open(dirs["metrics"]) as f:
+        snap = json.load(f)
+    assert validate.check_metrics(snap) == []
+    assert snap["numerics"] == json.loads(json.dumps(summary))
+    with open(dirs["metrics"].rsplit(".", 1)[0] + ".prom") as f:
+        assert validate.check_prometheus(f.read()) == []
+
+
+def test_mesh_resume_is_the_uninterrupted_run(port):
+    """Bitwise: a (2, 2) fsdp_tp run of 2 steps with the probes off, saved
+    after step 1 and resumed for step 2, leaves every rank's shards of the
+    student, the teacher and both moments equal to those of the
+    uninterrupted run with the probes on (so neither the resume nor the
+    probes moves a bit)."""
+    for r in port:
+        runs = r["runs"]
+        assert runs["starts"] == (0, 1, 1) and runs["steps"] == (2, 2, 1)
+        assert sorted(runs["a"]) == sorted(runs["b"])
+        for k, v in runs["a"].items():
+            np.testing.assert_array_equal(runs["b"][k], v, err_msg=k)
+
+
+def test_mesh_checkpoint_restores_on_one_device(spawned):
+    """Bitwise: the mesh's checkpoint of step 2, restored by the
+    one-device ``train()`` (nothing left to run), equals the whole state
+    gathered from the ranks' shards."""
+    ranks, dirs = spawned
+    torch.set_num_threads(1)
+    state, _ = train.train(ARCH, **RUN, ckpt_dir=dirs["a"], device="cpu",
+                           log=lambda msg: None)
+    assert int(state.step) == RUN["steps"]
+    want = ranks[0]["runs"]["gathered"]
+    for t, tree in (("student", state.student), ("teacher", state.teacher),
+                    ("m", state.opt_state.m), ("v", state.opt_state.v)):
+        for k, v in _flat(tree).items():
+            np.testing.assert_array_equal(v.float().numpy(),
+                                          want[f"{t}/{k}"], err_msg=k)
+
+
+def test_one_device_checkpoint_restores_on_mesh(port):
+    """Bitwise: a one-device checkpoint of step 1 restored on the mesh
+    gives each rank its own shards of it (the student, the teacher and
+    both moments)."""
+    for r in port:
+        runs = r["runs"]
+        for k, v in runs["one_cut"].items():
+            np.testing.assert_array_equal(runs["one"][k], v, err_msg=k)
+
+
+def test_weight_tile_amax_lookup_refuses_a_narrowed_view():
+    """Planted fault: a narrowed view of a weight tile the step's amax
+    table holds (here a layer's slice of a stacked tile) raises under
+    ``ctx.use_mesh`` instead of taking its own amax; the slice itself and
+    its transpose (the tied unembedding's ``embed.T``: the same elements)
+    take the table's amax, bitwise the QDQ with that amax; a weight the
+    table does not hold takes its own."""
+    from repro_torch.core.qconfig import NVFP4_ALL, _fq_axis
+    gen = torch.Generator().manual_seed(7)
+    stack = torch.randn((2, 32, 48), generator=gen).to(torch.bfloat16)
+    amax = torch.tensor(9.0)
+    table = {ctx.tile_key(stack[i]): amax for i in range(2)}
+    mesh, rules = ctx.local_mesh("cpu"), sharding.make_rules("fsdp_tp")
+    other = torch.randn((32, 48), generator=gen).to(torch.bfloat16)
+    with ctx.use_mesh(mesh, rules, table):
+        got = NVFP4_ALL.q_weight(stack[1], "mlp", 0)
+        assert torch.equal(got, _fq_axis(stack[1], 0, amax))
+        got_t = NVFP4_ALL.q_weight(stack[1].T, "mlp", 1)
+        assert torch.equal(got_t, _fq_axis(stack[1].T, 1, amax))
+        assert torch.equal(NVFP4_ALL.q_weight(other, "mlp", 0),
+                           _fq_axis(other, 0))
+        with pytest.raises(ValueError, match="narrowed or offset"):
+            NVFP4_ALL.q_weight(stack[1][:, :16], "mlp", 0)
+        with pytest.raises(ValueError, match="narrowed or offset"):
+            NVFP4_ALL.q_weight(stack[1][16:], "mlp", 0)
+
+
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(arch="qwen2-moe-a2.7b"), "dense decoder only"),
-    (dict(arch="rwkv6-3b"), "dense decoder only"),
-    (dict(arch="qwen2-vl-2b"), "dense decoder only"),
-    (dict(ckpt_dir="ckpt"), "checkpoint resume"),
-    (dict(numerics=True), "numerics probes"),
-    (dict(metrics_out="m.json"), "numerics probes"),
-    (dict(method="qad_chunked"), "chunked KL")])
+    (dict(arch="rwkv6-3b"), "slab and VLM"),
+    (dict(arch="qwen2-vl-2b"), "slab and VLM")])
 def test_mesh_refuses_what_waits_for_later_slices(kwargs, match):
-    """A mesh run refuses the other families, checkpoint resume, the
-    numerics probes and the chunked loss with one line naming ROADMAP
-    A.4c, before any rank starts; the CLI prints it and exits 1."""
+    """A mesh run refuses the slab and VLM families with one line naming
+    ROADMAP A.4c, before any rank starts; the CLI prints it and exits
+    1."""
     args = {"arch": "olmo-1b", "steps": 1, "device": "cpu", "mesh": SHAPE,
             **kwargs}
     with pytest.raises(NotImplementedError, match=match) as err:
