@@ -272,7 +272,7 @@ Phases (every failure exits nonzero):
   6. the training path: ``launch.train.train`` on ``olmo-1b`` at full size
      (16 layers, d_model 2048, vocab 50304) under its config's
      rematerialization (``remat="full"``: the student's QDQ runs twice a
-     step), 2 QAD steps of batch 8 x 512 tokens with an eval after each,
+     step), one QAD step of batch 8 x 512 tokens with an eval after it,
      the launch counters read around it; a traced step; then one step
      under each of remat "none", "dots" and "full" from one host copy of
      the state: the updated student and moments bitwise equal, the step ms
@@ -281,9 +281,8 @@ Phases (every failure exits nonzero):
      model mesh: one spawn of four gloo ranks sharing the card, each
      rank running ``launch.train.train_on_mesh`` (what ``train(mesh=(2,
      2), rules=...)`` runs in every rank).  Run 1: ``fsdp_tp`` on olmo-1b
-     at full size, phase 6's ``TRAIN`` settings (2 steps of 8 x 512, an
-     eval after the last): each step's train loss and the eval KL beside
-     phase 6's,
+     at full size, phase 6's ``TRAIN`` settings (one step of 8 x 512, an
+     eval after it): its train loss and the eval KL beside phase 6's,
      the update (final - initial student) against phase 6's by relative
      L2 (phase 6's final student read from a host file with
      ``torch.load(mmap=True)``, each rank cutting its own shards); the
@@ -307,7 +306,19 @@ Phases (every failure exits nonzero):
      ``moe_shard="tp"`` (their FFN dim), and the planted fault (each
      rank's own expert-stack amax), against a one-card step on the cut:
      the loss, the update and the layers' first moment within
-     ``MESH_MOE_TOL``, the fault outside on the last two.  Gates: finite
+     ``MESH_MOE_TOL``, the fault outside on the last two.  The slab
+     families and the VLM (``MESH_SLAB``): nemotron-nano-9b-sim,
+     recurrentgemma-2b and rwkv6-3b at full width cut in depth as phase
+     5o cuts them, qwen2-vl-2b at 2 of its 28 layers, whisper-tiny whole,
+     one ``fsdp_tp`` step each through ``core.qad.make_train_step(mesh=,
+     rules=)`` on its own global batch (whisper's encoder frames, the
+     VLM's grid), against a one-card step on the same cut run in the
+     parent before the spawn: the loss and the layer stacks' largest leaf
+     update and first moment within ``MESH_SLAB_TOL``; the planted faults
+     (recurrentgemma's gates' reduce-scatter, rwkv6's receptance gather,
+     each with no backward) outside on the update or the moment; the
+     MQA KV head of recurrentgemma's fused QKV tile bitwise equal on
+     every model rank.  Gates: finite
      metrics, every rank's equal; the leaves
      a group replicates bitwise equal on its ranks; each rank's stored
      student, teacher and moments its partition factors' share; K1, K5
@@ -337,16 +348,16 @@ Phases (every failure exits nonzero):
      the teacher's 16 hidden taps on a batch of 2 x 512;
   6e. QAD on ``nemotron-nano-9b-sim`` at full width cut to one
      super-block (n_layers 5, attn_period 5: 4 RG-LRU layers and 1
-     attention layer, 2.67 B params), remat "full", 3 steps of 4 x 512
+     attention layer, 2.67 B params), remat "full", 2 steps of 4 x 512
      with an eval after each: K1, K5 and K6 launch counts, finite metrics,
      a changed student, the step ms against 10 N T and the peak;
   6f. QAD on ``rwkv6-3b`` at full width and 16 of its 32 layers through
-     ``launch.train.train``, remat "full", 3 steps of 4 x 512 with an eval
+     ``launch.train.train``, remat "full", 2 steps of 4 x 512 with an eval
      after each: K1, K5 and K6 launch counts, finite metrics, a changed
      student, the step ms against 10 N T and the peak;
   6g. QAD on ``qwen2-vl-2b`` at full size through ``core.qad.
      make_train_step`` on batches in 5j's layout (one grid a sequence),
-     remat "full", 3 steps of 4 x 512 with an eval after each: as 6f;
+     remat "full", 2 steps of 4 x 512 with an eval after each: as 6f;
   7. (run after phase 5d, before phase 6, so that the training paths
      run without phase 3's tensors resident) kernel, plain, bound and
      library times (CUDA events around each call, the L2 flushed between
@@ -482,9 +493,10 @@ RUN_KTP = dict(requests=8, gen=8, ffn_requests=4, ffn_gen=4,
 # order, so the tokens themselves are not gated equal
 TP_LOGIT_TOL = 0.25
 TP_FIRST_RANK = 8
-# (the shadow at rate 0.25, 2 shadow steps: it took 0.5, 4 steps and
-# about 25 s, before phase 5o)
-RUN_NTP = dict(spec_k=2, spec_gen=8, shadow_contexts=4, shadow_rate=0.25,
+# (the shadow at rate 0.2, one shadow step in 5n-c's 8 tokens: it took
+# 0.5, 4 steps and about 25 s, before phase 5o; 0.25, 2 steps, before phase
+# 6h's slab run)
+RUN_NTP = dict(spec_k=2, spec_gen=8, shadow_contexts=4, shadow_rate=0.2,
                sqnr_db=1.0, kl_rel=0.1)
 # the slab families at tp = 2 (phase 5o, in 5d's ranks after 5n), each at
 # full width and depth on its one-card run's prompts and engine geometry:
@@ -536,15 +548,16 @@ TP_SLAB_RANK = {"rglru_hybrid": TP_FIRST_RANK, "rwkv6": 64,
 # full size serves prompts longer than its window of 2048, so its ring
 # wraps in prefill and in decode (phase 5f)
 NEMO_ARCH = "nemotron-nano-9b-sim"
-# (16 tokens: it took 32 before phase 5o)
-RGEMMA = dict(arch="recurrentgemma-2b", requests=4, min_prompt=2100,
-              max_prompt=2600, gen=16)
+# (16 tokens: it took 32 before phase 5o; prompts of 2060-2160 tokens, past
+# the window still: 2100-2600 before phase 6h's slab run)
+RGEMMA = dict(arch="recurrentgemma-2b", requests=4, min_prompt=2060,
+              max_prompt=2160, gen=16)
 # chunked prefill on run A's engine and traffic (phase 5g)
 RUN_G = dict(chunk=256)
 # the training path
-# (2 steps: phase 6h's run 1 repeats them on the mesh at 8-10 s a step;
-# it took 4 before phase 6h's MoE and checkpoint runs)
-TRAIN = dict(arch="olmo-1b", steps=2, lr=1e-5, batch=8, seq=512)
+# (1 step: phase 6h's run 1 repeats it on the mesh at 8-10 s a step; it
+# took 4 before phase 6h's MoE and checkpoint runs, 2 before its slab run)
+TRAIN = dict(arch="olmo-1b", steps=1, lr=1e-5, batch=8, seq=512)
 # the training mesh (phase 6h): one spawn of 4 gloo ranks sharing the card
 # as a (2, 2) data x model mesh; run 1 is fsdp_tp on full-size olmo-1b
 # (TRAIN's steps), run 2 the other three rules for one step each on a copy
@@ -555,8 +568,9 @@ MESH_TRAIN = dict(shape=(2, 2), cut_layers=4,
 # phase 6h's limits against one card (relative), read on the H100
 # (PERF.md section 6): run 1's step-1 train loss (sound 1.36e-3, the
 # planted fault, each rank's own activation amax, 4.09e-3) and every
-# step's (sound up to 7.7e-3: the runs part as they train), its update
-# (final - initial student, relative L2: sound 0.465; Adam's first step
+# step's (sound up to 7.7e-3 when it took 2 steps: the runs part as they
+# train), its update (final - initial student, relative L2: sound 0.465
+# after 2 steps, 0.468 after the one it takes now; Adam's first step
 # moves a weight by about lr sign(g), below a bf16 ulp of most weights,
 # so a rounding tie or a tiny gradient's sign flips an element); on the
 # cut copy the loss (sound 0 without and 1.2e-3 with a model split, the
@@ -593,13 +607,37 @@ MESH_NUMERICS_TOL = {"sqnr_db": ("abs", 0.5), "amax": ("rel", 0.1),
 # 1.2e-4-9.5e-4, the fault 1.26e-3) does not part, as on the dense cut
 MESH_MOE = dict(layers=2, batch=4, seq=512)
 MESH_MOE_TOL = {"loss": 5e-3, "update": 0.55, "moment": 0.25}
+# the slab families and the VLM on the mesh (phase 6h's slab run): each at
+# full width, the RG-LRU hybrids and RWKV6 cut in depth as phase 5o cuts
+# them (TP_SLAB_CUT: nemotron-nano-9b-sim to one RG-LRU and one attention
+# layer, about 1.7 B weights; recurrentgemma-2b to one super-block with its
+# MQA window layer, 0.9 B; rwkv6-3b to 2 of its 32 layers, 0.5 B),
+# qwen2-vl-2b to 2 of its 28 layers, whisper-tiny whole (vocab 51865, 1500
+# encoder frames); one fsdp_tp step each of 4 x 512 (whisper's 4 x 448, the
+# VLM's in 5j's layout) through core.qad.make_train_step(mesh=, rules=),
+# against one card's step on the same cut and batch run in the parent
+# before the spawn; the planted faults on the two smaller RG-LRU and RWKV
+# models, a gather's backward taken away
+MESH_SLAB = {**TP_SLAB_CUT, "qwen2-vl-2b": dict(n_layers=2),
+             "whisper-tiny": {}}
+MESH_SLAB_BATCH = dict(batch=4, seq=512, whisper_seq=448)
+MESH_SLAB_FAULTS = {"recurrentgemma-2b": "gates", "rwkv6-3b": "receptance"}
+# the slab run's limits against one card: the loss (relative), the layer
+# stacks' largest leaf update (final - initial) and first moment (relative
+# L2), read on the H100 (PERF.md section 6): sound loss 2.7e-5 to 6.1e-4,
+# update 0.31-0.65, moment 0.080-0.35 (recurrentgemma's attention layer's
+# MLP the largest: Adam's first step below a bf16 ulp, as on the olmo-1b
+# cut); each fault 1.0 on both (the leaves it takes the gradient from),
+# its loss the sound run's (the forward is unchanged)
+MESH_SLAB_TOL = {"loss": 5e-3, "update": 0.8, "moment": 0.6}
 # MoE QAD (qwen2-moe-a2.7b at full width, cut in depth), data-free QAD from
 # the teacher's own tokens, the numerics runs and activation calibration
 MOE_TRAIN = dict(layers=4, steps=3, batch=4, seq=512)
 # QAD on nemotron-nano-9b-sim at full width and one super-block (4 RG-LRU
 # layers and 1 attention layer): its 56 layers' training state does not
 # fit one card (phase 6e)
-NEMO_TRAIN = dict(layers=5, steps=3, batch=4, seq=512)
+# (2 steps: 3 before phase 6h's slab run trained the family on the mesh)
+NEMO_TRAIN = dict(layers=5, steps=2, batch=4, seq=512)
 # the last model families: rwkv6-3b on the slab engine with run A's
 # arrivals (prompts of 64 k tokens: the chunked WKV takes at most 64 tokens
 # or a multiple of 64), 2 requests again one slot at a time; whisper-tiny
@@ -615,8 +653,9 @@ WHISPER = dict(arch="whisper-tiny", requests=16, min_prompt=4, max_prompt=192,
                gen=64, s_alloc=448, one_slot=4)
 QWEN_VL = dict(arch="qwen2-vl-2b", batch=2, seq=512, grid_at=16, grid=16,
                prompt=480)
-RWKV_TRAIN = dict(layers=16, steps=3, batch=4, seq=512)
-VL_TRAIN = dict(steps=3, batch=4, seq=512)
+# (2 steps each: 3 before phase 6h's slab run trained them on the mesh)
+RWKV_TRAIN = dict(layers=16, steps=2, batch=4, seq=512)
+VL_TRAIN = dict(steps=2, batch=4, seq=512)
 # (128 new tokens: 256 took 13.6-24.2 s of generation, before phase 6h)
 DATA_FREE = dict(batch=8, n_new=128, steps=2)
 NUMERICS = dict(steps=2)
@@ -870,6 +909,16 @@ def to_device(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     return None if tree is None else tree.to(device)
+
+
+def clone_tree(tree):
+    """A tree of tensors (dicts, named tuples, None) cloned where it
+    lies."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_tree(t) for t in tree))
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return None if tree is None else tree.clone()
 
 
 def fail(msg: str) -> None:
@@ -1750,6 +1799,8 @@ def phase_5n_spec_shadow(ranks, cfg, single) -> dict:
     if cmp["sqnr_gap"] > RUN_NTP["sqnr_db"] or cmp["kl_rel"] > RUN_NTP["kl_rel"]:
         fail(f"engine 5n-d: the TP shadow parts from single-device's: SQNR "
              f"{cmp['sqnr_gap']} dB, live KL rel {cmp['kl_rel']}")
+    if on["shadow_steps"] < 1:
+        fail("engine 5n-d: the shadow-on run took no shadow step")
     return {"c_plain": r0["c_plain"]["launches"],
             "c_spec": r0["c_spec"]["launches"],
             "d_records": r0["d_record_launches"],
@@ -3773,20 +3824,26 @@ def leaf_digest(x):
     return torch.stack([d.sum(), (d * w).sum()])
 
 
-def replicas_differ(mesh, state, places) -> list:
+def replicas_differ(mesh, state, places, replicated=None) -> list:
     """The leaves of the student and the moments whose stored shard is not
     bitwise equal on the ranks that hold the same piece (checked over the
     data group where the leaf does not split over data, and over the model
-    group where it does not split over model)."""
+    group where it does not split over model; with ``replicated``,
+    ``sharding.replicated_tree``, also the columns of a model tile that
+    every model rank holds: an MQA fused QKV tile's KV head)."""
     bad = []
+    cols = flat_paths(replicated) if replicated is not None else {}
     for name, tree in (("student", state.student), ("m", state.opt_state.m),
                        ("v", state.opt_state.v)):
         pls = flat_paths(places)
         for path, x in flat_paths(tree).items():
             pl = pls[path]
-            dg = leaf_digest(x)
-            for tp, split in ((mesh.data, pl.data_dim),
-                              (mesh.model, pl.model_dim)):
+            checks = [(leaf_digest(x), mesh.data, pl.data_dim),
+                      (leaf_digest(x), mesh.model, pl.model_dim)]
+            if cols.get(path) is not None:
+                checks.append((leaf_digest(x[..., cols[path]]), mesh.model,
+                               None))
+            for dg, tp, split in checks:
                 if split is None and tp.size > 1:
                     every = tp.all_gather(dg[None], 0)
                     if not bool((every == every[0]).all()):
@@ -3820,8 +3877,15 @@ def shard_rel_l2(mesh, cfg, specs, places, rules, mine, ref, base=None):
         del r, u
     sums = mesh.world.all_reduce(torch.stack(sums)).cpu()
     total = sums.sum(0)
-    return (float(torch.sqrt(total[0] / total[1])),
-            {p: float(torch.sqrt(v[0] / v[1])) for p, v in zip(paths, sums)})
+
+    def rel(v):
+        """A relative L2 (0 where both are zero: a norm's weights, which
+        a step of lr moves by less than a bf16 ulp on one card and the
+        mesh alike)."""
+        if float(v[1]) == 0.0:
+            return 0.0 if float(v[0]) == 0.0 else math.inf
+        return float(torch.sqrt(v[0] / v[1]))
+    return rel(total), {p: rel(v) for p, v in zip(paths, sums)}
 
 
 def state_digests(state) -> dict:
@@ -3893,8 +3957,11 @@ def mesh_train_run(mesh, cfg, rule, steps, one_file, log, fault=None,
     places = sharding.placements(specs, mesh.shape, table)
     out = dict(history=hist, report=rep, seconds=secs, layers=cfg.n_layers,
                remat=cfg.remat, rule=rule, fault=fault is not None or tile_fault,
-               moe=bool(cfg.n_experts),
-               replicas_differ=replicas_differ(mesh, state, places),
+               qdq_fwd=student_qdqs(cfg), evals=len(hist),
+               replicas_differ=replicas_differ(
+                   mesh, state, places, sharding.replicated_tree(
+                       specs, places, mesh.shape,
+                       (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim))),
                digests=state_digests(state), update_rel=None, moment_rel=None)
     if one_file is not None:
         # the update (final - initial, the initial weights the teacher's)
@@ -3949,7 +4016,7 @@ def mesh_fault_loss(mesh, cfg) -> dict:
 
 
 def train_mesh_rank(mesh, tcfg, ccut, full_file, cut_file, work,
-                    mcut=None) -> dict:
+                    mcut=None, slab: bool = False) -> dict:
     """One rank of phase 6h (its own process): run 2 first (each rule and
     the planted fault, ``local_amax_mesh``, on the copy ``ccut`` cut in
     depth, one step each against the parent's one-card step on the cut);
@@ -3957,7 +4024,9 @@ def train_mesh_rank(mesh, tcfg, ccut, full_file, cut_file, work,
     checkpoint, a resume from it and an uninterrupted run, the chunked
     KL); MoE QAD on ``mcut`` (experts on E, on their FFN dim, the planted
     expert-amax fault) against the parent's one-card step files in
-    ``work``; then run 1, ``fsdp_tp`` on full-size olmo-1b for
+    ``work``; with ``slab``, each ``MESH_SLAB`` config's step and its
+    planted fault (``slab_mesh_run``) against the parent's one-card step
+    files in ``work``; then run 1, ``fsdp_tp`` on full-size olmo-1b for
     ``TRAIN``'s steps against phase 6's update; then the fault at full
     depth (``mesh_fault_loss``).  Host data only."""
     import torch
@@ -3995,6 +4064,12 @@ def train_mesh_rank(mesh, tcfg, ccut, full_file, cut_file, work,
         runs["moe/fault"] = mesh_train_run(mesh, mcut, "fsdp_tp", 1,
                                            moe_file, quiet, tile_fault=True,
                                            **moe)
+    for arch in MESH_SLAB if slab else ():
+        c, f = slab_cfg(arch), os.path.join(work, f"slab_{arch}.pt")
+        runs[f"slab/{arch}"] = slab_mesh_run(mesh, c, f)
+        if arch in MESH_SLAB_FAULTS:
+            runs[f"slab/{arch}/fault"] = slab_mesh_run(
+                mesh, c, f, MESH_SLAB_FAULTS[arch])
     # run 1 evaluates after its last step (phase 6 after each)
     runs["full"] = mesh_train_run(mesh, tcfg, "fsdp_tp", TRAIN["steps"],
                                   full_file, log,
@@ -4003,21 +4078,35 @@ def train_mesh_rank(mesh, tcfg, ccut, full_file, cut_file, work,
             "coords": mesh.coords}
 
 
-def mesh_launches(layers: int, steps: int, n_evals: int,
-                  moe: bool = False, chunked: bool = False,
-                  remat: str = "full") -> dict:
+def student_qdqs(c) -> int:
+    """K1 launches of one student forward of ``c`` under its recipe, an
+    activation and a weight at each quantized GEMM site: 10 a dense
+    decoder layer (``family_sites``: olmo-1b's, qwen2-vl-2b's), 15 a
+    qwen2-moe layer (as phase 6b counts them), an RG-LRU hybrid's by
+    ``rec_sites`` (phase 6e's), RWKV6's and whisper's by
+    ``family_sites`` (phase 6f's; 5i's)."""
+    from repro_torch.launch import specs
+    if c.family == "rglru_hybrid":
+        per_rec, per_attn, n_rec, n_attn = rec_sites(
+            c, specs.recipe_qconfig(c))
+        return 2 * (per_rec * n_rec + per_attn * n_attn)
+    if c.n_experts:
+        return 15 * c.n_layers
+    return 2 * family_sites(c)
+
+
+def mesh_launches(per_fwd: int, steps: int, n_evals: int,
+                  chunked: bool = False, remat: str = "full") -> dict:
     """K1, K5 and K6 launches a rank of a mesh run should count: the
-    student's QDQs a layer a forward (10 in olmo-1b's; 15 in a
-    qwen2-moe layer, as phase 6b counts them), twice a train step under
-    remat "full", once each of the two eval batches at each of its
-    ``n_evals`` evals; one KL forward a step and an eval batch, one KL
-    backward a step (the chunked KL of ``qad_chunked`` is plain torch:
-    no KL kernel in its steps)."""
+    student's QDQs a forward (``per_fwd``, ``student_qdqs``), twice a
+    train step under remat "full", once each of the two eval batches at
+    each of its ``n_evals`` evals; one KL forward a step and an eval
+    batch, one KL backward a step (the chunked KL of ``qad_chunked`` is
+    plain torch: no KL kernel in its steps)."""
     evals = 2 * n_evals
-    per = 15 if moe else 10
     kl = 0 if chunked else steps
     fwd = 1 if remat == "none" else 2
-    return {"nvfp4_qdq": per * layers * (fwd * steps + evals),
+    return {"nvfp4_qdq": per_fwd * (fwd * steps + evals),
             "kl_loss": kl + evals, "kl_loss_bwd": kl}
 
 
@@ -4034,11 +4123,18 @@ def cut_tree(cut, specs, tree, head: str):
     return out
 
 
-def layers_moment(run) -> float:
-    """The largest first-moment relative L2 over the layer stack's leaves
-    (the embedding's gradient sums its rows' tokens in another order)."""
-    return max(v for k, v in run["moment_leaves"].items()
-               if k.startswith("layers."))
+# the layer stacks of every family (a decoder's and RWKV6's; an RG-LRU
+# hybrid's super-blocks and trailing recurrent layers; whisper's encoder and
+# decoder)
+STACKS = ("layers", "blocks", "rem", "enc_layers", "dec_layers")
+
+
+def layers_moment(run, part: str = "moment") -> float:
+    """The largest first-moment (or, ``part="update"``, update) relative L2
+    over the layer stacks' leaves (the embedding's gradient sums its rows'
+    tokens in another order)."""
+    return max(v for k, v in run[f"{part}_leaves"].items()
+               if k.split(".")[0] in STACKS)
 
 
 def numerics_gaps(mine: dict, want: dict) -> dict:
@@ -4168,6 +4264,227 @@ def mesh_moe_gates(ranks, mcut, mhist) -> None:
              f"{MESH_MOE_TOL}")
 
 
+def slab_cfg(arch: str):
+    """A config of phase 6h's slab run: ``arch`` at full width, cut in
+    depth by ``MESH_SLAB``."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(arch), **MESH_SLAB[arch])
+
+
+def slab_batch(c, device) -> dict:
+    """The global batch of ``c``'s slab run, drawn on the card from the
+    seed (every rank and the one-card oracle draw the same): tokens,
+    labels and a full mask of ``MESH_SLAB_BATCH``; whisper's with its
+    encoder frames [B, 1500, d_model] (the stub's embeddings); the VLM's
+    in 5j's layout (``vlm_batch``: one 16 x 16 patch grid a sequence,
+    ``pos3``, ``vis_embeds``, ``vis_mask``)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    b = MESH_SLAB_BATCH["batch"]
+    n = MESH_SLAB_BATCH["whisper_seq" if c.family == "encdec" else "seq"]
+    if c.mrope_sections:
+        out = vlm_batch(c, b, n, QWEN_VL["grid_at"], QWEN_VL["grid"], gen,
+                        device)
+    else:
+        out = {"tokens": torch.randint(4, c.vocab_size, (b, n), generator=gen,
+                                       device=device)}
+    out["labels"] = torch.randint(4, c.vocab_size, (b, n), generator=gen,
+                                  device=device)
+    out["mask"] = torch.ones((b, n), device=device)
+    if c.family == "encdec":
+        out["enc_frames"] = torch.randn((b, c.enc_seq, c.d_model),
+                                        generator=gen, device=device)
+    return out
+
+
+def slab_opt():
+    """The slab run's optimizer (``train.train``'s for one step)."""
+    from repro_torch.optim import AdamW, warmup_cosine
+    return AdamW(lr=warmup_cosine(TRAIN["lr"], 0, 1), clip_norm=1.0)
+
+
+def stacks(tree) -> dict:
+    """A parameter tree's layer stacks (``STACKS``): what the slab run
+    compares (the embedding's gradient sums its rows' tokens in another
+    order on one card)."""
+    return {k: v for k, v in tree.items() if k in STACKS}
+
+
+def slab_one_card(dev, c, file) -> float:
+    """A slab run's oracle, in the parent before the spawn: one card's
+    step of ``c`` on its batch from the seed's draw, the layer stacks of
+    the student and of AdamW's first moment written to ``file``; its
+    loss."""
+    import torch
+
+    from repro_torch.core import qad
+    from repro_torch.launch import specs
+    from repro_torch.models import get_model
+    model, opt = get_model(c), slab_opt()
+    with torch.no_grad():
+        state = qad.init_state(model, c, torch.Generator(device=dev)
+                               .manual_seed(SEED), opt, device=dev)
+    step = qad.make_train_step(model, c, specs.recipe_qconfig(c), opt)
+    state, m = step(state, slab_batch(c, dev))
+    torch.save({"student": to_host(stacks(state.student)),
+                "m": to_host(stacks(state.opt_state.m))}, file)
+    loss = float(m["loss"])
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+@contextlib.contextmanager
+def forward_only(fault: str | None):
+    """A planted fault of the slab run, for the duration: "gates", the
+    RG-LRU gates' reduce-scatter with no backward (``ctx.
+    scatter_from_model``: only the gates call it); "receptance", RWKV6's
+    channel-mix receptance gather with no backward (``rwkv6.
+    _gather_receptance``).  Neither changes the forward."""
+    from repro_torch.distributed import ctx
+    from repro_torch.models import rwkv6
+    if fault is None:
+        yield
+        return
+    if fault == "gates":
+        owner, attr = ctx, "scatter_from_model"
+
+        def fn(x, tp, dim=-1):
+            return tp.reduce_scatter(x.detach(), dim)
+    else:
+        owner, attr = rwkv6, "_gather_receptance"
+
+        def fn(r):
+            return ctx.current().all_gather(r.detach(), -1)
+    keep = getattr(owner, attr)
+    setattr(owner, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, keep)
+
+
+def slab_mesh_run(mesh, c, one_file, fault=None) -> dict:
+    """One slab run on this rank: ``core.qad.make_train_step(mesh=,
+    rules=)`` under ``fsdp_tp``, one step of ``c`` on its global batch
+    (``slab_batch``: the step keeps the data rank's rows) from the seed's
+    draw cut to this rank's shards, ``fault`` planted
+    (``forward_only``).  The same record as ``mesh_train_run``'s: the
+    metrics, the report (launches, collectives by group, stored bytes and
+    their share, step seconds, the peak), the update's and the first
+    moment's relative L2 over the layer stacks against the one-card step
+    in ``one_file``, the leaves whose replicas differ."""
+    import torch
+
+    from repro_torch.core import qad
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = get_model(c), slab_opt()
+    rules = sharding.make_rules("fsdp_tp")
+    with torch.no_grad():
+        state = qad.init_state_on_mesh(
+            model, c, torch.Generator(device=mesh.device).manual_seed(SEED),
+            opt, mesh, rules)
+    step = qad.make_train_step(model, c, specs.recipe_qconfig(c), opt,
+                               mesh=mesh, rules=rules)
+    batch = slab_batch(c, mesh.device)
+    ops.reset_launches()
+    mesh.reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with forward_only(fault):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    counts, launches = mesh.counts(), dict(ops.launches)
+    specs_ = model.param_specs(c)
+    places = sharding.placements(specs_, mesh.shape, rules)
+    heads = (c.n_heads, c.n_kv_heads, c.head_dim)
+    share = lambda tree: sharding.stored_share(tree, specs_, places, heads,
+                                               mesh.shape)
+    report = {"launches": launches, "collectives": [counts],
+              "loss": [float(m["loss"])], "step_s": [step_s], "bytes": {
+                  "student": share(state.student),
+                  "teacher": share(state.teacher),
+                  "moments": tuple(map(sum, zip(*(
+                      share(t) for t in state.opt_state))))},
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    one = torch.load(one_file, mmap=True, weights_only=True)
+    upd, upd_leaves = shard_rel_l2(mesh, c, specs_, places, rules,
+                                   stacks(state.student), one["student"],
+                                   stacks(state.teacher))
+    mom, mom_leaves = shard_rel_l2(mesh, c, specs_, places, rules,
+                                   stacks(state.opt_state.m), one["m"])
+    del one
+    out = dict(history=[{k: float(v) for k, v in m.items()}], report=report,
+               seconds=time.perf_counter() - t0, layers=c.n_layers,
+               remat=c.remat, rule="fsdp_tp", fault=fault is not None,
+               qdq_fwd=student_qdqs(c), evals=0,
+               replicas_differ=replicas_differ(
+                   mesh, state, places, sharding.replicated_tree(
+                       specs_, places, mesh.shape, heads)),
+               update_rel=upd, update_leaves=upd_leaves, moment_rel=mom,
+               moment_leaves=mom_leaves)
+    del state, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_slab_gates(ranks, losses: dict, card: str) -> None:
+    """Phase 6h's slab runs against one card's step on the same cut (the
+    parent's ``losses`` by arch): the loss, the layer stacks' largest
+    leaf update and first moment within ``MESH_SLAB_TOL``; each planted
+    fault outside on the update or the moment."""
+    r0 = ranks[0]["runs"]
+    read = {}
+    for key in [k for k in r0 if k.startswith("slab/")]:
+        run, arch = r0[key], key.split("/")[1]
+        want = losses[arch]
+        rel = abs(run["report"]["loss"][0] - want) / abs(want)
+        read[key] = dict(loss=rel, update=layers_moment(run, "update"),
+                         moment=layers_moment(run))
+        c = run["report"]["collectives"][-1]
+        gb = {p: held / 1e9 for p, (held, _) in run["report"]["bytes"].items()}
+        print(f"[train-mesh] slab {arch} at full width, {run['layers']} "
+              f"layers, fsdp_tp"
+              + (f", planted fault ({MESH_SLAB_FAULTS[arch]} forward-only)"
+                 if run["fault"] else "")
+              + f": loss {run['report']['loss'][0]:.7g} (one card "
+              f"{want:.7g}), rel {rel:.3g}; layers' largest leaf update rel "
+              f"L2 {read[key]['update']:.4g}, first moment "
+              f"{read[key]['moment']:.4g} (the stacks' whole update "
+              f"{run['update_rel']:.4g}, moment {run['moment_rel']:.4g}); step ms "
+              f"{run['report']['step_s'][0] * 1e3:.1f} ({run['seconds']:.1f} s "
+              "for the run); collectives "
+              + ", ".join(f"{g} {v['calls']} ({v['seconds']:.3f} host s)"
+                          for g, v in c.items())
+              + "; stored GB a rank student {student:.3f} teacher {teacher:.3f}"
+              " moments {moments:.3f}".format(**gb)
+              + "; peak GB a rank " + " ".join(
+                  f"{r['runs'][key]['report']['peak_gb']:.2f}" for r in ranks)
+              + f"; card {card}; by leaf, update " + " ".join(
+                  f"{k} {v:.3g}" for k, v in run["update_leaves"].items())
+              + ", moment " + " ".join(
+                  f"{k} {v:.3g}" for k, v in run["moment_leaves"].items()),
+              flush=True)
+    lim = MESH_SLAB_TOL
+    for key, rd in read.items():
+        if key.endswith("/fault"):
+            if rd["loss"] > lim["loss"] or not (rd["update"] > lim["update"]
+                                                 or rd["moment"] > lim["moment"]):
+                fail(f"phase 6h {key}: the planted fault reads {rd}, inside "
+                     f"{lim} (or its loss outside)")
+        elif any(rd[k] > lim[k] for k in lim):
+            fail(f"phase 6h {key}: {rd} outside {lim}")
+
+
 def phase_6h(dev, tcfg, p6_hist, full_file, work) -> dict:
     """Phase 6h in the parent: the one-card step on the cut copy (the
     oracle of run 2, written to ``work``), the spawn of the (2, 2) mesh's
@@ -4216,13 +4533,19 @@ def phase_6h(dev, tcfg, p6_hist, full_file, work) -> dict:
                      seq=TRAIN["seq"], method="qad_chunked")
     mhist = one_card(mcut, "moe_state.pt", batch=MESH_MOE["batch"],
                      seq=MESH_MOE["seq"])
+    t0 = time.perf_counter()
+    slab_losses = {arch: slab_one_card(dev, slab_cfg(arch), os.path.join(
+        work, f"slab_{arch}.pt")) for arch in MESH_SLAB}
+    slab_oracle_s = time.perf_counter() - t0
     cut_file = os.path.join(work, "cut_state.pt")
     cut_loss = chist[0]["loss"]
     oracle_s = time.perf_counter() - t_phase
     t0 = time.perf_counter()
     ranks = launch_mesh.spawn_mesh(train_mesh_rank, MESH_TRAIN["shape"], tcfg,
                                    ccut, full_file, cut_file, work, mcut,
-                                   device=dev, timeout=900)
+                                   True, device=dev, timeout=900)
+    for arch in MESH_SLAB:
+        os.remove(os.path.join(work, f"slab_{arch}.pt"))
     spawn_s = time.perf_counter() - t0
     # the mesh's checkpoint of the cut's step 1, restored by the one-card
     # train() (nothing left to run)
@@ -4345,9 +4668,8 @@ def phase_6h(dev, tcfg, p6_hist, full_file, work) -> dict:
                     fail(f"phase 6h {key}: rank {r['coords']} stores {held} B "
                          f"of the {part}, its partition factors' share is "
                          f"{share}")
-            want = mesh_launches(run["layers"], len(run["report"]["loss"]),
-                                 len(run["history"]), run["moe"],
-                                 key == "chunked", run["remat"])
+            want = mesh_launches(run["qdq_fwd"], len(run["report"]["loss"]),
+                                 run["evals"], key == "chunked", run["remat"])
             got = {k: run["report"]["launches"][k] for k in want}
             if got != want:
                 fail(f"phase 6h {key}: rank {r['coords']} launched {got}, "
@@ -4386,10 +4708,14 @@ def phase_6h(dev, tcfg, p6_hist, full_file, work) -> dict:
     mesh_options_gates(ranks, ccut, khist, one_numerics, restored,
                        restored_step, restore_s)
     mesh_moe_gates(ranks, mcut, mhist)
+    mesh_slab_gates(ranks, slab_losses, card)
     secs = time.perf_counter() - t_phase
+    slab_s = sum(r0[k]["seconds"] for k in r0 if k.startswith("slab/"))
     print(f"[train-mesh] phase 6h: {secs:.1f} s (one-card oracles "
-          f"{oracle_s:.1f} s, the spawn {spawn_s:.1f} s; run 1 "
-          f"{full['seconds']:.1f} s in the ranks); card {card}", flush=True)
+          f"{oracle_s:.1f} s, the slab run's {slab_oracle_s:.1f} s of them; "
+          f"the spawn {spawn_s:.1f} s; in the ranks run 1 "
+          f"{full['seconds']:.1f} s, the slab run {slab_s:.1f} s); card "
+          f"{card}", flush=True)
     return {"seconds": secs, "launches": full["report"]["launches"]}
 
 
@@ -6148,13 +6474,18 @@ def main() -> int:
               "kl_loss": TRAIN["steps"] + n_evals,
               "kl_loss_bwd": TRAIN["steps"], "nvfp4_matmul": 0}
     step_s = [h["step_s"] for h in hist]
+    # the steady step: after the first (the allocator's warm-up), or the
+    # remat "full" step timed below when the run takes one
     steady = step_s[1:]
     print(f"[train] {tcfg.name} full size ({n_params / 1e9:.3f} B params, "
           f"{tcfg.n_layers} layers, remat={tcfg.remat}), {TRAIN['steps']} steps "
           f"of {TRAIN['batch']} x {TRAIN['seq']} tokens in {t_train:.1f}s; step_ms "
           + " ".join(f"{x * 1e3:.1f}" for x in step_s)
-          + f"; after the first: {sum(steady) / len(steady) * 1e3:.1f} ms/step, "
-          f"{tokens * len(steady) / sum(steady):.0f} tokens/s; bound "
+          + (f"; after the first: {sum(steady) / len(steady) * 1e3:.1f} ms/step, "
+             f"{tokens * len(steady) / sum(steady):.0f} tokens/s" if steady
+             else " (the first, with its warm-up; the steady step is remat "
+             "full's below)")
+          + f"; bound "
           f"{step_bound_ms:.1f} ms (10 N T operations: teacher and student "
           f"forward, the student's recompute, its backward); "
           f"peak_mem_gb={peak_gb:.2f} ({resident_gb:.2f} resident before the "
@@ -6193,11 +6524,13 @@ def main() -> int:
     trace_step("training step", one_step)
     state = box.pop("state")
 
-    # remat "none", "dots" and "full": the same step twice each from one
-    # host copy of the state (the second timed); the updated student and
-    # moments bitwise equal, the peak memory of each step net of what the
-    # script keeps resident (phase 3's tensors, kept for phase 7's timing)
-    host = to_host(state)
+    # remat "none", "dots" and "full": the same step twice each from a
+    # copy of the state on the card (the second timed); the updated
+    # student and moments bitwise equal to remat none's (kept on the card),
+    # the peak memory of each step net of what is resident before it (phase
+    # 3's tensors, kept for phase 7's timing; the state and none's result)
+    # (on the card: the host copies and host compares took about 20 s)
+    base = state
     del state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -6212,7 +6545,7 @@ def main() -> int:
             AdamW(lr=warmup_cosine(TRAIN["lr"], 0, TRAIN["steps"]),
                   clip_norm=1.0))
         resident = torch.cuda.memory_allocated()
-        st = to_device(host, dev)
+        st = clone_tree(base)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fn(st, rb)
@@ -6229,20 +6562,20 @@ def main() -> int:
         out = {"student": new.student, "m": new.opt_state.m,
                "v": new.opt_state.v}
         if first is None:
-            first = to_host(out)
+            first = out
         else:
             for part in out:
                 for a, b in zip(common.tree_leaves(out[part]),
                                 common.tree_leaves(first[part])):
-                    if not torch.equal(a.cpu(), b):
+                    if not torch.equal(a, b):
                         fail(f"remat {mode}: the updated {part} differs from "
                              "remat none's")
         del new, out
         gc.collect()
         torch.cuda.empty_cache()
     remat_launches = dict(ops.launches)
-    del first, host
-    print("[train] remat, the same step from one host copy of the state "
+    del first, base
+    print("[train] remat, the same step from a copy of the state on the card "
           "(the second of two timed; peak of the step, its state included, "
           f"net of the {remat['none']['resident_gb']:.2f} GB resident before "
           "it): "
@@ -6447,8 +6780,10 @@ def main() -> int:
                              seq=TRAIN["seq"], eval_every=1, seed=SEED,
                              device=dev, log=lambda msg: None, **kw)
         torch.cuda.synchronize()
-        out = to_host({"student": st.student, "m": st.opt_state.m,
-                       "v": st.opt_state.v})
+        # kept on the card and compared there (host copies and host
+        # compares of three 11.8 GB results took about 15 s)
+        out = {"student": st.student, "m": st.opt_state.m,
+               "v": st.opt_state.v}
         run = dict(s=time.perf_counter() - t0, launches=dict(ops.launches),
                    step_ms=[h["step_s"] * 1e3 for h in hs])
         del st

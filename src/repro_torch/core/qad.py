@@ -349,23 +349,51 @@ class _MeshPlan(NamedTuple):
     places: Any                 # a ``sharding.Placement`` tree
     norm: ShardedNorm
     shape: dict                 # the mesh's {"data": D, "model": M}
+    replicated: Any             # ``sharding.replicated_tree``
+    columns: Any                # per-column norm weights, or None, a leaf
 
 
 def _mesh_plan(model, cfg, mesh, rules) -> _MeshPlan:
     specs = model.param_specs(cfg)
     places = sharding.placements(specs, mesh.shape, rules)
-    weights = tuple(1.0 / sharding.replication(pl, mesh.shape)
-                    for pl in tree_leaves(places))
+    replicated = sharding.replicated_tree(specs, places, mesh.shape,
+                                          _heads(cfg))
+
+    def columns(pl, cols):
+        """An MQA tile's norm weights a column: its KV columns are held by
+        every model rank too."""
+        if cols is None:
+            return None
+        n = sharding._fused_tile(_heads(cfg), mesh.shape["model"])
+        w = torch.full((n,), 1.0 / sharding.replication(pl, mesh.shape),
+                       dtype=torch.float32, device=mesh.device)
+        w[cols] /= mesh.shape["model"]
+        return w
+    cols = tree_map(columns, places, replicated)
+    weights = tuple(1.0 / sharding.replication(pl, mesh.shape) if c is None
+                    else c for pl, c in zip(tree_leaves(places),
+                                            tree_leaves(cols)))
     return _MeshPlan(specs, places, ShardedNorm(weights, ctx.world_sum),
-                     dict(mesh.shape))
+                     dict(mesh.shape), replicated, cols)
+
+
+def _stack_depth(axes: tuple) -> int:
+    """How many leading stack axes a leaf has: "layers", then "inner" (an
+    RG-LRU super-block's recurrent layers)."""
+    n = 0
+    for name in ("layers", "inner"):
+        if len(axes) > n and axes[n] == name:
+            n += 1
+    return n
 
 
 def _tile_amaxes(tiles, plan: _MeshPlan, qcfg: QuantConfig, mesh,
                  rules) -> dict:
     """The tensor amax of every quantized weight tile split over the model
-    group (each layer's slice of a stacked leaf apart), max-reduced over
-    the group in one collective: ``ctx.use_mesh``'s table, read by
-    ``QuantConfig.q_weight`` in the forward and its recompute."""
+    group (each layer's slice of a stacked leaf apart, each inner layer's
+    of a twice-stacked one), max-reduced over the group in one
+    collective: ``ctx.use_mesh``'s table, read by ``QuantConfig.q_weight``
+    in the forward and its recompute."""
     tp = ctx.model_group(mesh, rules)
     if tp is None or not (qcfg.enabled and qcfg.quantize_weights):
         return {}
@@ -375,12 +403,13 @@ def _tile_amaxes(tiles, plan: _MeshPlan, qcfg: QuantConfig, mesh,
         if pl.model_dim is None or not qcfg.quantizes(sp.kind):
             continue
         a = torch.abs(t.detach().to(torch.float32))
-        if sp.axes[0] == "layers":
-            keys += [ctx.tile_key(t[i]) for i in range(t.shape[0])]
-            amaxes.append(torch.amax(a, dim=tuple(range(1, t.ndim))))
-        else:
-            keys.append(ctx.tile_key(t))
-            amaxes.append(torch.amax(a)[None])
+        depth = _stack_depth(sp.axes)
+        views = [t]
+        for _ in range(depth):
+            views = [v[i] for v in views for i in range(v.shape[0])]
+        keys += [ctx.tile_key(v) for v in views]
+        amaxes.append(torch.amax(a, dim=tuple(range(depth, t.ndim)))
+                      .reshape(-1) if depth else torch.amax(a)[None])
         del a
     if not keys:
         return {}
@@ -390,11 +419,19 @@ def _tile_amaxes(tiles, plan: _MeshPlan, qcfg: QuantConfig, mesh,
 def _layer_grad_partials(grads, plan: _MeshPlan) -> torch.Tensor:
     """[n_layers] f32: this rank's share of each layer's squared gradient
     norm, every stored shard weighted by 1 / its replication (summed over
-    the mesh, each element counts once)."""
-    places = tree_leaves(plan.places["layers"])
-    return sum(torch.sum(torch.square(g.to(torch.float32)).reshape(
-        g.shape[0], -1), -1) / sharding.replication(pl, plan.shape)
-        for g, pl in zip(tree_leaves(grads["layers"]), places))
+    the mesh, each element counts once; an MQA tile's KV columns by
+    their own weights)."""
+    out = 0
+    for g, pl, c in zip(tree_leaves(grads["layers"]),
+                        tree_leaves(plan.places["layers"]),
+                        tree_leaves(plan.columns["layers"])):
+        sq = torch.square(g.to(torch.float32))
+        if c is not None:
+            out = out + torch.sum((sq * c).reshape(g.shape[0], -1), -1)
+        else:
+            out = out + torch.sum(sq.reshape(g.shape[0], -1), -1) / \
+                sharding.replication(pl, plan.shape)
+    return out
 
 
 def _make_mesh_step(model, cfg, qcfg, opt, loss_fn, mesh, rules) -> Callable:
@@ -412,7 +449,8 @@ def _make_mesh_step(model, cfg, qcfg, opt, loss_fn, mesh, rules) -> Callable:
                                                   rows)
             del student, teacher, amaxes
             with torch.no_grad():
-                grads = sharding.reduce_to_shards(grads, plan.places, mesh)
+                grads = sharding.reduce_to_shards(grads, plan.places, mesh,
+                                                  plan.replicated)
                 num = metrics.pop("numerics", None)
                 metrics = {k: ctx.data_sum(v) for k, v in metrics.items()}
                 metrics.update(loss=ctx.data_sum(loss),

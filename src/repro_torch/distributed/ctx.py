@@ -28,9 +28,10 @@ change of layout is a collective the model code names (the row-parallel
 GEMM's all-reduce, the vocab-parallel embedding's all-reduce, the logits'
 all-gather).  Under grad each goes through an ``autograd.Function`` with
 its conjugate backward (``copy_to_model``, ``reduce_from_model``,
-``gather_from_model``); an amax's max all-reduce takes no gradient, as
-the straight-through QDQ gives its amax none.  Without grad they are the
-plain collectives, so serving computes what it did.
+``gather_from_model``, ``scatter_from_model``); an amax's max all-reduce
+takes no gradient, as the straight-through QDQ gives its amax none.
+Without grad they are the plain collectives, so serving computes what it
+did.
 
 The collectives run through ``torch.distributed``.  With the gloo
 backend (this slice's, also on the card) a tensor on the card goes
@@ -209,6 +210,17 @@ class _GatherFromModel(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.tp.rank * ctx.n, ctx.n), None, None
 
 
+class _ScatterFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_gather(g, ctx.dim), None, None
+
+
 def copy_to_model(x: torch.Tensor, tp: TP | None) -> torch.Tensor:
     """A column-parallel site's input: forward the identity, backward the
     sum over the model group of each rank's gradient (each rank's columns
@@ -234,6 +246,18 @@ def gather_from_model(x: torch.Tensor, tp: TP, dim: int = -1) -> torch.Tensor:
     if _tracked(x):
         return _GatherFromModel.apply(x, tp, dim % x.ndim)
     return tp.all_gather(x, dim)
+
+
+def scatter_from_model(x: torch.Tensor, tp: TP, dim: int = -1) -> torch.Tensor:
+    """A row-parallel site whose output each rank consumes only on its own
+    slice (RG-LRU's gates: every rank's K-split partial pre-activations,
+    the gates then taken on the rank's channels): forward the sum over the
+    group of every rank's partial, this rank's slice along ``dim`` kept
+    (``TP.reduce_scatter``); backward every rank's slice of the gradient
+    all-gathered along ``dim`` (each partial feeds every rank's slice)."""
+    if _tracked(x):
+        return _ScatterFromModel.apply(x, tp, dim % x.ndim)
+    return tp.reduce_scatter(x, dim)
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,7 @@ import math
 import warnings
 from typing import Mapping
 
+import numpy as np
 import torch
 
 from ..core import nvfp4
@@ -634,20 +635,65 @@ def gather_tiles(shards, places, mesh):
     return tree_map(one, shards, places)
 
 
-def reduce_to_shards(tile_grads, places, mesh):
+def replicated_cols(spec: ParamSpec, pl: Placement, shape: Mapping[str, int],
+                    name: str, heads: tuple | None) -> slice | None:
+    """The columns of a leaf's model tile that every model rank holds a
+    copy of: an MQA fused QKV tile's one KV head (``_kv_local``), its k
+    and v rows after the rank's query heads; None for any other leaf.
+    Their gradient is summed over the model group (each rank's is the
+    partial of its own query heads) and they count once in a norm."""
+    m = shape[MODEL]
+    if (heads is None or not _fused(name) or m == 1
+            or pl.model_dim != len(spec.shape) - 1):
+        return None
+    n_heads, n_kv, head_dim = heads
+    qh, kh = local_heads(n_heads, n_kv, m)
+    if kh != n_kv or n_kv % m == 0:
+        return None
+    return slice(qh * head_dim, (qh + 2 * kh) * head_dim)
+
+
+def replicated_tree(specs, places, shape: Mapping[str, int],
+                    heads: tuple | None):
+    """``replicated_cols`` of every leaf of a spec tree."""
+    def walk(sp, pl, path):
+        if isinstance(sp, dict):
+            return {k: walk(sp[k], pl[k], f"{path}.{k}" if path else k)
+                    for k in sp}
+        return replicated_cols(sp, pl, shape, path, heads)
+    return walk(specs, places, "")
+
+
+def reduce_to_shards(tile_grads, places, mesh, replicated=None):
     """Gradients of the model tiles summed over the data group, each rank
     keeping its stored shard: the data rank's slice where the leaf splits
     over data (the f32 sum of every rank's slice, in rank order), the
-    whole sum where it is replicated there (every rank the same bits)."""
-    dp = mesh.data
+    whole sum where it is replicated there (every rank the same bits).
+    ``replicated`` (``replicated_tree``): a tile's columns that every
+    model rank holds are first summed over the model group."""
+    dp, tp = mesh.data, mesh.model
 
-    def one(g, pl):
+    def one(g, pl, cols=None):
+        if cols is not None:
+            g = g.clone()
+            g[..., cols] = tp.all_reduce(g[..., cols])
         if dp.size == 1:
             return g
         if pl.data_dim is None:
             return dp.all_reduce(g)
         return dp.reduce_scatter(g, pl.data_dim)
-    return tree_map(one, tile_grads, places)
+    if replicated is None:
+        return tree_map(one, tile_grads, places)
+    return tree_map(lambda g, pl, c: one(g, pl, c), tile_grads, places,
+                    replicated)
+
+
+def _qkv_order(heads: tuple, size: int, name: str) -> torch.Tensor:
+    """The positions in the model tiles gathered in rank order that put a
+    fused QKV leaf's N rows back in their order: each row's first copy
+    (an MQA KV head's, rank 0's)."""
+    rows = _qkv_rows(*heads, size, name).numpy()
+    return torch.from_numpy(np.unique(rows, return_index=True)[1])
 
 
 def gather_full(shards, specs, places, mesh, rules: Rules,
@@ -670,8 +716,8 @@ def gather_full(shards, specs, places, mesh, rules: Rules,
         if pl.model_dim is not None and tp.size > 1:
             x = tp.all_gather(x, pl.model_dim)
             if heads and _fused(path) and pl.model_dim == len(sp.shape) - 1:
-                rows = _qkv_rows(*heads, tp.size, path).to(x.device)
-                x = x.index_select(-1, torch.argsort(rows))
+                x = x.index_select(-1, _qkv_order(heads, tp.size, path).to(
+                    x.device))
         return x if leaf_fn is None else leaf_fn(x)
     return walk(specs, shards, places, "")
 
@@ -686,13 +732,30 @@ def batch_rows(batch: dict, mesh) -> dict:
     return {k: v[lo:hi] for k, v in batch.items()}
 
 
-def stored_share(tree, specs, places) -> tuple[int, int]:
+def stored_share(tree, specs, places, heads: tuple | None = None,
+                 shape: Mapping[str, int] | None = None) -> tuple[int, int]:
     """(bytes a rank holds of a tree of stored shards, the bytes it should
     hold: each leaf's whole size in its stored dtype over the leaf's
-    partition factor)."""
+    partition factor; an MQA fused QKV leaf's model tile holds its KV
+    head whole beside the rank's query heads (``_kv_local``), counted so
+    with ``heads`` and the mesh ``shape``)."""
     held = share = 0
-    for leaf, sp, pl in zip(tree_leaves(tree), tree_leaves(specs),
-                            tree_leaves(places)):
+    for (path, sp), leaf, pl in zip(_paths(specs), tree_leaves(tree),
+                                    tree_leaves(places)):
         held += leaf.numel() * leaf.element_size()
-        share += math.prod(sp.shape) * leaf.element_size() // pl.factor
+        n = math.prod(sp.shape)
+        if (heads is not None and shape is not None
+                and replicated_cols(sp, pl, shape, path, heads) is not None):
+            n = (n // sp.shape[-1] * _fused_tile(heads, shape[MODEL])
+                 * shape[MODEL])
+        share += n * leaf.element_size() // pl.factor
     return held, share
+
+
+def _paths(specs, path: str = "") -> list:
+    """(dotted path, spec) of every leaf of a spec tree, in
+    ``tree_leaves`` order."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs)
+                for x in _paths(specs[k], f"{path}.{k}" if path else k)]
+    return [(path, specs)]

@@ -31,12 +31,17 @@ reference's four sharding rules (``fsdp_tp``, ``fsdp_only``, ``tp_only``,
 (rank 0 writes the gathered state in the one-device format, every rank
 restores its shards, so checkpoints move between a mesh and one device
 both ways), ``--numerics`` / ``--metrics-out`` (every rank's probes the
-same; rank 0 writes) and every ``--method``.  It takes the dense and MoE
-decoders; the slab and VLM families are refused with one line naming
-ROADMAP A.4c.
+same; rank 0 writes) and every ``--method``, for every family: the dense
+and MoE decoders, the RG-LRU hybrids and RWKV6 on the token batches
+here.  Whisper and the VLM have no batch maker here, as in the
+reference: they train on a mesh through ``core.qad.make_train_step(...,
+mesh=, rules=)`` on their own batches (``enc_frames``; ``pos3``,
+``vis_embeds``, ``vis_mask``), each rank given the global batch.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --mesh 2x2 --rules fsdp_tp --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --mesh 2x2 --rules fsdp_tp --arch rwkv6-3b --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --mesh 2x2 --rules fsdp_tp --arch qwen2-moe-a2.7b --steps 2 \
         --method qad_chunked --numerics --ckpt-dir ckpt
@@ -144,16 +149,18 @@ def _probes(qcfg, on: bool) -> tuple:
             dataclasses.replace(qcfg, numerics=True))
 
 
-def check_mesh(cfg, rules: str) -> None:
-    """Refuse, with one line naming the ROADMAP item, what a training mesh
-    does not run yet: the slab and VLM families."""
+def check_mesh(cfg, rules: str, shape: tuple | None = None) -> None:
+    """Refuse, with one line before any rank starts, rules the mesh does
+    not know, and a config whose attention heads do not split over the
+    mesh's model group (``shape``: (data, model)) under rules that split
+    over it, as every rank's fused QKV tile would refuse them
+    (``sharding.local_heads``)."""
     if rules not in sharding.RULE_MODES:
         raise ValueError(f"unknown sharding rules {rules!r}: one of "
                          f"{', '.join(sharding.RULE_MODES)}")
-    if cfg.family != "decoder" or cfg.mrope_sections:
-        raise NotImplementedError(
-            f"{cfg.name}: training on a mesh takes the dense and MoE "
-            "decoders; the slab and VLM families wait for ROADMAP A.4c")
+    if (shape is not None and shape[1] > 1 and cfg.family != "rwkv6"
+            and rules in ("fsdp_tp", "tp_only")):
+        sharding.local_heads(cfg.n_heads, cfg.n_kv_heads, shape[1])
 
 
 class MeshCheckpoints:
@@ -214,7 +221,7 @@ def train_on_mesh(mesh, cfg, rules: str = "fsdp_tp", steps: int = 200,
     factors), each step's ``loss`` and ``step_s``, ``start`` (the step
     resumed from), ``numerics`` (the recorder's summary, with the probes
     on) and, on the card, ``peak_gb``."""
-    check_mesh(cfg, rules)
+    check_mesh(cfg, rules, (mesh.shape["data"], mesh.shape["model"]))
     device = mesh.device
     model = get_model(cfg)
     table = sharding.make_rules(rules)
@@ -266,15 +273,14 @@ def train_on_mesh(mesh, cfg, rules: str = "fsdp_tp", steps: int = 200,
         mgr.wait()
     specs_ = model.param_specs(cfg)
     places = sharding.placements(specs_, mesh.shape, table)
+    share = lambda tree: sharding.stored_share(
+        tree, specs_, places, qad_mod._heads(cfg), mesh.shape)
     report = {"launches": dict(ops.launches), "collectives": counts,
               "loss": losses, "step_s": step_s, "bytes": {
-                  "student": sharding.stored_share(state.student, specs_,
-                                                   places),
-                  "teacher": sharding.stored_share(state.teacher, specs_,
-                                                   places),
+                  "student": share(state.student),
+                  "teacher": share(state.teacher),
                   "moments": tuple(map(sum, zip(*(
-                      sharding.stored_share(t, specs_, places)
-                      for t in state.opt_state))))},
+                      share(t) for t in state.opt_state))))},
               "start": start,
               "numerics": recorder.summary() if recorder is not None else None}
     if device.type == "cuda":
@@ -309,7 +315,7 @@ def train(arch: str, smoke: bool = True, steps: int = 200, lr: float = 1e-3,
     device = resolve_device(device)
     cfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
     if mesh is not None:
-        check_mesh(cfg, rules)
+        check_mesh(cfg, rules, tuple(mesh))
         kwargs = dict(rules=rules, steps=steps, lr=lr, method=method,
                       batch=batch, seq=seq, eval_every=eval_every, seed=seed,
                       domains=domains, ckpt_dir=ckpt_dir, numerics=numerics,

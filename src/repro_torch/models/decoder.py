@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.nvfp4 import PackedNVFP4
 from ..core.qconfig import QuantConfig
 from ..distributed import ctx, sharding
 from ..obs import numerics as obs_numerics
@@ -290,9 +291,16 @@ def _positions(cfg, batch, s, offset=0):
 
 
 def _lm_head(qcfg, cfg, params, x):
+    """The logits: a column-parallel site over the rank's vocabulary tile,
+    all-gathered; an unembedding the rules keep whole (a vocabulary that
+    does not divide the group, whisper-tiny's 51865) is every rank's same
+    product, its input's gradient not summed over the group."""
     x = run_norm(cfg, params["final_norm"], x)
-    logits = layers.qdense(qcfg, "lm_head", x, unembed(cfg, params),
-                           parallelism="column")
+    w = unembed(cfg, params)
+    n = w.shape[-2] if isinstance(w, PackedNVFP4) else w.shape[-1]
+    whole = n == cfg.vocab_size
+    logits = layers.qdense(qcfg, "lm_head", x, w,
+                           parallelism=None if whole else "column")
     if logits.shape[-1] != cfg.vocab_size:      # this rank's vocab tile
         logits = ctx.gather_from_model(logits, ctx.current(), -1)
     return logits

@@ -162,13 +162,17 @@ def qeinsum(qcfg: QuantConfig, kind: str, eq: str, x: torch.Tensor, w,
     (w [K, N]) or the MoE one (w [E, K, N], ``contract_axis=1``).
     ``quantize_act=False`` lets the MoE fake-quant an activation once and
     reuse it across GEMMs.  ``parallelism`` under TP: "column" or "row"
-    (a dense site), "column" or "expert" (an expert stack's tile on its
-    FFN dim or on E: the product is the tile's, no collective)."""
+    (a dense site; "row_scatter": a row site whose output each rank keeps
+    only its own slice of, ``_qeinsum_row``), "column" or "expert" (an
+    expert stack's tile on its FFN dim or on E: the product is the tile's,
+    no collective)."""
     if eq not in (_DENSE_EQ, _MOE_EQ):
         raise ValueError(f"unsupported einsum {eq!r}")
     tp = ctx.current()
-    if tp is not None and eq == _DENSE_EQ and parallelism == "row":
-        return _qeinsum_row(qcfg, kind, x, w, quantize_act, tp)
+    if tp is not None and eq == _DENSE_EQ and parallelism in ("row",
+                                                                "row_scatter"):
+        return _qeinsum_row(qcfg, kind, x, w, quantize_act, tp,
+                            parallelism == "row_scatter")
     if tp is not None and eq == _DENSE_EQ and parallelism == "column":
         x = ctx.copy_to_model(x, tp)
     xq = qcfg.q_act(x, kind) if quantize_act else x
@@ -194,12 +198,17 @@ def qeinsum(qcfg: QuantConfig, kind: str, eq: str, x: torch.Tensor, w,
 
 
 def _qeinsum_row(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,
-                 quantize_act: bool, tp) -> torch.Tensor:
+                 quantize_act: bool, tp,
+                 scatter: bool = False) -> torch.Tensor:
     """A row-parallel dense site under TP: ``x`` [..., K/n] holds this
     rank's features, ``w`` [K/n, N] (or its packed tile) the matching
-    rows, and every rank gets the whole y [..., N]."""
+    rows, and every rank gets the whole y [..., N]; with ``scatter`` (a
+    dense tile) this rank's slice y [..., N/n] of it, the f32 partials
+    reduce-scattered (``ctx.scatter_from_model``)."""
     wr = qcfg.resolve_weight(w, kind, 0)
     packed = isinstance(wr, PackedNVFP4)
+    if scatter and packed:
+        raise NotImplementedError("a scattered row site takes a dense tile")
     if (wr.k if packed else wr.shape[0]) != x.shape[-1]:
         # replicated (no whole-block split): gather the features, no sum
         x = ctx.gather_from_model(x, tp, -1)
@@ -222,8 +231,9 @@ def _qeinsum_row(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,
     _note_gemm("dequant" if packed else "dense", wr)
     wd = ops.dequant_weight(wr, 0, xq.dtype) if packed else wr
     part = xq.to(torch.float32) @ wd.to(torch.float32)
-    return ctx.reduce_from_model(part, tp).to(
-        torch.promote_types(xq.dtype, wd.dtype))
+    whole = (ctx.scatter_from_model(part, tp, -1) if scatter
+             else ctx.reduce_from_model(part, tp))
+    return whole.to(torch.promote_types(xq.dtype, wd.dtype))
 
 
 def qdense(qcfg: QuantConfig, kind: str, x: torch.Tensor, w,

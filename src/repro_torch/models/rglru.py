@@ -39,18 +39,22 @@ there, and its decode then writes past the end (``ROADMAP.md`` C).
 Under a tensor-parallel context (``distributed.ctx``) ``params`` holds
 this rank's tiles, and every width comes from them: ``wx`` and ``wgate``
 are column-parallel (the rank's slice of ``d_rnn``), so the conv, ``lam``
-and the conv and ``h`` state are local slices; ``w_a`` and ``w_i`` split
-on their output dim and take the whole post-conv ``z``, all-gathered once
-a layer, while ``b = beta * i * z`` stays on the local slice; ``wo`` and
-the MLP's ``wd`` are row-parallel.  The attention layers are the
-decoder's (local query heads; the local KV heads, or an MQA config's one
-KV head replicated), the embedding vocab-parallel and the logits
-all-gathered.
+and the conv and ``h`` state are local slices; ``w_a`` and ``w_i``'s
+packed tiles split on their output dim and take the whole post-conv
+``z``, all-gathered once a layer, while their dense tiles (training on a
+mesh) split on their input dim, as the reference's rules place them, and
+reduce-scatter their partial pre-activations (``_gates``); ``b = beta * i
+* z`` stays on the local slice; ``wo`` and the MLP's ``wd`` are
+row-parallel.  Under grad every collective is ``ctx``'s autograd form.
+The attention layers are the decoder's (local query heads; the local KV
+heads, or an MQA config's one KV head replicated), the embedding
+vocab-parallel and the logits all-gathered.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.nvfp4 import PackedNVFP4
 from ..core.qconfig import QuantConfig
 from ..distributed import ctx
 from . import common, decoder, layers
@@ -147,15 +151,32 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _gates(qcfg, p, z, tp):
+    """The recurrence and input gates' pre-activations, f32, on this rank's
+    channels.  Under TP packed tiles (serving) split the gates' output dim:
+    they take the whole ``z``, all-gathered once.  Dense tiles (training on
+    a mesh, and serving's "qdq" weights) split their input dim, as the
+    rules place an ``("rnn", "rnn")`` weight: the local ``z`` multiplies
+    each and the partial pre-activations are reduce-scattered to the
+    rank's channels, their gradient all-gathered back
+    (``ctx.scatter_from_model``)."""
+    ws = (p["w_a"], p["w_i"])
+    if tp is None or tp.size == 1:
+        ys = [layers.qdense(qcfg, "recurrent", z, w) for w in ws]
+    elif isinstance(ws[0], PackedNVFP4):
+        zf = tp.all_gather(z, -1)
+        ys = [layers.qdense(qcfg, "recurrent", zf, w, parallelism="column")
+              for w in ws]
+    else:
+        ys = [layers.qdense(qcfg, "recurrent", z, w,
+                            parallelism="row_scatter") for w in ws]
+    return [y.to(torch.float32) for y in ys]
+
+
 def _lru_gates(qcfg, p, z):
     """(a, b) of h_t = a_t h_{t-1} + b_t, f32, from the conv output z
-    (this rank's slice of it under TP: the gates' GEMMs take the whole z,
-    gathered, and give the rank's slice)."""
-    zf = ctx.current().all_gather(z, -1) if ctx.tp_size() > 1 else z
-    r = torch.sigmoid(layers.qdense(qcfg, "recurrent", zf, p["w_a"],
-                                    parallelism="column").to(torch.float32))
-    i = torch.sigmoid(layers.qdense(qcfg, "recurrent", zf, p["w_i"],
-                                    parallelism="column").to(torch.float32))
+    (this rank's slice of it under TP; ``_gates``)."""
+    r, i = (torch.sigmoid(y) for y in _gates(qcfg, p, z, ctx.current()))
     log_a = -C_LRU * _softplus(p["lam"].to(torch.float32)) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-12, 1.0))

@@ -36,7 +36,10 @@ this rank's tiles, and the head count comes from them: ``wr``, ``wk``,
 norm stays head-local and ``wo`` is row-parallel; the state ``S`` holds
 the rank's heads and the shift carries stay whole.  In the channel mix
 ``cm_wr`` is column-parallel and ``cm_wv``'s row-parallel output is the
-whole width, so the receptance is all-gathered before the product.  The
+whole width, so the receptance is all-gathered before the product.
+Under grad (training on a mesh) the gather is ``ctx.gather_from_model``
+and the decay LoRA's hidden passes ``ctx.copy_to_model`` before
+``dec_w2``, so ``dec_w1`` and the mix get their whole gradient.  The
 embedding is vocab-parallel and the logits all-gathered.
 """
 from __future__ import annotations
@@ -202,9 +205,13 @@ def _time_mix(qcfg, cfg, p, x, state, mode):
     k = col(xk, p["wk"]).to(f32)
     v = col(xv, p["wv"]).to(f32)
     g = col(xg, p["wg"])
-    dec = (p["w0"].to(f32)
-           + torch.tanh(layers.qdense(qcfg, "recurrent", xw, p["dec_w1"])
-                        .to(f32)) @ p["dec_w2"].to(f32))
+    # the decay LoRA: ``dec_w1`` whole on every rank, ``dec_w2`` its columns
+    # of the rank's channels, so the hidden's gradient is summed over the
+    # model group (each rank's columns see their share of it)
+    lora = torch.tanh(layers.qdense(qcfg, "recurrent", xw, p["dec_w1"])
+                      .to(f32))
+    dec = p["w0"].to(f32) + ctx.copy_to_model(lora, ctx.current()) @ p[
+        "dec_w2"].to(f32)
     w = torch.exp(-torch.exp(torch.clamp(dec, -38.0, 20.0)))    # [0, 1)
 
     rs, ks, vs, ws = (t.reshape(b, s, h, n) for t in (r, k, v, w))
@@ -229,6 +236,15 @@ def _time_mix(qcfg, cfg, p, x, state, mode):
     return y, {"x_prev_tm": x[:, -1:], "S": s_fin}
 
 
+def _gather_receptance(r: torch.Tensor) -> torch.Tensor:
+    """Under TP the channel mix's receptance, this rank's columns
+    all-gathered whole; its backward keeps this rank's columns of the
+    gradient (every rank computes the same product downstream)."""
+    if ctx.tp_size() == 1:
+        return r
+    return ctx.gather_from_model(r, ctx.current(), -1)
+
+
 def _channel_mix(qcfg, p, x, state, mode):
     xp = _token_shift(x, state["x_prev_cm"] if mode == "decode" else None)
     dx = xp - x
@@ -238,8 +254,7 @@ def _channel_mix(qcfg, p, x, state, mode):
     r = torch.sigmoid(layers.qdense(qcfg, "mlp", xr, p["cm_wr"],
                                     parallelism="column")
                       .to(torch.float32)).to(x.dtype)
-    if ctx.tp_size() > 1:                      # this rank's receptance
-        r = ctx.current().all_gather(r, -1)
+    r = _gather_receptance(r)
     hk = torch.square(torch.relu(layers.qdense(qcfg, "mlp", xk, p["cm_wk"],
                                                parallelism="column")))
     y = r * layers.qdense(qcfg, "mlp", hk, p["cm_wv"], parallelism="row")

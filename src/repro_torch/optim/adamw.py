@@ -36,20 +36,34 @@ class AdamWState(NamedTuple):
 class ShardedNorm:
     """A global norm over a training mesh's stored shards: each leaf's sum
     of squares times its weight (1 / the ranks holding the same shard, in
-    ``tree_leaves`` order), the weighted sum summed over every rank by
+    ``tree_leaves`` order; a leaf whose columns are held by more ranks
+    than the rest, an MQA fused QKV tile's KV head, has an f32 weight a
+    column of its last dim), the weighted sum summed over every rank by
     ``reduce``, so each element counts once."""
     weights: tuple
     reduce: Callable
 
+    def square_sum(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i``'s (or a slice of it's) sum of squares, weighted by
+        column where its weight is a tensor (``total`` weighs the rest)."""
+        sq = torch.square(x.to(_F32))
+        w = self.weights[i]
+        return torch.sum(sq) if isinstance(w, float) else torch.sum(sq * w)
+
     def total(self, sq: list) -> torch.Tensor:
-        return self.reduce(sum(w * s for w, s in zip(self.weights, sq)))
+        return self.reduce(sum((w if isinstance(w, float) else 1.0) * s
+                               for w, s in zip(self.weights, sq)))
 
 
 def global_norm(tree, norm: ShardedNorm | None = None) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf, in f32 (over the mesh with
     ``norm``)."""
-    sq = [torch.sum(torch.square(x.to(_F32))) for x in tree_leaves(tree)]
-    return torch.sqrt(sum(sq) if norm is None else norm.total(sq))
+    leaves = tree_leaves(tree)
+    if norm is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(_F32)))
+                              for x in leaves))
+    return torch.sqrt(norm.total([norm.square_sum(i, x)
+                                  for i, x in enumerate(leaves)]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +153,8 @@ class AdamW:
                 sl = slice(i, i + rows) if p.ndim else ...
                 u, new_m[sl], new_v[sl] = self._leaf(g[sl], m[sl], v[sl],
                                                      p[sl], *c)
-                leaf_sq.append(torch.sum(torch.square(u)))
+                leaf_sq.append(torch.sum(torch.square(u)) if norm is None
+                               else norm.square_sum(len(sq), u))
                 new_p[sl] = (p[sl].to(_F32) + u).to(p.dtype)
             sq.append(sum(leaf_sq))
             return new_p, new_m, new_v

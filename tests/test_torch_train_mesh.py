@@ -658,24 +658,27 @@ def test_weight_tile_amax_lookup_refuses_a_narrowed_view():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(arch="rwkv6-3b"), "slab and VLM"),
-    (dict(arch="qwen2-vl-2b"), "slab and VLM")])
+    (dict(arch="qwen2.5-14b"), "5 query and 1 KV heads do not split"),
+    (dict(arch="qwen2.5-14b", rules="tp_only"), "do not split over 2")])
 def test_mesh_refuses_what_waits_for_later_slices(kwargs, match):
-    """A mesh run refuses the slab and VLM families with one line naming
-    ROADMAP A.4c, before any rank starts; the CLI prints it and exits
-    1."""
+    """A mesh run refuses, with one line before any rank starts, a config
+    whose heads do not split over the model group under a rule that
+    splits over it (qwen2.5-14b smoke's 5 query heads; every family
+    trains on the mesh otherwise, ``test_torch_train_mesh_slab.py``), and
+    rules it does not know; the CLI prints the first and exits 1."""
     args = {"arch": "olmo-1b", "steps": 1, "device": "cpu", "mesh": SHAPE,
             **kwargs}
     with pytest.raises(NotImplementedError, match=match) as err:
         train.train(**args)
-    assert "ROADMAP A.4c" in str(err.value) and "\n" not in str(err.value)
+    assert "\n" not in str(err.value)
     with pytest.raises(ValueError, match="unknown sharding rules"):
         train.train("olmo-1b", device="cpu", mesh=SHAPE, rules="zero3")
 
 
 def test_cli_mesh_refusal_is_one_line(capsys):
     with pytest.raises(SystemExit) as err:
-        train.main(["--device", "cpu", "--mesh", "2x2", "--arch", "rwkv6-3b"])
+        train.main(["--device", "cpu", "--mesh", "2x2", "--arch",
+                    "qwen2.5-14b"])
     assert err.value.code == 1
     lines = capsys.readouterr().err.strip().splitlines()
     assert len(lines) == 1 and lines[0].startswith("[train] unsupported:")
